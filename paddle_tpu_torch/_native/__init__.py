@@ -123,6 +123,13 @@ def _declare(lib: ctypes.CDLL):
     lib.pt_flash_attention_fwd.restype = i32
     lib.pt_flash_attention_fwd.argtypes = (
         [p, p, p, p, p] + [i64] * 9 + [i32] * 6 + [f32, i32, p])
+    lib.pt_flash_attention_bwd.restype = i32
+    lib.pt_flash_attention_bwd.argtypes = (
+        [p] * 9 + [i64] * 12 + [i32] * 6 + [f32, i32, p])
+    lib.pt_softmax_ce_fwd.restype = i32
+    lib.pt_softmax_ce_fwd.argtypes = [p, p, p, p, i64, i64, i32, p]
+    lib.pt_softmax_ce_bwd.restype = i32
+    lib.pt_softmax_ce_bwd.argtypes = [p, p, p, p, p, i64, i64, i32, p]
     lib.pt_paged_attention.restype = i32
     lib.pt_paged_attention.argtypes = (
         [p, p, p, p, p, p, i64, i64] + [i32] * 5 + [f32, i32, p])

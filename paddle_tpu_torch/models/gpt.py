@@ -8,7 +8,8 @@ flash attention while writing its K/V into the pages, and each generated
 token is one incremental step that appends one K/V row and attends over
 the pages. Where the reference's functional updates returned a new cache,
 these methods write the cache's tensors in place and return the same
-object.
+object, and they run without autograd (the reference's are pure
+functions): no graph grows through the cache token by token.
 """
 from __future__ import annotations
 
@@ -183,6 +184,11 @@ class GPT(nn.Layer):
             x = blk(x)
         return self.logits(x)
 
+    def loss(self, input_ids, labels):
+        """Mean next-token cross-entropy of ``labels`` under the logits of
+        ``input_ids`` (labels of ``ignore_index`` -100 are skipped)."""
+        return F.cross_entropy(self(input_ids), labels)
+
     # ---------------- autoregressive decode (paged KV cache) ----------------
 
     def init_cache(self, max_batch: int, max_len: int, page_size: int = 16,
@@ -211,6 +217,7 @@ class GPT(nn.Layer):
         cl = torch.zeros((max_batch,), dtype=torch.int32, device=dev)
         return PagedKVCache(k_pages, v_pages, bt, cl, page_size)
 
+    @torch.no_grad()
     def forward_prefill(self, input_ids, cache: PagedKVCache, slot: int,
                         length: int, write_start: int = 0):
         """Prefill ONE sequence: run the prompt through causal flash
@@ -245,6 +252,7 @@ class GPT(nn.Layer):
         # `length` attends causally to junk and is never read)
         return self.logits(x[:, length - 1]), cache
 
+    @torch.no_grad()
     def forward_decode(self, tokens, cache: PagedKVCache, active=None,
                        slot_map=None):
         """ONE incremental decode step: append each sequence's new token
@@ -304,6 +312,7 @@ class GPT(nn.Layer):
 
     # -- reference decode loops (parity tests) --------------------------------
 
+    @torch.no_grad()
     def generate_dense(self, input_ids, max_new_tokens: int,
                        eos_id: int = -1):
         """Cacheless greedy decode: every token re-runs the FULL forward.
@@ -317,6 +326,7 @@ class GPT(nn.Layer):
                 break
         return ids
 
+    @torch.no_grad()
     def generate_paged(self, input_ids, max_new_tokens: int,
                        eos_id: int = -1, page_size: int = 8):
         """Greedy decode through the paged path: prefill once per row, then

@@ -42,15 +42,21 @@ def launch(name: str, entry: str, device: torch.device, *args) -> None:
 
 
 def all_stats() -> dict:
-    """{kernel module: its _stats} for every kernel of the port."""
-    from . import flash_attention, layer_norm, paged_attention
+    """{kernel: its launch counters} for every kernel of the port; the
+    backward kernels have their own entries."""
+    from . import flash_attention, layer_norm, paged_attention, softmax_ce
     return {"layer_norm": dict(layer_norm._stats),
             "flash_attention": dict(flash_attention._stats),
-            "paged_attention": dict(paged_attention._stats)}
+            "flash_attention_bwd": dict(flash_attention._bwd_stats),
+            "paged_attention": dict(paged_attention._stats),
+            "softmax_ce_fwd": dict(softmax_ce._stats),
+            "softmax_ce_bwd": dict(softmax_ce._bwd_stats)}
 
 
 def reset_stats() -> None:
-    from . import flash_attention, layer_norm, paged_attention
-    for mod in (layer_norm, flash_attention, paged_attention):
-        for key in mod._stats:
-            mod._stats[key] = 0
+    from . import flash_attention, layer_norm, paged_attention, softmax_ce
+    for st in (layer_norm._stats, flash_attention._stats,
+               flash_attention._bwd_stats, paged_attention._stats,
+               softmax_ce._stats, softmax_ce._bwd_stats):
+        for key in st:
+            st[key] = 0

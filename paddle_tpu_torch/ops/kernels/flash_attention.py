@@ -1,15 +1,28 @@
-"""Flash-attention forward: CUDA kernel ``csrc/flash_attention.cu``, its
-plain PyTorch version, and the dispatch ``flash_attention``.
+"""Flash attention: the forward and backward CUDA kernels
+(``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``), their plain
+PyTorch versions, the autograd Function that carries them, and the
+dispatch ``flash_attention``.
 
-Replaces the forward kernels of ``paddle_tpu/ops/pallas/flash_attention.py``:
-``_fa_fwd_pallas`` (tiled online softmax) and ``_fa_small_fwd_pallas``
-(single-shot path for Lq == Lk <= 512). One Hopper kernel covers both. It
-is bound by operations at the prefill buckets; it streams 32-key K/V tiles
-through shared memory for a 64-row query tile, skips tiles above the causal
-diagonal, masks row and column tails (any L >= 1), and reads [B, L, H, D]
-through its strides. Outputs are ``out`` in the input type and ``lse``
-[B, H, Lq] fp32, which the backward will reuse. See the source for the
-design.
+Forward: replaces ``_fa_fwd_pallas`` (tiled online softmax) and
+``_fa_small_fwd_pallas`` (single-shot path for Lq == Lk <= 512) of
+``paddle_tpu/ops/pallas/flash_attention.py``. One Hopper kernel covers
+both. It is bound by operations at the prefill buckets; it streams 32-key
+K/V tiles through shared memory for a 64-row query tile, skips tiles above
+the causal diagonal, masks row and column tails (any L >= 1), and reads
+[B, L, H, D] through its strides. Outputs are ``out`` in the input type and
+``lse`` [B, H, Lq] fp32, which the backward reuses.
+
+Backward: replaces ``_fa_bwd_fused_pallas`` (one-pass dq/dk/dv) and
+``_fa_small_bwd_pallas``. One block per (64-key tile, b*h) walks the q
+tiles at or below the diagonal, forms P and dS once per tile pair, keeps
+dk/dv in fp32 for its lifetime and adds dq into an fp32 buffer with
+atomics. delta = rowsum(dO * O) is a torch composition here, as it is XLA
+in the reference (l.970). See the sources for the designs.
+
+``FlashAttentionFunction`` is the counterpart of the ``jax.custom_vjp`` at
+l.1118-1155: one Function on both devices, whose forward and backward
+launch the kernels for CUDA tensors and run the plain versions for CPU
+ones.
 
 Layout convention (paddle): q/k/v are [batch, seq, heads, head_dim].
 """
@@ -22,6 +35,8 @@ import torch
 from . import launch, same_device, use_kernel
 
 _stats = {"kernel": 0, "plain": 0}
+#: launches of the backward kernel (and runs of its plain version)
+_bwd_stats = {"kernel": 0, "plain": 0}
 
 _TYPES = (torch.float32, torch.bfloat16)
 _MAX_D = 128
@@ -97,6 +112,93 @@ def flash_attention_fwd(q, k, v, causal: bool = False, scale=None):
     return out, lse
 
 
+def flash_attention_bwd_plain(q, k, v, lse, delta, do, causal: bool = False,
+                              scale=None):
+    """(dq, dk, dv) in q's type, computed in fp32 from P = exp(S * scale -
+    lse) and dS = P * (dP - delta), with delta = rowsum(dO * O) [B, H, Lq]
+    fp32 (the TPU kernels' arithmetic)."""
+    B, Lq, H, D = q.shape
+    Lk = k.shape[1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    s = torch.einsum("blhd,bmhd->bhlm", qf, kf) * scale
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        keep = torch.ones(Lq, Lk, dtype=torch.bool, device=q.device).tril(
+            diagonal=Lk - Lq)
+        p = torch.where(keep, p, 0.0)
+    dv = torch.einsum("bhlm,blhd->bmhd", p, dof)
+    dp = torch.einsum("blhd,bmhd->bhlm", dof, vf)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhlm,bmhd->blhd", ds, kf) * scale
+    dk = torch.einsum("bhlm,blhd->bmhd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def attention_delta(out, do):
+    """delta = rowsum(dO * O) as [B, H, Lq] fp32 (l.970)."""
+    return (do.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = False,
+                        scale=None):
+    """Attention backward: (dq, dk, dv) in q's type, from the forward's
+    ``out`` and ``lse`` and the output gradient ``do``."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if not use_kernel(q):
+        _bwd_stats["plain"] += 1
+        return flash_attention_bwd_plain(q, k, v, lse,
+                                         attention_delta(out, do), do,
+                                         causal, scale)
+    check_args(q, k, v, causal)
+    same_device("flash_attention_bwd", q, do, lse)
+    B, Lq, H, D = q.shape
+    Lk = k.shape[1]
+    if do.shape != q.shape or out.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"flash_attention_bwd: do {tuple(do.shape)} "
+                         f"{do.dtype}, out {tuple(out.shape)} against q "
+                         f"{tuple(q.shape)} {q.dtype}")
+    if lse.shape != (B, H, Lq):
+        raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)}, "
+                         f"want {(B, H, Lq)}")
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    delta = attention_delta(out, do)
+    lse = lse.float().contiguous()
+    dq = torch.zeros((B, Lq, H, D), dtype=torch.float32, device=q.device)
+    dk = torch.empty((B, Lk, H, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    launch("flash_attention_bwd", "pt_flash_attention_bwd", q.device,
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+           lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+           dv.data_ptr(), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+           *do.stride()[:3], B, H, Lq, Lk, D, int(bool(causal)),
+           float(scale), int(q.dtype == torch.bfloat16))
+    _bwd_stats["kernel"] += 1
+    return dq.to(q.dtype), dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Unmasked attention (causal or not) through the flash kernels: the
+    forward saves ``out`` and ``lse``, the backward recomputes P from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out, lse = flash_attention_fwd(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, ctx.causal,
+                                         ctx.scale)
+        return dq, dk, dv, None, None
+
+
 _NEG = -1e30
 
 
@@ -144,7 +246,7 @@ def flash_attention(q, k, v, mask=None, causal: bool = False, scale=None,
     attention; the composition for dropout > 0 (weight dropout needs the
     normalised probabilities, which the online softmax never forms), and
     for a mask on the CPU. On a card a mask raises: streaming bool masks
-    through the kernel arrives with the BERT slice."""
+    through the kernels arrives with the BERT slice."""
     if dropout_p > 0.0:
         return attention_composition(q, k, v, mask, causal, scale,
                                      dropout_p, generator)
@@ -154,4 +256,6 @@ def flash_attention(q, k, v, mask=None, causal: bool = False, scale=None,
                 "flash_attention: attention masks are not ported to the "
                 "CUDA kernel yet")
         return attention_composition(q, k, v, mask, causal, scale)
-    return flash_attention_fwd(q, k, v, causal, scale)[0]
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return FlashAttentionFunction.apply(q, k, v, bool(causal), float(scale))

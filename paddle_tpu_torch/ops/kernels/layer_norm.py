@@ -1,5 +1,5 @@
-"""Layer-norm forward: CUDA kernel ``csrc/layer_norm.cu`` and its plain
-PyTorch version.
+"""Layer norm: the forward's CUDA kernel ``csrc/layer_norm.cu``, its plain
+PyTorch version, and the autograd Function that carries both.
 
 Replaces ``paddle_tpu/ops/pallas/layer_norm.py:_ln_fwd_pallas`` (the TPU
 row-block kernel). The kernel is bound by bytes; one warp per row, fp32
@@ -8,7 +8,12 @@ the reference. It takes any R >= 1 and any N: the TPU-shaped eligibility
 (R >= 256, N % 128 == 0, N <= 4096) does not carry over, so decode rows
 (R <= 32) run the kernel too. See the source for the design.
 
-Only the forward is ported: the serving path needs no backward.
+``fused_layer_norm`` is one ``torch.autograd.Function`` on both devices
+(counterpart of the ``jax.custom_vjp`` at ``layer_norm.py:178``): its
+forward launches the kernel (plain version on the CPU), and its backward
+is ``layer_norm_bwd``, a torch composition of ``_fused_ln_bwd`` (l.193),
+which is an XLA composition in the reference too. The backward keeps only
+``(x, gamma)`` and recomputes mean and rstd.
 """
 from __future__ import annotations
 
@@ -66,9 +71,46 @@ def layer_norm_fwd(x2d, gamma, beta, eps: float = 1e-5):
     return y
 
 
+def layer_norm_bwd(x2d, gamma, dy2d, eps: float = 1e-5):
+    """(dx, dgamma, dbeta) of the layer norm of ``x2d`` [R, N], computed in
+    fp32 from recomputed statistics; dx in x's type, dgamma and dbeta in
+    gamma's (as ``_fused_ln_bwd`` returns them, so the O2 rounding
+    matches)."""
+    xf = x2d.float()
+    dyf = dy2d.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf * xf).mean(dim=-1, keepdim=True) - mean * mean
+    rstd = torch.rsqrt(var + eps)
+    xhat = (xf - mean) * rstd
+    dg = (dyf * xhat).sum(dim=0).to(gamma.dtype)
+    db = dyf.sum(dim=0).to(gamma.dtype)
+    dxhat = dyf * gamma.float()
+    m1 = dxhat.mean(dim=-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(dim=-1, keepdim=True)
+    dx = (rstd * (dxhat - m1 - xhat * m2)).to(x2d.dtype)
+    return dx, dg, db
+
+
+class LayerNormFunction(torch.autograd.Function):
+    """Layer norm over the last dim of x (any leading shape): the kernel
+    forward and the composed backward."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        shape = x.shape
+        x2d = x.reshape(-1, shape[-1]).contiguous()
+        ctx.save_for_backward(x2d, gamma)
+        ctx.eps = eps
+        return layer_norm_fwd(x2d, gamma, beta, eps).reshape(shape)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2d, gamma = ctx.saved_tensors
+        dx, dg, db = layer_norm_bwd(x2d, gamma, dy.reshape(x2d.shape),
+                                    ctx.eps)
+        return dx.reshape(dy.shape), dg, db, None
+
+
 def fused_layer_norm(x, gamma, beta, eps: float = 1e-5):
     """LayerNorm over the last dim of x (any leading shape)."""
-    shape = x.shape
-    y = layer_norm_fwd(x.reshape(-1, shape[-1]).contiguous(), gamma, beta,
-                       eps)
-    return y.reshape(shape)
+    return LayerNormFunction.apply(x, gamma, beta, float(eps))

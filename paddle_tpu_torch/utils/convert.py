@@ -4,7 +4,9 @@ Parameter names and layouts are paddle's in both packages
 (``blocks.0.attn.qkv.weight``, ``Linear.weight`` as [in, out]), so a
 JAX model's parameters, exported as numpy arrays
 (``{k: np.asarray(p.data) for k, p in model.named_parameters()}``), load
-one to one."""
+one to one. A JAX ``TrainStep``'s state (``state_dict()`` and its
+``params``) loads into the port's ``TrainStep`` the same way, so both can
+resume from one checkpoint."""
 from __future__ import annotations
 
 from typing import Mapping
@@ -13,19 +15,15 @@ import numpy as np
 import torch
 
 
-def load_numpy_params(module: torch.nn.Module,
-                      params: Mapping[str, np.ndarray],
-                      strict: bool = True) -> None:
-    """Copy ``params`` ({name: array}) into ``module``'s parameters in
-    place, keeping each parameter's device and type. With ``strict``, a
-    missing or unexpected name raises; a shape mismatch always raises."""
-    own = dict(module.named_parameters())
+def _copy_numpy(own: Mapping[str, torch.Tensor],
+                params: Mapping[str, np.ndarray], strict: bool,
+                who: str) -> None:
     if strict:
         missing = sorted(set(own) - set(params))
         unexpected = sorted(set(params) - set(own))
         if missing or unexpected:
-            raise KeyError(f"load_numpy_params: missing {missing}, "
-                           f"unexpected {unexpected}")
+            raise KeyError(f"{who}: missing {missing}, unexpected "
+                           f"{unexpected}")
     with torch.no_grad():
         for name, arr in params.items():
             p = own.get(name)
@@ -33,7 +31,33 @@ def load_numpy_params(module: torch.nn.Module,
                 continue
             arr = np.array(arr, dtype=np.float32)  # a writable copy
             if tuple(arr.shape) != tuple(p.shape):
-                raise ValueError(f"load_numpy_params: {name} is "
-                                 f"{tuple(arr.shape)}, the module holds "
-                                 f"{tuple(p.shape)}")
+                raise ValueError(f"{who}: {name} is {tuple(arr.shape)}, "
+                                 f"the module holds {tuple(p.shape)}")
             p.copy_(torch.from_numpy(arr))
+
+
+def load_numpy_params(module: torch.nn.Module,
+                      params: Mapping[str, np.ndarray],
+                      strict: bool = True) -> None:
+    """Copy ``params`` ({name: array}) into ``module``'s parameters in
+    place, keeping each parameter's device and type. With ``strict``, a
+    missing or unexpected name raises; a shape mismatch always raises."""
+    _copy_numpy(dict(module.named_parameters()), params, strict,
+                "load_numpy_params")
+
+
+def load_train_state(step, state_dict: Mapping,
+                     params: Mapping[str, np.ndarray] | None = None) -> None:
+    """Resume the port's ``jit.TrainStep`` ``step`` from a JAX
+    ``TrainStep``: ``state_dict`` is its ``state_dict()`` (``{"t",
+    "opt_flat"}``, the optimizer slots in ``jax.tree_util`` leaf order:
+    sorted parameter names, then sorted slot names) and ``params``, when
+    given, its parameters ({name: array}, e.g. ``{k: np.asarray(v) for k, v
+    in jstep.params.items()}``), copied into the step's fp32 masters and
+    then into its layer."""
+    step.set_state_dict({"t": state_dict["t"],
+                         "opt_flat": [np.asarray(v) for v in
+                                      state_dict["opt_flat"]]})
+    if params is not None:
+        _copy_numpy(step.params, params, True, "load_train_state")
+        step.sync_to_layer()

@@ -1,5 +1,5 @@
-"""The port stands alone: no file of paddle_tpu_torch/ and not chip_smoke.py
-imports JAX or anything of the JAX package, and its entry points run on
+"""The port stands alone: no file of paddle_tpu_torch/, not chip_smoke.py and
+no tools/profile_torch_*.py imports JAX or anything of the JAX package, and its entry points run on
 ``cuda`` unless asked for the CPU (they raise, rather than carry on
 quietly on the CPU, where no card is present)."""
 import ast
@@ -21,7 +21,8 @@ FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
 
 def _port_files():
     files = sorted((REPO / "paddle_tpu_torch").rglob("*.py"))
-    return files + [REPO / "chip_smoke.py"]
+    tools = sorted((REPO / "tools").glob("profile_torch_*.py"))
+    return files + [REPO / "chip_smoke.py"] + tools
 
 
 def _imported_modules(path):
@@ -40,7 +41,9 @@ def _imported_modules(path):
 
 
 def test_no_file_of_the_port_imports_jax_or_the_jax_package():
-    assert len(_port_files()) > 10
+    names = {p.name for p in _port_files()}
+    assert len(names) > 10 and {"profile_torch_serving.py",
+                                "profile_torch_train.py"} <= names
     bad = []
     for path in _port_files():
         for mod in _imported_modules(path):
@@ -82,7 +85,8 @@ def test_kernel_build_inputs_and_stale_check(tmp_path, monkeypatch):
     source is newer than the library; nothing is built at import."""
     names = {p.name for p in _native._sources()}
     assert names == {"layer_norm.cu", "flash_attention.cu",
-                     "paged_attention.cu"}
+                     "flash_attention_bwd.cu", "paged_attention.cu",
+                     "softmax_ce.cu"}
     assert _native.GENCODE == "arch=compute_90a,code=sm_90a"
     lib = tmp_path / "lib.so"
     monkeypatch.setattr(_native, "_LIB", lib)

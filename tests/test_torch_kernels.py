@@ -10,21 +10,31 @@ The same numpy inputs, made from a seed, go to both.
 Tolerances: fp32 atol 2e-5 (the two sum in another order); bf16 inputs
 are compared in fp32 at atol 2e-2 (one bf16 rounding of an output below
 4 is at most 2**-7; the TPU kernel also rounds p to bf16 before p @ v).
-The CUDA argument checks are called directly, on CPU tensors.
+Backward outputs in fp32 at atol 1e-5 (gradients of order 1, sums in
+another order). The CUDA argument checks are called directly, on CPU
+tensors. The kernel-backed forwards are autograd Functions on both
+devices; the guard tests below pin that their outputs carry the
+Function's backward node.
 """
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from paddle_tpu.ops.pallas import flash_attention as jfa
 from paddle_tpu.ops.pallas import layer_norm as jln
 from paddle_tpu.ops.pallas import paged_attention as jpa
+from paddle_tpu.ops.pallas import softmax_ce as jsce
+from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.ops import kernels
 from paddle_tpu_torch.ops.kernels import flash_attention as fa
 from paddle_tpu_torch.ops.kernels import layer_norm as ln
 from paddle_tpu_torch.ops.kernels import paged_attention as pa
+from paddle_tpu_torch.ops.kernels import softmax_ce as sce
+
+BWD_ATOL = 1e-5
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -106,6 +116,47 @@ class TestLayerNorm:
         with pytest.raises(ValueError):
             ln.check_args(x, g, b)
         ln.check_args(torch.ones(4, 8), torch.ones(8), torch.zeros(8))
+
+
+class TestLayerNormBackward:
+    @pytest.mark.parametrize("gdtype", ["float32", "bfloat16"])
+    def test_function_backward_matches_jax_grad(self, gdtype):
+        """dx, dgamma and dbeta of the port's Function against jax.grad of
+        the reference's custom-vjp ``fused_layer_norm``; dgamma and dbeta
+        come back in gamma's type in both."""
+        rng = np.random.default_rng(7)
+        x = rng.normal(size=(2, 5, 48)).astype(np.float32)
+        g = (1 + 0.1 * rng.normal(size=48)).astype(np.float32)
+        b = (0.1 * rng.normal(size=48)).astype(np.float32)
+        dy = rng.normal(size=(2, 5, 48)).astype(np.float32)
+        jg, tg = _pair(g, gdtype)
+        jb, tb = _pair(b, gdtype)
+
+        def f(x_, g_, b_):
+            return jnp.sum(jln.fused_layer_norm(x_, g_, b_, 1e-5) * dy)
+
+        want = jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(x), jg, jb)
+        tx = torch.from_numpy(x).requires_grad_(True)
+        tg.requires_grad_(True)
+        tb.requires_grad_(True)
+        (ln.fused_layer_norm(tx, tg, tb, 1e-5) * torch.from_numpy(dy)).sum(
+            ).backward()
+        got = (tx.grad, tg.grad, tb.grad)
+        assert tg.grad.dtype == TDT[gdtype] and tb.grad.dtype == TDT[gdtype]
+        atol = BWD_ATOL if gdtype == "float32" else 2e-2
+        for gt, w in zip(got, want):
+            np.testing.assert_allclose(_np(gt), _np(w), atol=atol, rtol=0)
+
+    def test_output_carries_the_function(self):
+        """Guard: the layer norm's output is the Function's own output, on
+        the CPU as on a card, so the kernel's forward never leaves the
+        autograd graph."""
+        x = torch.randn(3, 4, 16, requires_grad=True)
+        for y in (ln.fused_layer_norm(x, torch.ones(16), torch.zeros(16)),
+                  F.layer_norm(x, 16, torch.ones(16), torch.zeros(16))):
+            assert y.grad_fn._forward_cls is ln.LayerNormFunction
+        y.sum().backward()
+        assert x.grad is not None and x.grad.shape == x.shape
 
 
 # ---------------------------- flash attention -------------------------------
@@ -211,6 +262,82 @@ class TestFlashAttention:
                       torch.ones(1, 8, 2, 16), True)
 
 
+class TestFlashAttentionBackward:
+    @staticmethod
+    def _inputs(seed, B, Lq, Lk, H, D):
+        rng = np.random.default_rng(seed)
+        (jq, tq), (jk, tk), (jv, tv) = _qkv(rng, B, Lq, Lk, H, D, "float32")
+        jdo, tdo = _pair(rng.normal(size=(B, Lq, H, D)), "float32")
+        return (jq, jk, jv, jdo), (tq, tk, tv, tdo)
+
+    @staticmethod
+    def _port_bwd(tq, tk, tv, tdo, causal, scale):
+        out, lse = fa.flash_attention_fwd(tq, tk, tv, causal, scale)
+        return fa.flash_attention_bwd(tq, tk, tv, out, lse, tdo, causal,
+                                      scale)
+
+    @pytest.mark.parametrize("causal", [True, False])
+    @pytest.mark.parametrize("L", [128, 192, 100])
+    def test_plain_matches_fused_pallas(self, L, causal):
+        """Against the one-pass backward in the Pallas interpreter, with
+        64-row blocks: several q and k blocks, and ragged tails at 100."""
+        (jq, jk, jv, jdo), (tq, tk, tv, tdo) = self._inputs(L + causal, 2, L,
+                                                            L, 2, 32)
+        scale = 1.0 / np.sqrt(32)
+        jout, jlse = jfa._fa_fwd_pallas(jq, jk, jv, None, causal, scale,
+                                        interpret=True, blocks=(64, 64))
+        want = jfa._fa_bwd_fused_pallas(jq, jk, jv, jout, jlse, jdo, None,
+                                         causal, scale, interpret=True,
+                                         blocks=(64, 64))
+        got = self._port_bwd(tq, tk, tv, tdo, causal, scale)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(_np(g), _np(w), atol=BWD_ATOL, rtol=0)
+
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_plain_matches_small_path_pallas(self, causal):
+        (jq, jk, jv, jdo), (tq, tk, tv, tdo) = self._inputs(5, 2, 128, 128,
+                                                            3, 16)
+        jout, jlse = jfa._fa_small_fwd_pallas(jq, jk, jv, None, causal, 0.25,
+                                              interpret=True)
+        want = jfa._fa_small_bwd_pallas(jq, jk, jv, jout, jlse, jdo, None,
+                                        causal, 0.25, interpret=True)
+        got = self._port_bwd(tq, tk, tv, tdo, causal, 0.25)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(_np(g), _np(w), atol=BWD_ATOL, rtol=0)
+
+    @pytest.mark.parametrize("Lq,Lk", [(40, 40), (24, 56)])
+    def test_function_matches_jax_grad_of_xla(self, Lq, Lk):
+        """The Function's gradients against jax.grad of the reference's
+        composition, causal with the kv offset when Lk > Lq."""
+        (jq, jk, jv, jdo), (tq, tk, tv, tdo) = self._inputs(Lq + Lk, 2, Lq,
+                                                            Lk, 2, 16)
+
+        def f(q, k, v):
+            return jnp.sum(jfa.flash_attention_xla(q, k, v, causal=True)
+                           * jdo)
+
+        want = jax.grad(f, argnums=(0, 1, 2))(jq, jk, jv)
+        leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+        (fa.flash_attention(*leaves, causal=True) * tdo).sum().backward()
+        for t, w in zip(leaves, want):
+            np.testing.assert_allclose(_np(t.grad), _np(w), atol=BWD_ATOL,
+                                       rtol=0)
+
+    def test_output_carries_the_function_and_counts_plain(self):
+        """Guard: attention's output is the Function's own output (both
+        devices take the Function), and on the CPU its backward runs the
+        plain version."""
+        q = torch.randn(1, 8, 2, 16, requires_grad=True)
+        before = dict(fa._bwd_stats)
+        for out in (fa.flash_attention(q, q, q, causal=True),
+                    F.scaled_dot_product_attention(q, q, q, is_causal=True)):
+            assert out.grad_fn._forward_cls is fa.FlashAttentionFunction
+        out.sum().backward()
+        assert fa._bwd_stats["plain"] == before["plain"] + 1
+        assert fa._bwd_stats["kernel"] == before["kernel"]
+        assert q.grad.shape == q.shape
+
+
 # ---------------------------- paged attention -------------------------------
 
 
@@ -256,8 +383,9 @@ class TestPagedAttention:
                            torch.ones(1, dtype=torch.int32))
         assert pa._stats["plain"] == before["plain"] + 1
         assert pa._stats["kernel"] == before["kernel"]
-        assert set(kernels.all_stats()) == {"layer_norm", "flash_attention",
-                                            "paged_attention"}
+        assert set(kernels.all_stats()) == {
+            "layer_norm", "flash_attention", "flash_attention_bwd",
+            "paged_attention", "softmax_ce_fwd", "softmax_ce_bwd"}
 
     @pytest.mark.parametrize("case", ["fp16", "bt_int64", "ctx_shape",
                                       "pool_strided", "D_big", "q_heads"])
@@ -342,3 +470,95 @@ class TestCacheUpdates:
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
         with pytest.raises(ValueError):
             pa.cow_copy_pages(tk, tv, 1, 4)
+
+
+# ------------------------------- softmax CE ---------------------------------
+
+
+def _ce_inputs(seed, N, V, dtype):
+    rng = np.random.default_rng(seed)
+    lg = rng.normal(scale=2.0, size=(N, V))
+    lab = rng.integers(0, V, N).astype(np.int32)
+    lab[::7] = -100      # ignore_index
+    lab[3::11] = V       # past the vocabulary
+    dnll = rng.normal(size=N).astype(np.float32)
+    jl, tl = _pair(lg, dtype)
+    return (jl, jnp.asarray(lab), jnp.asarray(dnll)), \
+        (tl, torch.from_numpy(lab), torch.from_numpy(dnll))
+
+
+class TestSoftmaxCE:
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_plain_matches_pallas_interpret(self, dtype):
+        """nll, lse and dlogits against both Pallas kernels in the
+        interpreter, ragged in rows and vocabulary (N = 96, V = 5000 with
+        the static 128 x 2048 blocks), labels -100 and V included. lse is
+        6-15 here: atol 1e-4 (1e-5 of it) covers a 5000-term fp32 sum in
+        another order; dlogits of bf16 logits are bf16 in both, compared
+        at 2e-2."""
+        (jl, jlab, jdn), (tl, tlab, tdn) = _ce_inputs(0, 96, 5000, dtype)
+        jnll, jlse = jsce._ce_fwd_pallas(jl, jlab, interpret=True)
+        nll, lse = sce.softmax_ce_fwd(tl, tlab)
+        assert nll.dtype == lse.dtype == torch.float32
+        # label V falls inside the TPU kernel's padded last vocab block and
+        # picks its -1e30 fill (nll = lse + 1e30, which the caller masks);
+        # the port reads nothing for any out-of-range label: nll = lse
+        past = (tlab >= 5000).numpy()
+        np.testing.assert_allclose(_np(nll)[~past], _np(jnll)[~past],
+                                   atol=1e-4, rtol=0)
+        np.testing.assert_allclose(_np(lse), _np(jlse), atol=1e-4, rtol=0)
+        oob = (tlab < 0) | (tlab >= 5000)
+        assert past.any() and torch.equal(nll[oob], lse[oob])
+        jdl = jsce._ce_bwd_pallas(jl, jlab, jlse, jdn, interpret=True)
+        dl = sce.softmax_ce_bwd(tl, tlab, lse, tdn)
+        assert dl.dtype == TDT[dtype]
+        np.testing.assert_allclose(_np(dl), _np(jdl), atol=TOL[dtype],
+                                   rtol=0)
+
+    def test_function_backward_with_an_expanded_cotangent(self):
+        """nll.sum() sends a stride-0 cotangent; the Function's gradient is
+        softmax - onehot, and the plain versions count."""
+        (_, _, _), (tl, tlab, _) = _ce_inputs(1, 16, 300, "float32")
+        x = tl.clone().requires_grad_(True)
+        before = dict(sce._stats), dict(sce._bwd_stats)
+        nll = sce.fused_softmax_ce(x.reshape(2, 8, 300), tlab.reshape(2, 8))
+        assert nll.shape == (2, 8)
+        # a view of the Function's output
+        assert nll.grad_fn.next_functions[0][0]._forward_cls \
+            is sce.SoftmaxCEFunction
+        nll.sum().backward()
+        p = torch.softmax(tl, -1)
+        valid = (tlab >= 0) & (tlab < 300)
+        onehot = torch.zeros_like(p)
+        onehot[valid, tlab[valid].long()] = 1.0
+        torch.testing.assert_close(x.grad, p - onehot, atol=1e-6, rtol=0)
+        assert sce._stats["plain"] == before[0]["plain"] + 1
+        assert sce._bwd_stats["plain"] == before[1]["plain"] + 1
+        assert sce._stats["kernel"] == before[0]["kernel"]
+
+    def test_cross_entropy_takes_the_function(self):
+        x = torch.randn(4, 10, requires_grad=True)
+        lab = torch.tensor([1, -100, 3, 10])
+        before = sce._stats["plain"]
+        loss = F.cross_entropy(x, lab)
+        assert sce._stats["plain"] == before + 1
+        loss.backward()
+        assert x.grad[1].abs().max() == 0 and x.grad[3].abs().max() == 0
+
+    @pytest.mark.parametrize("case", ["rank", "strided", "fp16", "labels64",
+                                      "labels_shape"])
+    def test_kernel_argument_checks_raise(self, case):
+        x, lab = torch.ones(4, 10), torch.zeros(4, dtype=torch.int32)
+        if case == "rank":
+            x = torch.ones(4, 2, 5)
+        elif case == "strided":
+            x = torch.ones(10, 4).t()
+        elif case == "fp16":
+            x = x.half()
+        elif case == "labels64":
+            lab = lab.long()
+        else:
+            lab = torch.zeros(3, dtype=torch.int32)
+        with pytest.raises(ValueError):
+            sce.check_args(x, lab)
+        sce.check_args(torch.ones(4, 10), torch.zeros(4, dtype=torch.int32))
