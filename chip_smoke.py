@@ -272,6 +272,33 @@ def check_flash_bwd(dev, gen, lengths, B, H, D):
     return rows
 
 
+#: softmax CE dlogits, per element relative to the element's own size
+#: (nearly every dlogit is about |dnll| / V, far below the label column's
+#: |dnll|): fp32 1e-5 (expf and the product a few ulp from torch's); bf16
+#: that plus 2^-8, the unit roundoff of bf16's 8-bit significand, since
+#: the kernel rounds its fp32 value to bf16 once (a right kernel reads
+#: close to 1 / (1 + 2^-8) of 2^-8 somewhere in 412M elements)
+CE_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -8 + 1e-5}
+
+
+def rel_ratio(got, ref, rtol):
+    """Worst |got - ref| / (rtol * |ref|) over the elements, so that a
+    small term wrong by more than rtol fails however large the row's other
+    terms are; a floor of 1e-30 lets two values that both underflow
+    agree."""
+    got, ref = got.float(), ref.float()
+    return float(((got - ref).abs() / (rtol * ref.abs() + 1e-30)).max())
+
+
+def ce_fwd_ratio(nll, lse, rnll, rlse):
+    """Worst error of nll and lse against the plain ones, each row held to
+    1e-5 of its own max(|lse|, 1): lse is a sum of V terms taken in
+    another order, and nll = lse - logit keeps lse's absolute error."""
+    scale = 1e-5 * rlse.abs().clamp(min=1.0)
+    err = torch.maximum((nll - rnll).abs(), (lse - rlse).abs())
+    return float((err / scale).max())
+
+
 def _ce_inputs(dev, gen, N, V, dtype):
     """Logits, labels with some at -100 (ignore_index) and some at V, and
     dnll; the same labels with the out-of-range ones at -100 for
@@ -296,10 +323,14 @@ def check_ce(dev, gen, N, V):
         dl = sce.softmax_ce_bwd(x, lab, lse, dnll)
         torch.cuda.synchronize()
         rnll, rlse = sce.softmax_ce_fwd_plain(x.float(), lab)
-        rdl = sce.softmax_ce_bwd_plain(x.float(), lab, rlse, dnll)
-        # lse ~ 11 here: fp32 sums over 50304 terms in another order
         fwd_err = max(max_err(nll, rnll), max_err(lse, rlse))
+        fwd_ratio = ce_fwd_ratio(nll, lse, rnll, rlse)
+        del rnll, rlse
+        # the backward's inputs include lse: the plain one gets the kernel's
+        rdl = sce.softmax_ce_bwd_plain(x.float(), lab, lse, dnll)
         bwd_err = max_err(dl, rdl)
+        bwd_ratio = rel_ratio(dl, rdl, CE_RTOL[dtype])
+        del dl, rdl
         isz = x.element_size()
         fbnd, fby = bound_ms(N * V * isz + 12 * N, 3 * N * V, torch.float32)
         bbnd, bby = bound_ms(2 * N * V * isz + 12 * N, 4 * N * V,
@@ -309,7 +340,7 @@ def check_ce(dev, gen, N, V):
         rows.append(dict(
             kernel="softmax_ce_fwd", dtype=str(dtype)[6:],
             shape=f"N={N} V={V}", max_abs_err=fwd_err,
-            tol_ratio=fwd_err / 1e-3,
+            tol_ratio=fwd_ratio,
             ms=cuda_ms(lambda: sce.softmax_ce_fwd(x, lab), iters=5, reps=3),
             plain_ms=cuda_ms(lambda: sce.softmax_ce_fwd_plain(x, lab),
                              iters=5, reps=3),
@@ -319,7 +350,7 @@ def check_ce(dev, gen, N, V):
         rows.append(dict(
             kernel="softmax_ce_bwd", dtype=str(dtype)[6:],
             shape=f"N={N} V={V}", max_abs_err=bwd_err,
-            tol_ratio=bwd_err / TOL[dtype],
+            tol_ratio=bwd_ratio,
             ms=cuda_ms(lambda: sce.softmax_ce_bwd(x, lab, lse, dnll),
                        iters=5, reps=3),
             plain_ms=cuda_ms(lambda: sce.softmax_ce_bwd_plain(
@@ -397,11 +428,11 @@ def check_edges(dev, gen):
                                      "give nll = lse")
             worst["softmax_ce_fwd"] = max(
                 worst["softmax_ce_fwd"],
-                max(max_err(nll, rnll), max_err(lse, rlse)) / 1e-3)
+                ce_fwd_ratio(nll, lse, rnll, rlse))
             dl = sce.softmax_ce_bwd(x, lab, lse, dnll)
-            rdl = sce.softmax_ce_bwd_plain(x.float(), lab, rlse, dnll)
+            rdl = sce.softmax_ce_bwd_plain(x.float(), lab, lse, dnll)
             worst["softmax_ce_bwd"] = max(worst["softmax_ce_bwd"],
-                                          max_err(dl, rdl) / tol)
+                                          rel_ratio(dl, rdl, CE_RTOL[dtype]))
         for D in (40, 64, 128):
             page, pps = 16, 3
             ctx = torch.tensor([0, 1, 15, 16, 17, 48], dtype=torch.int32,

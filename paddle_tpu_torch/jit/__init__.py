@@ -50,13 +50,12 @@ class TrainStep:
     per-parameter loop; on (None or True) unless False, and only for
     elementwise optimizers.
 
-    donate: accepted for the reference's signature; the update is always
-    in place. ``sync_to_layer()`` writes the masters back into ``layer``.
+    The update is always in place (the reference's ``donate=True``).
+    ``sync_to_layer()`` writes the masters back into ``layer``.
     """
 
     def __init__(self, layer: torch.nn.Module, loss_fn, optimizer,
-                 donate: bool = True, amp_dtype=None, health=None,
-                 fused_opt=None):
+                 amp_dtype=None, health=None, fused_opt=None):
         if health:
             raise NotImplementedError(
                 "TrainStep(health=...): the in-step numerics sentinel is not "

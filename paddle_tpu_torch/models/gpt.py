@@ -162,6 +162,7 @@ class GPT(nn.Layer):
         if not cfg.tie_word_embeddings:
             self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size,
                                      bias_attr=False, **kw)
+        self.name_parameters()
 
     @property
     def device(self) -> torch.device:

@@ -57,10 +57,8 @@ class ClipGradByGlobalNorm(ClipGradBase):
     """Scale every gradient by min(clip_norm / global norm, 1), where the
     global norm is that of all gradients together."""
 
-    def __init__(self, clip_norm, group_name="default_group",
-                 auto_skip_clip=False):
+    def __init__(self, clip_norm):
         self.clip_norm = float(clip_norm)
-        self.group_name = group_name
 
     @staticmethod
     def global_norm(grads) -> torch.Tensor:

@@ -7,10 +7,11 @@ Sub-layers and parameters are attributes, so ``named_parameters`` and
 adds is parameter creation: initial values are drawn on the CPU from an
 explicit ``torch.Generator`` (PyTorch's default one when none is given),
 so a seed gives the same weights on every device, and then moved to the
-layer's device. As in the reference, ``named_parameters`` also stamps each
-parameter with its structured name (``param_name``; a tensor's own
-``name`` is not writable) the first time it is listed, which the
-optimizers use for state-dict keys and weight-decay exclusion.
+layer's device. A model calls ``name_parameters`` once, at the end of its
+construction, to stamp each parameter with its structured name
+(``param_name``; a tensor's own ``name`` is not writable), which the eager
+optimizers use for state-dict keys and weight-decay exclusion; listing
+parameters has no side effect.
 """
 from __future__ import annotations
 
@@ -45,10 +46,8 @@ class Layer(torch.nn.Module):
         return torch.nn.Parameter(
             value.to(device=self._device, dtype=self._dtype))
 
-    def named_parameters(self, prefix="", recurse=True,
-                         remove_duplicate=True):
-        for full, p in super().named_parameters(prefix, recurse,
-                                                remove_duplicate):
-            if getattr(p, "param_name", None) is None:
-                p.param_name = full
-            yield full, p
+    def name_parameters(self) -> None:
+        """Stamp every parameter with its name under this layer, as
+        ``param_name``. A shared parameter takes its first name."""
+        for full, p in self.named_parameters():
+            p.param_name = full

@@ -66,7 +66,7 @@ class Optimizer:
     _fusable = False
 
     def __init__(self, learning_rate=0.001, parameters=None,
-                 weight_decay=None, grad_clip=None, name=None):
+                 weight_decay=None, grad_clip=None):
         if parameters is None:
             raise ValueError("parameters is required")
         self._learning_rate = learning_rate

@@ -30,8 +30,7 @@ class Momentum(Optimizer):
     _fusable = True
 
     def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
-                 use_nesterov=False, weight_decay=None, grad_clip=None,
-                 name=None):
+                 use_nesterov=False, weight_decay=None, grad_clip=None):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip)
         self._momentum = momentum
         self._nesterov = use_nesterov
@@ -54,8 +53,7 @@ class Adam(Optimizer):
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None,
-                 grad_clip=None, lazy_mode=False, multi_precision=False,
-                 name=None):
+                 grad_clip=None):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip)
         self._beta1, self._beta2, self._eps = beta1, beta2, epsilon
 
@@ -79,8 +77,7 @@ class Adam(Optimizer):
 class AdamW(Adam):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=0.01,
-                 lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
-                 lazy_mode=False, multi_precision=False, name=None):
+                 apply_decay_param_fun=None, grad_clip=None):
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
                          None, grad_clip)
         self._wd = (float(weight_decay)
