@@ -33,8 +33,25 @@ failure:
 7. train-cpu - the same weights in fp32 at batch 1, sequence 128, on the card
               and on the CPU: the loss, every parameter's gradient and every
               parameter after one TrainStep must agree;
-8. report   - the `kernels` JSON line, the card's name and power limit, and
+8. resnet   - ResNet-50 (NHWC, fused BN, fused 1x1 conv + BN, 1000
+              classes, random weights from a seed) trained by
+              jit.TrainStep(model, F.cross_entropy, Momentum(0.1, 0.9),
+              amp_dtype=bfloat16) at batch 128, 224x224 (the JAX package's
+              bench_resnet50 configuration, NHWC without remat): 2 warm-up
+              steps, then timed steps on one batch; the first update must
+              lower the loss, each ResNet kernel must launch its expected
+              count per step
+              and no plain version may run; step ms, images/s and MFU;
+9. resnet-cpu - ResNet-50 in fp32 at batch 2, 64x64, one TrainStep on the
+              card and on the CPU: loss, gradients, parameters after the
+              step and running statistics must agree;
+10. report  - the `kernels` JSON line, the card's name and power limit, and
               the device JSON line last.
+
+Phase 3 also holds the ResNet kernels (fused BN forward, reduce and dx;
+1x1 conv + statistics) at the ResNet-50 shapes, fp32 and bf16, and at
+their edges. `--phases kernels,resnet` (for example) runs a subset and
+prints no result line.
 
 Numerics: float32 matrix products run in full fp32
 (torch.backends.cuda.matmul.allow_tf32 = False), so the card and the CPU
@@ -454,6 +471,286 @@ def check_edges(dev, gen):
     return worst
 
 
+#: ResNet-50 kernels, each element against the plain version's fp32 value
+#: before rounding: the output type's rounding, fp32 1e-5 and bf16 2^-7
+#: (one ulp of bf16's 8-bit significand: the kernel rounds once, and a
+#: value formed by another order or an FMA may round to the neighbour),
+#: plus 1e-5 of the sum of the magnitudes of the terms that formed it
+#: (x * k and c nearly cancel where a channel's variance is near 0).
+#: Reductions are held to 1e-5 of the sum of their terms' magnitudes
+#: (fp32 sums of up to 1.6M terms in another order).
+RN_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+SUM_RTOL = 1e-5
+
+
+def elem_ratio(got, ref, rtol, terms):
+    """Worst |got - ref| / (rtol * |ref| + SUM_RTOL * terms), terms being
+    the sum of the magnitudes of the terms that formed each element."""
+    got, ref = got.float(), ref.float()
+    tol = rtol * ref.abs() + SUM_RTOL * terms + 1e-30
+    return float(((got - ref).abs() / tol).max())
+
+
+def fp32_fwd(x, z, k, c, act):
+    """The plain forward on fp32 copies: its value before rounding."""
+    from paddle_tpu_torch.ops.kernels import fused_bn as fb
+    return fb.bn_act_fwd_plain(x.float(), None if z is None else z.float(),
+                               k, c, act)
+
+
+def fp32_dx(x, y, dy, A, B, C0, act):
+    """The plain dx on fp32 copies: its value before rounding."""
+    from paddle_tpu_torch.ops.kernels import fused_bn as fb
+    return fb.bn_bwd_dx_plain(x.float(), y, dy.float(), A, B, C0, act,
+                              False)[0]
+
+
+def bn_fwd_terms(x, z, k, c):
+    t = (x.float() * k).abs() + c.abs()
+    return t if z is None else t + z.float().abs()
+
+
+def dx_terms(x, g, A, B, C0):
+    return (A * g).abs() + (B * x.float()).abs() + C0.abs()
+
+
+def sum_ratio(got, ref, terms_abs_sum):
+    """Worst |got - ref| / (SUM_RTOL * sum of |terms|) over the columns."""
+    return float(((got.float() - ref.float()).abs()
+                  / (SUM_RTOL * terms_abs_sum.float() + 1e-30)).max())
+
+
+def _bn_case(dev, gen, R, C, dtype, has_add):
+    from paddle_tpu_torch.ops import _bn_common
+    from paddle_tpu_torch.ops.kernels import fused_bn as fb
+    x = (1.0 + torch.randn(R, C, device=dev, generator=gen)).to(dtype)
+    z = (torch.randn(R, C, device=dev, generator=gen).to(dtype)
+         if has_add else None)
+    dy = torch.randn(R, C, device=dev, generator=gen).to(dtype)
+    gamma = 1 + 0.1 * torch.randn(C, device=dev, generator=gen)
+    beta = 0.1 * torch.randn(C, device=dev, generator=gen)
+    mean, var = _bn_common._bn_stats(x, (0,))
+    inv = torch.rsqrt(var + 1e-5)
+    k, c = fb.fold_affine(gamma, beta, mean, inv)
+    return x, z, dy, gamma, beta, mean, var, inv, k, c
+
+
+def check_fused_bn(dev, gen, shapes):  # shapes: (N, H, W, C)
+    """The fused-BN forward, reduce and dx kernels against their plain
+    versions on the same inputs (the backward's on the kernel's y), with
+    and without the residual add, ReLU on; library: the F.batch_norm +
+    ReLU composition (its backward for the reduce and dx rows, which it
+    computes together)."""
+    from paddle_tpu_torch.ops.kernels import fused_bn as fb
+    tF = torch.nn.functional
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for N, H, W, C in shapes:
+            R = N * H * W
+            for has_add in (False, True):
+                x, z, dy, gamma, beta, mean, var, inv, k, c = _bn_case(
+                    dev, gen, R, C, dtype, has_add)
+                y = fb.bn_act_fwd(x, z, k, c, "relu")
+                db, dg = fb.bn_bwd_reduce(x, y, dy, mean, inv, "relu")
+                n = R
+                A = inv * gamma
+                B = -(A * inv * dg) / n
+                C0 = -(A * db) / n - B * mean
+                dx, dz = fb.bn_bwd_dx(x, y, dy, A, B, C0, "relu", has_add)
+                torch.cuda.synchronize()
+                ry = fb.bn_act_fwd_plain(x, z, k, c, "relu")
+                g = torch.where(y > 0, dy.float(), 0.0)
+                xhat = (x.float() - mean) * inv
+                rdb, rdg = fb.bn_bwd_reduce_plain(x, y, dy, mean, inv,
+                                                  "relu")
+                rdx, rdz = fb.bn_bwd_dx_plain(x, y, dy, A, B, C0, "relu",
+                                              has_add)
+                f_ratio = elem_ratio(y, fp32_fwd(x, z, k, c, "relu"),
+                                     RN_RTOL[dtype], bn_fwd_terms(x, z, k, c))
+                r_ratio = max(sum_ratio(db, rdb, g.abs().sum(0)),
+                              sum_ratio(dg, rdg, (g * xhat).abs().sum(0)))
+                d_ratio = elem_ratio(dx, fp32_dx(x, y, dy, A, B, C0, "relu"),
+                                     RN_RTOL[dtype], dx_terms(x, g, A, B, C0))
+                if has_add:  # dz = g exactly
+                    d_ratio = max(d_ratio, elem_ratio(
+                        dz, rdz, 0.0, torch.zeros_like(g)))
+                errs = (max_err(y, ry), max(max_err(db, rdb),
+                                            max_err(dg, rdg)),
+                        max(max_err(dx, rdx), 0.0 if dz is None
+                            else max_err(dz, rdz)))
+                del g, xhat, rdx, rdz
+                isz = x.element_size()
+                nz = 1 if has_add else 0
+                shape = f"R={R} C={C} add={has_add}"
+                fb_b, fb_by = bound_ms((2 + nz) * R * C * isz + 8 * C,
+                                       4 * R * C, torch.float32)
+                rb_b, rb_by = bound_ms(3 * R * C * isz + 16 * C,
+                                       6 * R * C, torch.float32)
+                db_b, db_by = bound_ms((4 + nz) * R * C * isz + 12 * C,
+                                       5 * R * C, torch.float32)
+                # library: F.batch_norm (+ z) + ReLU on the NCHW-shaped
+                # channels-last view of the same memory, as a PyTorch
+                # ResNet in channels_last runs it
+                def cl(t):
+                    return t.view(N, H, W, C).permute(0, 3, 1, 2)
+
+                xl = x.detach().requires_grad_(True)
+                gl = gamma.to(dtype).detach().requires_grad_(True)
+                bl = beta.to(dtype).detach().requires_grad_(True)
+                z4 = cl(z) if has_add else None
+
+                def lib_fwd():
+                    o = tF.batch_norm(cl(xl), None, None, gl, bl, True, 0.1,
+                                      1e-5)
+                    return torch.relu(o + z4 if has_add else o)
+
+                lib_out = lib_fwd()
+                lib_f = cuda_ms(lambda: lib_fwd().detach(), iters=5, reps=3,
+                                graph=False)
+                lib_b = cuda_ms(lambda: torch.autograd.grad(
+                    lib_out, (xl, gl, bl), cl(dy), retain_graph=True),
+                    iters=5, reps=3, graph=False)
+                common = dict(dtype=str(dtype)[6:], shape=shape)
+                rows.append(dict(
+                    kernel="fused_bn_fwd", max_abs_err=errs[0],
+                    tol_ratio=f_ratio,
+                    ms=cuda_ms(lambda: fb.bn_act_fwd(x, z, k, c, "relu"),
+                               iters=5, reps=3),
+                    plain_ms=cuda_ms(lambda: fb.bn_act_fwd_plain(
+                        x, z, k, c, "relu"), iters=5, reps=3),
+                    library_ms=lib_f, bound_ms=fb_b, bound_by=fb_by,
+                    **common))
+                rows.append(dict(
+                    kernel="fused_bn_bwd_reduce", max_abs_err=errs[1],
+                    tol_ratio=r_ratio,
+                    ms=cuda_ms(lambda: fb.bn_bwd_reduce(
+                        x, y, dy, mean, inv, "relu"), iters=5, reps=3),
+                    plain_ms=cuda_ms(lambda: fb.bn_bwd_reduce_plain(
+                        x, y, dy, mean, inv, "relu"), iters=5, reps=3),
+                    library_ms=lib_b, bound_ms=rb_b, bound_by=rb_by,
+                    **common))
+                rows.append(dict(
+                    kernel="fused_bn_bwd_dx", max_abs_err=errs[2],
+                    tol_ratio=d_ratio,
+                    ms=cuda_ms(lambda: fb.bn_bwd_dx(
+                        x, y, dy, A, B, C0, "relu", has_add), iters=5,
+                        reps=3),
+                    plain_ms=cuda_ms(lambda: fb.bn_bwd_dx_plain(
+                        x, y, dy, A, B, C0, "relu", has_add), iters=5,
+                        reps=3),
+                    library_ms=lib_b, bound_ms=db_b, bound_by=db_by,
+                    **common))
+                del x, z, dy, y, dx, dz, lib_out, xl
+                torch.cuda.empty_cache()
+    return rows
+
+
+def check_conv1x1(dev, gen, shapes):
+    """The 1x1 conv + statistics kernel against its plain version: y per
+    element to its dtype's rtol of |y| plus 1e-5 of the sum of its
+    products' magnitudes (|x| @ |w|^T: the fp32 sums run in another
+    order), and sum / sumsq to 1e-5 of the sums of |y| and y^2 of the
+    kernel's stored y. Library: the product alone, x @ w^T."""
+    from paddle_tpu_torch.ops.kernels import fused_conv_bn as fcb
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for R, Cin, Cout in shapes:
+            x = torch.randn(R, Cin, device=dev, generator=gen).to(dtype)
+            w = (torch.randn(Cout, Cin, device=dev, generator=gen)
+                 / Cin ** 0.5).to(dtype)
+            y, s, ss = fcb.conv1x1_stats(x, w)
+            torch.cuda.synchronize()
+            ratio, err = conv_ratio(x, w, y, s, ss, dtype)
+            isz = x.element_size()
+            bnd, by = bound_ms((R * Cin + Cout * Cin + R * Cout) * isz
+                               + 8 * Cout, 2 * R * Cin * Cout + 3 * R * Cout,
+                               dtype)
+            wt = w.t()
+            rows.append(dict(
+                kernel="conv1x1_stats", dtype=str(dtype)[6:],
+                shape=f"R={R} Cin={Cin} Cout={Cout}", max_abs_err=err,
+                tol_ratio=ratio,
+                ms=cuda_ms(lambda: fcb.conv1x1_stats(x, w), iters=5,
+                           reps=3),
+                plain_ms=cuda_ms(lambda: fcb.conv1x1_stats_plain(x, w),
+                                 iters=5, reps=3),
+                library_ms=cuda_ms(lambda: x @ wt, iters=5, reps=3),
+                bound_ms=bnd, bound_by=by))
+            del x, w, y
+            torch.cuda.empty_cache()
+    return rows
+
+
+def conv_ratio(x, w, y, s, ss, dtype):
+    """(worst error / tolerance, worst abs error) of one conv1x1_stats
+    result against the plain version on the same inputs."""
+    from paddle_tpu_torch.ops.kernels import fused_conv_bn as fcb
+    ry, _, _ = fcb.conv1x1_stats_plain(x, w)
+    ref32 = x.float() @ w.float().t()
+    terms = x.float().abs() @ w.float().abs().t()
+    tol = RN_RTOL[dtype] * ref32.abs() + SUM_RTOL * terms + 1e-30
+    ratio = float(((y.float() - ref32).abs() / tol).max())
+    yst = y.float()
+    ratio = max(ratio, sum_ratio(s, yst.sum(0), yst.abs().sum(0)),
+                sum_ratio(ss, (yst * yst).sum(0), (yst * yst).sum(0)))
+    err = max(max_err(y, ry), max_err(s, yst.sum(0)),
+              max_err(ss, (yst * yst).sum(0)))
+    return ratio, err
+
+
+def check_resnet_edges(dev, gen):
+    """Correctness only, beyond the main path's shapes: R = 1, R off every
+    tile, C from 8 to 2048 (13: the scalar route; 64 and 200: off the
+    TPU's 128-lane gate), the add and no-ReLU forms; the 1x1 conv with
+    R = 1, R off its 128/64-row tiles, Cin off its 32-deep k tile, Cout
+    off its 128/64 column tile, Cin < Cout and Cin > Cout. Returns
+    {kernel: worst error / tolerance}."""
+    from paddle_tpu_torch.ops.kernels import fused_bn as fb
+    from paddle_tpu_torch.ops.kernels import fused_conv_bn as fcb
+    worst = {"fused_bn_fwd": 0.0, "fused_bn_bwd_reduce": 0.0,
+             "fused_bn_bwd_dx": 0.0, "conv1x1_stats": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for R, C, has_add, act in ((1, 64, False, "relu"),
+                                   (3, 8, True, "relu"),
+                                   (1000, 200, True, "relu"),
+                                   (4097, 13, False, None),
+                                   (777, 2048, True, None),
+                                   (130, 64, False, "relu")):
+            x, z, dy, gamma, beta, mean, var, inv, k, c = _bn_case(
+                dev, gen, R, C, dtype, has_add)
+            y = fb.bn_act_fwd(x, z, k, c, act)
+            worst["fused_bn_fwd"] = max(worst["fused_bn_fwd"], elem_ratio(
+                y, fp32_fwd(x, z, k, c, act), RN_RTOL[dtype],
+                bn_fwd_terms(x, z, k, c)))
+            db, dg = fb.bn_bwd_reduce(x, y, dy, mean, inv, act)
+            g = dy.float() if act is None else torch.where(
+                y > 0, dy.float(), 0.0)
+            xhat = (x.float() - mean) * inv
+            rdb, rdg = fb.bn_bwd_reduce_plain(x, y, dy, mean, inv, act)
+            worst["fused_bn_bwd_reduce"] = max(
+                worst["fused_bn_bwd_reduce"],
+                sum_ratio(db, rdb, g.abs().sum(0)),
+                sum_ratio(dg, rdg, (g * xhat).abs().sum(0)))
+            A, B, C0 = inv * gamma, 0.3 * inv, -0.1 * mean
+            dx, dz = fb.bn_bwd_dx(x, y, dy, A, B, C0, act, has_add)
+            r = elem_ratio(dx, fp32_dx(x, y, dy, A, B, C0, act),
+                           RN_RTOL[dtype], dx_terms(x, g, A, B, C0))
+            if has_add:
+                r = max(r, elem_ratio(dz, g.to(dtype), 0.0,
+                                      torch.zeros_like(g)))
+            worst["fused_bn_bwd_dx"] = max(worst["fused_bn_bwd_dx"], r)
+        for R, Cin, Cout in ((1, 64, 64), (100, 8, 16), (300, 520, 72),
+                             (129, 2048, 512), (65, 64, 2048)):
+            x = torch.randn(R, Cin, device=dev, generator=gen).to(dtype)
+            w = (torch.randn(Cout, Cin, device=dev, generator=gen)
+                 / Cin ** 0.5).to(dtype)
+            y, s, ss = fcb.conv1x1_stats(x, w)
+            worst["conv1x1_stats"] = max(worst["conv1x1_stats"], conv_ratio(
+                x, w, y, s, ss, dtype)[0])
+    torch.cuda.synchronize()
+    return worst
+
+
 # ------------------------------ phase 4: serve ------------------------------
 
 
@@ -714,6 +1011,164 @@ def train_cross_check(cfg):
                 n_params=len(c["grads"]))
 
 
+# ------------------------------ phase 8: resnet ------------------------------
+
+RESNET_B, RESNET_HW = 128, 224
+#: launches per training step of ResNet-50 (NHWC, fused BN, fused 1x1
+#: conv + BN): the stem BN and 3 BNs in each of 16 bottlenecks take the
+#: fused BN forward, reduce and dx; every stride-1 1x1 conv of the
+#: bottlenecks (2 a block) the conv + statistics kernel; one loss. The
+#: four downsample BNs are the unfused composition.
+RESNET_PER_STEP = {"fused_bn_fwd": 49, "fused_bn_bwd_reduce": 49,
+                   "fused_bn_bwd_dx": 49, "conv1x1_stats": 32,
+                   "softmax_ce_fwd": 1, "softmax_ce_bwd": 1}
+#: bench.py's model FLOPs of a ResNet-50 step per 224x224 image:
+#: 3 * 4.09 GFLOP (forward plus a backward of twice the forward)
+RESNET_FLOPS_PER_IMAGE = 3 * 4.09e9
+
+
+def resnet_train(card, dev):
+    """bench.py's bench_resnet50 configuration, NHWC without remat:
+    ResNet-50 (fused BN, fused 1x1 conv + BN, 1000 classes) under
+    TrainStep(F.cross_entropy, Momentum(0.1, 0.9), amp_dtype=bfloat16) at
+    batch 128, 224x224, synthetic normal images and labels from seed 0."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.resnet import resnet50
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import kernels
+    model = resnet50(data_format="NHWC", device=dev,
+                     generator=torch.Generator().manual_seed(0))
+    opt = optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                             parameters=model.parameters())
+    step = TrainStep(model, F.cross_entropy, opt, amp_dtype=torch.bfloat16)
+    rng = np.random.default_rng(0)
+    imgs = torch.from_numpy(rng.normal(size=(
+        RESNET_B, 3, RESNET_HW, RESNET_HW)).astype(np.float32)).permute(
+            0, 2, 3, 1).contiguous().to(dev)
+    labels = torch.from_numpy(rng.integers(0, 1000, (RESNET_B,))).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(step(imgs, labels)) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    kernels.reset_stats()
+    times = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss = step(imgs, labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    stats = kernels.all_stats()
+    per_step = {k: v["kernel"] / TRAIN_STEPS for k, v in stats.items()}
+    step_ms = float(np.median(times)) * 1e3
+    flops = RESNET_FLOPS_PER_IMAGE * RESNET_B
+    res = dict(batch=RESNET_B, hw=RESNET_HW, steps=TRAIN_STEPS,
+               warmup=TRAIN_WARMUP, losses=losses, step_ms=step_ms,
+               step_ms_all=[t * 1e3 for t in times],
+               images_per_s=RESNET_B / (step_ms / 1e3), model_flops=flops,
+               mfu=flops / (step_ms / 1e3) / BF16_PEAK, launches=stats,
+               launches_per_step=per_step,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               card=card)
+    log(f"resnet: ResNet-50 NHWC O2 bf16 b{RESNET_B} {RESNET_HW}x"
+        f"{RESNET_HW}: step {step_ms:.2f} ms (median of {TRAIN_STEPS}), "
+        f"{res['images_per_s']:.1f} images/s, MFU {res['mfu']:.4f} "
+        f"(model FLOPs {flops:.4e} over {BF16_PEAK:.0e}), peak memory "
+        f"{res['peak_mem_gb']:.2f} GB [{card}]")
+    log(f"resnet: loss {' '.join(f'{x:.4f}' for x in losses)}")
+    log(f"resnet: launches per step {json.dumps(per_step)}")
+    for name, st in stats.items():
+        want = RESNET_PER_STEP.get(name, 0) * TRAIN_STEPS
+        if st["plain"] != 0 or st["kernel"] != want:
+            raise AssertionError(f"resnet: {name} counters {st}, want "
+                                 f"{want // TRAIN_STEPS} kernel launches a "
+                                 f"step and no plain run")
+    # the first update must lower the loss. Momentum(0.1, 0.9) without
+    # warm-up on one repeated batch then overshoots and the loss climbs
+    # back: the JAX package does the same on the CPU
+    # (tests/test_torch_resnet.py::test_resnet50_momentum_steps_overshoot_
+    # like_reference), so later steps are not held to fall
+    if not all(np.isfinite(losses)) or not losses[1] < losses[0]:
+        raise AssertionError(f"resnet: the loss did not fall: {losses}")
+    del step, model, opt, imgs
+    torch.cuda.empty_cache()
+    return res
+
+
+def resnet_cross_check(dev):
+    """One fp32 TrainStep of ResNet-50 (NHWC, 10 classes, Momentum(0.1,
+    0.9)) at B 2, 64x64 on the card and on the CPU (plain versions) from
+    the same weights.
+
+    At this size the network is ill-conditioned (layer4's batch norms see
+    8 rows and 16 bottlenecks amplify rounding), so the bounds are those of
+    tests/test_torch_resnet.py's whole-model case, which shows that the
+    port's own rounding noise passes them and a 10 % error in one term of
+    the fused BN backward fails them: the loss to 1e-3 of itself, the whole
+    gradient to 10 % and each parameter's gradient to 15 % in relative L2,
+    each parameter's update the same, and every running statistic to 1e-3
+    of its buffer's scale."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.resnet import resnet50
+    from paddle_tpu_torch.nn import functional as F
+    lr = 0.1
+    models = {"gpu": resnet50(num_classes=10, data_format="NHWC",
+                              device=dev,
+                              generator=torch.Generator().manual_seed(1))}
+    models["cpu"] = resnet50(num_classes=10, data_format="NHWC",
+                             device="cpu")
+    models["cpu"].load_state_dict({k: v.cpu() for k, v in
+                                   models["gpu"].state_dict().items()})
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.normal(size=(2, 64, 64, 3)).astype(np.float32))
+    y = torch.tensor([3, 7])
+    res = {}
+    for name, m in models.items():
+        dev = next(m.parameters()).device
+        p0 = {k: v.detach().cpu().clone() for k, v in m.named_parameters()}
+        step = TrainStep(m, F.cross_entropy, optimizer.Momentum(
+            learning_rate=lr, momentum=0.9, parameters=m.parameters()))
+        loss = step(x.to(dev), y.to(dev))
+        res[name] = dict(
+            loss=float(loss),
+            grads={k: s["velocity"].detach().cpu()
+                   for k, s in step.opt_state.items()},
+            moved={k: p0[k] - v.detach().cpu()
+                   for k, v in step.params.items()},
+            buffers={k: v.detach().cpu() for k, v in step.buffers.items()})
+    g, c = res["gpu"], res["cpu"]
+
+    def rel_l2(a, b):
+        return float((a - b).norm() / (b.norm() + 1e-30))
+
+    loss_err = abs(g["loss"] - c["loss"]) / abs(c["loss"])
+    leaf = max(rel_l2(g["grads"][k], c["grads"][k]) for k in c["grads"])
+    whole = (sum(float((g["grads"][k] - c["grads"][k]).norm()) ** 2
+                 for k in c["grads"])
+             / sum(float(c["grads"][k].norm()) ** 2 for k in c["grads"])
+             ) ** 0.5
+    moved = max(rel_l2(g["moved"][k], c["moved"][k]) for k in c["moved"])
+    buf = max(float((g["buffers"][k] - v).abs().max())
+              / (float(v.abs().max()) + 1e-30)
+              for k, v in c["buffers"].items())
+    zero = [k for k, v in g["grads"].items() if not v.abs().max() > 0]
+    log(f"resnet-cpu: loss card {g['loss']:.6f} cpu {c['loss']:.6f} "
+        f"(rel {loss_err:.3e}, tol 1e-3); gradients of {len(c['grads'])} "
+        f"parameters: whole rel L2 {whole:.3e} (tol 0.1), worst leaf "
+        f"{leaf:.3e} (tol 0.15); update worst leaf {moved:.3e} (tol "
+        f"0.15); {len(c['buffers'])} running statistics: worst "
+        f"{buf:.3e} of scale (tol 1e-3)")
+    if zero or not (loss_err <= 1e-3 and whole <= 0.1 and leaf <= 0.15
+                    and moved <= 0.15 and buf <= 1e-3):
+        raise AssertionError(f"resnet-cpu: card and CPU disagree (zero "
+                             f"gradients {zero})")
+    return dict(loss=g["loss"], loss_cpu=c["loss"], loss_rel_err=loss_err,
+                grad_rel_l2=whole, grad_rel_l2_worst_leaf=leaf,
+                update_rel_l2_worst_leaf=moved, buffer_err_over_scale=buf,
+                n_params=len(c["grads"]), n_buffers=len(c["buffers"]))
+
+
 # --------------------------------- main -------------------------------------
 
 
@@ -741,10 +1196,37 @@ KERNELS = {
         source="paddle_tpu_torch/csrc/softmax_ce.cu",
         replaces="paddle_tpu/ops/pallas/softmax_ce.py:233",
         main=("bfloat16", "N=8192 V=50304")),
+    "fused_bn_fwd": dict(
+        source="paddle_tpu_torch/csrc/fused_bn.cu",
+        replaces="paddle_tpu/ops/pallas/fused_bn.py:93",
+        main=("bfloat16", "R=1605632 C=64 add=False")),
+    "fused_bn_bwd_reduce": dict(
+        source="paddle_tpu_torch/csrc/fused_bn.cu",
+        replaces="paddle_tpu/ops/pallas/fused_bn.py:150",
+        main=("bfloat16", "R=1605632 C=64 add=False")),
+    "fused_bn_bwd_dx": dict(
+        source="paddle_tpu_torch/csrc/fused_bn.cu",
+        replaces="paddle_tpu/ops/pallas/fused_bn.py:189",
+        main=("bfloat16", "R=1605632 C=64 add=False")),
+    "conv1x1_stats": dict(
+        source="paddle_tpu_torch/csrc/fused_conv_bn.cu",
+        replaces="paddle_tpu/ops/pallas/fused_conv_bn.py:103",
+        main=("bfloat16", "R=100352 Cin=512 Cout=128")),
 }
 
+#: phases a caller may pick with --phases (all by default; the result
+#: lines are printed only when every phase ran)
+PHASES = ("kernels", "serve", "train", "resnet")
 
-def main():
+
+def main(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ", ".join(PHASES))
+    phases = set(ap.parse_args(argv).phases.split(","))
+    if not phases <= set(PHASES):
+        ap.error(f"unknown phases {sorted(phases - set(PHASES))}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
         return 2
@@ -775,62 +1257,87 @@ def main():
     log(f"build: kernels ready in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_native.last_build_seconds:.2f} s)")
 
-    # 3. kernels against their plain versions: serving shapes, then the
-    # training step's (b8 s1024 bf16)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    rows = (check_layer_norm(dev, gen, (32, 1024, TRAIN_B * TRAIN_L), 768)
-            + check_flash(dev, gen, (64, 512, 1024), 12, 64)
-            + check_flash(dev, gen, (TRAIN_L,), 12, 64, B=TRAIN_B,
-                          dtypes=(torch.bfloat16,))
-            + check_paged(dev, gen, 32, 12, 64, 16, 1024)
-            + check_flash_bwd(dev, gen, (128, 512, TRAIN_L), TRAIN_B, 12, 64)
-            + check_ce(dev, gen, TRAIN_B * TRAIN_L, 50304))
-    for r in rows:
-        r.setdefault("tol_ratio", r["max_abs_err"] / r.get("tol", 1.0))
-        lib = ("-" if r["library_ms"] is None
-               else f"{r['library_ms']:.4f}")
-        log(f"kernel {r['kernel']:<19} {r['dtype']:<8} {r['shape']:<30} "
-            f"err {r['max_abs_err']:.2e} (/tol {r['tol_ratio']:.3f})  "
-            f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
-            f"library_ms {lib} bound_ms {r['bound_ms']:.4f} "
-            f"({r['bound_by']}) [{smi}]")
-    bad = [r for r in rows if not r["tol_ratio"] <= 1.0]
-    if bad:
-        raise AssertionError(f"kernels disagree with their plain versions: "
-                             f"{bad}")
-    edges = check_edges(dev, gen)
-    log("edges: worst error / tolerance " + ", ".join(
-        f"{k} {v:.3f}" for k, v in edges.items()))
-    if not all(v <= 1.0 for v in edges.values()):
-        raise AssertionError(f"kernels disagree at their edges: {edges}")
+    # 3. kernels against their plain versions: serving shapes, the GPT
+    # training step's (b8 s1024 bf16) and the ResNet-50 step's (b128 224)
+    rows, edges = [], {}
+    if "kernels" in phases:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        rows = (check_layer_norm(dev, gen, (32, 1024, TRAIN_B * TRAIN_L),
+                                 768)
+                + check_flash(dev, gen, (64, 512, 1024), 12, 64)
+                + check_flash(dev, gen, (TRAIN_L,), 12, 64, B=TRAIN_B,
+                              dtypes=(torch.bfloat16,))
+                + check_paged(dev, gen, 32, 12, 64, 16, 1024)
+                + check_flash_bwd(dev, gen, (128, 512, TRAIN_L), TRAIN_B,
+                                  12, 64)
+                + check_ce(dev, gen, TRAIN_B * TRAIN_L, 50304)
+                + check_fused_bn(dev, gen, ((128, 112, 112, 64),
+                                            (128, 14, 14, 1024)))
+                + check_conv1x1(dev, gen, ((100352, 512, 128),
+                                           (6272, 512, 2048))))
+        for r in rows:
+            r.setdefault("tol_ratio", r["max_abs_err"] / r.get("tol", 1.0))
+            lib = ("-" if r["library_ms"] is None
+                   else f"{r['library_ms']:.4f}")
+            log(f"kernel {r['kernel']:<19} {r['dtype']:<8} "
+                f"{r['shape']:<30} err {r['max_abs_err']:.2e} (/tol "
+                f"{r['tol_ratio']:.3f})  kernel_ms {r['ms']:.4f} plain_ms "
+                f"{r['plain_ms']:.4f} library_ms {lib} bound_ms "
+                f"{r['bound_ms']:.4f} ({r['bound_by']}) [{smi}]")
+        bad = [r for r in rows if not r["tol_ratio"] <= 1.0]
+        if bad:
+            raise AssertionError(f"kernels disagree with their plain "
+                                 f"versions: {bad}")
+        edges = {**check_edges(dev, gen), **check_resnet_edges(dev, gen)}
+        log("edges: worst error / tolerance " + ", ".join(
+            f"{k} {v:.3f}" for k, v in edges.items()))
+        if not all(v <= 1.0 for v in edges.values()):
+            raise AssertionError(f"kernels disagree at their edges: {edges}")
 
-    # 4. serve GPT-2 small at full width
+    served = cpu_res = trained = train_cpu = resnet = resnet_cpu = None
     cfg = GPTConfig.gpt2_small()
     cfg.dropout = cfg.attn_dropout = 0.0
-    model = GPT(cfg, device=dev, generator=torch.Generator().manual_seed(0))
-    model.eval()
-    served, prompts = serve(model, cfg, smi)
+    if "serve" in phases:
+        # 4. serve GPT-2 small at full width
+        model = GPT(cfg, device=dev,
+                    generator=torch.Generator().manual_seed(0))
+        model.eval()
+        served, prompts = serve(model, cfg, smi)
+        # 5. cross-check on the CPU
+        cpu_res = cross_check(model, cfg, prompts)
+        del model
+        torch.cuda.empty_cache()
+    if "train" in phases:
+        # 6. train GPT-2 small at full width, O2 bf16, b8 s1024
+        trained = train(cfg, smi)
+        # 7. training cross-check on the CPU
+        train_cpu = train_cross_check(cfg)
+    if "resnet" in phases:
+        # 8. train ResNet-50 NHWC, O2 bf16, b128 224x224
+        resnet = resnet_train(smi, dev)
+        # 9. its cross-check on the CPU
+        resnet_cpu = resnet_cross_check(dev)
 
-    # 5. cross-check on the CPU
-    cpu_res = cross_check(model, cfg, prompts)
-    del model
-    torch.cuda.empty_cache()
-
-    # 6. train GPT-2 small at full width, O2 bf16, b8 s1024
-    trained = train(cfg, smi)
-
-    # 7. training cross-check on the CPU
-    train_cpu = train_cross_check(cfg)
-
-    # 8. report: launches from each path's own run (counters reset just
+    # 10. report: launches from each path's own run (counters reset just
     # before it); times at the main path's shape
+    result = dict(card=smi, capability=cap, checks=rows, edges=edges,
+                  serve=served, cpu_cross_check=cpu_res, train=trained,
+                  train_cpu_cross_check=train_cpu, resnet=resnet,
+                  resnet_cpu_cross_check=resnet_cpu)
+    if phases != set(PHASES):
+        with open(os.path.join(OUT_DIR, "chip_smoke_partial.json"),
+                  "w") as f:
+            json.dump(result, f, indent=1)
+        log(f"chip_smoke: ran {sorted(phases)} only; no result line")
+        return 0
     kern = []
     for kname, meta in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == kname]
         main_row = next(r for r in mine if (r["dtype"], r["shape"][
             :len(meta["main"][1])]) == meta["main"])
         by_path = {"serve": served["launches"][kname]["kernel"],
-                   "train": trained["launches"][kname]["kernel"]}
+                   "train": trained["launches"][kname]["kernel"],
+                   "resnet": resnet["launches"][kname]["kernel"]}
         kern.append(dict(
             name=kname, route="cuda", source=meta["source"],
             replaces=meta["replaces"], launches=sum(by_path.values()),
@@ -840,17 +1347,16 @@ def main():
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
             library_ms=main_row["library_ms"],
             shape=f"{main_row['shape']} {main_row['dtype']}"))
+    result["kernels"] = kern
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump(dict(card=smi, capability=cap, checks=rows, edges=edges,
-                       serve=served, cpu_cross_check=cpu_res, train=trained,
-                       train_cpu_cross_check=train_cpu, kernels=kern),
-                  f, indent=1)
+        json.dump(result, f, indent=1)
     print(json.dumps({"kernels": kern}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
     return 0
+
 
 if __name__ == "__main__":
     sys.exit(main())

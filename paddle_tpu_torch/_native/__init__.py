@@ -133,6 +133,15 @@ def _declare(lib: ctypes.CDLL):
     lib.pt_paged_attention.restype = i32
     lib.pt_paged_attention.argtypes = (
         [p, p, p, p, p, p, i64, i64] + [i32] * 5 + [f32, i32, p])
+    lib.pt_fused_bn_fwd.restype = i32
+    lib.pt_fused_bn_fwd.argtypes = [p] * 5 + [i64] + [i32] * 4 + [p]
+    lib.pt_fused_bn_bwd_reduce.restype = i32
+    lib.pt_fused_bn_bwd_reduce.argtypes = (
+        [p] * 7 + [i64, i32, i64, i32, i32, p])
+    lib.pt_fused_bn_bwd_dx.restype = i32
+    lib.pt_fused_bn_bwd_dx.argtypes = [p] * 8 + [i64] + [i32] * 4 + [p]
+    lib.pt_conv1x1_stats.restype = i32
+    lib.pt_conv1x1_stats.argtypes = [p] * 5 + [i64, i32, i32, i64, i32, p]
 
 
 def check(err: int, name: str) -> None:

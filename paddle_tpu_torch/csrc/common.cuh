@@ -34,6 +34,37 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// VEC consecutive elements at p (16-byte aligned when VEC > 1) as floats.
+template <typename T, int VEC>
+__device__ __forceinline__ void load_vec(const T* p, float* out) {
+  if constexpr (VEC == 1) {
+    out[0] = to_f32(p[0]);
+  } else {
+    static_assert(VEC * sizeof(T) == 16, "vector loads are 16 bytes");
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) out[j] = to_f32(e[j]);
+  }
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void store_vec(T* p, const float* in) {
+  if constexpr (VEC == 1) {
+    p[0] = from_f32<T>(in[0]);
+  } else {
+    uint4 raw;
+    T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) e[j] = from_f32<T>(in[j]);
+    *reinterpret_cast<uint4*>(p) = raw;
+  }
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
 // Raise a kernel's dynamic shared-memory cap when it needs more than the
 // default 48 KB (Hopper allows up to 227 KB per block).
 template <typename K>

@@ -34,32 +34,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-// VEC consecutive elements at p (16-byte aligned when VEC > 1) as floats.
-template <typename T, int VEC>
-__device__ __forceinline__ void load_vec(const T* p, float* out) {
-  if constexpr (VEC == 1) {
-    out[0] = pt::to_f32(p[0]);
-  } else {
-    static_assert(VEC * sizeof(T) == 16, "vector loads are 16 bytes");
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) out[j] = pt::to_f32(e[j]);
-  }
-}
-
-template <typename T, int VEC>
-__device__ __forceinline__ void store_vec(T* p, const float* in) {
-  if constexpr (VEC == 1) {
-    p[0] = pt::from_f32<T>(in[0]);
-  } else {
-    uint4 raw;
-    T* e = reinterpret_cast<T*>(&raw);
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) e[j] = pt::from_f32<T>(in[j]);
-    *reinterpret_cast<uint4*>(p) = raw;
-  }
-}
+using pt::load_vec;
+using pt::store_vec;
 
 // merge the running (max, sum of exp(x - max)) pair (m, s) with (m2, s2);
 // maxima start at -FLT_MAX, so no -inf - -inf can arise

@@ -41,22 +41,29 @@ def launch(name: str, entry: str, device: torch.device, *args) -> None:
         _native.check(getattr(lib, entry)(*args, stream), name)
 
 
+def _counters() -> dict:
+    """{kernel: its module's launch counter dict}; the backward kernels
+    have their own entries."""
+    from . import (flash_attention, fused_bn, fused_conv_bn, layer_norm,
+                   paged_attention, softmax_ce)
+    return {"layer_norm": layer_norm._stats,
+            "flash_attention": flash_attention._stats,
+            "flash_attention_bwd": flash_attention._bwd_stats,
+            "paged_attention": paged_attention._stats,
+            "softmax_ce_fwd": softmax_ce._stats,
+            "softmax_ce_bwd": softmax_ce._bwd_stats,
+            "fused_bn_fwd": fused_bn._stats,
+            "fused_bn_bwd_reduce": fused_bn._reduce_stats,
+            "fused_bn_bwd_dx": fused_bn._dx_stats,
+            "conv1x1_stats": fused_conv_bn._stats}
+
+
 def all_stats() -> dict:
-    """{kernel: its launch counters} for every kernel of the port; the
-    backward kernels have their own entries."""
-    from . import flash_attention, layer_norm, paged_attention, softmax_ce
-    return {"layer_norm": dict(layer_norm._stats),
-            "flash_attention": dict(flash_attention._stats),
-            "flash_attention_bwd": dict(flash_attention._bwd_stats),
-            "paged_attention": dict(paged_attention._stats),
-            "softmax_ce_fwd": dict(softmax_ce._stats),
-            "softmax_ce_bwd": dict(softmax_ce._bwd_stats)}
+    """{kernel: its launch counters} for every kernel of the port."""
+    return {name: dict(st) for name, st in _counters().items()}
 
 
 def reset_stats() -> None:
-    from . import flash_attention, layer_norm, paged_attention, softmax_ce
-    for st in (layer_norm._stats, flash_attention._stats,
-               flash_attention._bwd_stats, paged_attention._stats,
-               softmax_ce._stats, softmax_ce._bwd_stats):
+    for st in _counters().values():
         for key in st:
             st[key] = 0

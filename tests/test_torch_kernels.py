@@ -385,7 +385,9 @@ class TestPagedAttention:
         assert pa._stats["kernel"] == before["kernel"]
         assert set(kernels.all_stats()) == {
             "layer_norm", "flash_attention", "flash_attention_bwd",
-            "paged_attention", "softmax_ce_fwd", "softmax_ce_bwd"}
+            "paged_attention", "softmax_ce_fwd", "softmax_ce_bwd",
+            "fused_bn_fwd", "fused_bn_bwd_reduce", "fused_bn_bwd_dx",
+            "conv1x1_stats"}
 
     @pytest.mark.parametrize("case", ["fp16", "bt_int64", "ctx_shape",
                                       "pool_strided", "D_big", "q_heads"])

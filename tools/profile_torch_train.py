@@ -59,18 +59,19 @@ GROUPS = (
 )
 
 
-def _group(name: str) -> str:
+def _group(name: str, groups=GROUPS) -> str:
     low = name.lower()
-    for group, keys in GROUPS:
+    for group, keys in groups:
         if any(k in low for k in keys):
             return group
     return "other"
 
 
-def _device_summary(prof, wall_s, n_steps):
+def _device_summary(prof, wall_s, n_steps, groups=GROUPS):
     """Sums over the device-side events only (the CPU ops that launched
     them carry the same time and are skipped, so nothing counts twice).
-    One stream, so the sum is the busy time."""
+    One stream, so the sum is the busy time. ``groups``: (group, name
+    fragments) pairs, the first match wins."""
     by_name = {}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -78,14 +79,14 @@ def _device_summary(prof, wall_s, n_steps):
         t, c = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
     busy_us = sum(t for t, _ in by_name.values())
-    groups = {}
+    by_group = {}
     for k, (t, c) in by_name.items():
-        g = groups.setdefault(_group(k), [0.0, 0])
+        g = by_group.setdefault(_group(k, groups), [0.0, 0])
         g[0] += t
         g[1] += c
     per = max(1, n_steps)
     rows = sorted(((t, k, c) for k, (t, c) in by_name.items()), reverse=True)
-    gemms = [r for r in rows if _group(r[1]) == "gemm"]
+    gemms = [r for r in rows if _group(r[1], groups) == "gemm"]
     return dict(
         wall_ms=wall_s * 1e3 / per,
         device_busy_ms=busy_us / 1e3 / per if by_name else None,
@@ -93,7 +94,7 @@ def _device_summary(prof, wall_s, n_steps):
         device_ops_per_step=sum(c for _, c in by_name.values()) / per,
         groups={g: dict(device_ms=t / 1e3 / per, calls=c / per,
                         share=t / busy_us)
-                for g, (t, c) in sorted(groups.items(),
+                for g, (t, c) in sorted(by_group.items(),
                                         key=lambda kv: -kv[1][0])},
         gemm_kernels=[dict(name=k[:100], device_ms=t / 1e3 / per,
                            calls=c / per) for t, k, c in gemms[:10]],
