@@ -39,19 +39,20 @@ failure:
               amp_dtype=bfloat16) at batch 128, 224x224 (the JAX package's
               bench_resnet50 configuration, NHWC without remat): 2 warm-up
               steps, then timed steps on one batch; the first update must
-              lower the loss, each ResNet kernel must launch its expected
-              count per step
-              and no plain version may run; step ms, images/s and MFU;
-9. resnet-cpu - ResNet-50 in fp32 at batch 2, 64x64, one TrainStep on the
-              card and on the CPU: loss, gradients, parameters after the
-              step and running statistics must agree;
+              lower the loss and every loss stay finite and below 3 times
+              the first; each ResNet kernel must launch its expected count
+              per step and no plain version may run; step ms, images/s and
+              MFU;
+9. resnet-cpu - ResNet-50 in fp32 at batch 2, 64x64 and at batch 8,
+              128x128, one TrainStep on the card and on the CPU: loss,
+              gradients, parameters after the step and running statistics
+              must agree;
 10. report  - the `kernels` JSON line, the card's name and power limit, and
               the device JSON line last.
 
 Phase 3 also holds the ResNet kernels (fused BN forward, reduce and dx;
 1x1 conv + statistics) at the ResNet-50 shapes, fp32 and bf16, and at
-their edges. `--phases kernels,resnet` (for example) runs a subset and
-prints no result line.
+their edges.
 
 Numerics: float32 matrix products run in full fp32
 (torch.backends.cuda.matmul.allow_tf32 = False), so the card and the CPU
@@ -1085,29 +1086,36 @@ def resnet_train(card, dev):
                                  f"step and no plain run")
     # the first update must lower the loss. Momentum(0.1, 0.9) without
     # warm-up on one repeated batch then overshoots and the loss climbs
-    # back: the JAX package does the same on the CPU
+    # back: the JAX package does the same on the CPU at B 16, 64x64
     # (tests/test_torch_resnet.py::test_resnet50_momentum_steps_overshoot_
-    # like_reference), so later steps are not held to fall
-    if not all(np.isfinite(losses)) or not losses[1] < losses[0]:
-        raise AssertionError(f"resnet: the loss did not fall: {losses}")
+    # like_reference, where its loss peaks at 2.07 times its start), so
+    # later steps are held only to stay finite and below 3 times the start
+    if not (all(np.isfinite(losses)) and losses[1] < losses[0]
+            and max(losses) < 3 * losses[0]):
+        raise AssertionError(f"resnet: the loss did not fall after the "
+                             f"first step, or left its bound: {losses}")
     del step, model, opt, imgs
     torch.cuda.empty_cache()
     return res
 
 
-def resnet_cross_check(dev):
+def resnet_cross_check(dev, B, hw):
     """One fp32 TrainStep of ResNet-50 (NHWC, 10 classes, Momentum(0.1,
-    0.9)) at B 2, 64x64 on the card and on the CPU (plain versions) from
-    the same weights.
+    0.9)) at batch B, hw x hw on the card and on the CPU (plain versions)
+    from the same weights.
 
-    At this size the network is ill-conditioned (layer4's batch norms see
-    8 rows and 16 bottlenecks amplify rounding), so the bounds are those of
+    The fp32 step of this randomly initialised network is ill-conditioned
+    at every size tried (tests/test_torch_resnet.py::
+    test_resnet50_step_parity_is_fp32_limited: the port's gradient moves
+    1.5-2.7 % in relative L2 when the batch is only reordered, and most
+    leaves by more than 2e-3 of their scale), so the bounds are those of
     tests/test_torch_resnet.py's whole-model case, which shows that the
     port's own rounding noise passes them and a 10 % error in one term of
     the fused BN backward fails them: the loss to 1e-3 of itself, the whole
     gradient to 10 % and each parameter's gradient to 15 % in relative L2,
     each parameter's update the same, and every running statistic to 1e-3
-    of its buffer's scale."""
+    of its buffer's scale. Each leaf's max |card - cpu| / max |cpu| is
+    reported beside them."""
     from paddle_tpu_torch import optimizer
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models.resnet import resnet50
@@ -1121,8 +1129,8 @@ def resnet_cross_check(dev):
     models["cpu"].load_state_dict({k: v.cpu() for k, v in
                                    models["gpu"].state_dict().items()})
     rng = np.random.default_rng(1)
-    x = torch.from_numpy(rng.normal(size=(2, 64, 64, 3)).astype(np.float32))
-    y = torch.tensor([3, 7])
+    x = torch.from_numpy(rng.normal(size=(B, hw, hw, 3)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 10, B))
     res = {}
     for name, m in models.items():
         dev = next(m.parameters()).device
@@ -1148,23 +1156,33 @@ def resnet_cross_check(dev):
                  for k in c["grads"])
              / sum(float(c["grads"][k].norm()) ** 2 for k in c["grads"])
              ) ** 0.5
+    per_leaf = [float((g["grads"][k] - v).abs().max())
+                / (float(v.abs().max()) + 1e-30)
+                for k, v in c["grads"].items()]
     moved = max(rel_l2(g["moved"][k], c["moved"][k]) for k in c["moved"])
     buf = max(float((g["buffers"][k] - v).abs().max())
               / (float(v.abs().max()) + 1e-30)
               for k, v in c["buffers"].items())
     zero = [k for k, v in g["grads"].items() if not v.abs().max() > 0]
-    log(f"resnet-cpu: loss card {g['loss']:.6f} cpu {c['loss']:.6f} "
-        f"(rel {loss_err:.3e}, tol 1e-3); gradients of {len(c['grads'])} "
+    tag = f"resnet-cpu B {B} {hw}x{hw}"
+    log(f"{tag}: loss card {g['loss']:.6f} cpu {c['loss']:.6f} (rel "
+        f"{loss_err:.3e}, tol 1e-3); gradients of {len(c['grads'])} "
         f"parameters: whole rel L2 {whole:.3e} (tol 0.1), worst leaf "
         f"{leaf:.3e} (tol 0.15); update worst leaf {moved:.3e} (tol "
         f"0.15); {len(c['buffers'])} running statistics: worst "
         f"{buf:.3e} of scale (tol 1e-3)")
+    log(f"{tag}: per leaf, max |card - cpu| / max |cpu|: worst "
+        f"{max(per_leaf):.3e}, {sum(e > 2e-3 for e in per_leaf)} of "
+        f"{len(per_leaf)} leaves past 2e-3 (reported, not held)")
     if zero or not (loss_err <= 1e-3 and whole <= 0.1 and leaf <= 0.15
                     and moved <= 0.15 and buf <= 1e-3):
-        raise AssertionError(f"resnet-cpu: card and CPU disagree (zero "
+        raise AssertionError(f"{tag}: card and CPU disagree (zero "
                              f"gradients {zero})")
-    return dict(loss=g["loss"], loss_cpu=c["loss"], loss_rel_err=loss_err,
-                grad_rel_l2=whole, grad_rel_l2_worst_leaf=leaf,
+    return dict(batch=B, hw=hw, loss=g["loss"], loss_cpu=c["loss"],
+                loss_rel_err=loss_err, grad_rel_l2=whole,
+                grad_rel_l2_worst_leaf=leaf,
+                grad_max_err_over_scale_worst_leaf=max(per_leaf),
+                leaves_past_2e3=sum(e > 2e-3 for e in per_leaf),
                 update_rel_l2_worst_leaf=moved, buffer_err_over_scale=buf,
                 n_params=len(c["grads"]), n_buffers=len(c["buffers"]))
 
@@ -1214,19 +1232,7 @@ KERNELS = {
         main=("bfloat16", "R=100352 Cin=512 Cout=128")),
 }
 
-#: phases a caller may pick with --phases (all by default; the result
-#: lines are printed only when every phase ran)
-PHASES = ("kernels", "serve", "train", "resnet")
-
-
-def main(argv=None):
-    import argparse
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of " + ", ".join(PHASES))
-    phases = set(ap.parse_args(argv).phases.split(","))
-    if not phases <= set(PHASES):
-        ap.error(f"unknown phases {sorted(phases - set(PHASES))}")
+def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
         return 2
@@ -1259,64 +1265,57 @@ def main(argv=None):
 
     # 3. kernels against their plain versions: serving shapes, the GPT
     # training step's (b8 s1024 bf16) and the ResNet-50 step's (b128 224)
-    rows, edges = [], {}
-    if "kernels" in phases:
-        gen = torch.Generator(device=dev).manual_seed(0)
-        rows = (check_layer_norm(dev, gen, (32, 1024, TRAIN_B * TRAIN_L),
-                                 768)
-                + check_flash(dev, gen, (64, 512, 1024), 12, 64)
-                + check_flash(dev, gen, (TRAIN_L,), 12, 64, B=TRAIN_B,
-                              dtypes=(torch.bfloat16,))
-                + check_paged(dev, gen, 32, 12, 64, 16, 1024)
-                + check_flash_bwd(dev, gen, (128, 512, TRAIN_L), TRAIN_B,
-                                  12, 64)
-                + check_ce(dev, gen, TRAIN_B * TRAIN_L, 50304)
-                + check_fused_bn(dev, gen, ((128, 112, 112, 64),
-                                            (128, 14, 14, 1024)))
-                + check_conv1x1(dev, gen, ((100352, 512, 128),
-                                           (6272, 512, 2048))))
-        for r in rows:
-            r.setdefault("tol_ratio", r["max_abs_err"] / r.get("tol", 1.0))
-            lib = ("-" if r["library_ms"] is None
-                   else f"{r['library_ms']:.4f}")
-            log(f"kernel {r['kernel']:<19} {r['dtype']:<8} "
-                f"{r['shape']:<30} err {r['max_abs_err']:.2e} (/tol "
-                f"{r['tol_ratio']:.3f})  kernel_ms {r['ms']:.4f} plain_ms "
-                f"{r['plain_ms']:.4f} library_ms {lib} bound_ms "
-                f"{r['bound_ms']:.4f} ({r['bound_by']}) [{smi}]")
-        bad = [r for r in rows if not r["tol_ratio"] <= 1.0]
-        if bad:
-            raise AssertionError(f"kernels disagree with their plain "
-                                 f"versions: {bad}")
-        edges = {**check_edges(dev, gen), **check_resnet_edges(dev, gen)}
-        log("edges: worst error / tolerance " + ", ".join(
-            f"{k} {v:.3f}" for k, v in edges.items()))
-        if not all(v <= 1.0 for v in edges.values()):
-            raise AssertionError(f"kernels disagree at their edges: {edges}")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = (check_layer_norm(dev, gen, (32, 1024, TRAIN_B * TRAIN_L), 768)
+            + check_flash(dev, gen, (64, 512, 1024), 12, 64)
+            + check_flash(dev, gen, (TRAIN_L,), 12, 64, B=TRAIN_B,
+                          dtypes=(torch.bfloat16,))
+            + check_paged(dev, gen, 32, 12, 64, 16, 1024)
+            + check_flash_bwd(dev, gen, (128, 512, TRAIN_L), TRAIN_B, 12, 64)
+            + check_ce(dev, gen, TRAIN_B * TRAIN_L, 50304)
+            + check_fused_bn(dev, gen, ((128, 112, 112, 64),
+                                        (128, 14, 14, 1024)))
+            + check_conv1x1(dev, gen, ((100352, 512, 128),
+                                       (6272, 512, 2048))))
+    for r in rows:
+        r.setdefault("tol_ratio", r["max_abs_err"] / r.get("tol", 1.0))
+        lib = ("-" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f}")
+        log(f"kernel {r['kernel']:<19} {r['dtype']:<8} "
+            f"{r['shape']:<30} err {r['max_abs_err']:.2e} (/tol "
+            f"{r['tol_ratio']:.3f})  kernel_ms {r['ms']:.4f} plain_ms "
+            f"{r['plain_ms']:.4f} library_ms {lib} bound_ms "
+            f"{r['bound_ms']:.4f} ({r['bound_by']}) [{smi}]")
+    bad = [r for r in rows if not r["tol_ratio"] <= 1.0]
+    if bad:
+        raise AssertionError(f"kernels disagree with their plain versions: "
+                             f"{bad}")
+    edges = {**check_edges(dev, gen), **check_resnet_edges(dev, gen)}
+    log("edges: worst error / tolerance " + ", ".join(
+        f"{k} {v:.3f}" for k, v in edges.items()))
+    if not all(v <= 1.0 for v in edges.values()):
+        raise AssertionError(f"kernels disagree at their edges: {edges}")
 
-    served = cpu_res = trained = train_cpu = resnet = resnet_cpu = None
+    # 4. serve GPT-2 small at full width
     cfg = GPTConfig.gpt2_small()
     cfg.dropout = cfg.attn_dropout = 0.0
-    if "serve" in phases:
-        # 4. serve GPT-2 small at full width
-        model = GPT(cfg, device=dev,
-                    generator=torch.Generator().manual_seed(0))
-        model.eval()
-        served, prompts = serve(model, cfg, smi)
-        # 5. cross-check on the CPU
-        cpu_res = cross_check(model, cfg, prompts)
-        del model
-        torch.cuda.empty_cache()
-    if "train" in phases:
-        # 6. train GPT-2 small at full width, O2 bf16, b8 s1024
-        trained = train(cfg, smi)
-        # 7. training cross-check on the CPU
-        train_cpu = train_cross_check(cfg)
-    if "resnet" in phases:
-        # 8. train ResNet-50 NHWC, O2 bf16, b128 224x224
-        resnet = resnet_train(smi, dev)
-        # 9. its cross-check on the CPU
-        resnet_cpu = resnet_cross_check(dev)
+    model = GPT(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    model.eval()
+    served, prompts = serve(model, cfg, smi)
+    # 5. cross-check on the CPU
+    cpu_res = cross_check(model, cfg, prompts)
+    del model
+    torch.cuda.empty_cache()
+    # 6. train GPT-2 small at full width, O2 bf16, b8 s1024
+    trained = train(cfg, smi)
+    # 7. training cross-check on the CPU
+    train_cpu = train_cross_check(cfg)
+    # 8. train ResNet-50 NHWC, O2 bf16, b128 224x224
+    resnet = resnet_train(smi, dev)
+    # 9. its cross-check on the CPU, at the size of the CPU tests and at one
+    # where layer4's batch norms see 128 rows
+    resnet_cpu = [resnet_cross_check(dev, B, hw)
+                  for B, hw in ((2, 64), (8, 128))]
 
     # 10. report: launches from each path's own run (counters reset just
     # before it); times at the main path's shape
@@ -1324,12 +1323,6 @@ def main(argv=None):
                   serve=served, cpu_cross_check=cpu_res, train=trained,
                   train_cpu_cross_check=train_cpu, resnet=resnet,
                   resnet_cpu_cross_check=resnet_cpu)
-    if phases != set(PHASES):
-        with open(os.path.join(OUT_DIR, "chip_smoke_partial.json"),
-                  "w") as f:
-            json.dump(result, f, indent=1)
-        log(f"chip_smoke: ran {sorted(phases)} only; no result line")
-        return 0
     kern = []
     for kname, meta in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == kname]

@@ -12,8 +12,10 @@ namespace pt {
 // [nrows, ncols] a reduction kernel wrote one row per block: blocks of
 // 32 x 32 threads, thread (tx, ty) sums rows ty, ty + 32, ... of column
 // blockIdx.x * 32 + tx, then thread ty = 0 adds the 32 sums in order, so
-// the result does not depend on scheduling.
-static __global__ void __launch_bounds__(1024)
+// the result does not depend on scheduling. `Tag` only names the caller
+// in the kernel's symbol, so a profile can tell the callers' passes apart.
+template <typename Tag>
+__global__ void __launch_bounds__(1024)
     column_sums_kernel(const float* __restrict__ part, float* __restrict__ out,
                        int64_t nrows, int64_t ncols) {
   __shared__ float sh[32][33];
@@ -37,11 +39,12 @@ static __global__ void __launch_bounds__(1024)
   }
 }
 
+template <typename Tag>
 inline void launch_column_sums(const float* part, float* out, int64_t nrows,
                                int64_t ncols, cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>((ncols + 31) / 32));
-  column_sums_kernel<<<grid, dim3(32, 32), 0, stream>>>(part, out, nrows,
-                                                        ncols);
+  column_sums_kernel<Tag><<<grid, dim3(32, 32), 0, stream>>>(part, out,
+                                                             nrows, ncols);
 }
 
 }  // namespace pt

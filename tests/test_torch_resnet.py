@@ -16,9 +16,10 @@ Tolerances:
   rtol 1e-5 of each tensor's largest magnitude (sums in another order);
 - fp32 gradients: 2e-3 of each leaf's largest |g| (cotangents summed in
   another order);
-- the whole ResNet-50 step, whose conditioning at B 2, 64x64 is far worse
-  than one rounding, in relative L2, between the port's own rounding noise
-  and a 10 % backward error: see its test;
+- the whole ResNet-50 step, whose fp32 gradient moves by several per cent
+  when the batch is only reordered (in either package, at every size
+  tried), in relative L2, between the port's own rounding noise and a
+  10 % backward error: see its test;
 - bf16: one rounding, 2^-8 of each tensor's largest magnitude, where both
   packages round the same fp32 values; a bottleneck block in bf16, where
   each package rounds its activations at its own points and three batch
@@ -528,16 +529,20 @@ def test_resnet50_train_step_matches_reference(monkeypatch):
     from its velocity, which after one step is the gradient), every
     parameter after the step and every running statistic.
 
-    At this size the network is ill-conditioned: layer4's batch norms see
-    8 rows, and 16 bottlenecks amplify rounding, so the gradient is held
-    in relative L2: the loss to 1e-3 of itself, the whole gradient to 10 %
-    and each leaf to 15 %, each parameter's update the same, the running
-    statistics to 1e-3 of each buffer's scale. The test also measures what
-    those bounds sit between: the port's own rounding noise (the same
-    batch in the other order, the same function summed in another order)
-    must pass them, and a 10 % error in one term of the fused BN backward
-    must fail them. Per-element gradient parity (2e-3 of a leaf's scale)
-    is held at block level, above."""
+    The fp32 step of this randomly initialised network is ill-conditioned
+    at every size tried, not only at this one: either package's gradient
+    moves by several per cent in relative L2 when the batch is merely
+    reordered, and most leaves move by more than 2e-3 of their scale (see
+    test_resnet50_step_parity_is_fp32_limited for the readings at B 2 and
+    8, 64x64 and 128x128). So the gradient is held in relative L2: the
+    loss to 1e-3 of itself, the whole gradient to 10 % and each leaf to
+    15 %, each parameter's update the same, the running statistics to 1e-3
+    of each buffer's scale. The test also measures what those bounds sit
+    between: the port's own rounding noise (the same batch in the other
+    order, the same function summed in another order) must pass them, and
+    a 10 % error in one term of the fused BN backward must fail them.
+    Per-element gradient parity (2e-3 of a leaf's scale) is held at block
+    level, above."""
     paddle.seed(0)
     jm = jresnet.resnet50(num_classes=10, data_format="NHWC")
     arrays = _export(jm)
@@ -592,14 +597,96 @@ def test_resnet50_train_step_matches_reference(monkeypatch):
     assert m_whole > 0.10 or m_leaf > 0.15
 
 
+def _leaf_readings(a, b):
+    """(whole relative L2, worst leaf's relative L2, worst leaf's
+    max |a - b| / max |b|, leaves whose max |a - b| passes 2e-3 of their
+    max |b|) of gradients {name: array} a against b."""
+    whole, leaf = _grad_gaps(a, b)
+    scaled = [float(np.abs(_np(a[k]) - _np(v)).max()
+                    / max(float(np.abs(_np(v)).max()), 1e-30))
+              for k, v in b.items()]
+    return whole, leaf, max(scaled), sum(x > GRAD_TOL for x in scaled)
+
+
+@pytest.mark.slow  # two whole-model steps of each package at each size;
+# the fast sibling is test_resnet50_train_step_matches_reference
+@pytest.mark.parametrize("B,hw", [(2, 64), (8, 64), (2, 128), (8, 128)])
+def test_resnet50_step_parity_is_fp32_limited(B, hw, monkeypatch):
+    """Why the whole-model case holds its gradient in relative L2 and not
+    to GRAD_TOL per leaf, at sizes where layer4's batch norms see 8 to 128
+    rows. Each package's fp32 gradient is read against the same package's
+    step on the batch in the other order, and the port's against its own
+    fp64 step (every plain version run in fp64). The readings are printed
+    (run with -s); the test holds the port-to-reference gap, in relative
+    L2, within 1.5 times the two packages' own batch-order noise, and
+    holds that the reference misses GRAD_TOL per leaf against itself in
+    most leaves. When that last check fails, the reference has become
+    well-conditioned and the whole-model case should hold GRAD_TOL per
+    leaf again."""
+    paddle.seed(0)
+    jm = jresnet.resnet50(num_classes=10, data_format="NHWC")
+    arrays = _export(jm)
+    rng = np.random.default_rng(14)
+    x = rng.normal(size=(B, hw, hw, 3)).astype(np.float32)
+    y = (np.arange(B) * 4 + 3).astype(np.int32) % 10
+    xr, yr = x[::-1].copy(), y[::-1].copy()
+
+    def ref(xx, yy):
+        paddle.seed(0)
+        m = jresnet.resnet50(num_classes=10, data_format="NHWC")
+        st = JTrainStep(m, JF.cross_entropy, jopt.Momentum(
+            learning_rate=0.1, momentum=0.9, parameters=m.parameters()))
+        st(paddle.to_tensor(xx), paddle.to_tensor(yy))
+        return {k: s["velocity"] for k, s in st.opt_state.items()}
+
+    jg, jrg = ref(x, y), ref(xr, yr)
+    tg = _port_resnet50_step(arrays, x, y, 0.1)[2]
+    trg = _port_resnet50_step(arrays, xr, yr, 0.1)[2]
+    tm = tresnet.resnet50(num_classes=10, data_format="NHWC", device="cpu")
+    load_numpy_params(tm, arrays)
+    tm.to(torch.float64)
+    st64 = jit.TrainStep(tm, F.cross_entropy, optimizer.Momentum(
+        learning_rate=0.1, momentum=0.9, parameters=tm.parameters()))
+    as_fp32 = torch.Tensor.float
+    monkeypatch.setattr(torch.Tensor, "float", lambda t, *a, **k: t if
+                        t.dtype == torch.float64 else as_fp32(t, *a, **k))
+    st64(torch.from_numpy(x).double(), torch.from_numpy(y.astype(np.int64)))
+    monkeypatch.undo()
+    g64 = {k: s["velocity"].double().numpy() for k, s in
+           st64.opt_state.items()}
+    assert all(s["velocity"].dtype == torch.float64
+               for s in st64.opt_state.values())
+    readings = {
+        "port vs reference": _leaf_readings(tg, jg),
+        "reference vs itself, batch reversed": _leaf_readings(jrg, jg),
+        "port vs itself, batch reversed": _leaf_readings(trg, tg),
+        "port fp32 vs port fp64": _leaf_readings(
+            {k: _np(v).astype(np.float64) for k, v in tg.items()}, g64),
+        "reference fp32 vs port fp64": _leaf_readings(
+            {k: _np(v).astype(np.float64) for k, v in jg.items()}, g64)}
+    print(f"\nB {B}, {hw}x{hw}, layer4 BNs over {B * (hw // 32) ** 2} rows:")
+    for what, (whole, leaf, worst, over) in readings.items():
+        print(f"  {what}: relative L2 {whole:.4f} whole, {leaf:.4f} worst "
+              f"leaf; worst leaf {worst:.4f} of its scale; {over} of "
+              f"{len(jg)} leaves past {GRAD_TOL} of their scale")
+    gap = readings["port vs reference"]
+    noise = [a + b for a, b in zip(
+        readings["reference vs itself, batch reversed"],
+        readings["port vs itself, batch reversed"])]
+    assert gap[0] <= 1.5 * noise[0] and gap[1] <= 1.5 * noise[1]
+    assert readings["reference vs itself, batch reversed"][3] > len(jg) // 2
+
+
 @pytest.mark.slow  # eight whole-model steps of each package; the fast
 # sibling is test_resnet50_train_step_matches_reference
 def test_resnet50_momentum_steps_overshoot_like_reference():
     """bench_resnet50's optimizer, Momentum(0.1, 0.9) without warm-up, on
     one repeated batch (B 16, 64x64, fp32, 1000 classes): in both packages
     the first update lowers the loss and a later one raises it above the
-    start again. The trajectories part after two steps (the net is
-    chaotic, see above), so only that shape is held."""
+    start again, and none climbs to 3 times the start (the bound
+    chip_smoke.py holds the card's b128 run to). The trajectories part
+    after two steps (the net is chaotic, see above), so only that shape is
+    held."""
     paddle.seed(0)
     jm = jresnet.resnet50(data_format="NHWC")
     tm = tresnet.resnet50(data_format="NHWC", device="cpu")
@@ -617,7 +704,7 @@ def test_resnet50_momentum_steps_overshoot_like_reference():
         y.astype(np.int64)))) for _ in range(8)]
     print("reference", jl, "\nport", tl)
     for losses in (jl, tl):
-        assert losses[1] < losses[0] < max(losses[2:])
+        assert losses[1] < losses[0] < max(losses[2:]) < 3 * losses[0]
 
 
 def test_o2_train_step_keeps_buffers_fp32_and_advancing():

@@ -16,7 +16,8 @@ activities), a window of steps:
   times on the one stream) and the idle share 1 - busy / wall;
 * device time per group: the cuDNN convolutions (3x3, 7x7, strided and
   the downsample 1x1s, forward and backward), the 1x1 conv + statistics
-  kernel, the fused-BN kernels, the softmax-CE kernels, the matrix
+  kernel and its column-sum pass, the fused-BN kernels (the reduce with
+  its column-sum pass), the softmax-CE kernels, the matrix
   products (the 1x1 chain's dx and dw), pooling, the optimizer's
   multi-tensor update, other elementwise and reduction kernels, copies;
 * the top kernels, and each hand-written kernel's launches per step;
@@ -50,10 +51,11 @@ WARMUP, WINDOW = 2, 3
 
 #: device-kernel name fragments -> group (first match wins)
 GROUPS = (
+    # each kernel's second pass, column_sums_kernel<tag>, goes with it
     ("conv1x1 + stats (kernel)", ("conv1x1_bf16_kernel",
-                                  "conv1x1_f32_kernel")),
+                                  "conv1x1_f32_kernel", "conv1x1_sums")),
     ("fused BN forward (kernel)", ("bn_fwd_kernel",)),
-    ("fused BN reduce (kernel)", ("bn_reduce_kernel", "column_sums")),
+    ("fused BN reduce (kernel)", ("bn_reduce_kernel", "bn_reduce_sums")),
     ("fused BN dx (kernel)", ("bn_dx_kernel",)),
     ("softmax CE (kernels)", ("ce_fwd_kernel", "ce_bwd_kernel")),
     ("conv (cuDNN)", ("fprop", "dgrad", "wgrad", "conv", "cudnn",
