@@ -10,7 +10,11 @@ failure:
 2. build    - build the hand-written kernels from csrc/ (timed);
 3. kernels  - each kernel against its plain PyTorch version on the card, at
               the serving and training paths' shapes, fp32 and bf16, with
-              kernel, plain, library and bound times; then, for correctness
+              kernel, plain, library and bound times (the long path's layer
+              norm, CE, flash forward and split backward's pair at its
+              B 1 x 32,768 too, the attention plain versions one head at a
+              time, the pair also against the one-pass kernel and twice,
+              bit for bit); then, for correctness
               only, at the edges each kernel claims (ragged tails, Lk != Lq,
               D 8-128, ctx 0 and page boundaries, N up to 4096, V off the
               vector width, labels out of range);
@@ -47,7 +51,20 @@ failure:
               128x128, one TrainStep on the card and on the CPU: loss,
               gradients, parameters after the step and running statistics
               must agree;
-10. report  - the `kernels` JSON line, the card's name and power limit, and
+10. long    - GPT-2 small at full width on one 32,768-token sequence
+              (max_position_embeddings 32,768, remat "full"), trained by
+              the same TrainStep and AdamW: one warm-up step, then timed
+              steps; the attention backward is the split dq / dk-dv pair;
+              exact launches per step, no plain run, the first update must
+              lower the loss; step ms, tokens/s, MFU and peak memory;
+11. remat   - a 2-layer GPT-2 small at L 32,768, one step at each remat
+              mode from the same weights: losses and gradients agree with
+              remat "" and "full" peaks below "";
+12. resnet-recompute - one ResNet-50 O2 step at b128 224x224 with
+              recompute=True against the same step without it: the loss,
+              every gradient and the running statistics (moved once)
+              agree;
+13. report  - the `kernels` JSON line, the card's name and power limit, and
               the device JSON line last.
 
 Phase 3 also holds the ResNet kernels (fused BN forward, reduce and dx;
@@ -61,6 +78,7 @@ compute the same function. Needs one card and imports no JAX.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -290,6 +308,293 @@ def check_flash_bwd(dev, gen, lengths, B, H, D):
     return rows
 
 
+#: the long-context path's attention: GPT-2 small's heads at 32,768 tokens
+LONG_L, LONG_H, LONG_D = 32768, 12, 64
+
+
+def plain_by_head(f, *args, causal=True):
+    """f(*args, causal) run on one head at a time, every [B, L, H, D]
+    argument and [B, H, L] one cut to head h, and the outputs joined again
+    along the head axis. At L 32,768 one head's fp32 [L, L] scores take
+    4.3 GB and a plain backward holds four such tensors at once (about
+    18 GB); all twelve heads at once would need twelve times that."""
+    def cut(t, h):
+        return t[:, :, h:h + 1] if t.dim() == 4 else t[:, h:h + 1]
+    outs = [f(*(cut(t, h) for t in args), causal)
+            for h in range(args[0].shape[2])]
+    if isinstance(outs[0], torch.Tensor):
+        outs = [(o,) for o in outs]
+    joined = tuple(torch.cat(parts, dim=2 if parts[0].dim() == 4 else 1)
+                   for parts in zip(*outs))
+    return joined if len(joined) > 1 else joined[0]
+
+
+def event_ms(fn, reps=2):
+    """Mean time of fn() between two CUDA events, after one warm-up call:
+    for calls of tens of milliseconds or more, whose launch cost on the
+    host is small beside their device time and which allocate too much to
+    capture in a graph."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _split_bwd(fa, q, k, v, lse, delta, do, causal):
+    return (fa.flash_attention_bwd_dq(q, k, v, lse, delta, do, causal),
+            *fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal))
+
+
+def _split_plain(fa, q, k, v, lse, delta, do, causal):
+    """The split pair's plain versions on fp32 copies of the inputs, one
+    head at a time."""
+    args = [t.float() for t in (q, k, v)] + [lse, delta, do.float()]
+    return (plain_by_head(fa.flash_attention_bwd_dq_plain, *args,
+                          causal=causal),
+            *plain_by_head(fa.flash_attention_bwd_dkv_plain, *args,
+                           causal=causal))
+
+
+def _attention_inputs(dev, gen, B, Lq, Lk, H, D, dtype):
+    """q, k, v as strided views of one qkv tensor when Lq == Lk (as the
+    model passes them) and dO."""
+    if Lq == Lk:
+        q, k, v = torch.randn(B, Lq, 3, H, D, device=dev,
+                              generator=gen).to(dtype).unbind(2)
+    else:
+        q = torch.randn(B, Lq, H, D, device=dev, generator=gen).to(dtype)
+        k, v = torch.randn(B, Lk, 2, H, D, device=dev,
+                           generator=gen).to(dtype).unbind(2)
+    do = torch.randn(B, Lq, H, D, device=dev, generator=gen).to(dtype)
+    return q, k, v, do
+
+
+def split_bwd_bounds(B, L, H, D, isz):
+    """(dq, dk/dv) bound rows' (bytes, FLOPs) at causal length L: each reads
+    q, k, v, dO, lse and delta once and writes its outputs once; per causal
+    (q, k) pair the dq walk does three products of 2 * D operations (S, dP,
+    dS K), the dk/dv walk four (S, dP, P^T dO, dS^T Q): seven in all,
+    7 * B * H * L^2 * D operations."""
+    pairs = L * (L + 1) // 2
+    read = B * H * (4 * L * D * isz + 8 * L)
+    return ((read + B * H * L * D * isz, B * H * 6 * D * pairs),
+            (read + 2 * B * H * L * D * isz, B * H * 8 * D * pairs))
+
+
+def fp64_tile_ratio(q, k, v, lse, delta, do, got, T=64):
+    """Worst error / bwd_tol of the split pair's causal (dq, dk, dv) = got
+    against an fp64 computation from the same inputs (lse and delta
+    included), on the first, middle and last T-row q tiles (dq) and T-key
+    k tiles (dk, dv) of the first and last heads: a witness with another
+    summation order, since cuBLAS may add the fp32 plain version's products
+    in the kernels' own order (B 1)."""
+    L, H, D = q.shape[1], q.shape[2], q.shape[3]
+    scale = 1.0 / math.sqrt(D)
+    pos = torch.arange(L, device=q.device)
+    worst = 0.0
+    for h in (0, H - 1):
+        qh, kh, vh, doh = (t[0, :, h].double() for t in (q, k, v, do))
+        lh, dh = lse[0, h].double(), delta[0, h].double()
+        for t0 in (0, L // 2, L - T):
+            r = slice(t0, t0 + T)
+            p = torch.exp(qh[r] @ kh.T * scale - lh[r, None]).masked_fill(
+                pos[None, :] > pos[r, None], 0.0)
+            ds = p * (doh[r] @ vh.T - dh[r, None])
+            pairs = [(got[0][0, r, h], ds @ kh * scale)]
+            p = torch.exp(qh @ kh[r].T * scale - lh[:, None]).masked_fill(
+                pos[r][None, :] > pos[:, None], 0.0)
+            ds = p * (doh @ vh[r].T - dh[:, None])
+            pairs += [(got[1][0, r, h], ds.T @ qh * scale),
+                      (got[2][0, r, h], p.T @ doh)]
+            worst = max(worst, *(max_err(g, w) / bwd_tol(g.dtype, w)
+                                 for g, w in pairs))
+    return worst
+
+
+def check_flash_bwd_split(dev, gen):
+    """The split backward's dq and dk/dv kernels (called directly: the
+    model's gate sends them only L past 24,576 at D = 64).
+
+    Timed rows at B 1, H 12, D 64, causal: L 4,096 and the long path's
+    L 32,768, each held against the plain versions on the same inputs
+    (bwd_tol), run one head at a time (plain_by_head), and timed so. At
+    L 32,768 two more witnesses: fp64 tiles (fp64_tile_ratio), and the
+    one-pass kernel on the same inputs, dq to its atomic-order tolerance
+    (bwd_tol), dk and dv closer, since the two walks run the same tile
+    code (fp32 1e-6 and bf16 one rounding, 2^-8, of scale). Library: SDPA's backward (all three gradients) at the
+    same shape, summed device-kernel time. Each pair also runs twice and
+    must repeat bit for bit (no atomics)."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    rows = []
+    close = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -8}
+    for dtype in (torch.float32, torch.bfloat16):
+        for L in (4096, LONG_L):
+            B, H, D = 1, LONG_H, LONG_D
+            q, k, v, do = _attention_inputs(dev, gen, B, L, L, H, D, dtype)
+            out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+            delta = fa.attention_delta(out, do)
+            got = _split_bwd(fa, q, k, v, lse, delta, do, True)
+            again = _split_bwd(fa, q, k, v, lse, delta, do, True)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"split backward L={L} {dtype}: two "
+                                     f"runs differ")
+            del again
+            ref = _split_plain(fa, q, k, v, lse, delta, do, True)
+            ratios = [max_err(g, r) / bwd_tol(dtype, r)
+                      for g, r in zip(got, ref)]
+            errs = [max_err(g, r) for g, r in zip(got, ref)]
+            del ref
+            long = L == LONG_L
+            witness = [{}, {}]
+            if long:
+                one = fa.flash_attention_bwd_fused(q, k, v, lse, delta, do,
+                                                   True)
+                w = [max_err(got[0], one[0]) / bwd_tol(dtype, one[0])]
+                w += [max_err(g, r) / (close[dtype] * max(
+                    1.0, float(r.abs().max()))) for g, r in zip(got[1:],
+                                                                 one[1:])]
+                del one
+                f64 = fp64_tile_ratio(q, k, v, lse, delta, do, got)
+                witness = [{"one-pass kernel": w[0], "fp64 tiles": f64},
+                           {"one-pass kernel": max(w[1:]),
+                            "fp64 tiles": f64}]
+            del got
+            isz = q.element_size()
+            (qb, qf), (kb, kf) = split_bwd_bounds(B, L, H, D, isz)
+            n = (1, 3) if long else (5, 3)
+            ms_dq = cuda_ms(lambda: fa.flash_attention_bwd_dq(
+                q, k, v, lse, delta, do, True), iters=n[0], reps=n[1],
+                warmup=1)
+            ms_dkv = cuda_ms(lambda: fa.flash_attention_bwd_dkv(
+                q, k, v, lse, delta, do, True), iters=n[0], reps=n[1],
+                warmup=1)
+            fused_ms = (cuda_ms(lambda: fa.flash_attention_bwd_fused(
+                q, k, v, lse, delta, do, True), iters=n[0], reps=n[1],
+                warmup=1) if long else None)
+            leaves = [t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v)]
+            lib_ms = sdpa_bwd_ms(leaves, do.transpose(1, 2), n[1])
+            del leaves
+            torch.cuda.empty_cache()
+            plain = [event_ms(lambda: plain_by_head(
+                f, q, k, v, lse, delta, do), reps=1)
+                for f in (fa.flash_attention_bwd_dq_plain,
+                          fa.flash_attention_bwd_dkv_plain)]
+            shape = f"B={B} L={L} H={H} D={D} causal"
+            for name, err, ratio, wit, ms, pms, (nb, fl) in (
+                    ("flash_attention_bwd_dq", errs[0], ratios[0],
+                     witness[0], ms_dq, plain[0], (qb, qf)),
+                    ("flash_attention_bwd_dkv", max(errs[1:]),
+                     max(ratios[1:]), witness[1], ms_dkv, plain[1],
+                     (kb, kf))):
+                bnd, by = bound_ms(nb, fl, dtype)
+                rows.append(dict(
+                    kernel=name, dtype=str(dtype)[6:], shape=shape,
+                    max_abs_err=err, tol_ratio=ratio, ms=ms, plain_ms=pms,
+                    plain_shape=f"L={L}, one head at a time",
+                    library_ms=lib_ms, one_pass_ms=fused_ms, witnesses=wit,
+                    bound_ms=bnd, bound_by=by))
+            del q, k, v, do, out, lse, delta
+            torch.cuda.empty_cache()
+    return rows
+
+
+def check_flash_long(dev, gen):
+    """The flash forward at the long path's B 1, L 32,768, H 12, D 64,
+    causal, held against its plain version on the same inputs (TOL), run
+    and timed one head at a time (plain_by_head); SDPA's output on the
+    same inputs is a second witness (TOL: the same function, summed in
+    another order), and SDPA's forward the library time."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, _ = _attention_inputs(dev, gen, 1, LONG_L, LONG_L, LONG_H,
+                                       LONG_D, dtype)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+        ref_out, ref_lse = plain_by_head(fa.flash_attention_plain,
+                                         q.float(), k.float(), v.float())
+        err = max(max_err(out, ref_out), max_err(lse, ref_lse))
+        del ref_out, ref_lse
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                          SDPBackend.EFFICIENT_ATTENTION]):
+            wit = sdpa(qt, kt, vt, is_causal=True).transpose(1, 2)
+            lib_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True),
+                             iters=1, reps=3, warmup=1)
+        wit_err = max_err(out, wit)
+        ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, True), iters=1,
+                     reps=3, warmup=1)
+        del out, lse, wit
+        torch.cuda.empty_cache()
+        plain_ms = event_ms(lambda: plain_by_head(fa.flash_attention_plain,
+                                                  q, k, v), reps=1)
+        isz = q.element_size()
+        pairs = LONG_L * (LONG_L + 1) // 2
+        bnd, by = bound_ms(4 * LONG_L * LONG_H * LONG_D * isz
+                           + 4 * LONG_H * LONG_L,
+                           4 * LONG_H * LONG_D * pairs, dtype)
+        rows.append(dict(
+            kernel="flash_attention", dtype=str(dtype)[6:],
+            shape=f"B=1 L={LONG_L} H={LONG_H} D={LONG_D} causal",
+            max_abs_err=err, tol=TOL[dtype], ms=ms, plain_ms=plain_ms,
+            plain_shape=f"L={LONG_L}, one head at a time",
+            library_ms=lib_ms, one_pass_ms=None,
+            witnesses={"SDPA": wit_err / TOL[dtype]}, bound_ms=bnd,
+            bound_by=by))
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    return rows
+
+
+def sdpa_bwd_ms(leaves, do_t, reps):
+    """SDPA's causal backward on [B, H, L, D] leaves, summed device-kernel
+    time, through its flash or memory-efficient backend: the math
+    backend's fp32 scores do not fit at L 32,768."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                      SDPBackend.EFFICIENT_ATTENTION]):
+        out = torch.nn.functional.scaled_dot_product_attention(
+            *leaves, is_causal=True)
+    return cuda_ms(lambda: torch.autograd.grad(
+        out, leaves, do_t, retain_graph=True), iters=1, reps=reps,
+        graph=False)
+
+
+def check_split_edges(dev, gen):
+    """Correctness only: the split pair against its plain versions at
+    L 1, 63, 100, 1,024 and 4,096, causal and not, D 64 and 128, fp32 and
+    bf16, and at Lk != Lq (causal with the kv offset). Returns {kernel:
+    worst error / tolerance}."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    worst = {"flash_attention_bwd_dq": 0.0, "flash_attention_bwd_dkv": 0.0}
+    cases = [(L, L, c, D) for L in (1, 63, 100, 1024, 4096)
+             for c in (True, False) for D in (64, 128)]
+    cases += [(37, 130, True, 64), (100, 70, False, 64)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for Lq, Lk, causal, D in cases:
+            q, k, v, do = _attention_inputs(dev, gen, 1, Lq, Lk, 3, D, dtype)
+            out, lse = fa.flash_attention_fwd(q, k, v, causal)
+            delta = fa.attention_delta(out, do)
+            got = _split_bwd(fa, q, k, v, lse, delta, do, causal)
+            ref = _split_plain(fa, q, k, v, lse, delta, do, causal)
+            r = [max_err(g, w) / bwd_tol(dtype, w) for g, w in zip(got, ref)]
+            worst["flash_attention_bwd_dq"] = max(
+                worst["flash_attention_bwd_dq"], r[0])
+            worst["flash_attention_bwd_dkv"] = max(
+                worst["flash_attention_bwd_dkv"], *r[1:])
+    torch.cuda.synchronize()
+    return worst
+
+
 #: softmax CE dlogits, per element relative to the element's own size
 #: (nearly every dlogit is about |dnll| / V, far below the label column's
 #: |dnll|): fp32 1e-5 (expf and the product a few ulp from torch's); bf16
@@ -331,7 +636,10 @@ def _ce_inputs(dev, gen, N, V, dtype):
     return x, lab, dnll, lib_lab
 
 
-def check_ce(dev, gen, N, V):
+def check_ce(dev, gen, N, V, iters=5):
+    """Both CE kernels against their plain versions; `iters` calls in each
+    timed graph (fewer at the long path's N 32,768, where one fp32 plain
+    call holds some 30 GB)."""
     from paddle_tpu_torch.ops.kernels import softmax_ce as sce
     F = torch.nn.functional
     rows = []
@@ -359,22 +667,23 @@ def check_ce(dev, gen, N, V):
             kernel="softmax_ce_fwd", dtype=str(dtype)[6:],
             shape=f"N={N} V={V}", max_abs_err=fwd_err,
             tol_ratio=fwd_ratio,
-            ms=cuda_ms(lambda: sce.softmax_ce_fwd(x, lab), iters=5, reps=3),
+            ms=cuda_ms(lambda: sce.softmax_ce_fwd(x, lab), iters=iters,
+                       reps=3),
             plain_ms=cuda_ms(lambda: sce.softmax_ce_fwd_plain(x, lab),
-                             iters=5, reps=3),
+                             iters=iters, reps=3),
             library_ms=cuda_ms(lambda: F.cross_entropy(
-                x, lib_lab, reduction="none"), iters=5, reps=3),
+                x, lib_lab, reduction="none"), iters=iters, reps=3),
             bound_ms=fbnd, bound_by=fby))
         rows.append(dict(
             kernel="softmax_ce_bwd", dtype=str(dtype)[6:],
             shape=f"N={N} V={V}", max_abs_err=bwd_err,
             tol_ratio=bwd_ratio,
             ms=cuda_ms(lambda: sce.softmax_ce_bwd(x, lab, lse, dnll),
-                       iters=5, reps=3),
+                       iters=iters, reps=3),
             plain_ms=cuda_ms(lambda: sce.softmax_ce_bwd_plain(
-                x, lab, lse, dnll), iters=5, reps=3),
+                x, lab, lse, dnll), iters=iters, reps=3),
             library_ms=cuda_ms(lambda: torch.autograd.grad(
-                lib_out, xl, dnll, retain_graph=True), iters=5, reps=3,
+                lib_out, xl, dnll, retain_graph=True), iters=iters, reps=3,
                 graph=False),
             bound_ms=bbnd, bound_by=bby))
     return rows
@@ -1187,6 +1496,258 @@ def resnet_cross_check(dev, B, hw):
                 n_params=len(c["grads"]), n_buffers=len(c["buffers"]))
 
 
+# ------------------------------ phase 10: long ------------------------------
+
+LONG_WARMUP, LONG_STEPS = 1, 2
+#: launches per long-context step of GPT-2 small (12 layers) at remat
+#: "full": the forward's two layer norms a block and the final one, and one
+#: attention a block, then the backward's replay of every block (two layer
+#: norms and one attention each); the split backward's dq and dk/dv once a
+#: block; one loss. Every other kernel, the one-pass backward included,
+#: launches no time.
+LONG_PER_STEP = {"layer_norm": 25 + 24, "flash_attention": 12 + 12,
+                 "flash_attention_bwd_dq": 12, "flash_attention_bwd_dkv": 12,
+                 "softmax_ce_fwd": 1, "softmax_ce_bwd": 1}
+
+
+def long_config(layers=12, remat="full"):
+    """GPT-2 small at full width on one 32,768-token sequence: the
+    reference's training entry sets max_position_embeddings to the
+    sequence length itself (bench.py:503-504); dropout 0."""
+    from paddle_tpu_torch.models.gpt import GPTConfig
+    cfg = GPTConfig.gpt2_small()
+    cfg.max_position_embeddings = LONG_L
+    cfg.num_layers = layers
+    cfg.dropout = cfg.attn_dropout = 0.0
+    cfg.remat = remat
+    return cfg
+
+
+def long_batch(cfg, dev):
+    rng = np.random.default_rng(0)
+    return tuple(torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        1, LONG_L))).to(dev) for _ in range(2))
+
+
+def long_train(card, dev):
+    """GPT-2 small, remat "full", B 1 x 32,768, TrainStep(AdamW(1e-4, wd
+    0.01), amp_dtype=bfloat16): one warm-up step, then timed steps; exact
+    launches per step, no plain run, the first update lowers the loss."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import kernels
+    cfg = long_config()
+    model = GPT(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    opt = optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                          weight_decay=0.01)
+    step = TrainStep(model, F.cross_entropy, opt, amp_dtype=torch.bfloat16)
+    ids, labels = long_batch(cfg, dev)
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(step(ids, labels)) for _ in range(LONG_WARMUP)]
+    torch.cuda.synchronize()
+    kernels.reset_stats()
+    times = []
+    for _ in range(LONG_STEPS):
+        t0 = time.perf_counter()
+        loss = step(ids, labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    stats = kernels.all_stats()
+    per_step = {k: v["kernel"] / LONG_STEPS for k, v in stats.items()}
+    step_ms = float(np.median(times)) * 1e3
+    flops = model_flops(model, 1, LONG_L)
+    res = dict(batch=1, seq=LONG_L, layers=cfg.num_layers, remat=cfg.remat,
+               steps=LONG_STEPS, warmup=LONG_WARMUP, losses=losses,
+               step_ms=step_ms, step_ms_all=[t * 1e3 for t in times],
+               tokens_per_s=LONG_L / (step_ms / 1e3), model_flops=flops,
+               mfu=flops / (step_ms / 1e3) / BF16_PEAK, launches=stats,
+               launches_per_step=per_step,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               card=card)
+    log(f"long: GPT-2 small O2 bf16 remat full b1 s{LONG_L}: step "
+        f"{step_ms:.2f} ms (median of {LONG_STEPS}), "
+        f"{res['tokens_per_s']:.1f} tokens/s, MFU {res['mfu']:.4f} (model "
+        f"FLOPs {flops:.4e} over {BF16_PEAK:.0e}), peak memory "
+        f"{res['peak_mem_gb']:.2f} GB [{card}]")
+    log(f"long: loss {' '.join(f'{x:.4f}' for x in losses)}")
+    log(f"long: launches per step {json.dumps(per_step)}")
+    for name, st in stats.items():
+        want = LONG_PER_STEP.get(name, 0) * LONG_STEPS
+        if st["plain"] != 0 or st["kernel"] != want:
+            raise AssertionError(f"long: {name} counters {st}, want "
+                                 f"{want // LONG_STEPS} kernel launches a "
+                                 f"step and no plain run")
+    if not (all(np.isfinite(losses)) and losses[1] < losses[0]):
+        raise AssertionError(f"long: the first update did not lower the "
+                             f"loss, or a loss is not finite: {losses}")
+    del step, model, opt
+    torch.cuda.empty_cache()
+    return res
+
+
+#: a leaf that is not bit for bit the same across remat modes is held to
+#: 2^-7 of its largest magnitude: one or two bf16 roundings of its
+#: cotangent, where a sum taken in a varying order (atomics) rounds the
+#: bf16 gradient to the neighbouring value
+REMAT_REL = 2.0 ** -7
+
+
+def remat_equivalence(dev):
+    """A 2-layer GPT-2 small at full width and L 32,768, one O2 TrainStep
+    (AdamW) at each remat mode from the same weights: the loss and every
+    gradient against remat "" (bit for bit, or else within REMAT_REL,
+    reported), and the peak memory of each mode ("full" must be below
+    "")."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.nn import functional as F
+    cfg = long_config(layers=2, remat="")
+    model = GPT(cfg, device=dev, generator=torch.Generator().manual_seed(2))
+    ids, labels = long_batch(cfg, dev)
+    res = {}
+    for mode in ("", "dots", "full"):
+        model.cfg.remat = mode
+        step = TrainStep(model, F.cross_entropy, optimizer.AdamW(
+            learning_rate=1e-4, parameters=model.parameters(),
+            weight_decay=0.01), amp_dtype=torch.bfloat16)
+        grads = {}
+        apply_fn = step.optimizer.apply_fn
+
+        def record(p, g, state, **kw):
+            grads.update({k: v.clone() for k, v in g.items()})
+            return apply_fn(p, g, state, **kw)
+
+        step.optimizer.apply_fn = record
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss = float(step(ids, labels))
+        torch.cuda.synchronize()
+        res[mode] = dict(loss=loss, grads=grads, peak_gb=(
+            torch.cuda.max_memory_allocated() - base) / 1e9)
+        del step
+        torch.cuda.empty_cache()
+    ref = res[""]
+    out = {}
+    for mode in ("dots", "full"):
+        r = res[mode]
+        differ = [k for k, g in r["grads"].items()
+                  if not torch.equal(g, ref["grads"][k])]
+        worst = max([float((r["grads"][k] - ref["grads"][k]).abs().max())
+                     / float(ref["grads"][k].abs().max()) for k in differ],
+                    default=0.0)
+        out[mode] = dict(loss=r["loss"], loss_equal=r["loss"] == ref["loss"],
+                         leaves_not_bitwise=differ, worst_rel=worst,
+                         peak_gb=r["peak_gb"])
+        log(f"remat: {mode!r} vs '': loss {r['loss']:.6f} vs "
+            f"{ref['loss']:.6f}; {len(r['grads']) - len(differ)} of "
+            f"{len(r['grads'])} gradients bit for bit, the rest within "
+            f"{worst:.3e} of scale (tol {REMAT_REL:.3e}): {differ}")
+        if not (abs(r["loss"] - ref["loss"]) <= 1e-6 * abs(ref["loss"])
+                and worst <= REMAT_REL):
+            raise AssertionError(f"remat {mode!r} disagrees with no remat")
+    out[""] = dict(loss=ref["loss"], peak_gb=ref["peak_gb"])
+    log(f"remat: peak memory of the step above the resident state, 2 layers "
+        f"at L {LONG_L}: " + ", ".join(f"{m!r} {out[m]['peak_gb']:.3f} GB"
+                                   for m in ("", "dots", "full")))
+    if not out["full"]["peak_gb"] < out[""]["peak_gb"]:
+        raise AssertionError("remat: 'full' does not lower peak memory")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def resnet_recompute_check(dev):
+    """One ResNet-50 O2 step (NHWC, Momentum(0.1, 0.9)) at b128 224x224
+    with recompute=True against the same step without it, from the same
+    weights and batch: the loss to 1e-5 of itself and every running
+    statistic to 1e-5 of its buffer's scale (both come from the forward,
+    which is the same work; cuDNN may pick other algorithms between two
+    models); every statistic moved from its start (once: a second move
+    would take it 10 % further); every gradient, which the backward builds
+    from the replayed stages, bit for bit or else within REMAT_REL of its
+    leaf's scale (reported: cuDNN's weight-gradient sums may run in
+    another order)."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.resnet import resnet50
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import kernels
+    rng = np.random.default_rng(0)
+    imgs = torch.from_numpy(rng.normal(size=(
+        RESNET_B, 3, RESNET_HW, RESNET_HW)).astype(np.float32)).permute(
+            0, 2, 3, 1).contiguous().to(dev)
+    labels = torch.from_numpy(rng.integers(0, 1000, (RESNET_B,))).to(dev)
+    state = None
+    res = {}
+    for rc in (False, True):
+        model = resnet50(data_format="NHWC", device=dev, recompute=rc,
+                         generator=torch.Generator().manual_seed(0))
+        if state is None:
+            state = {k: v.clone() for k, v in model.state_dict().items()}
+        model.load_state_dict(state)
+        step = TrainStep(model, F.cross_entropy, optimizer.Momentum(
+            learning_rate=0.1, momentum=0.9, parameters=model.parameters()),
+            amp_dtype=torch.bfloat16)
+        grads = {}
+        apply_fn = step.optimizer.apply_fn
+
+        def record(p, g, st, **kw):
+            grads.update({k: v.clone() for k, v in g.items()})
+            return apply_fn(p, g, st, **kw)
+
+        step.optimizer.apply_fn = record
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_stats()
+        loss = float(step(imgs, labels))
+        torch.cuda.synchronize()
+        res[rc] = dict(loss=loss, grads=grads,
+                       buffers={k: v.clone() for k, v in
+                                step.buffers.items()},
+                       launches={k: v["kernel"] for k, v in
+                                 kernels.all_stats().items() if v["kernel"]},
+                       peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del step, model
+        torch.cuda.empty_cache()
+    a, b = res[False], res[True]
+    loss_rel = abs(b["loss"] - a["loss"]) / abs(a["loss"])
+    buf = max(float((b["buffers"][k] - v).abs().max())
+              / (float(v.abs().max()) + 1e-30)
+              for k, v in a["buffers"].items())
+    unmoved = [k for k, v in b["buffers"].items()
+               if torch.equal(v, state[k].to(v.device))]
+    if set(a["grads"]) != set(b["grads"]) or not a["grads"]:
+        raise AssertionError("resnet-recompute: the two steps' gradients "
+                             "name different leaves")
+    differ = [k for k, g in b["grads"].items()
+              if not torch.equal(g, a["grads"][k])]
+    grad_rel = max([float((b["grads"][k] - a["grads"][k]).abs().max())
+                    / (float(a["grads"][k].abs().max()) + 1e-30)
+                    for k in differ], default=0.0)
+    log(f"resnet-recompute: loss {b['loss']:.6f} vs {a['loss']:.6f} (rel "
+        f"{loss_rel:.3e}, tol 1e-5); {len(b['grads']) - len(differ)} of "
+        f"{len(b['grads'])} gradients bit for bit, the rest within "
+        f"{grad_rel:.3e} of scale (tol {REMAT_REL:.3e}); running statistics "
+        f"worst {buf:.3e} of scale (tol 1e-5), {len(unmoved)} unmoved; peak "
+        f"memory {b['peak_gb']:.2f} GB vs {a['peak_gb']:.2f} GB; launches "
+        f"{json.dumps(b['launches'])}")
+    if unmoved or not (loss_rel <= 1e-5 and buf <= 1e-5
+                       and grad_rel <= REMAT_REL):
+        raise AssertionError(f"resnet-recompute: the step disagrees with "
+                             f"no recompute (unmoved {unmoved}, gradients "
+                             f"not bit for bit {differ})")
+    return dict(loss=b["loss"], loss_no_recompute=a["loss"],
+                loss_rel_err=loss_rel, buffer_err_over_scale=buf,
+                grads_not_bitwise=differ, grad_err_over_scale=grad_rel,
+                peak_gb=b["peak_gb"], peak_gb_no_recompute=a["peak_gb"],
+                launches=b["launches"])
+
+
 # --------------------------------- main -------------------------------------
 
 
@@ -1230,6 +1791,14 @@ KERNELS = {
         source="paddle_tpu_torch/csrc/fused_conv_bn.cu",
         replaces="paddle_tpu/ops/pallas/fused_conv_bn.py:103",
         main=("bfloat16", "R=100352 Cin=512 Cout=128")),
+    "flash_attention_bwd_dq": dict(
+        source="paddle_tpu_torch/csrc/flash_attention_bwd_split.cu",
+        replaces="paddle_tpu/ops/pallas/flash_attention.py:1047",
+        main=("bfloat16", f"B=1 L={LONG_L} H={LONG_H} D={LONG_D} causal")),
+    "flash_attention_bwd_dkv": dict(
+        source="paddle_tpu_torch/csrc/flash_attention_bwd_split.cu",
+        replaces="paddle_tpu/ops/pallas/flash_attention.py:1071",
+        main=("bfloat16", f"B=1 L={LONG_L} H={LONG_H} D={LONG_D} causal")),
 }
 
 def main():
@@ -1264,7 +1833,8 @@ def main():
         f"(nvcc {_native.last_build_seconds:.2f} s)")
 
     # 3. kernels against their plain versions: serving shapes, the GPT
-    # training step's (b8 s1024 bf16) and the ResNet-50 step's (b128 224)
+    # training step's (b8 s1024 bf16), the ResNet-50 step's (b128 224) and
+    # the long path's (b1 s32768)
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = (check_layer_norm(dev, gen, (32, 1024, TRAIN_B * TRAIN_L), 768)
             + check_flash(dev, gen, (64, 512, 1024), 12, 64)
@@ -1276,21 +1846,34 @@ def main():
             + check_fused_bn(dev, gen, ((128, 112, 112, 64),
                                         (128, 14, 14, 1024)))
             + check_conv1x1(dev, gen, ((100352, 512, 128),
-                                       (6272, 512, 2048))))
+                                       (6272, 512, 2048)))
+            + check_layer_norm(dev, gen, (LONG_L,), 768)
+            + check_ce(dev, gen, LONG_L, 50304, iters=1)
+            + check_flash_long(dev, gen)
+            + check_flash_bwd_split(dev, gen))
     for r in rows:
         r.setdefault("tol_ratio", r["max_abs_err"] / r.get("tol", 1.0))
         lib = ("-" if r["library_ms"] is None
                else f"{r['library_ms']:.4f}")
+        extra = ""
+        if "plain_shape" in r:
+            extra += f"; plain at {r['plain_shape']}"
+        if r.get("one_pass_ms") is not None:
+            extra += f"; one-pass kernel_ms {r['one_pass_ms']:.4f}"
+        for wname, wr in r.get("witnesses", {}).items():
+            extra += f"; against the {wname} /tol {wr:.3f}"
         log(f"kernel {r['kernel']:<19} {r['dtype']:<8} "
             f"{r['shape']:<30} err {r['max_abs_err']:.2e} (/tol "
             f"{r['tol_ratio']:.3f})  kernel_ms {r['ms']:.4f} plain_ms "
             f"{r['plain_ms']:.4f} library_ms {lib} bound_ms "
-            f"{r['bound_ms']:.4f} ({r['bound_by']}) [{smi}]")
-    bad = [r for r in rows if not r["tol_ratio"] <= 1.0]
+            f"{r['bound_ms']:.4f} ({r['bound_by']}){extra} [{smi}]")
+    bad = [r for r in rows if not all(
+        x <= 1.0 for x in (r["tol_ratio"], *r.get("witnesses", {}).values()))]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{bad}")
-    edges = {**check_edges(dev, gen), **check_resnet_edges(dev, gen)}
+    edges = {**check_edges(dev, gen), **check_resnet_edges(dev, gen),
+             **check_split_edges(dev, gen)}
     log("edges: worst error / tolerance " + ", ".join(
         f"{k} {v:.3f}" for k, v in edges.items()))
     if not all(v <= 1.0 for v in edges.values()):
@@ -1316,13 +1899,20 @@ def main():
     # where layer4's batch norms see 128 rows
     resnet_cpu = [resnet_cross_check(dev, B, hw)
                   for B, hw in ((2, 64), (8, 128))]
+    # 10. train GPT-2 small on one 32,768-token sequence, remat "full"
+    long = long_train(smi, dev)
+    # 11. remat modes against each other, 2 layers at L 32,768
+    remat = remat_equivalence(dev)
+    # 12. ResNet-50 per-stage recompute against the plain step
+    resnet_rc = resnet_recompute_check(dev)
 
-    # 10. report: launches from each path's own run (counters reset just
+    # 13. report: launches from each path's own run (counters reset just
     # before it); times at the main path's shape
     result = dict(card=smi, capability=cap, checks=rows, edges=edges,
                   serve=served, cpu_cross_check=cpu_res, train=trained,
                   train_cpu_cross_check=train_cpu, resnet=resnet,
-                  resnet_cpu_cross_check=resnet_cpu)
+                  resnet_cpu_cross_check=resnet_cpu, long=long,
+                  remat_equivalence=remat, resnet_recompute=resnet_rc)
     kern = []
     for kname, meta in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == kname]
@@ -1330,7 +1920,8 @@ def main():
             :len(meta["main"][1])]) == meta["main"])
         by_path = {"serve": served["launches"][kname]["kernel"],
                    "train": trained["launches"][kname]["kernel"],
-                   "resnet": resnet["launches"][kname]["kernel"]}
+                   "resnet": resnet["launches"][kname]["kernel"],
+                   "long": long["launches"][kname]["kernel"]}
         kern.append(dict(
             name=kname, route="cuda", source=meta["source"],
             replaces=meta["replaces"], launches=sum(by_path.values()),
@@ -1339,7 +1930,10 @@ def main():
             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
             library_ms=main_row["library_ms"],
-            shape=f"{main_row['shape']} {main_row['dtype']}"))
+            shape=f"{main_row['shape']} {main_row['dtype']}",
+            **({"plain_at": main_row["plain_shape"],
+                "one_pass_ms": main_row["one_pass_ms"]}
+               if "plain_shape" in main_row else {})))
     result["kernels"] = kern
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)

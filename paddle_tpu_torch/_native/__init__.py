@@ -126,6 +126,12 @@ def _declare(lib: ctypes.CDLL):
     lib.pt_flash_attention_bwd.restype = i32
     lib.pt_flash_attention_bwd.argtypes = (
         [p] * 9 + [i64] * 12 + [i32] * 6 + [f32, i32, p])
+    lib.pt_flash_attention_bwd_dq.restype = i32
+    lib.pt_flash_attention_bwd_dq.argtypes = (
+        [p] * 7 + [i64] * 12 + [i32] * 6 + [f32, i32, p])
+    lib.pt_flash_attention_bwd_dkv.restype = i32
+    lib.pt_flash_attention_bwd_dkv.argtypes = (
+        [p] * 8 + [i64] * 12 + [i32] * 6 + [f32, i32, p])
     lib.pt_softmax_ce_fwd.restype = i32
     lib.pt_softmax_ce_fwd.argtypes = [p, p, p, p, i64, i64, i32, p]
     lib.pt_softmax_ce_bwd.restype = i32

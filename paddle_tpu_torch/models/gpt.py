@@ -19,6 +19,7 @@ import torch
 
 from .. import nn
 from .._platform import resolve_device
+from ..distributed.fleet.utils import recompute, recompute_policies
 from ..nn import functional as F
 from ..ops.kernels import paged_attention as _pa
 
@@ -66,14 +67,33 @@ class GPTConfig:
     dropout: float = 0.1
     attn_dropout: float = 0.1
     tie_word_embeddings: bool = True
+    # activation-checkpoint policy per block: "" (keep every activation),
+    # "dots" (selective: keep the outputs of the products without batch
+    # dims, recompute the rest in the backward), "full" (recompute the
+    # whole block)
+    remat: str = ""
 
     def __post_init__(self):
         if not self.intermediate_size:
             self.intermediate_size = 4 * self.hidden_size
+        if self.remat not in ("", "dots", "full"):
+            raise ValueError(
+                f"GPTConfig.remat must be '', 'dots' or 'full', "
+                f"got {self.remat!r}")
 
     @staticmethod
     def gpt2_small():
         return GPTConfig(hidden_size=768, num_layers=12, num_heads=12)
+
+    @staticmethod
+    def gpt3_1p3b():
+        return GPTConfig(hidden_size=2048, num_layers=24, num_heads=16,
+                         max_position_embeddings=2048)
+
+    @staticmethod
+    def gpt3_6p7b():
+        return GPTConfig(hidden_size=4096, num_layers=32, num_heads=32,
+                         max_position_embeddings=2048)
 
     @staticmethod
     def tiny():
@@ -181,8 +201,14 @@ class GPT(nn.Layer):
         L = input_ids.shape[1]
         pos = torch.arange(L, device=input_ids.device)
         x = self.drop(self.embed(input_ids, pos))
-        for blk in self.blocks:
-            x = blk(x)
+        if self.cfg.remat and self.training:
+            pol = (None if self.cfg.remat == "full"
+                   else recompute_policies.dots)
+            for blk in self.blocks:
+                x = recompute(blk, x, policy=pol)
+        else:
+            for blk in self.blocks:
+                x = blk(x)
         return self.logits(x)
 
     def loss(self, input_ids, labels):

@@ -12,6 +12,7 @@ reference's (``layer1.0.bn1._mean``), so weights cross by name.
 from __future__ import annotations
 
 from .. import nn
+from ..distributed.fleet import utils as fleet_utils
 from ..nn import functional as F
 from ..ops.kernels import fused_conv_bn as _fcb
 
@@ -137,19 +138,17 @@ class ResNet(nn.Layer):
     ``data_format="NHWC"`` runs channels-last throughout, the layout of the
     fused 1x1 chain. ``fused_bn=False`` keeps every BN+ReLU(+add)
     unfused; ``fused_conv_bn=False`` keeps conv then fused BN.
-    ``recompute=True`` (per-stage remat in the reference) is not ported
-    yet and raises. The model is built on ``device`` (``cuda`` unless the
-    caller says otherwise), its weights drawn from ``generator``."""
+    ``recompute=True`` rematerialises each residual stage in training
+    (``distributed.fleet.utils.recompute``; the running statistics still
+    move once a step). The model is built on ``device`` (``cuda`` unless
+    the caller says otherwise), its weights drawn from ``generator``."""
 
     def __init__(self, block, depth=50, width=64, num_classes=1000,
                  with_pool=True, groups=1, recompute=False,
                  data_format="NCHW", fused_bn=True, fused_conv_bn=True, *,
                  device=None, dtype=None, generator=None):
         super().__init__(device, dtype)
-        if recompute:
-            raise NotImplementedError(
-                "ResNet(recompute=True): per-stage rematerialisation is not "
-                "ported yet (ROADMAP A8)")
+        self._recompute = recompute
         self._data_format = data_format
         self._fused_bn = fused_bn
         self._fused_conv_bn = fused_conv_bn and fused_bn
@@ -212,10 +211,13 @@ class ResNet(nn.Layer):
         if not self._fused_bn:  # the fused stem BN applied the ReLU
             x = self.relu(x)
         x = self.maxpool(x)
-        x = self.layer1(x)
-        x = self.layer2(x)
-        x = self.layer3(x)
-        x = self.layer4(x)
+        stages = (self.layer1, self.layer2, self.layer3, self.layer4)
+        if self._recompute and self.training:
+            for stage in stages:
+                x = fleet_utils.recompute(stage, x)
+        else:
+            for stage in stages:
+                x = stage(x)
         if self.with_pool:
             x = self.avgpool(x)
         if self.num_classes > 0:

@@ -49,6 +49,8 @@ def _counters() -> dict:
     return {"layer_norm": layer_norm._stats,
             "flash_attention": flash_attention._stats,
             "flash_attention_bwd": flash_attention._bwd_stats,
+            "flash_attention_bwd_dq": flash_attention._bwd_dq_stats,
+            "flash_attention_bwd_dkv": flash_attention._bwd_dkv_stats,
             "paged_attention": paged_attention._stats,
             "softmax_ce_fwd": softmax_ce._stats,
             "softmax_ce_bwd": softmax_ce._bwd_stats,

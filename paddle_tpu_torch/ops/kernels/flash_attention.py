@@ -12,12 +12,19 @@ the causal diagonal, masks row and column tails (any L >= 1), and reads
 [B, L, H, D] through its strides. Outputs are ``out`` in the input type and
 ``lse`` [B, H, Lq] fp32, which the backward reuses.
 
-Backward: replaces ``_fa_bwd_fused_pallas`` (one-pass dq/dk/dv) and
-``_fa_small_bwd_pallas``. One block per (64-key tile, b*h) walks the q
-tiles at or below the diagonal, forms P and dS once per tile pair, keeps
-dk/dv in fp32 for its lifetime and adds dq into an fp32 buffer with
-atomics. delta = rowsum(dO * O) is a torch composition here, as it is XLA
-in the reference (l.970). See the sources for the designs.
+Backward, chosen by the reference's gate (l.1109): while the one-pass
+kernel's whole-(b, h) dq, Lq * D * 4 bytes, fits ``_FUSED_BWD_DQ_BYTES``
+(6 MiB, l.955), the one-pass kernel (``csrc/flash_attention_bwd.cu``)
+replaces ``_fa_bwd_fused_pallas`` and ``_fa_small_bwd_pallas``: one block
+per (64-key tile, b*h) walks the q tiles at or below the diagonal, forms
+P and dS once per tile pair, keeps dk/dv in fp32 for its lifetime and adds
+dq into an fp32 buffer with atomics. Above the gate (past 24,576 tokens at
+D = 64) the split pair (``csrc/flash_attention_bwd_split.cu``) replaces
+``_fa_bwd_pallas``: a dq kernel walks the k tiles for each q tile and a
+dk/dv kernel the q tiles for each k tile, each writing its outputs once,
+without atomics. delta = rowsum(dO * O) is a torch composition, computed
+once for either, as it is XLA in the reference (l.970, 1023). See the
+sources for the designs.
 
 ``FlashAttentionFunction`` is the counterpart of the ``jax.custom_vjp`` at
 l.1118-1155: one Function on both devices, whose forward and backward
@@ -35,8 +42,15 @@ import torch
 from . import launch, same_device, use_kernel
 
 _stats = {"kernel": 0, "plain": 0}
-#: launches of the backward kernel (and runs of its plain version)
+#: launches of the one-pass backward kernel (and runs of its plain version)
 _bwd_stats = {"kernel": 0, "plain": 0}
+#: launches of the split backward's dq and dk/dv kernels (and plain runs)
+_bwd_dq_stats = {"kernel": 0, "plain": 0}
+_bwd_dkv_stats = {"kernel": 0, "plain": 0}
+
+#: the one-pass backward's whole-(b, h) dq bound (reference l.955): above
+#: it, Lq * D * 4 bytes, the split pair runs
+_FUSED_BWD_DQ_BYTES = 6 * 1024 * 1024
 
 _TYPES = (torch.float32, torch.bfloat16)
 _MAX_D = 128
@@ -112,28 +126,64 @@ def flash_attention_fwd(q, k, v, causal: bool = False, scale=None):
     return out, lse
 
 
+def _p_ds(q, k, v, lse, delta, do, causal, scale):
+    """(P, dS) [B, H, Lq, Lk] fp32: P = exp(S * scale - lse) (0 above the
+    causal diagonal) and dS = P * (dP - delta), dP = dO V^T."""
+    Lq, Lk = q.shape[1], k.shape[1]
+    s = torch.einsum("blhd,bmhd->bhlm", q.float(), k.float()) * scale
+    p = torch.exp(s - lse[..., None])
+    del s
+    if causal:
+        keep = torch.ones(Lq, Lk, dtype=torch.bool, device=q.device).tril(
+            diagonal=Lk - Lq)
+        p = torch.where(keep, p, 0.0)
+    dp = torch.einsum("blhd,bmhd->bhlm", do.float(), v.float())
+    return p, p * (dp - delta[..., None])
+
+
 def flash_attention_bwd_plain(q, k, v, lse, delta, do, causal: bool = False,
                               scale=None):
     """(dq, dk, dv) in q's type, computed in fp32 from P = exp(S * scale -
     lse) and dS = P * (dP - delta), with delta = rowsum(dO * O) [B, H, Lq]
     fp32 (the TPU kernels' arithmetic)."""
-    B, Lq, H, D = q.shape
-    Lk = k.shape[1]
     if scale is None:
-        scale = 1.0 / math.sqrt(D)
-    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
-    s = torch.einsum("blhd,bmhd->bhlm", qf, kf) * scale
-    p = torch.exp(s - lse[..., None])
-    if causal:
-        keep = torch.ones(Lq, Lk, dtype=torch.bool, device=q.device).tril(
-            diagonal=Lk - Lq)
-        p = torch.where(keep, p, 0.0)
-    dv = torch.einsum("bhlm,blhd->bmhd", p, dof)
-    dp = torch.einsum("blhd,bmhd->bhlm", dof, vf)
-    ds = p * (dp - delta[..., None])
-    dq = torch.einsum("bhlm,bmhd->blhd", ds, kf) * scale
-    dk = torch.einsum("bhlm,blhd->bmhd", ds, qf) * scale
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    p, ds = _p_ds(q, k, v, lse, delta, do, causal, scale)
+    dv = torch.einsum("bhlm,blhd->bmhd", p, do.float())
+    dq = torch.einsum("bhlm,bmhd->blhd", ds, k.float()) * scale
+    dk = torch.einsum("bhlm,blhd->bmhd", ds, q.float()) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_dq_plain(q, k, v, lse, delta, do,
+                                 causal: bool = False, scale=None):
+    """dq = dS K * scale in q's type, computed in fp32 (the split
+    backward's dq walk, reference l.282)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    _, ds = _p_ds(q, k, v, lse, delta, do, causal, scale)
+    return (torch.einsum("bhlm,bmhd->blhd", ds, k.float()) * scale).to(
+        q.dtype)
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, lse, delta, do,
+                                  causal: bool = False, scale=None):
+    """(dk, dv) = (dS^T Q * scale, P^T dO) in k's type, computed in fp32
+    (the split backward's dk/dv walk, reference l.353)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    p, ds = _p_ds(q, k, v, lse, delta, do, causal, scale)
+    dv = torch.einsum("bhlm,blhd->bmhd", p, do.float())
+    del p
+    dk = torch.einsum("bhlm,blhd->bmhd", ds, q.float()) * scale
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def uses_split_bwd(Lq: int, D: int) -> bool:
+    """The reference's choice of backward (l.1109): the split pair when
+    the one-pass kernel's whole-(b, h) dq, Lq * D * 4 bytes, passes
+    ``_FUSED_BWD_DQ_BYTES``."""
+    return Lq * D * 4 > _FUSED_BWD_DQ_BYTES
 
 
 def attention_delta(out, do):
@@ -141,43 +191,110 @@ def attention_delta(out, do):
     return (do.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
 
 
-def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = False,
-                        scale=None):
-    """Attention backward: (dq, dk, dv) in q's type, from the forward's
-    ``out`` and ``lse`` and the output gradient ``do``."""
+def _bwd_launch_args(q, k, v, lse, delta, do, causal, scale):
+    """Checks what the backward kernels take; returns (do, lse, delta)
+    ready for them and the strides and sizes every entry takes last."""
+    check_args(q, k, v, causal)
+    same_device("flash_attention_bwd", q, do, lse, delta)
+    B, Lq, H, D = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"flash_attention_bwd: do {tuple(do.shape)} "
+                         f"{do.dtype} against q {tuple(q.shape)} {q.dtype}")
+    if lse.shape != (B, H, Lq) or delta.shape != (B, H, Lq):
+        raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)}, "
+                         f"delta {tuple(delta.shape)}, want {(B, H, Lq)}")
+    if B * H > 65535:
+        raise ValueError("flash_attention_bwd: B * H must be <= 65535")
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    lse = lse.float().contiguous()
+    delta = delta.float().contiguous()
+    tail = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *do.stride()[:3], B, H, Lq, k.shape[1], D, int(bool(causal)),
+            float(scale), int(q.dtype == torch.bfloat16))
+    return do, lse, delta, tail
+
+
+def flash_attention_bwd_dq(q, k, v, lse, delta, do, causal: bool = False,
+                           scale=None):
+    """The split backward's dq [B, Lq, H, D] in q's type: the dq kernel
+    for CUDA tensors, its plain version for CPU ones."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if not use_kernel(q):
+        _bwd_dq_stats["plain"] += 1
+        return flash_attention_bwd_dq_plain(q, k, v, lse, delta, do, causal,
+                                            scale)
+    do, lse, delta, tail = _bwd_launch_args(q, k, v, lse, delta, do, causal,
+                                            scale)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    launch("flash_attention_bwd_dq", "pt_flash_attention_bwd_dq", q.device,
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+           lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *tail)
+    _bwd_dq_stats["kernel"] += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal: bool = False,
+                            scale=None):
+    """The split backward's (dk, dv) [B, Lk, H, D] in k's type: the dk/dv
+    kernel for CUDA tensors, its plain version for CPU ones."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if not use_kernel(q):
+        _bwd_dkv_stats["plain"] += 1
+        return flash_attention_bwd_dkv_plain(q, k, v, lse, delta, do, causal,
+                                             scale)
+    do, lse, delta, tail = _bwd_launch_args(q, k, v, lse, delta, do, causal,
+                                            scale)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty_like(dk)
+    launch("flash_attention_bwd_dkv", "pt_flash_attention_bwd_dkv",
+           q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+           lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+           *tail)
+    _bwd_dkv_stats["kernel"] += 1
+    return dk, dv
+
+
+def flash_attention_bwd_fused(q, k, v, lse, delta, do, causal: bool = False,
+                              scale=None):
+    """The one-pass backward's (dq, dk, dv) in q's type: its kernel for
+    CUDA tensors, its plain version for CPU ones."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if not use_kernel(q):
         _bwd_stats["plain"] += 1
-        return flash_attention_bwd_plain(q, k, v, lse,
-                                         attention_delta(out, do), do,
-                                         causal, scale)
-    check_args(q, k, v, causal)
-    same_device("flash_attention_bwd", q, do, lse)
-    B, Lq, H, D = q.shape
-    Lk = k.shape[1]
-    if do.shape != q.shape or out.shape != q.shape or do.dtype != q.dtype:
-        raise ValueError(f"flash_attention_bwd: do {tuple(do.shape)} "
-                         f"{do.dtype}, out {tuple(out.shape)} against q "
-                         f"{tuple(q.shape)} {q.dtype}")
-    if lse.shape != (B, H, Lq):
-        raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)}, "
-                         f"want {(B, H, Lq)}")
-    if do.stride(-1) != 1:
-        do = do.contiguous()
-    delta = attention_delta(out, do)
-    lse = lse.float().contiguous()
-    dq = torch.zeros((B, Lq, H, D), dtype=torch.float32, device=q.device)
-    dk = torch.empty((B, Lk, H, D), dtype=q.dtype, device=q.device)
+        return flash_attention_bwd_plain(q, k, v, lse, delta, do, causal,
+                                         scale)
+    do, lse, delta, tail = _bwd_launch_args(q, k, v, lse, delta, do, causal,
+                                            scale)
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
     launch("flash_attention_bwd", "pt_flash_attention_bwd", q.device,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-           dv.data_ptr(), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-           *do.stride()[:3], B, H, Lq, Lk, D, int(bool(causal)),
-           float(scale), int(q.dtype == torch.bfloat16))
+           dv.data_ptr(), *tail)
     _bwd_stats["kernel"] += 1
     return dq.to(q.dtype), dk, dv
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = False,
+                        scale=None):
+    """Attention backward: (dq, dk, dv) in q's type, from the forward's
+    ``out`` and ``lse`` and the output gradient ``do``: the one-pass
+    backward while Lq * D * 4 bytes fit the gate, the split pair above
+    it. delta is formed once, for either."""
+    if out.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} "
+                         f"against q {tuple(q.shape)}")
+    delta = attention_delta(out, do)
+    if not uses_split_bwd(q.shape[1], q.shape[-1]):
+        return flash_attention_bwd_fused(q, k, v, lse, delta, do, causal,
+                                         scale)
+    return (flash_attention_bwd_dq(q, k, v, lse, delta, do, causal, scale),
+            *flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal, scale))
 
 
 class FlashAttentionFunction(torch.autograd.Function):

@@ -85,7 +85,8 @@ def test_kernel_build_inputs_and_stale_check(tmp_path, monkeypatch):
     source is newer than the library; nothing is built at import."""
     names = {p.name for p in _native._sources()}
     assert names == {"layer_norm.cu", "flash_attention.cu",
-                     "flash_attention_bwd.cu", "paged_attention.cu",
+                     "flash_attention_bwd.cu",
+                     "flash_attention_bwd_split.cu", "paged_attention.cu",
                      "softmax_ce.cu", "fused_bn.cu", "fused_conv_bn.cu"}
     assert _native.GENCODE == "arch=compute_90a,code=sm_90a"
     lib = tmp_path / "lib.so"

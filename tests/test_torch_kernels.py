@@ -385,6 +385,7 @@ class TestPagedAttention:
         assert pa._stats["kernel"] == before["kernel"]
         assert set(kernels.all_stats()) == {
             "layer_norm", "flash_attention", "flash_attention_bwd",
+            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
             "paged_attention", "softmax_ce_fwd", "softmax_ce_bwd",
             "fused_bn_fwd", "fused_bn_bwd_reduce", "fused_bn_bwd_dx",
             "conv1x1_stats"}

@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
 """Where the time goes in one training step of the PyTorch/H100 port.
 
-    python3 tools/profile_torch_train.py     # from the repository root
+    python3 tools/profile_torch_train.py          # from the repository root
+    python3 tools/profile_torch_train.py --long   # B 1 x 32,768, remat "full"
 
 Builds GPT-2 small at full width (random weights from seed 0, dropout 0)
 and trains it with ``paddle_tpu_torch.jit.TrainStep(model, F.cross_entropy,
 AdamW(lr=1e-4, weight_decay=0.01), amp_dtype=torch.bfloat16)`` at batch 8,
-sequence 1024 on one card (the JAX package's ``bench_gpt2`` configuration).
-After two warm-up steps it measures, with ``torch.profiler`` (CPU and CUDA
-activities), a window of steps:
+sequence 1024 on one card (the JAX package's ``bench_gpt2`` configuration),
+or with ``--long`` on one 32,768-token sequence (max_position_embeddings
+32,768) with ``GPTConfig.remat = "full"``, whose attention backward is the
+split dq / dk-dv pair. After the warm-up steps (two; one with ``--long``)
+it measures, with ``torch.profiler`` (CPU and CUDA activities), a window
+of steps (three; one with ``--long``, a step of seconds):
 
 * host wall time per step, device busy time (the sum of device-side event
   times on the one stream) and the idle share 1 - busy / wall;
@@ -19,10 +23,12 @@ activities), a window of steps:
 * each hand-written kernel's launches per step (its wrapper's counter);
 
 and the same window without the profiler, for its overhead. Writes
-``chiprun_out/profile_torch_train.json``. Needs a card.
+``chiprun_out/profile_torch_train.json`` (``profile_torch_train_long.json``
+with ``--long``). Needs a card.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -41,11 +47,13 @@ from paddle_tpu_torch.models.gpt import GPT, GPTConfig  # noqa: E402
 from paddle_tpu_torch.nn import functional as F  # noqa: E402
 from paddle_tpu_torch.ops import kernels  # noqa: E402
 
-B, L = 8, 1024
-WARMUP, WINDOW = 2, 3
+#: (batch, sequence, remat, warm-up steps, profiled steps) of each run
+RUNS = {"b8s1024": (8, 1024, "", 2, 3), "long": (1, 32768, "full", 1, 1)}
 
 #: device-kernel name fragments -> group (first match wins)
 GROUPS = (
+    ("flash_attention_bwd_dq", ("flash_bwd_dq_kernel",)),
+    ("flash_attention_bwd_dkv", ("flash_bwd_dkv_kernel",)),
     ("flash_attention_bwd", ("flash_bwd_kernel",)),
     ("flash_attention", ("flash_fwd_kernel",)),
     ("layer_norm", ("layer_norm_fwd_kernel",)),
@@ -103,9 +111,15 @@ def _device_summary(prof, wall_s, n_steps, groups=GROUPS):
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--long", action="store_true",
+                    help="B 1 x 32,768 tokens with remat 'full'")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_train: no CUDA card", file=sys.stderr)
         return 2
+    run = "long" if args.long else "b8s1024"
+    B, L, remat, warmup, window = RUNS[run]
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -113,6 +127,8 @@ def main():
         check=True, timeout=60).stdout.strip().splitlines()[0]
     cfg = GPTConfig.gpt2_small()
     cfg.dropout = cfg.attn_dropout = 0.0
+    cfg.max_position_embeddings = max(L, cfg.max_position_embeddings)
+    cfg.remat = remat
     model = GPT(cfg, device="cuda",
                 generator=torch.Generator().manual_seed(0))
     opt = optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters(),
@@ -121,7 +137,7 @@ def main():
     rng = np.random.default_rng(0)
     ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, L))).cuda()
     labels = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, L))).cuda()
-    for _ in range(WARMUP):
+    for _ in range(warmup):
         step(ids, labels)
     torch.cuda.synchronize()
 
@@ -129,25 +145,27 @@ def main():
     kernels.reset_stats()
     with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(WINDOW):
+        for _ in range(window):
             loss = step(ids, labels)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    out = _device_summary(prof, wall, WINDOW)
-    out["launches_per_step"] = {k: v["kernel"] / WINDOW
+    out = _device_summary(prof, wall, window)
+    out["launches_per_step"] = {k: v["kernel"] / window
                                 for k, v in kernels.all_stats().items()}
     out["plain_runs"] = {k: v["plain"] for k, v in
                          kernels.all_stats().items()}
 
     t0 = time.perf_counter()
-    for _ in range(WINDOW):
+    for _ in range(window):
         loss = step(ids, labels)
     torch.cuda.synchronize()
-    out["wall_ms_unprofiled"] = (time.perf_counter() - t0) * 1e3 / WINDOW
+    out["wall_ms_unprofiled"] = (time.perf_counter() - t0) * 1e3 / window
     out["loss"] = float(loss)
-    out.update(card=smi, batch=B, seq=L, window=WINDOW)
+    out.update(card=smi, batch=B, seq=L, remat=remat, window=window,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     os.makedirs("chiprun_out", exist_ok=True)
-    with open("chiprun_out/profile_torch_train.json", "w") as f:
+    name = "_long" if args.long else ""
+    with open(f"chiprun_out/profile_torch_train{name}.json", "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps(out, indent=1))
     print(smi)
