@@ -10,7 +10,9 @@ failure:
 2. build    - build the hand-written kernels from csrc/ (timed);
 3. kernels  - each kernel against its plain PyTorch version on the card, at
               the serving and training paths' shapes, fp32 and bf16, with
-              kernel, plain, library and bound times (the long path's layer
+              kernel, plain, library and bound times and the design timed
+              ("mma.sync" on the tensor cores or "cuda-core"; the flash
+              forward and split pair in bf16 also at L 1,000 and at D 128) (the long path's layer
               norm, CE, flash forward and split backward's pair at its
               B 1 x 32,768 too, the attention plain versions one head at a
               time, the pair also against the one-pass kernel and twice,
@@ -24,7 +26,8 @@ failure:
               greedy requests of 32-512 prompt tokens plus two longer than
               512, 32 new tokens each; every serving kernel must have
               launched and no plain version may have run; TTFT, TPOT and
-              tokens/s;
+              tokens/s; no main path may run a torch composition in place
+              of a kernel;
 5. cpu      - the same weights on the CPU (plain versions) against the card:
               prefill logits and 8 teacher-forced decode steps for 2 requests;
 6. train    - GPT-2 small at full width trained by
@@ -64,7 +67,13 @@ failure:
               recompute=True against the same step without it: the loss,
               every gradient and the running statistics (moved once)
               agree;
-13. report  - the `kernels` JSON line, the card's name and power limit, and
+13. composed - each input that the reference composes in XLA and the
+              port, on a card, in torch (fp16 layer norm, attention,
+              cross-entropy and fused BN; a float and a bool mask; causal
+              Lq > Lk; head dim 160): its entry's composition must run and
+              none of its kernels, and output and gradients must agree with
+              the same call on the CPU;
+14. report  - the `kernels` JSON line, the card's name and power limit, and
               the device JSON line last.
 
 Phase 3 also holds the ResNet kernels (fused BN forward, reduce and dx;
@@ -205,6 +214,7 @@ def check_flash(dev, gen, lengths, H, D, B=1, dtypes=(torch.float32,
             rows.append(dict(
                 kernel="flash_attention", dtype=str(dtype)[6:],
                 shape=f"B={B} L={L} H={H} D={D} causal",
+                design=fa.kernel_design(q, k, v),
                 max_abs_err=err, tol=TOL[dtype],
                 ms=cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, True)),
                 plain_ms=cuda_ms(lambda: fa.flash_attention_plain(
@@ -420,88 +430,101 @@ def check_flash_bwd_split(dev, gen):
     """The split backward's dq and dk/dv kernels (called directly: the
     model's gate sends them only L past 24,576 at D = 64).
 
-    Timed rows at B 1, H 12, D 64, causal: L 4,096 and the long path's
-    L 32,768, each held against the plain versions on the same inputs
-    (bwd_tol), run one head at a time (plain_by_head), and timed so. At
-    L 32,768 two more witnesses: fp64 tiles (fp64_tile_ratio), and the
-    one-pass kernel on the same inputs, dq to its atomic-order tolerance
-    (bwd_tol), dk and dv closer, since the two walks run the same tile
-    code (fp32 1e-6 and bf16 one rounding, 2^-8, of scale). Library: SDPA's backward (all three gradients) at the
-    same shape, summed device-kernel time. Each pair also runs twice and
-    must repeat bit for bit (no atomics)."""
+    Timed rows, causal: at B 1, H 12, D 64, L 4,096 and the long path's
+    L 32,768 in fp32 and bf16; in bf16 also L 1,000 (not a multiple of the
+    64-row tile) and D 128 at H 16, L 4,096 (the GPT-3 presets' head dim,
+    the other tensor-core instance). Each is held against the plain
+    versions on the same inputs (bwd_tol), run one head at a time
+    (plain_by_head), and timed so. At L 32,768 two more witnesses: fp64
+    tiles (fp64_tile_ratio), and the one-pass kernel on the same inputs,
+    dq to bwd_tol (its atomic order); dk and dv in fp32 closer, to 1e-6 of
+    scale, since there both walks run `kv_walk`'s tile code, and in bf16 to
+    bwd_tol, since the tensor-core walk rounds P and dS to bf16 before its
+    products and the one-pass walk does not. Library: SDPA's backward (all
+    three gradients) at the same shape, summed device-kernel time. Each
+    pair also runs twice and must repeat bit for bit (no atomics)."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     rows = []
-    close = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -8}
-    for dtype in (torch.float32, torch.bfloat16):
-        for L in (4096, LONG_L):
-            B, H, D = 1, LONG_H, LONG_D
-            q, k, v, do = _attention_inputs(dev, gen, B, L, L, H, D, dtype)
-            out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
-            delta = fa.attention_delta(out, do)
-            got = _split_bwd(fa, q, k, v, lse, delta, do, True)
-            again = _split_bwd(fa, q, k, v, lse, delta, do, True)
-            torch.cuda.synchronize()
-            if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                raise AssertionError(f"split backward L={L} {dtype}: two "
-                                     f"runs differ")
-            del again
-            ref = _split_plain(fa, q, k, v, lse, delta, do, True)
-            ratios = [max_err(g, r) / bwd_tol(dtype, r)
-                      for g, r in zip(got, ref)]
-            errs = [max_err(g, r) for g, r in zip(got, ref)]
-            del ref
-            long = L == LONG_L
-            witness = [{}, {}]
-            if long:
-                one = fa.flash_attention_bwd_fused(q, k, v, lse, delta, do,
-                                                   True)
-                w = [max_err(got[0], one[0]) / bwd_tol(dtype, one[0])]
-                w += [max_err(g, r) / (close[dtype] * max(
-                    1.0, float(r.abs().max()))) for g, r in zip(got[1:],
-                                                                 one[1:])]
-                del one
-                f64 = fp64_tile_ratio(q, k, v, lse, delta, do, got)
-                witness = [{"one-pass kernel": w[0], "fp64 tiles": f64},
-                           {"one-pass kernel": max(w[1:]),
-                            "fp64 tiles": f64}]
-            del got
-            isz = q.element_size()
-            (qb, qf), (kb, kf) = split_bwd_bounds(B, L, H, D, isz)
-            n = (1, 3) if long else (5, 3)
-            ms_dq = cuda_ms(lambda: fa.flash_attention_bwd_dq(
-                q, k, v, lse, delta, do, True), iters=n[0], reps=n[1],
-                warmup=1)
-            ms_dkv = cuda_ms(lambda: fa.flash_attention_bwd_dkv(
-                q, k, v, lse, delta, do, True), iters=n[0], reps=n[1],
-                warmup=1)
-            fused_ms = (cuda_ms(lambda: fa.flash_attention_bwd_fused(
-                q, k, v, lse, delta, do, True), iters=n[0], reps=n[1],
-                warmup=1) if long else None)
-            leaves = [t.transpose(1, 2).detach().requires_grad_(True)
-                      for t in (q, k, v)]
-            lib_ms = sdpa_bwd_ms(leaves, do.transpose(1, 2), n[1])
-            del leaves
-            torch.cuda.empty_cache()
-            plain = [event_ms(lambda: plain_by_head(
-                f, q, k, v, lse, delta, do), reps=1)
-                for f in (fa.flash_attention_bwd_dq_plain,
-                          fa.flash_attention_bwd_dkv_plain)]
-            shape = f"B={B} L={L} H={H} D={D} causal"
-            for name, err, ratio, wit, ms, pms, (nb, fl) in (
-                    ("flash_attention_bwd_dq", errs[0], ratios[0],
-                     witness[0], ms_dq, plain[0], (qb, qf)),
-                    ("flash_attention_bwd_dkv", max(errs[1:]),
-                     max(ratios[1:]), witness[1], ms_dkv, plain[1],
-                     (kb, kf))):
-                bnd, by = bound_ms(nb, fl, dtype)
-                rows.append(dict(
-                    kernel=name, dtype=str(dtype)[6:], shape=shape,
-                    max_abs_err=err, tol_ratio=ratio, ms=ms, plain_ms=pms,
-                    plain_shape=f"L={L}, one head at a time",
-                    library_ms=lib_ms, one_pass_ms=fused_ms, witnesses=wit,
-                    bound_ms=bnd, bound_by=by))
-            del q, k, v, do, out, lse, delta
-            torch.cuda.empty_cache()
+    cases = [(torch.float32, 4096, LONG_H, LONG_D),
+             (torch.float32, LONG_L, LONG_H, LONG_D),
+             (torch.bfloat16, 1000, LONG_H, LONG_D),
+             (torch.bfloat16, 4096, LONG_H, LONG_D),
+             (torch.bfloat16, 4096, 16, 128),
+             (torch.bfloat16, LONG_L, LONG_H, LONG_D)]
+    for dtype, L, H, D in cases:
+        B = 1
+        q, k, v, do = _attention_inputs(dev, gen, B, L, L, H, D, dtype)
+        design = fa.kernel_design(q, k, v, do)
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+        delta = fa.attention_delta(out, do)
+        got = _split_bwd(fa, q, k, v, lse, delta, do, True)
+        again = _split_bwd(fa, q, k, v, lse, delta, do, True)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"split backward L={L} {dtype}: two "
+                                 f"runs differ")
+        del again
+        ref = _split_plain(fa, q, k, v, lse, delta, do, True)
+        ratios = [max_err(g, r) / bwd_tol(dtype, r)
+                  for g, r in zip(got, ref)]
+        errs = [max_err(g, r) for g, r in zip(got, ref)]
+        del ref
+        long = L == LONG_L
+        witness = [{}, {}]
+        if long:
+            one = fa.flash_attention_bwd_fused(q, k, v, lse, delta, do,
+                                               True)
+            w = [max_err(got[0], one[0]) / bwd_tol(dtype, one[0])]
+            if dtype == torch.float32:
+                w += [max_err(g, r) / (1e-6 * max(1.0, float(
+                    r.abs().max()))) for g, r in zip(got[1:], one[1:])]
+            else:
+                w += [max_err(g, r) / bwd_tol(dtype, r)
+                      for g, r in zip(got[1:], one[1:])]
+            del one
+            f64 = fp64_tile_ratio(q, k, v, lse, delta, do, got)
+            witness = [{"one-pass kernel": w[0], "fp64 tiles": f64},
+                       {"one-pass kernel": max(w[1:]),
+                        "fp64 tiles": f64}]
+        del got
+        isz = q.element_size()
+        (qb, qf), (kb, kf) = split_bwd_bounds(B, L, H, D, isz)
+        n = (1, 3) if long else (5, 3)
+        ms_dq = cuda_ms(lambda: fa.flash_attention_bwd_dq(
+            q, k, v, lse, delta, do, True), iters=n[0], reps=n[1],
+            warmup=1)
+        ms_dkv = cuda_ms(lambda: fa.flash_attention_bwd_dkv(
+            q, k, v, lse, delta, do, True), iters=n[0], reps=n[1],
+            warmup=1)
+        fused_ms = (cuda_ms(lambda: fa.flash_attention_bwd_fused(
+            q, k, v, lse, delta, do, True), iters=n[0], reps=n[1],
+            warmup=1) if long else None)
+        leaves = [t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v)]
+        lib_ms = sdpa_bwd_ms(leaves, do.transpose(1, 2), n[1])
+        del leaves
+        torch.cuda.empty_cache()
+        plain = [event_ms(lambda: plain_by_head(
+            f, q, k, v, lse, delta, do), reps=1)
+            for f in (fa.flash_attention_bwd_dq_plain,
+                      fa.flash_attention_bwd_dkv_plain)]
+        shape = f"B={B} L={L} H={H} D={D} causal"
+        for name, err, ratio, wit, ms, pms, (nb, fl) in (
+                ("flash_attention_bwd_dq", errs[0], ratios[0],
+                 witness[0], ms_dq, plain[0], (qb, qf)),
+                ("flash_attention_bwd_dkv", max(errs[1:]),
+                 max(ratios[1:]), witness[1], ms_dkv, plain[1],
+                 (kb, kf))):
+            bnd, by = bound_ms(nb, fl, dtype)
+            rows.append(dict(
+                kernel=name, dtype=str(dtype)[6:], shape=shape,
+                design=design, max_abs_err=err, tol_ratio=ratio, ms=ms,
+                plain_ms=pms,
+                plain_shape=f"L={L}, one head at a time",
+                library_ms=lib_ms, one_pass_ms=fused_ms, witnesses=wit,
+                bound_ms=bnd, bound_by=by))
+        del q, k, v, do, out, lse, delta
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -520,6 +543,7 @@ def check_flash_long(dev, gen):
         q, k, v, _ = _attention_inputs(dev, gen, 1, LONG_L, LONG_L, LONG_H,
                                        LONG_D, dtype)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        design = fa.kernel_design(q, k, v)
         out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
         ref_out, ref_lse = plain_by_head(fa.flash_attention_plain,
                                          q.float(), k.float(), v.float())
@@ -545,7 +569,8 @@ def check_flash_long(dev, gen):
         rows.append(dict(
             kernel="flash_attention", dtype=str(dtype)[6:],
             shape=f"B=1 L={LONG_L} H={LONG_H} D={LONG_D} causal",
-            max_abs_err=err, tol=TOL[dtype], ms=ms, plain_ms=plain_ms,
+            design=design, max_abs_err=err, tol=TOL[dtype], ms=ms,
+            plain_ms=plain_ms,
             plain_shape=f"L={LONG_L}, one head at a time",
             library_ms=lib_ms, one_pass_ms=None,
             witnesses={"SDPA": wit_err / TOL[dtype]}, bound_ms=bnd,
@@ -978,7 +1003,9 @@ def check_conv1x1(dev, gen, shapes):
             wt = w.t()
             rows.append(dict(
                 kernel="conv1x1_stats", dtype=str(dtype)[6:],
-                shape=f"R={R} Cin={Cin} Cout={Cout}", max_abs_err=err,
+                shape=f"R={R} Cin={Cin} Cout={Cout}",
+                design=("mma.sync" if dtype == torch.bfloat16
+                        else "cuda-core"), max_abs_err=err,
                 tol_ratio=ratio,
                 ms=cuda_ms(lambda: fcb.conv1x1_stats(x, w), iters=5,
                            reps=3),
@@ -1093,6 +1120,7 @@ def serve(model, cfg, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     stats = kernels.all_stats()
+    no_composed("serve")
     for r in reqs:
         toks = r.result(timeout=0)
         if len(toks) != max_new or r.finish_reason != "length":
@@ -1223,6 +1251,7 @@ def train(cfg, card):
         times.append(time.perf_counter() - t0)
         losses.append(float(loss))
     stats = kernels.all_stats()
+    no_composed("train")
     per_step = {k: v["kernel"] / TRAIN_STEPS for k, v in stats.items()}
     for name, want in PER_STEP.items():
         st = stats[name]
@@ -1369,6 +1398,7 @@ def resnet_train(card, dev):
         times.append(time.perf_counter() - t0)
         losses.append(float(loss))
     stats = kernels.all_stats()
+    no_composed("resnet")
     per_step = {k: v["kernel"] / TRAIN_STEPS for k, v in stats.items()}
     step_ms = float(np.median(times)) * 1e3
     flops = RESNET_FLOPS_PER_IMAGE * RESNET_B
@@ -1556,6 +1586,7 @@ def long_train(card, dev):
         times.append(time.perf_counter() - t0)
         losses.append(float(loss))
     stats = kernels.all_stats()
+    no_composed("long")
     per_step = {k: v["kernel"] / LONG_STEPS for k, v in stats.items()}
     step_ms = float(np.median(times)) * 1e3
     flops = model_flops(model, 1, LONG_L)
@@ -1748,6 +1779,132 @@ def resnet_recompute_check(dev):
                 launches=b["launches"])
 
 
+# ---------------------------- phase 13: composed -----------------------------
+
+#: a composed route on the card against the same call on CPU copies of its
+#: inputs (the plain versions and compositions the CPU takes), output and
+#: gradients: fp32 1e-4 (TOL) and fp16 2^-9 (two fp16 roundings) of the
+#: value's scale, max(1, max |ref|); both devices compute in fp32 and round
+#: once to the input's type, summing in another order
+COMPOSED_TOL = {torch.float32: 1e-4, torch.float16: 2.0 ** -9}
+
+#: the kernel counters that each composed entry must leave at 0
+COMPOSED_KERNELS = {
+    "layer_norm": ("layer_norm",),
+    "flash_attention": ("flash_attention", "flash_attention_bwd",
+                        "flash_attention_bwd_dq", "flash_attention_bwd_dkv"),
+    "softmax_ce": ("softmax_ce_fwd", "softmax_ce_bwd"),
+    "fused_bn": ("fused_bn_fwd", "fused_bn_bwd_reduce", "fused_bn_bwd_dx")}
+
+
+def composed_cases():
+    """(case, entry, fn, inputs): calls that the reference sends to an XLA
+    composition and the port, on a card, to its torch composition (ROADMAP
+    queue C, C1-C3), with inputs from a numpy seed."""
+    from paddle_tpu_torch.nn import functional as F
+    rng = np.random.default_rng(0)
+
+    def t(*shape, dtype=torch.float32):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dtype)
+
+    half = torch.float16
+    B, L, H, D = 2, 128, 4, 64
+    keep = torch.from_numpy(rng.random((B, 1, L, L)) > 0.3)
+
+    def sdpa(q, k, v, mask=None, causal=False):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                              is_causal=causal)
+
+    def bn(x, g, b):
+        C = x.shape[-1]
+        return F.batch_norm(x, torch.zeros(C, device=x.device),
+                            torch.ones(C, device=x.device), g, b,
+                            training=True, data_format="NHWC", act="relu")
+
+    return [
+        ("fp16 layer norm R=64 N=768", "layer_norm",
+         lambda x, g, b: F.layer_norm(x, 768, g, b),
+         (t(64, 768, dtype=half), (1 + 0.1 * t(768)).to(half),
+          (0.1 * t(768)).to(half))),
+        (f"fp16 attention B={B} L={L} H={H} D={D} causal", "flash_attention",
+         lambda q, k, v: sdpa(q, k, v, causal=True),
+         tuple(t(B, L, H, D, dtype=half) for _ in range(3))),
+        (f"float mask B={B} L={L} H={H} D={D}", "flash_attention", sdpa,
+         (*(t(B, L, H, D) for _ in range(3)),
+          torch.where(keep, 0.0, -1e9))),
+        (f"bool mask B={B} L={L} H={H} D={D} causal", "flash_attention",
+         lambda q, k, v, m: sdpa(q, k, v, m, causal=True),
+         (*(t(B, L, H, D) for _ in range(3)), keep)),
+        (f"causal Lq={L} > Lk={L // 2}", "flash_attention",
+         lambda q, k, v: sdpa(q, k, v, causal=True),
+         (t(B, L, H, D), t(B, L // 2, H, D), t(B, L // 2, H, D))),
+        (f"head dim 160 B={B} L={L} H={H}", "flash_attention",
+         lambda q, k, v: sdpa(q, k, v, causal=True),
+         tuple(t(B, L, H, 160) for _ in range(3))),
+        ("fp16 cross entropy N=64 V=1000", "softmax_ce",
+         lambda x, lab: F.cross_entropy(x, lab),
+         (t(64, 1000, dtype=half),
+          torch.from_numpy(rng.integers(0, 1000, 64)))),
+        ("fp16 fused BN + ReLU N=8 8x8 C=64", "fused_bn", bn,
+         (t(8, 8, 8, 64, dtype=half), 1 + 0.1 * t(64), 0.1 * t(64))),
+    ]
+
+
+def _fwd_bwd(fn, inputs, dev):
+    """fn's output on `dev` and the gradients of <output, cotangent> for
+    every floating input (the cotangent from a fixed seed)."""
+    leaves = [x.to(dev).requires_grad_(x.is_floating_point())
+              for x in inputs]
+    out = fn(*leaves)
+    cot = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        tuple(out.shape)).astype(np.float32)).to(out.dtype).to(dev)
+    grads = torch.autograd.grad(out, [x for x in leaves if x.requires_grad],
+                                cot)
+    return (out.detach(), *grads)
+
+
+def check_composed(dev):
+    """Every C1-C3 input on the card: it must run its entry's torch
+    composition (the composed count moves by one) and none of the entry's
+    kernels or plain versions, and agree with the same call on the CPU
+    (COMPOSED_TOL), output and gradients."""
+    from paddle_tpu_torch.ops import kernels
+    res = []
+    for case, entry, fn, inputs in composed_cases():
+        kernels.reset_stats()
+        got = _fwd_bwd(fn, inputs, dev)
+        torch.cuda.synchronize()
+        composed = kernels.composed_stats()
+        launched = {k: v for k, v in kernels.all_stats().items()
+                    if k in COMPOSED_KERNELS[entry]}
+        ref = _fwd_bwd(fn, inputs, torch.device("cpu"))
+        tol = COMPOSED_TOL[inputs[0].dtype]
+        ratio = max(max_err(g.cpu(), r) / (tol * max(1.0, float(
+            r.float().abs().max()))) for g, r in zip(got, ref))
+        res.append(dict(case=case, entry=entry, composed=composed[entry],
+                        kernel_counters=launched, tol_ratio=ratio))
+        log(f"composed: {case:<40} {entry:<15} composed "
+            f"{composed[entry]}, kernel counters "
+            f"{json.dumps(launched)}; against the CPU /tol {ratio:.3f}")
+        others = {k: v for k, v in composed.items() if k != entry and v}
+        if (composed[entry] != 1 or others or ratio > 1.0
+                or any(any(v.values()) for v in launched.values())):
+            raise AssertionError(f"composed: {case} took the wrong route or "
+                                 f"disagrees with the CPU: {res[-1]}, "
+                                 f"other compositions {others}")
+    return res
+
+
+def no_composed(path):
+    """Raise if a main path ran a torch composition in place of a kernel."""
+    from paddle_tpu_torch.ops import kernels
+    composed = kernels.composed_stats()
+    if any(composed.values()):
+        raise AssertionError(f"{path}: compositions ran on the main path: "
+                             f"{composed}")
+
+
 # --------------------------------- main -------------------------------------
 
 
@@ -1840,6 +1997,10 @@ def main():
             + check_flash(dev, gen, (64, 512, 1024), 12, 64)
             + check_flash(dev, gen, (TRAIN_L,), 12, 64, B=TRAIN_B,
                           dtypes=(torch.bfloat16,))
+            + check_flash(dev, gen, (1000, 4096), 12, 64,
+                          dtypes=(torch.bfloat16,))
+            + check_flash(dev, gen, (4096,), 16, 128,
+                          dtypes=(torch.bfloat16,))
             + check_paged(dev, gen, 32, 12, 64, 16, 1024)
             + check_flash_bwd(dev, gen, (128, 512, TRAIN_L), TRAIN_B, 12, 64)
             + check_ce(dev, gen, TRAIN_B * TRAIN_L, 50304)
@@ -1853,6 +2014,7 @@ def main():
             + check_flash_bwd_split(dev, gen))
     for r in rows:
         r.setdefault("tol_ratio", r["max_abs_err"] / r.get("tol", 1.0))
+        r.setdefault("design", "cuda-core")
         lib = ("-" if r["library_ms"] is None
                else f"{r['library_ms']:.4f}")
         extra = ""
@@ -1863,8 +2025,8 @@ def main():
         for wname, wr in r.get("witnesses", {}).items():
             extra += f"; against the {wname} /tol {wr:.3f}"
         log(f"kernel {r['kernel']:<19} {r['dtype']:<8} "
-            f"{r['shape']:<30} err {r['max_abs_err']:.2e} (/tol "
-            f"{r['tol_ratio']:.3f})  kernel_ms {r['ms']:.4f} plain_ms "
+            f"{r['shape']:<30} {r['design']:<9} err "
+            f"{r['max_abs_err']:.2e} (/tol {r['tol_ratio']:.3f})  kernel_ms {r['ms']:.4f} plain_ms "
             f"{r['plain_ms']:.4f} library_ms {lib} bound_ms "
             f"{r['bound_ms']:.4f} ({r['bound_by']}){extra} [{smi}]")
     bad = [r for r in rows if not all(
@@ -1905,14 +2067,17 @@ def main():
     remat = remat_equivalence(dev)
     # 12. ResNet-50 per-stage recompute against the plain step
     resnet_rc = resnet_recompute_check(dev)
+    # 13. the composed routes (C1-C3) against the CPU
+    composed = check_composed(dev)
 
-    # 13. report: launches from each path's own run (counters reset just
+    # 14. report: launches from each path's own run (counters reset just
     # before it); times at the main path's shape
     result = dict(card=smi, capability=cap, checks=rows, edges=edges,
                   serve=served, cpu_cross_check=cpu_res, train=trained,
                   train_cpu_cross_check=train_cpu, resnet=resnet,
                   resnet_cpu_cross_check=resnet_cpu, long=long,
-                  remat_equivalence=remat, resnet_recompute=resnet_rc)
+                  remat_equivalence=remat, resnet_recompute=resnet_rc,
+                  composed=composed)
     kern = []
     for kname, meta in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == kname]
@@ -1931,6 +2096,7 @@ def main():
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
             library_ms=main_row["library_ms"],
             shape=f"{main_row['shape']} {main_row['dtype']}",
+            design=main_row["design"],
             **({"plain_at": main_row["plain_shape"],
                 "one_pass_ms": main_row["one_pass_ms"]}
                if "plain_shape" in main_row else {})))

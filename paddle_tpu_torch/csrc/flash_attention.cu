@@ -6,23 +6,43 @@
 // l.438). On the card one kernel covers both: a short sequence is a tiled
 // walk with few tiles, so the TPU's separate small path has no purpose.
 //
-// What bounds it on the H100: operations. At L = 1024, D = 64 the causal
-// forward does ~2*L*L*D FLOPs per head against ~4*L*D*2 bytes in and out;
-// tiles of K and V are reused by all 64 query rows of a block.
+// What bounds it on the H100: operations. The causal forward does
+// 4 * D FLOPs per visible (q, k) pair (S = Q K^T and P V) against ~4 * L * D
+// elements in and out per head: at L = 1024, D = 64 that is ~260 FLOPs a
+// byte in bf16, at L = 32,768 thousands.
 //
-// Design: one block of 128 threads per (b, h, 64-row query tile). Two
-// threads share a query row: each scores half of a 32-key tile and owns
-// half of the output row (interleaved dims, so the two never hit one shared
-// memory bank). K and V tiles stream through shared memory as fp32; the
-// score tile never leaves the block. Online softmax runs in fp32. Tiles
-// wholly above the causal diagonal are never loaded (kv_offset = Lk - Lq,
-// as at l.820). Query rows past Lq and key rows past Lk are zero-filled and
-// masked, so any L >= 1 works. Inputs are read through their [B, L, H, D]
-// strides (last dim contiguous), so no transpose is needed. This first
-// version uses CUDA cores, not wgmma/TMA.
+// Two designs; the launcher picks one by type, head dim and alignment:
+//
+// - bf16, D 64 or 128, 16-byte aligned rows: tensor cores (`mma.sync`
+//   m16n8k16, fp32 accumulators), as the reference feeds its MXU bf16 with
+//   fp32 accumulation. One block of 4 warps per (b, h, 64-row query tile);
+//   each warp owns 16 query rows. The Q tile is copied once into shared
+//   memory as bf16 with 16-byte cp.async and read into A fragments
+//   (ldmatrix), which stay in registers. K and V tiles of 64 keys stream
+//   through a 2-stage cp.async ring; shared rows are padded to D + 8
+//   elements (16 bytes mod 128), so ldmatrix has no bank conflicts.
+//   S = Q K^T goes to fp32 registers; the online softmax runs there in
+//   base 2 (scale * log2 e folded in), with row max and row sum reduced
+//   over the 4 lanes of a quad; P is packed to bf16 in registers (two n8
+//   accumulator tiles are one k16 A fragment, the reference's cast of p
+//   before p @ v) and P V reads V through ldmatrix.trans. Causal q tiles
+//   with the longest walks (the last rows) launch first.
+// - every other case (fp32, other head dims): CUDA cores. One block of 128
+//   threads per (b, h, 64-row query tile); two threads share a query row:
+//   each scores half of a 32-key tile and owns half of the output row
+//   (interleaved dims, so the two never hit one shared memory bank). K and
+//   V tiles stream through shared memory as fp32; online softmax in fp32.
+//
+// Both: tiles wholly above the causal diagonal are never loaded
+// (kv_offset = Lk - Lq, as at l.820), and only the tiles that cross it or
+// the key tail are masked element by element. Query rows past Lq and key
+// rows past Lk are zero-filled and masked, so any L >= 1 works. Inputs are
+// read through their [B, L, H, D] strides (last dim contiguous), so no
+// transpose is needed.
 #include <math.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -44,6 +64,8 @@ struct FaArgs {
   int causal;
   float scale;
 };
+
+// ------------------------------ CUDA cores -----------------------------------
 
 __host__ __device__ inline size_t smem_floats(int D) {
   return static_cast<size_t>(kBQ) * (D + 1) + kBK * (D + 1) + kBK * D +
@@ -171,6 +193,198 @@ cudaError_t launch(const FaArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ----------------------------- bf16, tensor cores ----------------------------
+
+constexpr int kTcBQ = 64;       // query rows per block, 16 a warp
+constexpr int kTcBK = 64;       // keys per tile
+constexpr int kTcThreads = 128;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+template <int D>
+constexpr size_t tc_smem_bytes() {
+  // Q, then two stages of K and of V, rows padded to D + 8 elements
+  return static_cast<size_t>(kTcBQ + 4 * kTcBK) * (D + 8) *
+         sizeof(__nv_bfloat16);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(FaArgs a) {
+  constexpr int LD = D + 8;  // padded shared row, in elements
+  constexpr int KD = D / 16; // k16 steps over the head dim
+  constexpr int ND = D / 8;  // n8 tiles of the output row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Ks = Qs + kTcBQ * LD;    // [2][kTcBK][LD]
+  __nv_bfloat16* Vs = Ks + 2 * kTcBK * LD; // [2][kTcBK][LD]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n_qt = (a.Lq + kTcBQ - 1) / kTcBQ;
+  // causal: the q tiles with the longest walks (the last rows) first
+  const int qt = a.causal ? n_qt - 1 - static_cast<int>(blockIdx.x)
+                          : static_cast<int>(blockIdx.x);
+  const int q0 = qt * kTcBQ;
+  const int hh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kv_off = a.Lk - a.Lq;
+
+  using bf16 = __nv_bfloat16;
+  const bf16* q = static_cast<const bf16*>(a.q) + b * a.sqb + hh * a.sqh;
+  const bf16* k = static_cast<const bf16*>(a.k) + b * a.skb + hh * a.skh;
+  const bf16* v = static_cast<const bf16*>(a.v) + b * a.svb + hh * a.svh;
+
+  int n_tiles = (a.Lk + kTcBK - 1) / kTcBK;
+  if (a.causal)  // the last key any row of this tile may see
+    n_tiles = min(n_tiles, (q0 + kTcBQ - 1 + kv_off) / kTcBK + 1);
+
+  auto load_kv = [&](int stage, int tile) {
+    const int k0 = tile * kTcBK;
+    pt::load_rows_async<kTcBK, D, LD, kTcThreads>(
+        Ks + stage * kTcBK * LD, k, a.skl, k0, a.Lk, tid);
+    pt::load_rows_async<kTcBK, D, LD, kTcThreads>(
+        Vs + stage * kTcBK * LD, v, a.svl, k0, a.Lk, tid);
+  };
+  pt::load_rows_async<kTcBQ, D, LD, kTcThreads>(Qs, q, a.sql, q0, a.Lq, tid);
+  pt::cp_async_commit();
+  load_kv(0, 0);
+  pt::cp_async_commit();
+  pt::cp_async_wait<1>();  // the Q tile has landed
+  __syncthreads();
+  unsigned qf[KD][4];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk)
+    pt::load_a<LD>(qf[kk], Qs, warp * 16, kk * 16, lane);
+
+  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+  const float sl2 = a.scale * kLog2e;
+  float m[2] = {-INFINITY, -INFINITY};  // row max, in base-2 units
+  float l[2] = {0.f, 0.f};              // this thread's share of the row sum
+  float o[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it & 1;
+    if (it + 1 < n_tiles) load_kv(st ^ 1, it + 1);
+    pt::cp_async_commit();
+    pt::cp_async_wait<1>();  // tile it has landed
+    __syncthreads();
+    const bf16* Kt = Ks + st * kTcBK * LD;
+    const bf16* Vt = Vs + st * kTcBK * LD;
+
+    // S = Q K^T: 16 rows x 64 keys a warp
+    float s[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        unsigned kb[4];
+        pt::load_b<LD>(kb, Kt, np * 16, kk * 16, lane);
+        pt::mma_bf16(s[2 * np], qf[kk], kb[0], kb[1]);
+        pt::mma_bf16(s[2 * np + 1], qf[kk], kb[2], kb[3]);
+      }
+    }
+
+    // scale to base 2; mask the tiles that cross the diagonal or the tail
+    const int k0 = it * kTcBK;
+    const bool edge = k0 + kTcBK > a.Lk ||
+                      (a.causal && k0 + kTcBK - 1 > q0 + kv_off);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * sl2;
+        if (edge) {
+          const int col = k0 + n * 8 + 2 * t + (e & 1);
+          const int row = row0 + (e >> 1) * 8;
+          if (col >= a.Lk || (a.causal && col > row + kv_off)) x = -INFINITY;
+        }
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float mu[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      // a row with no visible key so far keeps p = 0 and o = 0
+      mu[i] = m_new == -INFINITY ? 0.f : m_new;
+      const float corr = exp2f(m[i] - mu[i]);
+      m[i] = m_new;
+      l[i] *= corr;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        o[n][2 * i] *= corr;
+        o[n][2 * i + 1] *= corr;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[n][e] - mu[e >> 1]);
+        s[n][e] = p;
+        l[e >> 1] += p;
+      }
+    }
+
+    // O += P V, P packed to bf16 as A fragments, V through ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < kTcBK / 16; ++kk) {
+      unsigned pa[4] = {pt::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                        pt::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                        pt::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                        pt::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dn = 0; dn < D / 16; ++dn) {
+        unsigned vb[4];
+        pt::load_b_trans<LD>(vb, Vt, dn * 16, kk * 16, lane);
+        pt::mma_bf16(o[2 * dn], pa, vb[0], vb[1]);
+        pt::mma_bf16(o[2 * dn + 1], pa, vb[2], vb[3]);
+      }
+    }
+    __syncthreads();  // stage st is free for the load of tile it + 2
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + i * 8;
+    if (row >= a.Lq) continue;
+    const float lsum = fmaxf(l[i], 1e-30f);
+    const float inv = 1.f / lsum;
+    bf16* orow = static_cast<bf16*>(a.out) +
+                 ((static_cast<int64_t>(b) * a.Lq + row) * a.H + hh) * D;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * t) =
+          __floats2bfloat162_rn(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
+    if (t == 0)
+      a.lse[(static_cast<int64_t>(b) * a.H + hh) * a.Lq + row] =
+          m[i] * kLn2 + logf(lsum);
+  }
+}
+
+template <int D>
+cudaError_t launch_tc(const FaArgs& a, cudaStream_t stream) {
+  constexpr size_t smem = tc_smem_bytes<D>();
+  cudaError_t err = pt::allow_smem(flash_fwd_tc_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Lq + kTcBQ - 1) / kTcBQ, a.H, a.B);
+  flash_fwd_tc_kernel<D><<<grid, kTcThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q [B, Lq, H, D], k/v [B, Lk, H, D] with element strides (last dim
@@ -185,7 +399,14 @@ extern "C" int pt_flash_attention_fwd(
            svb, svl, svh, B,   H,   Lq,  Lk,  D,   causal, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (is_bf16)
+  // the design by type, head dim and alignment; the wrapper's
+  // `fwd_design` says the same
+  if (is_bf16 && (D == 64 || D == 128) &&
+      pt::rows_aligned16(q, sqb, sql, sqh) &&
+      pt::rows_aligned16(k, skb, skl, skh) &&
+      pt::rows_aligned16(v, svb, svl, svh))
+    err = D == 64 ? launch_tc<64>(a, s) : launch_tc<128>(a, s);
+  else if (is_bf16)
     err = D <= 64 ? launch<__nv_bfloat16, 64>(a, s)
                   : launch<__nv_bfloat16, 128>(a, s);
   else

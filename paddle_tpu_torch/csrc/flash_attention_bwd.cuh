@@ -1,28 +1,43 @@
 // Flash-attention backward: what the one-pass kernel
 // (flash_attention_bwd.cu) and the split pair (flash_attention_bwd_split.cu)
 // share — the arguments, the tile shape, and the walk of one 64-key tile
-// over the q tiles at or below the causal diagonal.
+// over the q tiles at or below the causal diagonal, in two designs.
 //
-// The walk keeps its K and V tile in shared memory and dK, dV in fp32
-// registers for the block's lifetime. Per q tile it computes
+// `kv_walk<T, D, kDq>`, CUDA cores (fp32, every head dim, and the one-pass
+// kernel): the walk keeps its K and V tile in shared memory and dK, dV in
+// fp32 registers for the block's lifetime. Per q tile it computes
 // P = exp(S * scale - lse) and dS = P * (dP - delta) once and keeps both
 // tiles in shared memory for the products that read them. With kDq it also
 // adds this k tile's share of dQ = dS K into an fp32 [B, Lq, H, D] buffer
 // with atomicAdd (the one-pass kernel); without it the walk is the split
-// backward's dk/dv kernel, and dq comes from its own walk.
+// backward's dk/dv kernel, and dq comes from its own walk. Each thread
+// owns a 4 x 4 micro-tile of S and dP (rows ty + 16 i, keys tx + 16 j),
+// then 4 keys x D/16 dims of dK and dV (and 4 rows x D/16 dims of dQ);
+// shared rows are padded to D + 1 floats so the strided reads do not
+// collide on a bank.
 //
-// Each thread owns a 4 x 4 micro-tile of S and dP (rows ty + 16 i, keys
-// tx + 16 j), then 4 keys x D/16 dims of dK and dV (and 4 rows x D/16 dims
-// of dQ); shared rows are padded to D + 1 floats so the strided reads do
-// not collide on a bank. Rows past Lq and keys past Lk are zero-filled and
-// masked, so any L >= 1 works; q, k, v and dO are read through their
-// [B, L, H, D] strides (last dim contiguous). Offsets that can pass 2^31
-// are int64 (a row index times an int64 stride or row length).
+// `kv_walk_tc<D, kDq>`, tensor cores (bf16, D 64 or 128, aligned rows):
+// 4 warps, each owning 16 of the tile's keys. K and V stay in shared memory
+// as bf16; the q tiles (Q, dO, and lse and delta) stream through a 2-stage
+// ring, Q and dO by cp.async. The walk computes the transposed tiles,
+// S^T = K Q^T and dP^T = V dO^T, by mma.sync m16n8k16 with fp32
+// accumulators, so P^T = exp(S^T * scale - lse) and dS^T = P^T (dP^T -
+// delta) come out in accumulator layout: packed to bf16 (the reference's
+// casts before its dv and dk products) they are the A fragments of
+// dV += P^T dO and dK += dS^T Q, whose B operands (dO and Q, stored
+// [q][d]) are read through ldmatrix.trans. dK and dV stay in fp32
+// registers and are written once.
+//
+// Rows past Lq and keys past Lk are zero-filled and masked, so any L >= 1
+// works; q, k, v and dO are read through their [B, L, H, D] strides (last
+// dim contiguous). Offsets that can pass 2^31 are int64 (a row index times
+// an int64 stride or row length).
 #pragma once
 
 #include <math.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace pt {
 namespace fa_bwd {
@@ -263,6 +278,206 @@ __device__ __forceinline__ void kv_walk(const BwdArgs& a) {
         dk[kj * row_stride + d] = from_f32<T>(dk_acc[i][j] * a.scale);
         dv[kj * row_stride + d] = from_f32<T>(dv_acc[i][j]);
       }
+    }
+  }
+}
+
+// ------------------------------ tensor cores --------------------------------
+
+constexpr int kTcThreads = 128;  // 4 warps, 16 rows (or keys) a warp
+constexpr float kLog2e = 1.4426950408889634f;
+
+// true when the tensor-core designs take these inputs: bf16 (checked by
+// the caller), D 64 or 128, every row 16-byte aligned; the wrapper's
+// `bwd_design` says the same
+inline bool tc_takes(const BwdArgs& a) {
+  return (a.D == 64 || a.D == 128) &&
+         rows_aligned16(a.q, a.sqb, a.sql, a.sqh) &&
+         rows_aligned16(a.k, a.skb, a.skl, a.skh) &&
+         rows_aligned16(a.v, a.svb, a.svl, a.svh) &&
+         rows_aligned16(a.dout, a.sob, a.sol, a.soh);
+}
+
+// bytes of shared memory of the tensor-core k-tile walk: K and V, then two
+// stages of Q, dO and of lse, delta
+template <int D>
+constexpr size_t kv_walk_tc_smem_bytes() {
+  return static_cast<size_t>(2 * kBK + 4 * kBQ) * (D + 8) *
+             sizeof(__nv_bfloat16) +
+         4 * kBQ * sizeof(float);
+}
+
+// One block per (64-key tile = blockIdx.x, b * h = blockIdx.y). kDq (the
+// one-pass kernel's dQ = dS K with atomics) is left to a later change: it
+// would stage dS^T in shared memory and add its product with K into the
+// fp32 dq buffer, as `kv_walk` does.
+template <int D, bool kDq>
+__device__ __forceinline__ void kv_walk_tc(const BwdArgs& a) {
+  static_assert(!kDq, "the tensor-core walk has no dQ product yet");
+  constexpr int LD = D + 8;   // padded shared row, in elements
+  constexpr int KD = D / 16;  // k16 steps over the head dim
+  constexpr int ND = D / 8;   // n8 tiles of a dK / dV row
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [kBK][LD]
+  bf16* Vs = Ks + kBK * LD;                      // [kBK][LD]
+  bf16* Qs = Vs + kBK * LD;                      // [2][kBQ][LD]
+  bf16* Os = Qs + 2 * kBQ * LD;                  // dO [2][kBQ][LD]
+  float* Ls = reinterpret_cast<float*>(Os + 2 * kBQ * LD);  // [2][kBQ]
+  float* Dl = Ls + 2 * kBQ;                                 // [2][kBQ]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.x * kBK;
+  const int bh = blockIdx.y;
+  const int b = bh / a.H;
+  const int hh = bh - b * a.H;
+  const int kv_off = a.Lk - a.Lq;
+
+  const bf16* q = static_cast<const bf16*>(a.q) + b * a.sqb + hh * a.sqh;
+  const bf16* k = static_cast<const bf16*>(a.k) + b * a.skb + hh * a.skh;
+  const bf16* v = static_cast<const bf16*>(a.v) + b * a.svb + hh * a.svh;
+  const bf16* dout = static_cast<const bf16*>(a.dout) + b * a.sob + hh * a.soh;
+  const float* lse = a.lse + static_cast<int64_t>(bh) * a.Lq;
+  const float* delta = a.delta + static_cast<int64_t>(bh) * a.Lq;
+
+  // first q tile with a row that sees key k0: rows r with r + kv_off >= k0
+  int qt = 0;
+  if (a.causal) qt = max(0, k0 - kv_off) / kBQ;
+  const int n_qt = (a.Lq + kBQ - 1) / kBQ;
+
+  // a q tile into stage `stage`: Q and dO by cp.async; lse in base 2 and
+  // delta by plain loads (their rows need not be 16-byte aligned). A row
+  // past Lq, or one with no visible key (lse -inf), gets lse +inf, so its
+  // P is 0.
+  auto load_q = [&](int stage, int tile) {
+    const int q0 = tile * kBQ;
+    load_rows_async<kBQ, D, LD, kTcThreads>(Qs + stage * kBQ * LD, q, a.sql,
+                                            q0, a.Lq, tid);
+    load_rows_async<kBQ, D, LD, kTcThreads>(Os + stage * kBQ * LD, dout,
+                                            a.sol, q0, a.Lq, tid);
+    if (tid < kBQ) {
+      const int qi = q0 + tid;
+      const float ls = qi < a.Lq ? lse[qi] : -INFINITY;
+      Ls[stage * kBQ + tid] = ls == -INFINITY ? INFINITY : ls * kLog2e;
+    } else {
+      const int qi = q0 + tid - kBQ;
+      Dl[stage * kBQ + tid - kBQ] = qi < a.Lq ? delta[qi] : 0.f;
+    }
+  };
+
+  load_rows_async<kBK, D, LD, kTcThreads>(Ks, k, a.skl, k0, a.Lk, tid);
+  load_rows_async<kBK, D, LD, kTcThreads>(Vs, v, a.svl, k0, a.Lk, tid);
+  load_q(0, qt);
+  cp_async_commit();
+
+  float dk[ND][4], dv[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  const int key0 = k0 + warp * 16 + g;  // this thread's keys: key0, key0 + 8
+  const float sl2 = a.scale * kLog2e;
+  for (int it = 0; qt < n_qt; ++qt, ++it) {
+    const int st = it & 1;
+    if (qt + 1 < n_qt) load_q(st ^ 1, qt + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this q tile has landed
+    __syncthreads();
+    const bf16* Qt = Qs + st * kBQ * LD;
+    const bf16* Ot = Os + st * kBQ * LD;
+    const float* Lt = Ls + st * kBQ;
+    const float* Dt = Dl + st * kBQ;
+    const int q0 = qt * kBQ;
+
+    // S^T = K Q^T and dP^T = V dO^T: 16 keys x 64 rows a warp
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      unsigned ka[4], va[4];
+      load_a<LD>(ka, Ks, warp * 16, kk * 16, lane);
+      load_a<LD>(va, Vs, warp * 16, kk * 16, lane);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        unsigned qb[4], ob[4];
+        load_b<LD>(qb, Qt, np * 16, kk * 16, lane);
+        load_b<LD>(ob, Ot, np * 16, kk * 16, lane);
+        mma_bf16(s[2 * np], ka, qb[0], qb[1]);
+        mma_bf16(s[2 * np + 1], ka, qb[2], qb[3]);
+        mma_bf16(dp[2 * np], va, ob[0], ob[1]);
+        mma_bf16(dp[2 * np + 1], va, ob[2], ob[3]);
+      }
+    }
+
+    // P^T and dS^T in place; only tiles that cross the diagonal are
+    // masked element by element (rows past Lq have lse +inf)
+    const bool edge = a.causal && k0 + kBK - 1 > q0 + kv_off;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int c = n * 8 + 2 * t + j;  // row of the q tile
+        const float lq = Lt[c];
+        const float dl = Dt[c];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int e = 2 * i + j;
+          float p = exp2f(s[n][e] * sl2 - lq);
+          if (edge && key0 + 8 * i > q0 + c + kv_off) p = 0.f;
+          s[n][e] = p;
+          dp[n][e] = p * (dp[n][e] - dl);
+        }
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T Q: P^T and dS^T packed to bf16 as A
+    // fragments, dO and Q through ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < kBQ / 16; ++kk) {
+      unsigned pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                        pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                        pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                        pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      unsigned sa[4] = {pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
+                        pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
+                        pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
+                        pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+#pragma unroll
+      for (int dn = 0; dn < D / 16; ++dn) {
+        unsigned ob[4], qb[4];
+        load_b_trans<LD>(ob, Ot, dn * 16, kk * 16, lane);
+        mma_bf16(dv[2 * dn], pa, ob[0], ob[1]);
+        mma_bf16(dv[2 * dn + 1], pa, ob[2], ob[3]);
+        load_b_trans<LD>(qb, Qt, dn * 16, kk * 16, lane);
+        mma_bf16(dk[2 * dn], sa, qb[0], qb[1]);
+        mma_bf16(dk[2 * dn + 1], sa, qb[2], qb[3]);
+      }
+    }
+    __syncthreads();  // stage st is free for the load of q tile qt + 2
+  }
+  cp_async_wait<0>();
+
+  const int64_t row_stride = static_cast<int64_t>(a.H) * D;
+  bf16* dkp = static_cast<bf16*>(a.dk) +
+              static_cast<int64_t>(b) * a.Lk * row_stride + hh * D;
+  bf16* dvp = static_cast<bf16*>(a.dv) +
+              static_cast<int64_t>(b) * a.Lk * row_stride + hh * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kj = key0 + 8 * i;
+    if (kj >= a.Lk) continue;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      const int64_t off = kj * row_stride + n * 8 + 2 * t;
+      *reinterpret_cast<__nv_bfloat162*>(dkp + off) = __floats2bfloat162_rn(
+          dk[n][2 * i] * a.scale, dk[n][2 * i + 1] * a.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvp + off) =
+          __floats2bfloat162_rn(dv[n][2 * i], dv[n][2 * i + 1]);
     }
   }
 }

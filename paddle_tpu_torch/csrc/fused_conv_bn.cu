@@ -41,6 +41,7 @@
 // and x, w 16-byte aligned, which the wrapper checks.
 #include "column_sums.cuh"
 #include "common.cuh"
+#include "mma.cuh"
 
 // names this file's second pass in its column_sums_kernel symbol, so a
 // profile can tell it from the other caller's
@@ -50,48 +51,18 @@ namespace {
 
 constexpr int kThreads = 256;
 
+using pt::cp_async16;
+using pt::cp_async_commit;
+using pt::cp_async_wait;
+using pt::ldmatrix_x4;
+using pt::mma_bf16;
+
 // ----------------------------- bf16, tensor cores ----------------------------
 
 constexpr int BM = 128, BN = 128, BK = 32, STAGES = 3;
 constexpr int LDS = BK + 8;  // padded row, in elements (80 bytes)
 constexpr size_t kSmemBf16 =
     static_cast<size_t>(STAGES) * (BM + BN) * LDS * sizeof(__nv_bfloat16);
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = pred ? 16 : 0;  // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4],
-                                            const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __global__ void __launch_bounds__(kThreads)
     conv1x1_bf16_kernel(const __nv_bfloat16* __restrict__ x,

@@ -5,6 +5,13 @@ stem). Each wrapper takes the CUDA kernel for a tensor on a card and the
 plain version for a tensor on the CPU, and counts which one ran in its
 module's ``_stats`` (``{"kernel": n, "plain": n}``). For a CUDA tensor
 there is no fallback: the wrapper launches or raises.
+
+An input that the reference's dispatch sends to an XLA composition (fp16
+or fp64 layer norm, attention, cross-entropy and fused BN; a masked
+attention; causal attention with Lq > Lk, or a head dim the flash kernels
+do not take) goes to the module's torch composition instead, on the card
+as on the CPU. Each module's entry decides that with its ``kernel_takes``
+and counts the run in :func:`composed_stats`, apart from ``_stats``.
 """
 from __future__ import annotations
 
@@ -41,6 +48,20 @@ def launch(name: str, entry: str, device: torch.device, *args) -> None:
         _native.check(getattr(lib, entry)(*args, stream), name)
 
 
+#: runs of each entry's torch composition (see the module docstring)
+_composed = {"layer_norm": 0, "flash_attention": 0, "softmax_ce": 0,
+             "fused_bn": 0}
+
+
+def count_composed(name: str) -> None:
+    _composed[name] += 1
+
+
+def composed_stats() -> dict:
+    """{entry: runs of its torch composition}."""
+    return dict(_composed)
+
+
 def _counters() -> dict:
     """{kernel: its module's launch counter dict}; the backward kernels
     have their own entries."""
@@ -66,6 +87,7 @@ def all_stats() -> dict:
 
 
 def reset_stats() -> None:
-    for st in _counters().values():
+    """Every launch counter and every composition count to 0."""
+    for st in (*_counters().values(), _composed):
         for key in st:
             st[key] = 0

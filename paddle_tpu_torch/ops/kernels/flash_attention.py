@@ -6,11 +6,17 @@ dispatch ``flash_attention``.
 Forward: replaces ``_fa_fwd_pallas`` (tiled online softmax) and
 ``_fa_small_fwd_pallas`` (single-shot path for Lq == Lk <= 512) of
 ``paddle_tpu/ops/pallas/flash_attention.py``. One Hopper kernel covers
-both. It is bound by operations at the prefill buckets; it streams 32-key
-K/V tiles through shared memory for a 64-row query tile, skips tiles above
-the causal diagonal, masks row and column tails (any L >= 1), and reads
-[B, L, H, D] through its strides. Outputs are ``out`` in the input type and
-``lse`` [B, H, Lq] fp32, which the backward reuses.
+both. It is bound by operations; for a 64-row query tile it streams K/V
+tiles through shared memory, skips tiles above the causal diagonal, masks
+row and column tails (any L >= 1), and reads [B, L, H, D] through its
+strides. Outputs are ``out`` in the input type and ``lse`` [B, H, Lq]
+fp32, which the backward reuses.
+
+Designs (``kernel_design``): bf16 at head dim 64 or 128 with 16-byte
+aligned rows runs the forward and the split backward pair on the tensor
+cores (``mma.sync`` m16n8k16, fp32 accumulators, P and dS rounded to bf16
+before the products that read them, as the reference does); fp32, other
+head dims and the one-pass backward run on CUDA cores.
 
 Backward, chosen by the reference's gate (l.1109): while the one-pass
 kernel's whole-(b, h) dq, Lq * D * 4 bytes, fits ``_FUSED_BWD_DQ_BYTES``
@@ -39,7 +45,7 @@ import math
 
 import torch
 
-from . import launch, same_device, use_kernel
+from . import count_composed, launch, same_device, use_kernel
 
 _stats = {"kernel": 0, "plain": 0}
 #: launches of the one-pass backward kernel (and runs of its plain version)
@@ -103,6 +109,37 @@ def check_args(q, k, v, causal: bool) -> None:
         raise ValueError("flash_attention: head_dim must be contiguous")
     if B > 65535 or H > 65535:
         raise ValueError("flash_attention: B and H must be <= 65535")
+
+
+def kernel_takes(q, k, v, mask=None, causal: bool = False) -> bool:
+    """Whether the flash kernels take this attention on a card: the
+    counterpart of the reference's ``_pallas_eligible`` (l.1217-1253).
+    False, and ``flash_attention`` composes, for fp16 or fp64 (or mixed)
+    types, causal with Lq > Lk (rows with no visible key), a head dim
+    above 128 or not a multiple of 8 (the reference's compile probe,
+    ``_pallas_fa_ok``, fails there), a float mask (its gradient is real)
+    and a bool mask (no kernel streams masks yet)."""
+    if mask is not None:
+        return False
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _TYPES:
+        return False
+    D = q.shape[-1]
+    if D > _MAX_D or D % 8:
+        return False
+    return not (causal and q.shape[1] > k.shape[1])
+
+
+def kernel_design(*tensors) -> str:
+    """The design the forward and split-backward launchers pick for these
+    [B, L, H, D] inputs (q first), as ``csrc/flash_attention.cu`` and
+    ``csrc/flash_attention_bwd.cuh:tc_takes`` pick it: "mma.sync" for bf16
+    at D 64 or 128 with every row 16-byte aligned, else "cuda-core"."""
+    q = tensors[0]
+    aligned = all(t.data_ptr() % 16 == 0
+                  and all(st % 8 == 0 for st in t.stride()[:3])
+                  for t in tensors)
+    tc = q.dtype == torch.bfloat16 and q.shape[-1] in (64, 128)
+    return "mma.sync" if tc and aligned else "cuda-core"
 
 
 def flash_attention_fwd(q, k, v, causal: bool = False, scale=None):
@@ -359,20 +396,16 @@ def attention_composition(q, k, v, mask=None, causal: bool = False,
 def flash_attention(q, k, v, mask=None, causal: bool = False, scale=None,
                     dropout_p: float = 0.0, generator=None):
     """Dispatch (counterpart of ``paddle_tpu``'s ``flash_attention``):
-    the flash kernel (or its plain version on the CPU) for unmasked
-    attention; the composition for dropout > 0 (weight dropout needs the
-    normalised probabilities, which the online softmax never forms), and
-    for a mask on the CPU. On a card a mask raises: streaming bool masks
-    through the kernels arrives with the BERT slice."""
-    if dropout_p > 0.0:
+    the flash kernels (their plain versions on the CPU) for unmasked
+    attention they take; ``attention_composition``, counted in
+    ``composed_stats``, for dropout > 0 (weight dropout needs the
+    normalised probabilities, which the online softmax never forms), for
+    a mask, and on a card for whatever ``kernel_takes`` refuses."""
+    if (dropout_p > 0.0 or mask is not None
+            or (use_kernel(q) and not kernel_takes(q, k, v, mask, causal))):
+        count_composed("flash_attention")
         return attention_composition(q, k, v, mask, causal, scale,
                                      dropout_p, generator)
-    if mask is not None:
-        if q.device.type == "cuda":
-            raise NotImplementedError(
-                "flash_attention: attention masks are not ported to the "
-                "CUDA kernel yet")
-        return attention_composition(q, k, v, mask, causal, scale)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     return FlashAttentionFunction.apply(q, k, v, bool(causal), float(scale))

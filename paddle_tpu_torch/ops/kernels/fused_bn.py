@@ -21,14 +21,17 @@ backward, with the mean/var cotangent terms, are a few fp32 vector ops
 
 The TPU's eligibility gates (R >= 256, R % 8, C % 128, C <= 2048, l.313-331)
 were set by VMEM and the (8, 128) tiling; the H100 kernels take any R >= 1
-and C >= 1, float32 or bfloat16, so every fused BN takes them.
+and C >= 1, float32 or bfloat16, so every fused BN in those types takes
+them. fp16 and fp64 compose on a card (``kernel_takes``), as they do in
+the reference (l.327-328): the statistics, the folded affine and the plain
+forward through autograd, counted in ``composed_stats``.
 """
 from __future__ import annotations
 
 import torch
 
 from .._bn_common import _bn_stats
-from . import launch, same_device, use_kernel
+from . import count_composed, launch, same_device, use_kernel
 
 #: forward launches (and runs of its plain version)
 _stats = {"kernel": 0, "plain": 0}
@@ -70,6 +73,12 @@ def bn_bwd_dx_plain(x2d, y2d, dy2d, a, b, c0, act, has_add):
     g = _relu_mask(dy2d.float(), y2d, act)
     dx = (a * g + b * x2d.float() + c0).to(x2d.dtype)
     return dx, (g.to(dy2d.dtype) if has_add else None)
+
+
+def kernel_takes(x, z=None) -> bool:
+    """Whether the kernels take these row operands: x float32 or bfloat16,
+    the residual z (if any) in x's type."""
+    return x.dtype in _TYPES and (z is None or z.dtype == x.dtype)
 
 
 def _check_rows(name, *tensors):
@@ -250,11 +259,27 @@ def _rows(t, channels_last):
     return t.reshape(-1, t.shape[-1]).contiguous()
 
 
+def bn_act_composition(x2d, z2d, gamma, beta, epsilon, act):
+    """(y, batch mean, batch var) of act(BN_train(x) (+ z)) as torch ops,
+    differentiated by autograd: the arithmetic of FusedBNFunction's
+    forward with the plain apply."""
+    _is_relu(act)
+    mean, var = _bn_stats(x2d, (0,))
+    k, c = fold_affine(gamma, beta, mean, torch.rsqrt(var + epsilon))
+    return bn_act_fwd_plain(x2d, z2d, k, c, act), mean, var
+
+
 def _fused(x, z, gamma, beta, epsilon, data_format, act):
     channels_last = not data_format.startswith("NC")
     z2d = None if z is None else _rows(z, channels_last)
-    y2d, mean, var = FusedBNFunction.apply(_rows(x, channels_last), z2d,
-                                           gamma, beta, epsilon, act)
+    x2d = _rows(x, channels_last)
+    if use_kernel(x2d) and not kernel_takes(x2d, z2d):
+        count_composed("fused_bn")
+        y2d, mean, var = bn_act_composition(x2d, z2d, gamma, beta, epsilon,
+                                            act)
+    else:
+        y2d, mean, var = FusedBNFunction.apply(x2d, z2d, gamma, beta,
+                                               epsilon, act)
     if channels_last:
         return y2d.reshape(x.shape), mean, var
     cl_shape = (x.shape[0], *x.shape[2:], x.shape[1])

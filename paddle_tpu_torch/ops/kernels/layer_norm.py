@@ -13,13 +13,16 @@ the reference. It takes any R >= 1 and any N: the TPU-shaped eligibility
 forward launches the kernel (plain version on the CPU), and its backward
 is ``layer_norm_bwd``, a torch composition of ``_fused_ln_bwd`` (l.193),
 which is an XLA composition in the reference too. The backward keeps only
-``(x, gamma)`` and recomputes mean and rstd.
+``(x, gamma)`` and recomputes mean and rstd. Types the kernel does not
+take (fp16, fp64, beta in another type than gamma; ``kernel_takes``)
+compose on a card, as XLA composes them in the reference (l.159-173):
+the plain version through autograd, counted in ``composed_stats``.
 """
 from __future__ import annotations
 
 import torch
 
-from . import launch, same_device, use_kernel
+from . import count_composed, launch, same_device, use_kernel
 
 _stats = {"kernel": 0, "plain": 0}
 
@@ -34,6 +37,13 @@ def layer_norm_plain(x2d, gamma, beta, eps: float = 1e-5):
     var = (xf * xf).mean(dim=-1, keepdim=True) - mean * mean
     y = (xf - mean) * torch.rsqrt(var + eps)
     return (y * gamma.float() + beta.float()).to(x2d.dtype)
+
+
+def kernel_takes(x, gamma, beta) -> bool:
+    """Whether the kernel takes these types: x and gamma float32 or
+    bfloat16, beta in gamma's type."""
+    return (x.dtype in _TYPES and gamma.dtype in _TYPES
+            and beta.dtype == gamma.dtype)
 
 
 def check_args(x2d, gamma, beta) -> None:
@@ -112,5 +122,10 @@ class LayerNormFunction(torch.autograd.Function):
 
 
 def fused_layer_norm(x, gamma, beta, eps: float = 1e-5):
-    """LayerNorm over the last dim of x (any leading shape)."""
+    """LayerNorm over the last dim of x (any leading shape): the Function,
+    or on a card the composition for types the kernel does not take."""
+    if use_kernel(x) and not kernel_takes(x, gamma, beta):
+        count_composed("layer_norm")
+        return layer_norm_plain(x.reshape(-1, x.shape[-1]), gamma, beta,
+                                float(eps)).reshape(x.shape)
     return LayerNormFunction.apply(x, gamma, beta, float(eps))

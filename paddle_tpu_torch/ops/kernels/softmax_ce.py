@@ -15,14 +15,16 @@ out-of-range label (``ignore_index`` -100, or V) gives nll = lse and a
 row gradient of softmax * dnll, as the reference's does; the caller masks
 both. The TPU's eligibility gate (V >= 4096, N >= 64, default off on the
 v5e; l.314-335) was shaped by Mosaic and its measurements there and does
-not carry over: every hard-label, unweighted, last-axis loss takes this
-Function.
+not carry over: every hard-label, unweighted, last-axis loss in float32
+or bfloat16 takes this Function. fp16 and fp64 logits compose on a card
+(``kernel_takes``), as the reference composes them in XLA: the plain
+forward through autograd, counted in ``composed_stats``.
 """
 from __future__ import annotations
 
 import torch
 
-from . import launch, same_device, use_kernel
+from . import count_composed, launch, same_device, use_kernel
 
 #: forward launches (and runs of its plain version)
 _stats = {"kernel": 0, "plain": 0}
@@ -52,6 +54,11 @@ def softmax_ce_bwd_plain(logits2d, labels, lse, dnll):
     cols = torch.arange(V, device=logits2d.device)
     onehot = (cols[None, :] == labels.long()[:, None]).float()
     return ((p - onehot) * dnll.float()[:, None]).to(logits2d.dtype)
+
+
+def kernel_takes(logits) -> bool:
+    """Whether the kernels take logits of this type (float32, bfloat16)."""
+    return logits.dtype in _TYPES
 
 
 def check_args(logits2d, labels) -> None:
@@ -138,6 +145,9 @@ def fused_softmax_ce(logits, labels):
     shape = logits.shape[:-1]
     flat = logits.reshape(-1, logits.shape[-1]).contiguous()
     flab = labels.reshape(-1)
-    if flat.is_cuda:
+    if use_kernel(flat):
+        if not kernel_takes(flat):
+            count_composed("softmax_ce")
+            return softmax_ce_fwd_plain(flat, flab)[0].reshape(shape)
         flab = flab.to(torch.int32).contiguous()
     return SoftmaxCEFunction.apply(flat, flab).reshape(shape)
