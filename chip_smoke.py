@@ -12,14 +12,19 @@ failure:
               the serving and training paths' shapes, fp32 and bf16, with
               kernel, plain, library and bound times and the design timed
               ("mma.sync" on the tensor cores or "cuda-core"; the flash
-              forward and split pair in bf16 also at L 1,000 and at D 128) (the long path's layer
-              norm, CE, flash forward and split backward's pair at its
-              B 1 x 32,768 too, the attention plain versions one head at a
-              time, the pair also against the one-pass kernel and twice,
-              bit for bit); then, for correctness
-              only, at the edges each kernel claims (ragged tails, Lk != Lq,
-              D 8-128, ctx 0 and page boundaries, N up to 4096, V off the
-              vector width, labels out of range);
+              forward and split pair in bf16 also at L 1,000 and at D 128;
+              the one-pass backward also at B 2 L 1,024 H 16 D 128, run
+              twice (dk, dv bit for bit, dq within tolerance) and beside
+              the split pair on the same inputs; paged attention's split
+              into partitions, run twice, bit for bit) (the long path's
+              layer norm, CE, flash forward and split backward's pair at
+              its B 1 x 32,768 too, the attention plain versions one head
+              at a time, the pair also against the one-pass kernel and
+              twice, bit for bit); then, for correctness only, at the
+              edges each kernel claims (ragged tails, Lk != Lq, D 8-128,
+              ctx 0, page and partition boundaries, contexts past the
+              block table, N up to 4096, V off the vector width, labels
+              out of range);
 4. serve    - GPT-2 small at full width (12 layers, hidden 768, 12 heads,
               vocab 50304, fp32, random weights from a seed) through
               ServingEngine(max_batch=32, max_len=1024, page_size=16): 64
@@ -244,7 +249,10 @@ def check_paged(dev, gen, W, H, D, page_size, max_len):
         vp = torch.randn(num_pages, page_size, H, D, device=dev,
                          generator=gen).to(dtype)
         out = pa.paged_attention(q, kp, vp, bt, cl)
+        again = pa.paged_attention(q, kp, vp, bt, cl)
         torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            raise AssertionError(f"paged_attention {dtype}: two runs differ")
         err = max_err(out, pa.paged_attention_plain(q.float(), kp.float(),
                                                     vp.float(), bt, cl))
         isz = q.element_size()
@@ -257,6 +265,7 @@ def check_paged(dev, gen, W, H, D, page_size, max_len):
             kernel="paged_attention", dtype=str(dtype)[6:],
             shape=(f"W={W} H={H} D={D} page={page_size} "
                    f"ctx={int(ctx_np.min())}-{int(ctx_np.max())}"),
+            design=pa.kernel_design(kp, vp, bt),
             max_abs_err=err, tol=TOL[dtype],
             ms=cuda_ms(lambda: pa.paged_attention(q, kp, vp, bt, cl)),
             plain_ms=cuda_ms(lambda: pa.paged_attention_plain(
@@ -273,10 +282,19 @@ def bwd_tol(dtype, ref):
     return TOL[dtype] * max(1.0, float(ref.abs().max()))
 
 
-def check_flash_bwd(dev, gen, lengths, B, H, D):
+def check_flash_bwd(dev, gen, lengths, B, H, D,
+                    dtypes=(torch.float32, torch.bfloat16)):
+    """The one-pass backward (the GPT step's, below the 6 MiB gate) against
+    its plain version on the same inputs (bwd_tol), run twice: dk and dv
+    must repeat bit for bit, dq (summed with atomics in a varying order)
+    within bwd_tol of the first run. Times: the backward as the model
+    calls it (delta, the zeroed fp32 dq, the kernel and dq's cast), its
+    plain version, SDPA's backward (summed device-kernel time) and, as
+    `split_ms`, delta and the split pair (dq then dk/dv) on the same
+    inputs in the same call: the other route past the gate."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     rows = []
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes:
         for L in lengths:
             qkv = torch.randn(B, L, 3, H, D, device=dev,
                               generator=gen).to(dtype)
@@ -284,13 +302,22 @@ def check_flash_bwd(dev, gen, lengths, B, H, D):
             out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
             do = torch.randn(B, L, H, D, device=dev, generator=gen).to(dtype)
             got = fa.flash_attention_bwd(q, k, v, out, lse, do, True)
+            again = fa.flash_attention_bwd(q, k, v, out, lse, do, True)
             torch.cuda.synchronize()
+            if not (torch.equal(got[1], again[1])
+                    and torch.equal(got[2], again[2])):
+                raise AssertionError(f"one-pass backward B={B} L={L} D={D} "
+                                     f"{dtype}: dk or dv differ between two "
+                                     f"runs")
+            repeat = max_err(got[0], again[0]) / bwd_tol(dtype, got[0])
+            del again
             delta = fa.attention_delta(out, do)
             ref = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(),
                                                lse, delta, do.float(), True)
             ratio = max(max_err(g, r) / bwd_tol(dtype, r)
                         for g, r in zip(got, ref))
             err = max(max_err(g, r) for g, r in zip(got, ref))
+            del ref
             isz = q.element_size()
             pairs = L * (L + 1) // 2
             # reads q, k, v, out, do and lse; writes dq, dk, dv; five
@@ -305,9 +332,14 @@ def check_flash_bwd(dev, gen, lengths, B, H, D):
             rows.append(dict(
                 kernel="flash_attention_bwd", dtype=str(dtype)[6:],
                 shape=f"B={B} L={L} H={H} D={D} causal",
+                design=fa.kernel_design(q, k, v, do),
                 max_abs_err=err, tol_ratio=ratio,
+                witnesses={"dq of a second run": repeat},
                 ms=cuda_ms(lambda: fa.flash_attention_bwd(
                     q, k, v, out, lse, do, True), iters=5, reps=3),
+                split_ms=cuda_ms(lambda: _split_bwd(
+                    fa, q, k, v, lse, fa.attention_delta(out, do), do,
+                    True), iters=5, reps=3),
                 plain_ms=cuda_ms(lambda: fa.flash_attention_bwd_plain(
                     q, k, v, lse, fa.attention_delta(out, do), do, True),
                     iters=5, reps=3),
@@ -315,6 +347,7 @@ def check_flash_bwd(dev, gen, lengths, B, H, D):
                     ref_out, leaves, do_t, retain_graph=True),
                     iters=5, reps=3, graph=False),
                 bound_ms=bnd, bound_by=by))
+            del got, leaves, ref_out
     return rows
 
 
@@ -437,10 +470,10 @@ def check_flash_bwd_split(dev, gen):
     versions on the same inputs (bwd_tol), run one head at a time
     (plain_by_head), and timed so. At L 32,768 two more witnesses: fp64
     tiles (fp64_tile_ratio), and the one-pass kernel on the same inputs,
-    dq to bwd_tol (its atomic order); dk and dv in fp32 closer, to 1e-6 of
-    scale, since there both walks run `kv_walk`'s tile code, and in bf16 to
-    bwd_tol, since the tensor-core walk rounds P and dS to bf16 before its
-    products and the one-pass walk does not. Library: SDPA's backward (all
+    dq to bwd_tol (its atomic order); dk and dv closer, to 1e-6 of scale,
+    since both kernels run the same walk for them (`kv_walk` in fp32,
+    `kv_walk_tc` in bf16), the one-pass kernel adding only its dq
+    product. Library: SDPA's backward (all
     three gradients) at the same shape, summed device-kernel time. Each
     pair also runs twice and must repeat bit for bit (no atomics)."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
@@ -475,12 +508,8 @@ def check_flash_bwd_split(dev, gen):
             one = fa.flash_attention_bwd_fused(q, k, v, lse, delta, do,
                                                True)
             w = [max_err(got[0], one[0]) / bwd_tol(dtype, one[0])]
-            if dtype == torch.float32:
-                w += [max_err(g, r) / (1e-6 * max(1.0, float(
-                    r.abs().max()))) for g, r in zip(got[1:], one[1:])]
-            else:
-                w += [max_err(g, r) / bwd_tol(dtype, r)
-                      for g, r in zip(got[1:], one[1:])]
+            w += [max_err(g, r) / (1e-6 * max(1.0, float(r.abs().max())))
+                  for g, r in zip(got[1:], one[1:])]
             del one
             f64 = fp64_tile_ratio(q, k, v, lse, delta, do, got)
             witness = [{"one-pass kernel": w[0], "fp64 tiles": f64},
@@ -718,8 +747,10 @@ def check_edges(dev, gen):
     """Correctness only, at the limits each kernel claims beyond the main
     path's shapes: any R and N up to 4096 (layer norm); any L >= 1, ragged
     tails, Lk > Lq with the causal offset, D from 8 to 128 (flash, where
-    D = 128 needs more than 48 KB of shared memory); ctx 0, one token and
-    page boundaries (paged); the same flash shapes for the backward; V off
+    D = 128 needs more than 48 KB of shared memory); ctx 0, one token,
+    page and partition boundaries, contexts past the block table, one long
+    lane among short ones, rows off the 16-byte width, repeated bit for
+    bit (paged); the same flash shapes for the backward; V off
     the 16-byte vector width, N = 1 and every label out of range (softmax
     CE). Returns {kernel: worst error / tolerance}."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
@@ -802,6 +833,36 @@ def check_edges(dev, gen):
                 raise AssertionError("paged_attention: ctx 0 must give 0")
             worst["paged_attention"] = max(worst["paged_attention"],
                                            max_err(out, ref) / tol)
+        # the partition split: ctx 0 and 1, each side of a partition
+        # boundary, the block table's end and past it; one lane at the
+        # end among short ones. D 36 in bf16 (72-byte rows) and D 12 take
+        # the element loads and the narrow lane groups; page 5 cuts
+        # partitions of 255 tokens
+        for D, page, pps in ((64, 16, 40), (36, 16, 40), (12, 5, 120)):
+            part_pages, _ = pa.partitions(pps, page)
+            part, cap = part_pages * page, pps * page
+            for lens in ((0, 1, part - 1, part, part + 1, 2 * part - 1,
+                          2 * part, 2 * part + 1, cap - 1, cap, cap + 37),
+                         (cap, 1, 2, 3, 0)):
+                ctx = torch.tensor(lens, dtype=torch.int32, device=dev)
+                W = ctx.numel()
+                bt = (1 + torch.randperm(W * pps, device=dev, generator=gen)
+                      ).to(torch.int32).reshape(W, pps)
+                q = randn(W, 2, D, dtype=dtype)
+                kp = randn(1 + W * pps, page, 2, D, dtype=dtype)
+                vp = randn(1 + W * pps, page, 2, D, dtype=dtype)
+                out = pa.paged_attention(q, kp, vp, bt, ctx)
+                again = pa.paged_attention(q, kp, vp, bt, ctx)
+                ref = pa.paged_attention_plain(q.float(), kp.float(),
+                                               vp.float(), bt, ctx)
+                zero = [i for i, n in enumerate(lens) if n == 0]
+                if out[zero].abs().max() != 0 or not torch.equal(out, again):
+                    raise AssertionError(f"paged_attention D={D} page={page}"
+                                         f" ctx={lens}: ctx 0 must give 0 "
+                                         f"and two runs must agree bit for "
+                                         f"bit")
+                worst["paged_attention"] = max(worst["paged_attention"],
+                                               max_err(out, ref) / tol)
     torch.cuda.synchronize()
     return worst
 
@@ -2003,6 +2064,8 @@ def main():
                           dtypes=(torch.bfloat16,))
             + check_paged(dev, gen, 32, 12, 64, 16, 1024)
             + check_flash_bwd(dev, gen, (128, 512, TRAIN_L), TRAIN_B, 12, 64)
+            + check_flash_bwd(dev, gen, (TRAIN_L,), 2, 16, 128,
+                              dtypes=(torch.bfloat16,))
             + check_ce(dev, gen, TRAIN_B * TRAIN_L, 50304)
             + check_fused_bn(dev, gen, ((128, 112, 112, 64),
                                         (128, 14, 14, 1024)))
@@ -2022,6 +2085,8 @@ def main():
             extra += f"; plain at {r['plain_shape']}"
         if r.get("one_pass_ms") is not None:
             extra += f"; one-pass kernel_ms {r['one_pass_ms']:.4f}"
+        if r.get("split_ms") is not None:
+            extra += f"; split pair kernel_ms {r['split_ms']:.4f}"
         for wname, wr in r.get("witnesses", {}).items():
             extra += f"; against the {wname} /tol {wr:.3f}"
         log(f"kernel {r['kernel']:<19} {r['dtype']:<8} "

@@ -138,7 +138,7 @@ def _declare(lib: ctypes.CDLL):
     lib.pt_softmax_ce_bwd.argtypes = [p, p, p, p, p, i64, i64, i32, p]
     lib.pt_paged_attention.restype = i32
     lib.pt_paged_attention.argtypes = (
-        [p, p, p, p, p, p, i64, i64] + [i32] * 5 + [f32, i32, p])
+        [p] * 7 + [i64, i64] + [i32] * 7 + [f32, i32, p])
     lib.pt_fused_bn_fwd.restype = i32
     lib.pt_fused_bn_fwd.argtypes = [p] * 5 + [i64] + [i32] * 4 + [p]
     lib.pt_fused_bn_bwd_reduce.restype = i32

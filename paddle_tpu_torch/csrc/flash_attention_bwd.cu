@@ -16,20 +16,25 @@
 // TPU design: a sequential grid (b, h, k-block, q-block) that carries the
 // whole (b, h) dq in VMEM scratch across the k-blocks. Blocks of a CUDA grid
 // run in parallel and in no order, so nothing can be carried from one to the
-// next. Card design (the walk itself is `kv_walk` in
-// flash_attention_bwd.cuh, shared with the split dk/dv kernel):
-// - one block of 256 threads per (64-key tile, b * h). It keeps its K and V
-//   tile in shared memory and dK, dV in fp32 registers for its lifetime, and
-//   walks the 64-row q tiles at or below the causal diagonal (tiles wholly
-//   above it are never loaded; kv_offset = Lk - Lq as in the forward);
-// - per q tile it computes P and dS ONCE, as the TPU kernel does, and keeps
-//   both tiles in shared memory for the three products that read them;
-// - dq is summed across the k tiles with fp32 atomicAdd into a [B, Lq, H, D]
-//   buffer the wrapper zeroes and then casts, so its summation order varies
-//   from run to run (the tolerance says so).
-// Shared memory is ~98 KB at D = 64 and ~162 KB at D = 128, above the 48 KB
-// default, so the launch raises the cap. This first version uses CUDA
-// cores, not wgmma/TMA.
+// next. Card design: one block per (64-key tile, b * h). It keeps its K and
+// V tile in shared memory and dK, dV in fp32 registers for its lifetime,
+// and walks the 64-row q tiles at or below the causal diagonal (tiles wholly
+// above it are never loaded; kv_offset = Lk - Lq as in the forward). Per q
+// tile it computes P and dS ONCE, as the TPU kernel does, and feeds them to
+// the products that read them. dq is summed across the k tiles with fp32
+// atomics into a [B, Lq, H, D] buffer the wrapper zeroes and then casts, so
+// its summation order varies from run to run (the tolerance says so); dk
+// and dv are written once and repeat bit for bit. The walk, shared with the
+// split dk/dv kernel, is in flash_attention_bwd.cuh, in two designs:
+// - bf16 at D 64 or 128 with 16-byte aligned rows: `kv_walk_tc<D, true>`,
+//   4 warps on the tensor cores (mma.sync m16n8k16). P^T and dS^T leave
+//   their products as bf16 A fragments for dV and dK; dS^T is also staged
+//   in shared memory, and each warp adds 16 q rows of dS K into dq with
+//   two-float atomics. Shared memory ~64 (~112) KB a block at D 64 (128).
+// - fp32, other head dims and unaligned rows: `kv_walk<T, D, true>`, 256
+//   threads on CUDA cores, P and dS kept in shared memory as fp32 tiles;
+//   ~98 KB at D = 64 and ~162 KB at D = 128.
+// Both raise the 48 KB default cap on shared memory at launch.
 #include "flash_attention_bwd.cuh"
 
 namespace {
@@ -42,6 +47,12 @@ __global__ void __launch_bounds__(pt::fa_bwd::kThreads)
   pt::fa_bwd::kv_walk<T, DMAX, true>(a);
 }
 
+template <int D>
+__global__ void __launch_bounds__(pt::fa_bwd::kTcThreads)
+    flash_bwd_tc_kernel(BwdArgs a) {
+  pt::fa_bwd::kv_walk_tc<D, true>(a);
+}
+
 template <typename T, int DMAX>
 cudaError_t launch(const BwdArgs& a, cudaStream_t stream) {
   using namespace pt::fa_bwd;
@@ -50,6 +61,17 @@ cudaError_t launch(const BwdArgs& a, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Lk + kBK - 1) / kBK, a.B * a.H);
   flash_bwd_kernel<T, DMAX><<<grid, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_tc(const BwdArgs& a, cudaStream_t stream) {
+  using namespace pt::fa_bwd;
+  constexpr size_t smem = kv_walk_tc_smem_bytes<D, true>();
+  cudaError_t err = pt::allow_smem(flash_bwd_tc_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Lk + kBK - 1) / kBK, a.B * a.H);
+  flash_bwd_tc_kernel<D><<<grid, kTcThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -71,7 +93,9 @@ extern "C" int pt_flash_attention_bwd(
             H,   Lq,  Lk,  D,    causal, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (is_bf16)
+  if (is_bf16 && pt::fa_bwd::tc_takes(a))
+    err = D == 64 ? launch_tc<64>(a, s) : launch_tc<128>(a, s);
+  else if (is_bf16)
     err = D <= 64 ? launch<__nv_bfloat16, 64>(a, s)
                   : launch<__nv_bfloat16, 128>(a, s);
   else

@@ -3,8 +3,8 @@
 // share — the arguments, the tile shape, and the walk of one 64-key tile
 // over the q tiles at or below the causal diagonal, in two designs.
 //
-// `kv_walk<T, D, kDq>`, CUDA cores (fp32, every head dim, and the one-pass
-// kernel): the walk keeps its K and V tile in shared memory and dK, dV in
+// `kv_walk<T, D, kDq>`, CUDA cores (fp32, other head dims, unaligned
+// rows): the walk keeps its K and V tile in shared memory and dK, dV in
 // fp32 registers for the block's lifetime. Per q tile it computes
 // P = exp(S * scale - lse) and dS = P * (dP - delta) once and keeps both
 // tiles in shared memory for the products that read them. With kDq it also
@@ -26,7 +26,9 @@
 // casts before its dv and dk products) they are the A fragments of
 // dV += P^T dO and dK += dS^T Q, whose B operands (dO and Q, stored
 // [q][d]) are read through ldmatrix.trans. dK and dV stay in fp32
-// registers and are written once.
+// registers and are written once. With kDq (the one-pass kernel) dS^T also
+// goes to shared memory, and the warps add dS K into the fp32 dq buffer
+// with atomics, 16 q rows a warp.
 //
 // Rows past Lq and keys past Lk are zero-filled and masked, so any L >= 1
 // works; q, k, v and dO are read through their [B, L, H, D] strides (last
@@ -289,7 +291,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // true when the tensor-core designs take these inputs: bf16 (checked by
 // the caller), D 64 or 128, every row 16-byte aligned; the wrapper's
-// `bwd_design` says the same
+// `kernel_design` says the same
 inline bool tc_takes(const BwdArgs& a) {
   return (a.D == 64 || a.D == 128) &&
          rows_aligned16(a.q, a.sqb, a.sql, a.sqh) &&
@@ -298,25 +300,50 @@ inline bool tc_takes(const BwdArgs& a) {
          rows_aligned16(a.dout, a.sob, a.sol, a.soh);
 }
 
-// bytes of shared memory of the tensor-core k-tile walk: K and V, then two
-// stages of Q, dO and of lse, delta
-template <int D>
+constexpr int kLS = kBQ + 8;  // padded row of the staged dS^T tile
+
+// scale times one 16 x 8 mma accumulator tile c (rows g and g + 8, cols
+// 2t and 2t + 1 in each thread) added into fp32 rows at p (row g) and
+// p + row8 (row g + 8), columns 0..7, as two-float atomics (four-float
+// ones after a lane swap, half the instructions for the same bytes, ran
+// no faster on the H100: tools/ab_dq_epilogue.py); in_g, in_g8: whether
+// the rows exist
+__device__ __forceinline__ void add_dq_tile(float* p, int64_t row8,
+                                            const float (&c)[4], float scale,
+                                            int t, bool in_g, bool in_g8) {
+  if (in_g)
+    atomicAdd(reinterpret_cast<float2*>(p + 2 * t),
+              make_float2(c[0] * scale, c[1] * scale));
+  if (in_g8)
+    atomicAdd(reinterpret_cast<float2*>(p + row8 + 2 * t),
+              make_float2(c[2] * scale, c[3] * scale));
+}
+
+// bytes of shared memory of the tensor-core k-tile walk: K and V, two
+// stages of Q, dO and of lse, delta, and with kDq the dS^T tile
+template <int D, bool kDq>
 constexpr size_t kv_walk_tc_smem_bytes() {
   return static_cast<size_t>(2 * kBK + 4 * kBQ) * (D + 8) *
              sizeof(__nv_bfloat16) +
-         4 * kBQ * sizeof(float);
+         4 * kBQ * sizeof(float) +
+         (kDq ? static_cast<size_t>(kBK) * kLS * sizeof(__nv_bfloat16) : 0);
 }
 
-// One block per (64-key tile = blockIdx.x, b * h = blockIdx.y). kDq (the
-// one-pass kernel's dQ = dS K with atomics) is left to a later change: it
-// would stage dS^T in shared memory and add its product with K into the
-// fp32 dq buffer, as `kv_walk` does.
+// One block per (64-key tile = blockIdx.x, b * h = blockIdx.y). With kDq
+// (the one-pass kernel) the walk also adds this k tile's share of
+// dQ = dS K into the fp32 [B, Lq, H, D] buffer: dS^T, already packed to
+// bf16 as the dK product's A fragments, is stored to shared memory as
+// [key][q row]; after a barrier warp w computes q rows 16w..16w+15 of
+// dS K by mma.sync, reading dS through ldmatrix.trans and K (stored
+// [key][d]) through ldmatrix.trans, kDqN columns at a time so that no
+// D-wide accumulator lives beside dK and dV, and adds each chunk, times
+// scale, with two-float atomics (`add_dq_tile`).
 template <int D, bool kDq>
 __device__ __forceinline__ void kv_walk_tc(const BwdArgs& a) {
-  static_assert(!kDq, "the tensor-core walk has no dQ product yet");
   constexpr int LD = D + 8;   // padded shared row, in elements
   constexpr int KD = D / 16;  // k16 steps over the head dim
   constexpr int ND = D / 8;   // n8 tiles of a dK / dV row
+  constexpr int kDqN = D == 64 ? 64 : 32;  // dQ columns a chunk
   using bf16 = __nv_bfloat16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [kBK][LD]
@@ -325,6 +352,7 @@ __device__ __forceinline__ void kv_walk_tc(const BwdArgs& a) {
   bf16* Os = Qs + 2 * kBQ * LD;                  // dO [2][kBQ][LD]
   float* Ls = reinterpret_cast<float*>(Os + 2 * kBQ * LD);  // [2][kBQ]
   float* Dl = Ls + 2 * kBQ;                                 // [2][kBQ]
+  bf16* St = reinterpret_cast<bf16*>(Dl + 2 * kBQ);  // dS^T [kBK][kLS]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -447,6 +475,16 @@ __device__ __forceinline__ void kv_walk_tc(const BwdArgs& a) {
                         pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
                         pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
                         pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+      if constexpr (kDq) {
+        // sa[0], sa[2]: key warp * 16 + g; sa[1], sa[3]: 8 keys on; q
+        // rows kk * 16 + 2t (+1) and 8 rows on
+        unsigned* row = reinterpret_cast<unsigned*>(
+            St + (warp * 16 + g) * kLS + kk * 16 + 2 * t);
+        row[0] = sa[0];
+        row[4] = sa[2];
+        row[8 * kLS / 2] = sa[1];
+        row[8 * kLS / 2 + 4] = sa[3];
+      }
 #pragma unroll
       for (int dn = 0; dn < D / 16; ++dn) {
         unsigned ob[4], qb[4];
@@ -458,7 +496,39 @@ __device__ __forceinline__ void kv_walk_tc(const BwdArgs& a) {
         mma_bf16(dk[2 * dn + 1], sa, qb[2], qb[3]);
       }
     }
-    __syncthreads();  // stage st is free for the load of q tile qt + 2
+    if constexpr (kDq) {
+      __syncthreads();  // the whole dS^T tile is staged
+      const int r0 = warp * 16;  // this warp's q rows of the tile
+      const int qi = q0 + r0 + g;
+      float* dqp = static_cast<float*>(a.dq) +
+                   (static_cast<int64_t>(b) * a.Lq + qi) * a.H * D + hh * D;
+      const int64_t row8 = static_cast<int64_t>(8) * a.H * D;
+#pragma unroll
+      for (int c0 = 0; c0 < D; c0 += kDqN) {
+        float acc[kDqN / 8][4];
+#pragma unroll
+        for (int n = 0; n < kDqN / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk) {
+          unsigned da[4];
+          load_a_trans<kLS>(da, St, r0, kk * 16, lane);
+#pragma unroll
+          for (int dn = 0; dn < kDqN / 16; ++dn) {
+            unsigned kb[4];
+            load_b_trans<LD>(kb, Ks, c0 + dn * 16, kk * 16, lane);
+            mma_bf16(acc[2 * dn], da, kb[0], kb[1]);
+            mma_bf16(acc[2 * dn + 1], da, kb[2], kb[3]);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < kDqN / 8; ++n)
+          add_dq_tile(dqp + c0 + n * 8, row8, acc[n], a.scale, t,
+                      qi < a.Lq, qi + 8 < a.Lq);
+      }
+    }
+    __syncthreads();  // stage st (and dS^T) is free for the next q tile
   }
   cp_async_wait<0>();
 

@@ -240,7 +240,7 @@ cudaError_t launch_dq_tc(const BwdArgs& a, cudaStream_t stream) {
 
 template <int D>
 cudaError_t launch_dkv_tc(const BwdArgs& a, cudaStream_t stream) {
-  constexpr size_t smem = pt::fa_bwd::kv_walk_tc_smem_bytes<D>();
+  constexpr size_t smem = pt::fa_bwd::kv_walk_tc_smem_bytes<D, false>();
   cudaError_t err = pt::allow_smem(flash_bwd_dkv_tc_kernel<D>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Lk + kBK - 1) / kBK, a.B * a.H);

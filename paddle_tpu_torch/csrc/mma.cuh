@@ -118,6 +118,17 @@ __device__ __forceinline__ void load_a(unsigned (&r)[4],
                      (lane >> 4) * 8);
 }
 
+// the same A fragment from a shared tile stored [k][row] (each k's rows
+// contiguous), through ldmatrix.trans: tile i of the four is (rows
+// row0 + 8 (i & 1), k0 + 8 (i >> 1))
+template <int LD>
+__device__ __forceinline__ void load_a_trans(unsigned (&r)[4],
+                                             const __nv_bfloat16* s, int row0,
+                                             int k0, int lane) {
+  ldmatrix_x4_trans(r, s + (k0 + (lane & 7) + (lane >> 4) * 8) * LD + row0 +
+                           ((lane >> 3) & 1) * 8);
+}
+
 // the B fragments of two n8 tiles (n0..n0+15), k0..k0+15, from a shared
 // tile stored [n][k] (each n's k contiguous): r[0], r[1] for n0..n0+7 and
 // r[2], r[3] for n0+8..n0+15

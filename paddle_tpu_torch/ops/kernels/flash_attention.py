@@ -13,10 +13,11 @@ strides. Outputs are ``out`` in the input type and ``lse`` [B, H, Lq]
 fp32, which the backward reuses.
 
 Designs (``kernel_design``): bf16 at head dim 64 or 128 with 16-byte
-aligned rows runs the forward and the split backward pair on the tensor
-cores (``mma.sync`` m16n8k16, fp32 accumulators, P and dS rounded to bf16
-before the products that read them, as the reference does); fp32, other
-head dims and the one-pass backward run on CUDA cores.
+aligned rows runs the forward, the one-pass backward and the split
+backward pair on the tensor cores (``mma.sync`` m16n8k16, fp32
+accumulators, P and dS rounded to bf16 before the products that read
+them, as the reference does); fp32, other head dims and unaligned rows
+run on CUDA cores.
 
 Backward, chosen by the reference's gate (l.1109): while the one-pass
 kernel's whole-(b, h) dq, Lq * D * 4 bytes, fits ``_FUSED_BWD_DQ_BYTES``
@@ -24,7 +25,8 @@ kernel's whole-(b, h) dq, Lq * D * 4 bytes, fits ``_FUSED_BWD_DQ_BYTES``
 replaces ``_fa_bwd_fused_pallas`` and ``_fa_small_bwd_pallas``: one block
 per (64-key tile, b*h) walks the q tiles at or below the diagonal, forms
 P and dS once per tile pair, keeps dk/dv in fp32 for its lifetime and adds
-dq into an fp32 buffer with atomics. Above the gate (past 24,576 tokens at
+dq into an fp32 buffer with atomics (so dq's summation order varies from
+run to run; dk and dv repeat bit for bit). Above the gate (past 24,576 tokens at
 D = 64) the split pair (``csrc/flash_attention_bwd_split.cu``) replaces
 ``_fa_bwd_pallas``: a dq kernel walks the k tiles for each q tile and a
 dk/dv kernel the q tiles for each k tile, each writing its outputs once,
@@ -130,8 +132,9 @@ def kernel_takes(q, k, v, mask=None, causal: bool = False) -> bool:
 
 
 def kernel_design(*tensors) -> str:
-    """The design the forward and split-backward launchers pick for these
-    [B, L, H, D] inputs (q first), as ``csrc/flash_attention.cu`` and
+    """The design the forward and backward launchers (one-pass and split)
+    pick for these [B, L, H, D] inputs (q first; the backward's dO too),
+    as ``csrc/flash_attention.cu`` and
     ``csrc/flash_attention_bwd.cuh:tc_takes`` pick it: "mma.sync" for bf16
     at D 64 or 128 with every row 16-byte aligned, else "cuda-core"."""
     q = tensors[0]

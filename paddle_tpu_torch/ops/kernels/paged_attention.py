@@ -2,9 +2,17 @@
 its plain PyTorch version, and the in-place cache updates.
 
 Replaces ``paddle_tpu/ops/pallas/paged_attention.py:_paged_attn_pallas``.
-The kernel is bound by bytes: one block per (sequence, head) walks only
-the ``ceil(ctx / page_size)`` live pages through the block table, with an
-online softmax in fp32; ctx == 0 gives exactly 0. See the source.
+The kernel is bound by bytes. It splits each sequence's context into
+partitions of ``PART_TOKENS`` tokens (flash-decoding; ``partitions`` is
+the arithmetic, a function of the block table's width and the page size
+alone, so the host never reads ``context_lens``): one block per (head,
+sequence, partition) reads only the live pages of its partition, with
+16-byte loads and many tokens in flight, and writes a partial softmax
+state (acc, m, l) to an fp32 workspace; a second kernel merges the
+partitions in a fixed order. Pages past ``ceil(ctx / page_size)`` are
+never read, ctx == 0 gives exactly 0, and runs repeat bit for bit.
+``paged_attention_split_plain`` renders the same split and merge in
+PyTorch. See the source.
 
 Layout (paddle): q is [batch, heads, head_dim] (one decode token per
 sequence); pools are [num_pages, page_size, heads, head_dim]; page 0 is
@@ -30,6 +38,31 @@ _TYPES = (torch.float32, torch.bfloat16)
 _MAX_D = 128
 _NEG = -1e30
 
+#: tokens of one partition of a sequence's context (whole pages: at a page
+#: above it, one page)
+PART_TOKENS = 256
+
+
+def partitions(pages_per_seq: int, page_size: int) -> tuple[int, int]:
+    """(pages a partition, partitions a sequence) of the kernel's split of
+    a block-table row of ``pages_per_seq`` pages of ``page_size`` tokens.
+    Partition s covers tokens [s * part, (s + 1) * part) with part = pages
+    a partition * page_size; the last one may hold fewer pages."""
+    part_pages = max(1, PART_TOKENS // page_size)
+    return part_pages, -(-pages_per_seq // part_pages)
+
+
+def kernel_design(k_pages, v_pages, block_tables) -> str:
+    """The kernel's split and loads for these pools, as
+    ``csrc/paged_attention.cu`` picks them: 16-byte loads when every row
+    of both pools starts on a 16-byte boundary, else element loads."""
+    page_size, D = k_pages.shape[1], k_pages.shape[-1]
+    part_pages, n_parts = partitions(block_tables.shape[1], page_size)
+    vec = (k_pages.data_ptr() % 16 == 0 and v_pages.data_ptr() % 16 == 0
+           and (D * k_pages.element_size()) % 16 == 0)
+    return (f"{n_parts} partitions x {part_pages * page_size} tokens, "
+            f"{'16-byte' if vec else 'element'} loads")
+
 
 def paged_attention_plain(q, k_pages, v_pages, block_tables, context_lens,
                           scale=None):
@@ -52,6 +85,53 @@ def paged_attention_plain(q, k_pages, v_pages, block_tables, context_lens,
     p = torch.where(live, p, 0.0)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     out = torch.einsum("bhl,blhd->bhd", p / l, v.float())
+    return out.to(q.dtype)
+
+
+def paged_attention_split_plain(q, k_pages, v_pages, block_tables,
+                                context_lens, scale=None):
+    """The kernel's arithmetic in PyTorch, fp32: per partition of
+    ``partitions`` the state (acc = sum of exp(s - m) v, m, l = sum of
+    exp(s - m)) over its live tokens, m = -inf and l = 0 for a partition
+    with none; then the merge in partition order, each live state scaled
+    by exp(m_s - max m); ctx == 0 gives exactly 0."""
+    B, H, D = q.shape
+    page_size = k_pages.shape[1]
+    pps = block_tables.shape[1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    part_pages, n_parts = partitions(pps, page_size)
+    part = part_pages * page_size
+    ctx = context_lens.long().clamp(0, pps * page_size)
+    out = torch.zeros(B, H, D, dtype=torch.float32, device=q.device)
+    for b in range(B):
+        n = int(ctx[b])
+        states = []
+        for s in range(n_parts):
+            t0, t1 = s * part, min(n, (s + 1) * part)
+            if t1 <= t0:
+                states.append((None, float("-inf"), 0.0))
+                continue
+            tok = torch.arange(t0, t1, device=q.device)
+            pages = block_tables[b].long()[tok // page_size]
+            k = k_pages[pages, tok % page_size].float()  # [n, H, D]
+            v = v_pages[pages, tok % page_size].float()
+            sc = torch.einsum("hd,nhd->hn", q[b].float(), k) * scale
+            m = sc.amax(dim=-1, keepdim=True)
+            p = torch.exp(sc - m)
+            states.append((torch.einsum("hn,nhd->hd", p, v), m,
+                           p.sum(dim=-1, keepdim=True)))
+        live = [st for st in states if st[0] is not None]
+        if not live:
+            continue
+        mx = torch.stack([st[1] for st in live]).amax(dim=0)
+        acc = torch.zeros(H, D, device=q.device)
+        lsum = torch.zeros(H, 1, device=q.device)
+        for a, m, l in live:
+            c = torch.exp(m - mx)
+            acc = acc + a * c
+            lsum = lsum + l * c
+        out[b] = acc / lsum.clamp_min(1e-30)
     return out.to(q.dtype)
 
 
@@ -104,13 +184,18 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
                                      context_lens, scale)
     check_args(q, k_pages, v_pages, block_tables, context_lens)
     out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
-    if B == 0:
-        return out
+    pps = block_tables.shape[1]
+    if B == 0 or pps == 0:
+        return out.zero_()
+    page_size = k_pages.shape[1]
+    part_pages, n_parts = partitions(pps, page_size)
+    ws = torch.empty((B, H, n_parts, D + 2), dtype=torch.float32,
+                     device=q.device)
     launch("paged_attention", "pt_paged_attention", q.device,
            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
            block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
-           q.stride(0), q.stride(1), B, H, D, k_pages.shape[1],
-           block_tables.shape[1], float(scale),
+           ws.data_ptr(), q.stride(0), q.stride(1), B, H, D, page_size,
+           pps, part_pages, n_parts, float(scale),
            int(q.dtype == torch.bfloat16))
     _stats["kernel"] += 1
     return out

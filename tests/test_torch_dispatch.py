@@ -125,6 +125,39 @@ def test_kernel_design_follows_type_head_dim_and_alignment():
     assert fa.kernel_design(shifted, k, v) == "cuda-core"
 
 
+def _one_pass_inputs(case):
+    """q, k, v and dO of the one-pass backward for one design case."""
+    bf16 = torch.bfloat16
+    if case == "bf16_D64":
+        return (*torch.zeros(2, 16, 3, 4, 64, dtype=bf16).unbind(2),
+                torch.zeros(2, 16, 4, 64, dtype=bf16))
+    if case == "bf16_D128":
+        return (*_qkv(D=128, dtype=bf16), torch.zeros(2, 16, 2, 128,
+                                                      dtype=bf16))
+    if case == "fp32_D64":
+        return (*_qkv(D=64), torch.zeros(2, 16, 2, 64))
+    if case == "bf16_D96":
+        return (*_qkv(D=96, dtype=bf16), torch.zeros(2, 16, 2, 96,
+                                                     dtype=bf16))
+    # dO's rows start one element (2 bytes) off a 16-byte boundary
+    flat = torch.zeros(2 * 16 * 2 * 64 + 1, dtype=bf16)
+    return (*_qkv(D=64, dtype=bf16), flat[1:].view(2, 16, 2, 64))
+
+
+@pytest.mark.parametrize("case,design", [
+    ("bf16_D64", "mma.sync"), ("bf16_D128", "mma.sync"),
+    ("fp32_D64", "cuda-core"), ("bf16_D96", "cuda-core"),
+    ("bf16_do_off_by_one", "cuda-core")])
+def test_one_pass_backward_design(case, design):
+    """The one-pass backward takes the tensor-core walk for bf16 at D 64
+    or 128 when q, k, v and dO all have 16-byte aligned rows (the
+    launcher's `tc_takes`), the CUDA-core walk otherwise; below the 6 MiB
+    gate the backward is the one-pass kernel."""
+    q, k, v, do = _one_pass_inputs(case)
+    assert not fa.uses_split_bwd(q.shape[1], q.shape[-1])
+    assert fa.kernel_design(q, k, v, do) == design
+
+
 @pytest.mark.parametrize("x,g,b,takes", [
     (torch.float32, torch.float32, torch.float32, True),
     (torch.bfloat16, torch.bfloat16, torch.bfloat16, True),

@@ -294,6 +294,32 @@ class TestFlashAttentionBackward:
             np.testing.assert_allclose(_np(g), _np(w), atol=BWD_ATOL, rtol=0)
 
     @pytest.mark.parametrize("causal", [True, False])
+    @pytest.mark.parametrize("L", [100, 72])
+    def test_bf16_d128_plain_matches_fused_pallas(self, L, causal):
+        """bf16 at head dim 128 (the tensor-core walk's second instance)
+        and L off the 64-row tile, against the one-pass Pallas kernel in
+        the interpreter on the same bf16 inputs. The reference rounds P
+        and dS to bf16 before its products and each output to bf16 once;
+        the plain version computes in fp32 and rounds once: 2e-2 of each
+        output's scale, max(1, max |ref|), as on the card."""
+        rng = np.random.default_rng(L + 7 * causal)
+        (jq, tq), (jk, tk), (jv, tv) = _qkv(rng, 1, L, L, 2, 128,
+                                            "bfloat16")
+        jdo, tdo = _pair(rng.normal(size=(1, L, 2, 128)), "bfloat16")
+        scale = 1.0 / np.sqrt(128)
+        jout, jlse = jfa._fa_fwd_pallas(jq, jk, jv, None, causal, scale,
+                                        interpret=True, blocks=(64, 64))
+        want = jfa._fa_bwd_fused_pallas(jq, jk, jv, jout, jlse, jdo, None,
+                                         causal, scale, interpret=True,
+                                         blocks=(64, 64))
+        got = self._port_bwd(tq, tk, tv, tdo, causal, scale)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.bfloat16
+            w = _np(w)
+            tol = 2e-2 * max(1.0, float(np.abs(w).max()))
+            np.testing.assert_allclose(_np(g), w, atol=tol, rtol=0)
+
+    @pytest.mark.parametrize("causal", [True, False])
     def test_plain_matches_small_path_pallas(self, causal):
         (jq, jk, jv, jdo), (tq, tk, tv, tdo) = self._inputs(5, 2, 128, 128,
                                                             3, 16)
@@ -416,6 +442,88 @@ class TestPagedAttention:
                       torch.ones(5, 4, 3, 8),
                       torch.zeros(2, 3, dtype=torch.int32),
                       torch.ones(2, dtype=torch.int32))
+
+
+class TestPagedPartitions:
+    """The partition split of the paged kernel (flash-decoding): its
+    arithmetic, and ``paged_attention_split_plain`` (per-partition
+    softmax states, then the fixed-order merge, as the two CUDA kernels
+    compute them) against the reference's dense ``paged_attention_xla``
+    at the split's edges."""
+
+    @pytest.mark.parametrize("pps,page,want", [
+        (64, 16, (16, 4)),   # serving: max_len 1024, page 16
+        (40, 16, (16, 3)),   # a short last partition
+        (16, 16, (16, 1)),
+        (1, 16, (16, 1)),
+        (120, 5, (51, 3)),   # 255-token partitions
+        (3, 512, (1, 3)),    # a page above PART_TOKENS: one a partition
+        (600, 1, (256, 3))])
+    def test_partitions(self, pps, page, want):
+        assert pa.partitions(pps, page) == want
+        part_pages, n_parts = want
+        # every page of the row is in exactly one partition
+        assert (n_parts - 1) * part_pages < pps <= n_parts * part_pages
+
+    @staticmethod
+    def _lens(part, cap):
+        return {
+            "ctx_0": [0, 0],
+            "ctx_1": [1, 0],
+            "boundary": [part - 1, part, part + 1],
+            "second_boundary": [2 * part - 1, 2 * part, 2 * part + 1],
+            "past_the_table": [cap - 1, cap, cap + 37],
+            "one_long_lane": [cap, 1, 2, 3, 0],
+        }
+
+    @pytest.mark.parametrize("case", ["ctx_0", "ctx_1", "boundary",
+                                      "second_boundary", "past_the_table",
+                                      "one_long_lane"])
+    @pytest.mark.parametrize("page,pps", [(16, 40), (5, 120)])
+    def test_split_plain_matches_xla(self, case, page, pps):
+        part_pages, _ = pa.partitions(pps, page)
+        ctx = np.array(self._lens(part_pages * page, pps * page)[case],
+                       np.int32)
+        B, H, D = len(ctx), 2, 16
+        rng = np.random.default_rng(page + pps)
+        num_pages = 1 + B * pps
+        (jq, tq), (jk, tk), (jv, tv) = (
+            _pair(rng.normal(size=shape), "float32")
+            for shape in ((B, H, D), (num_pages, page, H, D),
+                          (num_pages, page, H, D)))
+        bt = (1 + rng.permutation(B * pps)).astype(np.int32).reshape(B, pps)
+        want = jpa.paged_attention_xla(jq, jk, jv, jnp.asarray(bt),
+                                       jnp.asarray(ctx))
+        got = pa.paged_attention_split_plain(tq, tk, tv,
+                                             torch.from_numpy(bt),
+                                             torch.from_numpy(ctx))
+        np.testing.assert_allclose(_np(got), _np(want), atol=2e-5, rtol=0)
+        # ctx 0 gives exactly 0, as the reference's idle slot
+        assert not _np(got)[ctx == 0].any()
+        # and the wrapper's plain version (what a CPU tensor runs) agrees
+        dense = pa.paged_attention(tq, tk, tv, torch.from_numpy(bt),
+                                   torch.from_numpy(ctx))
+        np.testing.assert_allclose(_np(got), _np(dense), atol=2e-5, rtol=0)
+
+    def test_split_plain_bf16(self):
+        """bf16 pools: the states in fp32, one rounding at the end."""
+        rng = np.random.default_rng(3)
+        (jq, tq), (jk, tk), (jv, tv), (jbt, tbt) = _pool(
+            rng, 3, 2, 32, 16, 40, 20, "bfloat16")
+        ctx = np.array([320, 256, 17], np.int32)
+        want = jpa.paged_attention_xla(jq, jk, jv, jbt, jnp.asarray(ctx))
+        got = pa.paged_attention_split_plain(tq, tk, tv, tbt,
+                                             torch.from_numpy(ctx))
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(_np(got), _np(want), atol=2e-2, rtol=0)
+
+    def test_design_names_the_split(self):
+        kp = torch.zeros(9, 16, 2, 64)
+        bt = torch.zeros(2, 64, dtype=torch.int32)
+        assert pa.kernel_design(kp, kp, bt) == (
+            "4 partitions x 256 tokens, 16-byte loads")
+        odd = torch.zeros(9, 16, 2, 36, dtype=torch.bfloat16)  # 72 bytes
+        assert pa.kernel_design(odd, odd, bt).endswith("element loads")
 
 
 class TestCacheUpdates:

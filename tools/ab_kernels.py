@@ -10,7 +10,9 @@ Each run imports the kernels of the checkout at DIR (its
 works too), builds them there, and times, from replayed CUDA graphs
 (``chip_smoke.cuda_ms``): the flash forward in fp32 at the serving
 buckets (B 1, L 512 and 1,024), the forward and the one-pass backward at
-B 8 L 1,024 and the forward, the split dq and dk/dv kernels at B 1
+B 8 L 1,024 (the one-pass backward also at B 8 L 512 and at B 2 L 1,024
+H 16 D 128), the paged decode attention at the serving path's 32 lanes
+(fp32 and bf16) and the forward, the split dq and dk/dv kernels at B 1
 L 4,096 and 32,768 (the one-pass kernel there too), in fp32 and bf16, all
 H 12 D 64 causal; and the bf16 1x1 conv + statistics at ResNet-50's
 layer2 and layer4 shapes and one small one, whose outputs (y, sum, sumsq)
@@ -30,6 +32,8 @@ import os
 import subprocess
 import sys
 
+import numpy as np
+
 #: where the runs' files go: chiprun_out/ under the directory the tool
 #: is started from (the tool moves into the checkout it times)
 OUT = os.path.abspath("chiprun_out")
@@ -45,6 +49,7 @@ def run(tree: str, tag: str) -> dict:
     from paddle_tpu_torch import _native
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import fused_conv_bn as fcb
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
     if not torch.cuda.is_available():
         raise SystemExit("ab_kernels: no CUDA card is available")
     _native.load()
@@ -67,6 +72,12 @@ def run(tree: str, tag: str) -> dict:
         ms[f"one-pass backward {name} B8 L1024"] = cs.cuda_ms(
             lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, True),
             iters=5, reps=3)
+        for B, L, H, D in ((8, 512, 12, 64), (2, 1024, 16, 128)):
+            q, k, v, do = cs._attention_inputs(dev, gen, B, L, L, H, D, dt)
+            out, lse = fa.flash_attention_fwd(q, k, v, True)
+            ms[f"one-pass backward {name} B{B} L{L} H{H} D{D}"] = cs.cuda_ms(
+                lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, True),
+                iters=5, reps=3)
         for L in (4096, 32768):
             q, k, v, do = cs._attention_inputs(dev, gen, 1, L, L, 12, 64, dt)
             out, lse = fa.flash_attention_fwd(q, k, v, True)
@@ -87,6 +98,22 @@ def run(tree: str, tag: str) -> dict:
                     fn, iters=n[0], reps=n[1], warmup=1)
             del q, k, v, do, out, lse, delta
             torch.cuda.empty_cache()
+    # paged decode attention at the serving path's shape: 32 lanes, GPT-2
+    # small's heads, page 16, contexts 32..1024
+    W, H, D, page, max_len = 32, 12, 64, 16, 1024
+    pps = max_len // page
+    rng = np.random.default_rng(0)
+    ctx = rng.integers(32, max_len + 1, W).astype(np.int32)
+    ctx[:2] = (32, max_len)
+    bt = torch.from_numpy((1 + rng.permutation(W * pps)).astype(np.int32)
+                          .reshape(W, pps)).to(dev)
+    cl = torch.from_numpy(ctx).to(dev)
+    for dt in (f32, bf16):
+        q = torch.randn(W, H, D, device=dev, generator=gen).to(dt)
+        kp, vp = (torch.randn(1 + W * pps, page, H, D, device=dev,
+                              generator=gen).to(dt) for _ in range(2))
+        ms[f"paged attention {str(dt)[6:]} W32 ctx 32-1024"] = cs.cuda_ms(
+            lambda: pa.paged_attention(q, kp, vp, bt, cl))
     gen = torch.Generator(device=dev).manual_seed(1)
     digests = {}
     for R, Cin, Cout in ((100352, 512, 128), (6272, 512, 2048),

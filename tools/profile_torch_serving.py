@@ -12,7 +12,8 @@ CUDA activities):
 * a steady window of decode iterations with all 32 lanes active;
 
 For each: host wall time, device busy time (the sum of kernel times on the
-one stream), the idle share 1 - busy / wall, the top kernels by device
+one stream), the idle share 1 - busy / wall, the paged attention kernels'
+device time and share of busy, the top kernels by device
 time, and each hand-written kernel's launches (from the wrappers'
 counters). Writes ``chiprun_out/profile_torch_serving.json``. Needs a card.
 """
@@ -52,11 +53,14 @@ def _device_summary(prof, wall_s, n_iters):
     rows = sorted(((t, k, c) for k, (t, c) in by_name.items()),
                   reverse=True)
     per = max(1, n_iters)
+    paged_us = sum(t for k, (t, _) in by_name.items() if "paged_attn" in k)
     return dict(
         wall_ms=wall_s * 1e3 / per,
         device_busy_ms=(busy_us / 1e3 / per) if n_ops else None,
         idle_share=(1.0 - busy_us / 1e6 / wall_s) if n_ops else None,
         device_ops_per_iteration=n_ops / per,
+        paged_attention_ms=paged_us / 1e3 / per,
+        paged_attention_share=(paged_us / busy_us) if n_ops else None,
         top=[dict(name=k[:90], device_ms=t / 1e3 / per, calls=c / per)
              for t, k, c in rows[:12]])
 

@@ -54,7 +54,7 @@ RUNS = {"b8s1024": (8, 1024, "", 2, 3), "long": (1, 32768, "full", 1, 1)}
 GROUPS = (
     ("flash_attention_bwd_dq", ("flash_bwd_dq_",)),
     ("flash_attention_bwd_dkv", ("flash_bwd_dkv_",)),
-    ("flash_attention_bwd", ("flash_bwd_kernel",)),
+    ("flash_attention_bwd", ("flash_bwd_kernel", "flash_bwd_tc_kernel")),
     ("flash_attention", ("flash_fwd_",)),
     ("layer_norm", ("layer_norm_fwd_kernel",)),
     ("softmax_ce_fwd", ("ce_fwd_kernel",)),
