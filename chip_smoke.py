@@ -11,7 +11,13 @@ failure:
 3. kernels  - each kernel against its plain PyTorch version on the card, at
               the serving and training paths' shapes, fp32 and bf16, with
               kernel, plain, library and bound times and the design timed
-              ("mma.sync" on the tensor cores or "cuda-core"; the flash
+              ("mma.sync" on the tensor cores, "mma.sync-3xtf32" for the
+              fp32 flash forward on the TF32 tensor cores, with the
+              CUDA-core bound beside its own, "wgmma-tma" for the bf16 1x1
+              conv, or "cuda-core"; the flash forward run twice, bit for
+              bit, in fp32 at every serving prefill bucket 16-1,024 and at
+              L 1,000, 4,096 and D 128 L 4,096; the 1x1 conv at the 12
+              shapes of the ResNet step, run twice, bit for bit; the flash
               forward and split pair in bf16 also at L 1,000 and at D 128;
               the one-pass backward also at B 2 L 1,024 H 16 D 128, run
               twice (dk, dv bit for bit, dq within tolerance) and beside
@@ -30,7 +36,8 @@ failure:
               ServingEngine(max_batch=32, max_len=1024, page_size=16): 64
               greedy requests of 32-512 prompt tokens plus two longer than
               512, 32 new tokens each; every serving kernel must have
-              launched and no plain version may have run; TTFT, TPOT and
+              launched and no plain version may have run, every prefill's
+              attention on the 3xTF32 design; TTFT, TPOT and
               tokens/s; no main path may run a torch composition in place
               of a kernel;
 5. cpu      - the same weights on the CPU (plain versions) against the card:
@@ -53,8 +60,9 @@ failure:
               steps, then timed steps on one batch; the first update must
               lower the loss and every loss stay finite and below 3 times
               the first; each ResNet kernel must launch its expected count
-              per step and no plain version may run; step ms, images/s and
-              MFU;
+              per step and no plain version may run, the 1x1 convs at the
+              12 shapes of RESNET_CONV_SHAPES, all on the wgmma design;
+              step ms, images/s and MFU;
 9. resnet-cpu - ResNet-50 in fp32 at batch 2, 64x64 and at batch 8,
               128x128, one TrainStep on the card and on the CPU: loss,
               gradients, parameters after the step and running statistics
@@ -102,9 +110,13 @@ import numpy as np
 import torch
 
 # H100 SXM published peaks (dense): HBM 3.35 TB/s; fp32 on CUDA cores
-# 67 TFLOP/s; bf16 on tensor cores 989 TFLOP/s
+# 67 TFLOP/s; bf16 on tensor cores 989 TFLOP/s; TF32 on tensor cores
+# 495 TFLOP/s, of which the 3xTF32 split spends three products on each
+# fp32 product: 165 TFLOP/s of fp32 work
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+#: the peak of a design whose operations run elsewhere than its type's
+DESIGN_PEAK = {"mma.sync-3xtf32": 495e12 / 3}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 OUT_DIR = "chiprun_out"
 
@@ -113,12 +125,24 @@ def log(*a):
     print(*a, flush=True)
 
 
-def bound_ms(nbytes, flops, dtype):
-    """Least time for the work: bytes over HBM rate vs ops over peak."""
+def bound_ms(nbytes, flops, dtype, design=None):
+    """Least time for the work: bytes over HBM rate vs ops over the peak
+    of the design (DESIGN_PEAK) or else of the type."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
+    t_ops = flops / DESIGN_PEAK.get(design, PEAK_FLOPS[dtype])
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def design_bounds(nbytes, flops, dtype, design):
+    """A row's bound_ms and bound_by at its design's peak and, for the
+    fp32 forward on the TF32 tensor cores, the CUDA-core bound beside it
+    (the same work at fp32's 67 TFLOP/s), labelled bound_cuda_core_ms."""
+    bnd, by = bound_ms(nbytes, flops, dtype, design)
+    out = dict(bound_ms=bnd, bound_by=by)
+    if design in DESIGN_PEAK:
+        out["bound_cuda_core_ms"] = bound_ms(nbytes, flops, dtype)[0]
+    return out
 
 
 def cuda_ms(fn, iters=20, reps=5, warmup=3, graph=True):
@@ -168,6 +192,22 @@ def max_err(got, ref):
     return float((got.float() - ref.float()).abs().max())
 
 
+def launched_fwd_design(fn, want):
+    """fn's result, where fn makes one flash-forward launch: the design its
+    C entry reported (counted in `design_stats`) must be `want`, the
+    wrapper's prediction `fwd_design`."""
+    from paddle_tpu_torch.ops import kernels
+    before = kernels.design_stats().get("flash_attention", {})
+    res = fn()
+    after = kernels.design_stats().get("flash_attention", {})
+    ran = {d: n - before.get(d, 0) for d, n in after.items()
+           if n != before.get(d, 0)}
+    if ran != {want: 1}:
+        raise AssertionError(f"flash forward: launched {ran}, the wrapper "
+                             f"predicts {want}")
+    return res
+
+
 # ----------------------------- phase 3: kernels -----------------------------
 
 
@@ -199,6 +239,9 @@ def check_layer_norm(dev, gen, rows_list, N):
 
 def check_flash(dev, gen, lengths, H, D, B=1, dtypes=(torch.float32,
                                                       torch.bfloat16)):
+    """The flash forward against its plain version on the same inputs
+    (TOL), run twice (bit for bit), timed beside SDPA, with its design's
+    bound (and the CUDA-core bound of the fp32 tensor-core design)."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     rows = []
     for dtype in dtypes:
@@ -206,28 +249,32 @@ def check_flash(dev, gen, lengths, H, D, B=1, dtypes=(torch.float32,
             qkv = torch.randn(B, L, 3, H, D, device=dev,
                               generator=gen).to(dtype)
             q, k, v = qkv.unbind(2)  # strided views, as the model passes them
-            out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+            design = fa.fwd_design(q, k, v)
+            out, lse = launched_fwd_design(
+                lambda: fa.flash_attention_fwd(q, k, v, causal=True), design)
+            again = fa.flash_attention_fwd(q, k, v, causal=True)
             torch.cuda.synchronize()
+            if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+                raise AssertionError(f"flash forward L={L} D={D} {dtype}: "
+                                     f"two runs differ")
             ref_out, ref_lse = fa.flash_attention_plain(
                 q.float(), k.float(), v.float(), causal=True)
             err = max(max_err(out, ref_out), max_err(lse, ref_lse))
             isz = q.element_size()
             pairs = L * (L + 1) // 2  # causal (q, k) pairs
-            bnd, by = bound_ms(B * (4 * L * H * D * isz + 4 * H * L),
-                               B * 4 * H * D * pairs, dtype)
+            bounds = design_bounds(B * (4 * L * H * D * isz + 4 * H * L),
+                                   B * 4 * H * D * pairs, dtype, design)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             rows.append(dict(
                 kernel="flash_attention", dtype=str(dtype)[6:],
-                shape=f"B={B} L={L} H={H} D={D} causal",
-                design=fa.kernel_design(q, k, v),
+                shape=f"B={B} L={L} H={H} D={D} causal", design=design,
                 max_abs_err=err, tol=TOL[dtype],
                 ms=cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, True)),
                 plain_ms=cuda_ms(lambda: fa.flash_attention_plain(
                     q, k, v, True)),
                 library_ms=cuda_ms(
                     lambda: torch.nn.functional.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=True)),
-                bound_ms=bnd, bound_by=by))
+                        qt, kt, vt, is_causal=True)), **bounds))
     return rows
 
 
@@ -332,7 +379,7 @@ def check_flash_bwd(dev, gen, lengths, B, H, D,
             rows.append(dict(
                 kernel="flash_attention_bwd", dtype=str(dtype)[6:],
                 shape=f"B={B} L={L} H={H} D={D} causal",
-                design=fa.kernel_design(q, k, v, do),
+                design=fa.bwd_design(q, k, v, do),
                 max_abs_err=err, tol_ratio=ratio,
                 witnesses={"dq of a second run": repeat},
                 ms=cuda_ms(lambda: fa.flash_attention_bwd(
@@ -487,7 +534,7 @@ def check_flash_bwd_split(dev, gen):
     for dtype, L, H, D in cases:
         B = 1
         q, k, v, do = _attention_inputs(dev, gen, B, L, L, H, D, dtype)
-        design = fa.kernel_design(q, k, v, do)
+        design = fa.bwd_design(q, k, v, do)
         out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
         delta = fa.attention_delta(out, do)
         got = _split_bwd(fa, q, k, v, lse, delta, do, True)
@@ -572,8 +619,9 @@ def check_flash_long(dev, gen):
         q, k, v, _ = _attention_inputs(dev, gen, 1, LONG_L, LONG_L, LONG_H,
                                        LONG_D, dtype)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        design = fa.kernel_design(q, k, v)
-        out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+        design = fa.fwd_design(q, k, v)
+        out, lse = launched_fwd_design(
+            lambda: fa.flash_attention_fwd(q, k, v, causal=True), design)
         ref_out, ref_lse = plain_by_head(fa.flash_attention_plain,
                                          q.float(), k.float(), v.float())
         err = max(max_err(out, ref_out), max_err(lse, ref_lse))
@@ -592,9 +640,9 @@ def check_flash_long(dev, gen):
                                                   q, k, v), reps=1)
         isz = q.element_size()
         pairs = LONG_L * (LONG_L + 1) // 2
-        bnd, by = bound_ms(4 * LONG_L * LONG_H * LONG_D * isz
-                           + 4 * LONG_H * LONG_L,
-                           4 * LONG_H * LONG_D * pairs, dtype)
+        bounds = design_bounds(4 * LONG_L * LONG_H * LONG_D * isz
+                               + 4 * LONG_H * LONG_L,
+                               4 * LONG_H * LONG_D * pairs, dtype, design)
         rows.append(dict(
             kernel="flash_attention", dtype=str(dtype)[6:],
             shape=f"B=1 L={LONG_L} H={LONG_H} D={LONG_D} causal",
@@ -602,8 +650,7 @@ def check_flash_long(dev, gen):
             plain_ms=plain_ms,
             plain_shape=f"L={LONG_L}, one head at a time",
             library_ms=lib_ms, one_pass_ms=None,
-            witnesses={"SDPA": wit_err / TOL[dtype]}, bound_ms=bnd,
-            bound_by=by))
+            witnesses={"SDPA": wit_err / TOL[dtype]}, **bounds))
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
     return rows
@@ -747,7 +794,11 @@ def check_edges(dev, gen):
     """Correctness only, at the limits each kernel claims beyond the main
     path's shapes: any R and N up to 4096 (layer norm); any L >= 1, ragged
     tails, Lk > Lq with the causal offset, D from 8 to 128 (flash, where
-    D = 128 needs more than 48 KB of shared memory); ctx 0, one token,
+    D = 128 needs more than 48 KB of shared memory), rows off the 16-byte
+    boundary (the CUDA-core design), each design as `fwd_design` names it
+    and as the launch reports it, the forward run twice, bit for bit, and
+    a NaN (both signs) in q or v kept where the plain version keeps it;
+    ctx 0, one token,
     page and partition boundaries, contexts past the block table, one long
     lane among short ones, rows off the 16-byte width, repeated bit for
     bit (paged); the same flash shapes for the backward; V off
@@ -773,14 +824,30 @@ def check_edges(dev, gen):
             err = max_err(ln.layer_norm_fwd(x, g, b),
                           ln.layer_norm_plain(x.float(), g, b))
             worst["layer_norm"] = max(worst["layer_norm"], err / tol)
-        for Lq, Lk, causal, D in ((1, 1, True, 64), (16, 16, True, 64),
-                                  (100, 100, True, 64), (37, 130, True, 64),
-                                  (100, 70, False, 64), (50, 50, True, 128),
-                                  (20, 20, False, 8)):
-            q = randn(2, Lq, 3, D, dtype=dtype)
+        for Lq, Lk, causal, D, off in (
+                (1, 1, True, 64, 0), (16, 16, True, 64, 0),
+                (100, 100, True, 64, 0), (37, 130, True, 64, 0),
+                (100, 70, False, 64, 0), (50, 50, True, 128, 0),
+                (20, 20, False, 8, 0), (100, 100, True, 64, 1),
+                (33, 33, False, 128, 1)):
+            # off 1: q's rows start one element off a 16-byte boundary,
+            # which the tensor-core designs do not take
+            q = randn(2 * Lq * 3 * D + off, dtype=dtype)[off:].view(
+                2, Lq, 3, D)
             k = randn(2, Lk, 3, D, dtype=dtype)
             v = randn(2, Lk, 3, D, dtype=dtype)
-            out, lse = fa.flash_attention_fwd(q, k, v, causal)
+            want = "cuda-core" if off or D not in (64, 128) else (
+                "mma.sync" if dtype == torch.bfloat16 else "mma.sync-3xtf32")
+            if fa.fwd_design(q, k, v) != want:
+                raise AssertionError(f"flash forward D={D} off={off} "
+                                     f"{dtype}: design "
+                                     f"{fa.fwd_design(q, k, v)}, want {want}")
+            out, lse = launched_fwd_design(
+                lambda: fa.flash_attention_fwd(q, k, v, causal), want)
+            again = fa.flash_attention_fwd(q, k, v, causal)
+            if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+                raise AssertionError(f"flash forward Lq={Lq} Lk={Lk} D={D} "
+                                     f"{dtype}: two runs differ")
             ref_out, ref_lse = fa.flash_attention_plain(
                 q.float(), k.float(), v.float(), causal)
             err = max(max_err(out, ref_out), max_err(lse, ref_lse))
@@ -795,6 +862,34 @@ def check_edges(dev, gen):
                 worst["flash_attention_bwd"],
                 *(max_err(g, r) / bwd_tol(dtype, r)
                   for g, r in zip(got, ref)))
+        for L, causal, D, where, bits in (
+                (100, True, 64, "q", 0x7fffffff), (20, False, 64, "v", -1),
+                (50, False, 128, "v", 0x7fffffff), (40, True, 128, "q", -1)):
+            # a NaN (0x7fffffff, or 0xffffffff: -NaN) in one row of q (its
+            # output row and lse turn NaN) or one element of v (that
+            # column of every row turns NaN): where the plain version
+            # gives NaN the kernel must too, and agree elsewhere
+            nan = torch.tensor(bits, dtype=torch.int32).view(torch.float32)
+            q, k, v = randn(2, L, 3, 3, D, dtype=dtype).unbind(2)
+            (q if where == "q" else v)[1, L // 2, 2, D // 3] = nan.item()
+            want = ("mma.sync" if dtype == torch.bfloat16
+                    else "mma.sync-3xtf32")
+            out, lse = launched_fwd_design(
+                lambda: fa.flash_attention_fwd(q, k, v, causal), want)
+            ref_out, ref_lse = fa.flash_attention_plain(
+                q.float(), k.float(), v.float(), causal)
+            for got, ref in ((out, ref_out), (lse, ref_lse)):
+                if not torch.equal(got.isnan(), ref.isnan()):
+                    raise AssertionError(
+                        f"flash forward {dtype} NaN in {where} L={L} D={D}: "
+                        f"{int(got.isnan().sum())} NaN, the plain version "
+                        f"{int(ref.isnan().sum())}")
+                fin = ~ref.isnan()
+                worst["flash_attention"] = max(
+                    worst["flash_attention"],
+                    max_err(got[fin], ref[fin]) / tol)
+            if not ref_out.isnan().any():
+                raise AssertionError("flash forward NaN edge: no NaN")
         for N, V, out_of_range in ((3, 1001, False), (1, 5000, False),
                                    (4, 50304, True), (7, 30, False)):
             x = (2 * randn(N, V, dtype=torch.float32)).to(dtype)
@@ -1041,21 +1136,43 @@ def check_fused_bn(dev, gen, shapes):  # shapes: (N, H, W, C)
     return rows
 
 
-def check_conv1x1(dev, gen, shapes):
+#: the stride-1 1x1 convs of one ResNet-50 step at b128 224x224, (R, Cin,
+#: Cout) -> launches a step: every bottleneck's first and last 1x1 conv
+#: (the strided and downsample 1x1s are cuDNN's); resnet_train checks the
+#: step's launches against it
+RESNET_CONV_SHAPES = {
+    (401408, 64, 64): 1, (401408, 256, 64): 2, (401408, 64, 256): 3,
+    (401408, 256, 128): 1, (100352, 512, 128): 3, (100352, 128, 512): 4,
+    (100352, 512, 256): 1, (25088, 1024, 256): 5, (25088, 256, 1024): 6,
+    (25088, 1024, 512): 1, (6272, 2048, 512): 2, (6272, 512, 2048): 3}
+
+
+def conv_shape(R, Cin, Cout):
+    return f"R={R} Cin={Cin} Cout={Cout}"
+
+
+def check_conv1x1(dev, gen, shapes, dtypes=(torch.float32, torch.bfloat16)):
     """The 1x1 conv + statistics kernel against its plain version: y per
     element to its dtype's rtol of |y| plus 1e-5 of the sum of its
     products' magnitudes (|x| @ |w|^T: the fp32 sums run in another
     order), and sum / sumsq to 1e-5 of the sums of |y| and y^2 of the
-    kernel's stored y. Library: the product alone, x @ w^T."""
+    kernel's stored y; a second run must repeat y and the sums bit for
+    bit. Library: the product alone, x @ w^T (no single PyTorch call
+    computes y and its statistics)."""
     from paddle_tpu_torch.ops.kernels import fused_conv_bn as fcb
     rows = []
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes:
         for R, Cin, Cout in shapes:
             x = torch.randn(R, Cin, device=dev, generator=gen).to(dtype)
             w = (torch.randn(Cout, Cin, device=dev, generator=gen)
                  / Cin ** 0.5).to(dtype)
             y, s, ss = fcb.conv1x1_stats(x, w)
+            again = fcb.conv1x1_stats(x, w)
             torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip((y, s, ss), again)):
+                raise AssertionError(f"conv1x1_stats {conv_shape(R, Cin, Cout)}"
+                                     f" {dtype}: two runs differ")
+            del again
             ratio, err = conv_ratio(x, w, y, s, ss, dtype)
             isz = x.element_size()
             bnd, by = bound_ms((R * Cin + Cout * Cin + R * Cout) * isz
@@ -1064,10 +1181,9 @@ def check_conv1x1(dev, gen, shapes):
             wt = w.t()
             rows.append(dict(
                 kernel="conv1x1_stats", dtype=str(dtype)[6:],
-                shape=f"R={R} Cin={Cin} Cout={Cout}",
-                design=("mma.sync" if dtype == torch.bfloat16
-                        else "cuda-core"), max_abs_err=err,
-                tol_ratio=ratio,
+                shape=conv_shape(R, Cin, Cout), design=fcb.kernel_design(x),
+                max_abs_err=err, tol_ratio=ratio,
+                library_call="x @ w^T, the product alone",
                 ms=cuda_ms(lambda: fcb.conv1x1_stats(x, w), iters=5,
                            reps=3),
                 plain_ms=cuda_ms(lambda: fcb.conv1x1_stats_plain(x, w),
@@ -1100,9 +1216,10 @@ def check_resnet_edges(dev, gen):
     """Correctness only, beyond the main path's shapes: R = 1, R off every
     tile, C from 8 to 2048 (13: the scalar route; 64 and 200: off the
     TPU's 128-lane gate), the add and no-ReLU forms; the 1x1 conv with
-    R = 1, R off its 128/64-row tiles, Cin off its 32-deep k tile, Cout
-    off its 128/64 column tile, Cin < Cout and Cin > Cout. Returns
-    {kernel: worst error / tolerance}."""
+    R = 1, R off its 128/64-row tiles, Cin 8 and Cin off its 64-deep k
+    stage, Cout off its 64/128 column tile (16, 72, 136, 200), Cin < Cout
+    and Cin > Cout, each run twice, bit for bit. Returns {kernel: worst
+    error / tolerance}."""
     from paddle_tpu_torch.ops.kernels import fused_bn as fb
     from paddle_tpu_torch.ops.kernels import fused_conv_bn as fcb
     worst = {"fused_bn_fwd": 0.0, "fused_bn_bwd_reduce": 0.0,
@@ -1138,11 +1255,16 @@ def check_resnet_edges(dev, gen):
                                       torch.zeros_like(g)))
             worst["fused_bn_bwd_dx"] = max(worst["fused_bn_bwd_dx"], r)
         for R, Cin, Cout in ((1, 64, 64), (100, 8, 16), (300, 520, 72),
-                             (129, 2048, 512), (65, 64, 2048)):
+                             (129, 2048, 512), (65, 64, 2048),
+                             (1000, 8, 200), (4097, 72, 136)):
             x = torch.randn(R, Cin, device=dev, generator=gen).to(dtype)
             w = (torch.randn(Cout, Cin, device=dev, generator=gen)
                  / Cin ** 0.5).to(dtype)
             y, s, ss = fcb.conv1x1_stats(x, w)
+            again = fcb.conv1x1_stats(x, w)
+            if not all(torch.equal(a, b) for a, b in zip((y, s, ss), again)):
+                raise AssertionError(f"conv1x1_stats {conv_shape(R, Cin, Cout)}"
+                                     f" {dtype}: two runs differ")
             worst["conv1x1_stats"] = max(worst["conv1x1_stats"], conv_ratio(
                 x, w, y, s, ss, dtype)[0])
     torch.cuda.synchronize()
@@ -1192,6 +1314,12 @@ def serve(model, cfg, card):
         if st["kernel"] <= 0 or st["plain"] != 0:
             raise AssertionError(f"{name}: counters {st} — the kernel must "
                                  f"launch and the plain version must not run")
+    # every fp32 prefill ran the forward on the TF32 tensor cores
+    designs = kernels.design_stats()
+    if designs.get("flash_attention") != {
+            "mma.sync-3xtf32": stats["flash_attention"]["kernel"]}:
+        raise AssertionError(f"serve: flash forward designs {designs}, want "
+                             f"every launch on mma.sync-3xtf32")
     if eng.allocator.outstanding():
         raise AssertionError(f"leaked pages {eng.allocator.outstanding()}")
     ttft = [r.ttft_s for r in reqs]
@@ -1204,7 +1332,7 @@ def serve(model, cfg, card):
                ttft_p99_ms=percentile(ttft, 99) * 1e3,
                tpot_p50_ms=percentile(tpot, 50) * 1e3,
                tpot_p99_ms=percentile(tpot, 99) * 1e3,
-               stats=dict(eng.stats), launches=stats,
+               stats=dict(eng.stats), launches=stats, designs=designs,
                decode_iterations=eng.stats["iterations"],
                prefills=eng.stats["prefills"], card=card)
     log(f"serve: {len(reqs)} requests, {n_tok} tokens in {wall:.3f} s "
@@ -1461,6 +1589,17 @@ def resnet_train(card, dev):
     stats = kernels.all_stats()
     no_composed("resnet")
     per_step = {k: v["kernel"] / TRAIN_STEPS for k, v in stats.items()}
+    # the step's 1x1 convs: the 12 shapes of RESNET_CONV_SHAPES, all on the
+    # wgmma design
+    conv_designs = kernels.design_stats().get("conv1x1_stats", {})
+    conv_shapes = {k: v / TRAIN_STEPS for k, v in
+                   kernels.shape_stats().get("conv1x1_stats", {}).items()}
+    want_shapes = {conv_shape(*k): v for k, v in RESNET_CONV_SHAPES.items()}
+    if conv_shapes != want_shapes or conv_designs != {
+            "wgmma-tma": RESNET_PER_STEP["conv1x1_stats"] * TRAIN_STEPS}:
+        raise AssertionError(f"resnet: 1x1 convs a step {conv_shapes} by "
+                             f"design {conv_designs}; want {want_shapes}, "
+                             f"all wgmma-tma")
     step_ms = float(np.median(times)) * 1e3
     flops = RESNET_FLOPS_PER_IMAGE * RESNET_B
     res = dict(batch=RESNET_B, hw=RESNET_HW, steps=TRAIN_STEPS,
@@ -1468,7 +1607,8 @@ def resnet_train(card, dev):
                step_ms_all=[t * 1e3 for t in times],
                images_per_s=RESNET_B / (step_ms / 1e3), model_flops=flops,
                mfu=flops / (step_ms / 1e3) / BF16_PEAK, launches=stats,
-               launches_per_step=per_step,
+               launches_per_step=per_step, conv1x1_shapes=conv_shapes,
+               conv1x1_designs=conv_designs,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                card=card)
     log(f"resnet: ResNet-50 NHWC O2 bf16 b{RESNET_B} {RESNET_HW}x"
@@ -1478,6 +1618,8 @@ def resnet_train(card, dev):
         f"{res['peak_mem_gb']:.2f} GB [{card}]")
     log(f"resnet: loss {' '.join(f'{x:.4f}' for x in losses)}")
     log(f"resnet: launches per step {json.dumps(per_step)}")
+    log(f"resnet: 1x1 conv launches a step by shape "
+        f"{json.dumps(conv_shapes)}, by design {json.dumps(conv_designs)}")
     for name, st in stats.items():
         want = RESNET_PER_STEP.get(name, 0) * TRAIN_STEPS
         if st["plain"] != 0 or st["kernel"] != want:
@@ -2056,6 +2198,12 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = (check_layer_norm(dev, gen, (32, 1024, TRAIN_B * TRAIN_L), 768)
             + check_flash(dev, gen, (64, 512, 1024), 12, 64)
+            # serving's other prefill buckets, fp32 (on the TF32 tensor
+            # cores), and off-bucket, long and D 128 witnesses
+            + check_flash(dev, gen, (16, 32, 128, 256, 1000, 4096), 12, 64,
+                          dtypes=(torch.float32,))
+            + check_flash(dev, gen, (4096,), 16, 128,
+                          dtypes=(torch.float32,))
             + check_flash(dev, gen, (TRAIN_L,), 12, 64, B=TRAIN_B,
                           dtypes=(torch.bfloat16,))
             + check_flash(dev, gen, (1000, 4096), 12, 64,
@@ -2070,7 +2218,10 @@ def main():
             + check_fused_bn(dev, gen, ((128, 112, 112, 64),
                                         (128, 14, 14, 1024)))
             + check_conv1x1(dev, gen, ((100352, 512, 128),
-                                       (6272, 512, 2048)))
+                                       (6272, 512, 2048)),
+                            dtypes=(torch.float32,))
+            + check_conv1x1(dev, gen, tuple(RESNET_CONV_SHAPES),
+                            dtypes=(torch.bfloat16,))
             + check_layer_norm(dev, gen, (LONG_L,), 768)
             + check_ce(dev, gen, LONG_L, 50304, iters=1)
             + check_flash_long(dev, gen)
@@ -2089,6 +2240,8 @@ def main():
             extra += f"; split pair kernel_ms {r['split_ms']:.4f}"
         for wname, wr in r.get("witnesses", {}).items():
             extra += f"; against the {wname} /tol {wr:.3f}"
+        if "bound_cuda_core_ms" in r:
+            extra += f"; CUDA-core bound_ms {r['bound_cuda_core_ms']:.4f}"
         log(f"kernel {r['kernel']:<19} {r['dtype']:<8} "
             f"{r['shape']:<30} {r['design']:<9} err "
             f"{r['max_abs_err']:.2e} (/tol {r['tol_ratio']:.3f})  kernel_ms {r['ms']:.4f} plain_ms "
@@ -2122,6 +2275,10 @@ def main():
     train_cpu = train_cross_check(cfg)
     # 8. train ResNet-50 NHWC, O2 bf16, b128 224x224
     resnet = resnet_train(smi, dev)
+    for r in rows:  # the 1x1 rows' launches a step at their shape
+        if r["kernel"] == "conv1x1_stats" and r["dtype"] == "bfloat16":
+            r["launches_per_step"] = resnet["conv1x1_shapes"].get(
+                r["shape"], 0)
     # 9. its cross-check on the CPU, at the size of the CPU tests and at one
     # where layer4's batch norms see 128 rows
     resnet_cpu = [resnet_cross_check(dev, B, hw)
@@ -2162,6 +2319,8 @@ def main():
             library_ms=main_row["library_ms"],
             shape=f"{main_row['shape']} {main_row['dtype']}",
             design=main_row["design"],
+            **({"bound_cuda_core_ms": main_row["bound_cuda_core_ms"]}
+               if "bound_cuda_core_ms" in main_row else {}),
             **({"plain_at": main_row["plain_shape"],
                 "one_pass_ms": main_row["one_pass_ms"]}
                if "plain_shape" in main_row else {})))

@@ -122,7 +122,8 @@ def _declare(lib: ctypes.CDLL):
     lib.pt_layer_norm_fwd.argtypes = [p, p, p, p, i64, i32, f32, i32, i32, p]
     lib.pt_flash_attention_fwd.restype = i32
     lib.pt_flash_attention_fwd.argtypes = (
-        [p, p, p, p, p] + [i64] * 9 + [i32] * 6 + [f32, i32, p])
+        [p, p, p, p, p] + [i64] * 9 + [i32] * 6
+        + [f32, i32, c.POINTER(i32), p])
     lib.pt_flash_attention_bwd.restype = i32
     lib.pt_flash_attention_bwd.argtypes = (
         [p] * 9 + [i64] * 12 + [i32] * 6 + [f32, i32, p])

@@ -291,13 +291,14 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // true when the tensor-core designs take these inputs: bf16 (checked by
 // the caller), D 64 or 128, every row 16-byte aligned; the wrapper's
-// `kernel_design` says the same
+// `bwd_design` says the same
 inline bool tc_takes(const BwdArgs& a) {
+  constexpr int e = sizeof(__nv_bfloat16);
   return (a.D == 64 || a.D == 128) &&
-         rows_aligned16(a.q, a.sqb, a.sql, a.sqh) &&
-         rows_aligned16(a.k, a.skb, a.skl, a.skh) &&
-         rows_aligned16(a.v, a.svb, a.svl, a.svh) &&
-         rows_aligned16(a.dout, a.sob, a.sol, a.soh);
+         rows_aligned16(a.q, a.sqb, a.sql, a.sqh, e) &&
+         rows_aligned16(a.k, a.skb, a.skl, a.skh, e) &&
+         rows_aligned16(a.v, a.svb, a.svl, a.svh, e) &&
+         rows_aligned16(a.dout, a.sob, a.sol, a.soh, e);
 }
 
 constexpr int kLS = kBQ + 8;  // padded row of the staged dS^T tile

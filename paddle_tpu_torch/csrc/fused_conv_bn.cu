@@ -11,37 +11,51 @@
 //   with Y the value as stored, rounded to x's type (reference l.92-94)
 //
 // w is the conv weight (Cout, Cin, 1, 1) read as [Cout, Cin]: each output
-// channel's Cin inputs are contiguous, the "col" operand of the tensor-core
-// product, so no transpose is made.
+// channel's Cin inputs are contiguous, so x and w are both K-major, the
+// "TN" product wgmma reads directly, and no transpose is made.
 //
-// What bounds it on the H100: at the ResNet-50 shapes the product sits near
+// What bounds it on the H100: at ResNet-50's shapes the product sits near
 // the card's ridge (layer2, R = 100,352, 512 -> 128 in bf16: 13.2 GFLOP and
 // 128 MB, 0.013 ms at 989 TFLOP/s against 0.038 ms at 3.35 TB/s), so bytes
-// by a little; at 1024 -> 256 and up, operations.
+// up to 512 -> 128; at 1024 -> 256 and up, operations.
 //
-// Design, bf16: a block computes a 128 x 128 tile of y with 8 warps, each a
-// 32 x 64 tile of m16n8k16 tensor-core products (`mma.sync`, fp32
-// accumulators in registers), fed by `ldmatrix` from a 3-stage ring of
-// 128 x 32 tiles of x and w in shared memory that `cp.async` fills ahead of
-// use (rows padded to 80 bytes, so `ldmatrix` is free of bank conflicts).
-// fp32 takes the same tiling on CUDA cores (64 x 64 tiles, 4 x 4 outputs a
-// thread, fp32 FMA), so a card-against-CPU check computes the same function.
-// The TPU grid walks (Cout stripes, row blocks) with the stripe outermost,
-// so it reads x once per stripe; here the grid is linear with the Cout
-// stripe fastest, so the blocks of one row tile run side by side and x
-// comes from device memory once (the other stripes find it in L2), while w
-// (at most 2048 x 2048) stays in L2 throughout. The epilogue rounds each
-// accumulator to x's type, stores it, and sums the rounded values and their
-// squares per column: over the thread's rows, across the lanes of a column
-// by shuffles, across the block's warps in shared memory, into one row of
-// fp32 partials per row tile [tiles, 2, Cout]; column_sums.cuh then adds
-// the tiles' rows in a fixed order (no atomics, the same result every run).
-// Edges: rows past R and columns past Cout are zero-filled on load and
-// masked on store; Cin and Cout must be multiples of 8 (16-byte vectors)
-// and x, w 16-byte aligned, which the wrapper checks.
+// Design, bf16 (csrc/wgmma.cuh): a persistent grid, one block per SM, of
+// three warpgroups. The producer warpgroup gives up registers (setmaxnreg)
+// and one of its threads keeps a ring of 6-8 stages (192 KB) of TMA loads
+// in flight: a 128 x 64 tile of x and a BN x 64 tile of w a stage, in
+// 128-byte swizzled rows, zero-filled past R, Cin and Cout, completion on
+// an mbarrier. Each of the two consumer warpgroups owns 64 rows x BN of the
+// output tile and runs wgmma m64nBNk16 on the stages as they land (fp32
+// accumulators in registers), keeping one stage's products in flight and
+// releasing each stage on an empty barrier once its products are done.
+// BN is 64 or 128 by Cout. Each block walks the row tiles of one Cout
+// stripe (the grid is a whole number of blocks a stripe), neighbouring
+// blocks the stripes of one row tile at once, so x comes from device
+// memory once and its other stripes from L2 (w, at most 2048 x 2048, stays
+// in L2), and the producer loads the next tile while the consumers run
+// this one's epilogue. The epilogue, 64 columns at a time, rounds each
+// accumulator to bf16 into a chunk of y staged in shared memory (two
+// chunks a consumer group, so one is written while the other's TMA store
+// reads it; swizzled like the loads, so the lanes' 4-byte writes hit no
+// bank twice) and stores it with TMA, clipped at R and Cout; then each
+// lane adds a column pair of the staged chunk, over its warp's 16 rows, to
+// its running sums of the rounded values and their squares (whole 128-byte
+// rows a warp, no bank twice, no shuffles). At the end the 8 consumer
+// warps' sums are added in a fixed order into one row of fp32 partials
+// per block [blocks a stripe, 2, Cout]; column_sums.cuh then adds the rows
+// in a fixed order (no atomics, the same result every run). The tensor
+// maps are encoded on the host at each call and passed as
+// __grid_constant__ parameters.
+//
+// fp32 (on no main path) runs on CUDA cores: 64 x 64 tiles, 4 x 4 outputs
+// a thread, fp32 FMA, so a card-against-CPU check computes the same
+// function.
+//
+// Edges: Cin and Cout must be multiples of 8 (16-byte rows) and x, w
+// 16-byte aligned, which the wrapper checks; any R >= 1.
 #include "column_sums.cuh"
 #include "common.cuh"
-#include "mma.cuh"
+#include "wgmma.cuh"
 
 // names this file's second pass in its column_sums_kernel symbol, so a
 // profile can tell it from the other caller's
@@ -51,160 +65,231 @@ namespace {
 
 constexpr int kThreads = 256;
 
-using pt::cp_async16;
-using pt::cp_async_commit;
-using pt::cp_async_wait;
-using pt::ldmatrix_x4;
-using pt::mma_bf16;
+// ---------------------------- bf16, wgmma + TMA ------------------------------
 
-// ----------------------------- bf16, tensor cores ----------------------------
+constexpr int kWgBM = 128;  // rows of y a tile: 64 a consumer warpgroup
+constexpr int kWgBK = 64;   // Cin a stage: one 128-byte swizzled row
+constexpr int kWgThreads = 384;  // consumer warpgroups 0 and 1, producer 2
+constexpr int kRingBytes = 192 * 1024;
 
-constexpr int BM = 128, BN = 128, BK = 32, STAGES = 3;
-constexpr int LDS = BK + 8;  // padded row, in elements (80 bytes)
-constexpr size_t kSmemBf16 =
-    static_cast<size_t>(STAGES) * (BM + BN) * LDS * sizeof(__nv_bfloat16);
+// BN, the output columns of a tile, by Cout: 64 up to Cout 64, else 128
+// (256 columns, tried, spill past the 168 registers a thread of a
+// 384-thread block may have, and ran slower at every ResNet-50 shape)
+inline int wgmma_bn(int Cout) { return Cout <= 64 ? 64 : 128; }
 
-__global__ void __launch_bounds__(kThreads)
-    conv1x1_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                        const __nv_bfloat16* __restrict__ w,
-                        __nv_bfloat16* __restrict__ y,
-                        float* __restrict__ part, int64_t R, int Cin,
-                        int Cout, int tiles_n) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Bs = As + STAGES * BM * LDS;
+// the persistent grid's blocks per Cout stripe: each walks the row tiles
+// b, b + P, b + 2P, ... of its stripe and writes one row of partial sums,
+// so this many rows of the wrapper's (at most one a row tile) are written
+inline int wgmma_blocks_per_stripe(int R, int Cout, int sms) {
+  const int tiles_m = (R + kWgBM - 1) / kWgBM;
+  const int tiles_n = (Cout + wgmma_bn(Cout) - 1) / wgmma_bn(Cout);
+  const int p = sms / tiles_n < tiles_m ? sms / tiles_n : tiles_m;
+  return p > 1 ? p : 1;
+}
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 1, wn = warp & 1;  // 4 x 2 warps of 32 x 64
-  const int64_t tile_m = blockIdx.x / tiles_n;
-  const int n0 = (blockIdx.x % tiles_n) * BN;
-  const int64_t m0 = tile_m * BM;
-  const int ktiles = (Cin + BK - 1) / BK;
+template <int BN>
+struct WgCfg {
+  static constexpr int kABytes = kWgBM * kWgBK * 2;  // 16 KB
+  static constexpr int kBBytes = BN * kWgBK * 2;
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  static constexpr int kStages = kRingBytes / kStageBytes;  // 8, 6
+  // two 64 x 64 y chunks a consumer group (a store in flight while the
+  // next chunk is written); at the end the column sums reuse it
+  static constexpr int kYBytes = 2 * 2 * 64 * 128;
+  static constexpr int kRedFloats = 8 * (BN / 64) * 4 * 32;
+  // ring, y staging, barriers; 1 KB to align the ring
+  static constexpr size_t kSmem =
+      1024 + kStages * kStageBytes + kYBytes + 2 * kStages * 8;
+  static_assert(kStages >= 4, "at least 4 stages in flight");
+  static_assert(kRedFloats * 4 <= kYBytes, "the sums fit the staging");
+  static_assert(kSmem <= 232448, "fits one SM's shared memory");
+};
 
-  // one stage: BM rows of x and BN rows of w, BK columns each, as 16-byte
-  // chunks (4 a row); two chunks of each a thread
-  auto load_stage = [&](int stage, int kt) {
-    const int k0 = kt * BK;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int chunk = tid + i * kThreads;
-      const int r = chunk >> 2, kc = (chunk & 3) * 8;
-      const int gk = k0 + kc;
-      const int64_t gr = m0 + r;
-      const bool pa = gr < R && gk < Cin;
-      cp_async16(As + (stage * BM + r) * LDS + kc,
-                 pa ? x + gr * Cin + gk : x, pa);
-      const int gn = n0 + r;
-      const bool pb = gn < Cout && gk < Cin;
-      cp_async16(Bs + (stage * BN + r) * LDS + kc,
-                 pb ? w + static_cast<int64_t>(gn) * Cin + gk : w, pb);
-    }
+template <int BN>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    conv1x1_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                         const __grid_constant__ CUtensorMap tw,
+                         const __grid_constant__ CUtensorMap ty,
+                         float* __restrict__ part, int Cin, int Cout,
+                         int tiles_m, int tiles_n) {
+  using Cfg = WgCfg<BN>;
+  constexpr int S = Cfg::kStages;
+  constexpr int NC = BN / 64;  // 64-column chunks of a tile
+  extern __shared__ unsigned char smem_raw[];
+  // the swizzled tiles need 1024-byte alignment
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
+  unsigned char* ystage = base + S * Cfg::kStageBytes;  // [2][2][64][128 B]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ystage + Cfg::kYBytes);
+  uint64_t* empty = full + S;
+  auto stage_a = [&](int s) { return base + s * Cfg::kStageBytes; };
+  auto stage_b = [&](int s) {
+    return base + s * Cfg::kStageBytes + Cfg::kABytes;
   };
 
-  float acc[2][8][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < ktiles) load_stage(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // stage kt has landed; stage kt - 1 is free again
-    const int next = kt + STAGES - 1;
-    if (next < ktiles) load_stage(next % STAGES, next);
-    cp_async_commit();
-    const __nv_bfloat16* a_s = As + (kt % STAGES) * BM * LDS;
-    const __nv_bfloat16* b_s = Bs + (kt % STAGES) * BN * LDS;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      unsigned a[2][4], b[4][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int row = wm * 32 + mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        ldmatrix_x4(a[mt], a_s + row * LDS + kk + (lane >> 4) * 8);
-      }
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        const int n = wn * 64 + np * 16 + (lane & 7) + (lane >> 4) * 8;
-        ldmatrix_x4(b[np], b_s + n * LDS + kk + ((lane >> 3) & 1) * 8);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-          mma_bf16(acc[mt][nt], a[mt], b[nt >> 1][(nt & 1) * 2],
-                   b[nt >> 1][(nt & 1) * 2 + 1]);
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int ktiles = (Cin + kWgBK - 1) / kWgBK;
+  // this block's stripe and its row tiles (grid = P * tiles_n)
+  const int stripe = blockIdx.x % tiles_n, n0 = stripe * BN;
+  const int m_first = blockIdx.x / tiles_n, m_step = gridDim.x / tiles_n;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      pt::mbar_init(&full[s], 1);   // the producer's arrival + the bytes
+      pt::mbar_init(&empty[s], 8);  // one arrival per consumer warp
     }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring is reused for the column sums below
-
-  // epilogue: round, store, and sum the stored values per column
-  const int g = lane >> 2, t = lane & 3;
-  float cs[8][2], css[8][2];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    cs[nt][0] = cs[nt][1] = css[nt][0] = css[nt][1] = 0.f;
-  }
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int64_t row = m0 + wm * 32 + mt * 16 + g + half * 8;
-      if (row >= R) continue;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int col = n0 + wn * 64 + nt * 8 + 2 * t;
-        if (col >= Cout) continue;  // Cout % 8 == 0: col + 1 < Cout too
-        const __nv_bfloat162 v = __floats2bfloat162_rn(
-            acc[mt][nt][half * 2], acc[mt][nt][half * 2 + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(y + row * Cout + col) = v;
-        const float f0 = __low2float(v), f1 = __high2float(v);
-        cs[nt][0] += f0;
-        cs[nt][1] += f1;
-        css[nt][0] += f0 * f0;
-        css[nt][1] += f1 * f1;
-      }
-    }
-  }
-  // lanes sharing t hold the same columns: add over g (lane bits 2-4)
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int o = 4; o < 32; o <<= 1) {
-        cs[nt][j] += __shfl_xor_sync(0xffffffffu, cs[nt][j], o);
-        css[nt][j] += __shfl_xor_sync(0xffffffffu, css[nt][j], o);
-      }
-  float* red = reinterpret_cast<float*>(smem);  // [2][4 warps in m][BN]
-  if (lane < 4) {
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = wn * 64 + nt * 8 + 2 * lane + j;
-        red[(0 * 4 + wm) * BN + c] = cs[nt][j];
-        red[(1 * 4 + wm) * BN + c] = css[nt][j];
-      }
+    pt::fence_mbar_init();
   }
   __syncthreads();
-  float* out = part + tile_m * 2 * Cout;
-  for (int i = tid; i < 2 * BN; i += kThreads) {
-    const int which = i / BN, c = i % BN;
-    if (n0 + c >= Cout) continue;
-    float s = 0.f;
+
+  if (wg == 2) {
+    // ------------------------------ producer ---------------------------------
+    pt::setmaxnreg_dec<40>();
+    if (tid == 256) {
+      int stage = 0, phase = 0;
+      for (int tm = m_first; tm < tiles_m; tm += m_step) {
+        for (int kt = 0; kt < ktiles; ++kt) {
+          pt::mbar_wait(&empty[stage], phase ^ 1);
+          pt::mbar_expect_tx(&full[stage], Cfg::kStageBytes);
+          pt::tma_load_2d(stage_a(stage), &tx, kt * kWgBK, tm * kWgBM,
+                          &full[stage]);
+          pt::tma_load_2d(stage_b(stage), &tw, kt * kWgBK, n0, &full[stage]);
+          if (++stage == S) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // ------------------------------ consumers --------------------------------
+    pt::setmaxnreg_inc<232>();
+    const int warp = (tid >> 5) & 3, lane = tid & 31;  // warp in the group
+    const int g = lane >> 2, t = lane & 3;
+    unsigned char* ys = ystage + wg * 2 * 64 * 128;  // this group's 2 chunks
+    int stage = 0, phase = 0, nstored = 0;
+    float acc[BN / 2];
+    // running column sums over the block's tiles: lane p owns the column
+    // pair (2p, 2p + 1) of each 64-column chunk over its warp's 16 rows;
+    // (sum lo, sum hi, sumsq lo, sumsq hi)
+    float cs[NC][4];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) s += red[(which * 4 + q) * BN + c];
-    out[which * Cout + n0 + c] = s;
+    for (int c = 0; c < NC; ++c) cs[c][0] = cs[c][1] = cs[c][2] = cs[c][3] = 0.f;
+    for (int tm = m_first; tm < tiles_m; tm += m_step) {
+      // one stage's products stay in flight while the next stage's are
+      // issued; a stage is released once its products are done
+      int prev = -1;
+      for (int kt = 0; kt < ktiles; ++kt) {
+        pt::mbar_wait(&full[stage], phase);
+        pt::wgmma_fence();
+        const uint64_t da = pt::smem_desc_sw128(stage_a(stage) + wg * 64 * 128);
+        const uint64_t db = pt::smem_desc_sw128(stage_b(stage));
+#pragma unroll
+        for (int k16 = 0; k16 < kWgBK / 16; ++k16)
+          pt::wgmma_bf16<BN>(acc, da + 2 * k16, db + 2 * k16,
+                             kt > 0 || k16 > 0);
+        pt::wgmma_commit();
+        pt::wgmma_wait<1>();
+        if (prev >= 0) {
+          __syncwarp();
+          if (lane == 0) pt::mbar_arrive(&empty[prev]);
+        }
+        prev = stage;
+        if (++stage == S) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      pt::wgmma_wait<0>();
+      __syncwarp();
+      if (lane == 0) pt::mbar_arrive(&empty[prev]);
+
+      // epilogue, 64 columns at a time: round to bf16, stage, store by
+      // TMA, and add the stored values to the column sums
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        unsigned char* buf = ys + (nstored & 1) * 64 * 128;
+        // the store that used this buffer two chunks ago has read it
+        if ((tid & 127) == 0) pt::bulk_wait_read<1>();
+        pt::named_barrier(2 + wg, 128);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int e = 4 * (c * 8 + i);  // n8 tile c * 8 + i
+          // rows r and r + 8 (both r % 8 = g): 16-byte chunk i at i ^ g
+          const int r = 16 * warp + g;
+          const int off = ((i ^ g) << 4) + 4 * t;
+          *reinterpret_cast<__nv_bfloat162*>(buf + r * 128 + off) =
+              __floats2bfloat162_rn(acc[e], acc[e + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(buf + (r + 8) * 128 + off) =
+              __floats2bfloat162_rn(acc[e + 2], acc[e + 3]);
+        }
+        pt::fence_proxy_async();
+        pt::named_barrier(2 + wg, 128);
+        if ((tid & 127) == 0) {
+          pt::tma_store_2d(&ty, buf, n0 + 64 * c, tm * kWgBM + 64 * wg);
+          pt::bulk_commit();
+        }
+        ++nstored;
+        // a warp reads whole 128-byte rows: lane p's pair at chunk
+        // (p / 4) ^ (r % 8), no bank twice
+#pragma unroll 4
+        for (int rr = 0; rr < 16; ++rr) {
+          const int r = 16 * warp + rr;
+          const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(
+              buf + r * 128 + (((lane >> 2) ^ (r & 7)) << 4) + 4 * (lane & 3));
+          const float f0 = __low2float(v), f1 = __high2float(v);
+          cs[c][0] += f0;
+          cs[c][1] += f1;
+          cs[c][2] += f0 * f0;
+          cs[c][3] += f1 * f1;
+        }
+      }
+    }
+
+    // one row of partials per block: the 8 warps' sums in a fixed order,
+    // in the staging once every store of both groups has completed
+    if ((tid & 127) == 0) pt::bulk_wait();
+    pt::named_barrier(1, 256);
+    float* red = reinterpret_cast<float*>(ystage);  // [8][NC][4][32]
+    const int w8 = wg * 4 + warp;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        red[((w8 * NC + c) * 4 + j) * 32 + lane] = cs[c][j];
+    pt::named_barrier(1, 256);
+    float* out = part + static_cast<int64_t>(m_first) * 2 * Cout;
+    for (int idx = tid; idx < 2 * BN; idx += 256) {
+      const int which = idx / BN, col = idx % BN;  // which: sum, sumsq
+      if (n0 + col >= Cout) continue;
+      const int c = col / 64, pair = (col % 64) / 2;
+      const int j = 2 * which + (col & 1);
+      float v = 0.f;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) v += red[((w * NC + c) * 4 + j) * 32 + pair];
+      out[which * Cout + n0 + col] = v;
+    }
   }
+}
+
+template <int BN>
+cudaError_t launch_wgmma(const void* x, const void* w, void* y, float* part,
+                         int R, int Cin, int Cout, int sms,
+                         cudaStream_t stream) {
+  CUtensorMap tx, tw, ty;
+  CUresult res = pt::tensor_map_bf16(&tx, x, R, Cin, kWgBM, kWgBK);
+  if (res == CUDA_SUCCESS)
+    res = pt::tensor_map_bf16(&tw, w, Cout, Cin, BN, kWgBK);
+  if (res == CUDA_SUCCESS) res = pt::tensor_map_bf16(&ty, y, R, Cout, 64, 64);
+  if (res != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  const int tiles_m = (R + kWgBM - 1) / kWgBM;
+  const int tiles_n = (Cout + BN - 1) / BN;
+  const int grid = wgmma_blocks_per_stripe(R, Cout, sms) * tiles_n;
+  const cudaError_t err =
+      pt::allow_smem(conv1x1_wgmma_kernel<BN>, WgCfg<BN>::kSmem);
+  if (err != cudaSuccess) return err;
+  conv1x1_wgmma_kernel<BN><<<grid, kWgThreads, WgCfg<BN>::kSmem, stream>>>(
+      tx, tw, ty, part, Cin, Cout, tiles_m, tiles_n);
+  return cudaGetLastError();
 }
 
 // ------------------------------ fp32, CUDA cores -----------------------------
@@ -294,36 +379,43 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 // y [R, Cout] in x's type (bf16 != 0: bfloat16, else float32); part: fp32
-// scratch [tiles, 2, Cout] with tiles = ceil(R / 128) for bf16 and
-// ceil(R / 64) for fp32 (the wrapper's count, checked here); out: fp32
-// [2, Cout] = (sum, sumsq).
+// scratch [cap, 2, Cout] of partial sums, of which the kernel writes and
+// adds `tiles` rows: ceil(R / 64) for fp32, and for bf16 the persistent
+// grid's blocks per Cout stripe, from the card's SM count (at most
+// ceil(R / 128)); a cap below that is refused. out: fp32 [2, Cout] =
+// (sum, sumsq).
 extern "C" int pt_conv1x1_stats(const void* x, const void* w, void* y,
                                 float* part, float* out, int64_t R, int Cin,
-                                int Cout, int64_t tiles, int bf16,
+                                int Cout, int64_t cap, int bf16,
                                 cudaStream_t stream) {
-  const int bm = bf16 ? BM : FBM, bn = bf16 ? BN : FBN;
-  if (tiles != (R + bm - 1) / bm || Cin % 8 || Cout % 8 || Cin <= 0 ||
+  if (R <= 0 || R > 0x7fffffff || Cin % 8 || Cout % 8 || Cin <= 0 ||
       Cout <= 0 || !pt::aligned16(x) || !pt::aligned16(w))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int tiles_n = (Cout + bn - 1) / bn;
-  const int64_t blocks = tiles * tiles_n;
-  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  int64_t tiles;
   if (bf16) {
-    const cudaError_t err = pt::allow_smem(conv1x1_bf16_kernel, kSmemBf16);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    conv1x1_bf16_kernel<<<static_cast<unsigned>(blocks), kThreads, kSmemBf16,
-                          stream>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(y),
-        part, R, Cin, Cout, tiles_n);
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const int r = static_cast<int>(R);
+    tiles = wgmma_blocks_per_stripe(r, Cout, sms);
+    if (tiles > cap) return static_cast<int>(cudaErrorInvalidValue);
+    err = wgmma_bn(Cout) == 64
+              ? launch_wgmma<64>(x, w, y, part, r, Cin, Cout, sms, stream)
+              : launch_wgmma<128>(x, w, y, part, r, Cin, Cout, sms, stream);
   } else {
+    tiles = (R + FBM - 1) / FBM;
+    if (tiles > cap) return static_cast<int>(cudaErrorInvalidValue);
+    const int tiles_n = (Cout + FBN - 1) / FBN;
+    const int64_t blocks = tiles * tiles_n;
+    if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
     conv1x1_f32_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                          stream>>>(static_cast<const float*>(x),
                                    static_cast<const float*>(w),
                                    static_cast<float*>(y), part, R, Cin,
                                    Cout, tiles_n);
+    err = cudaGetLastError();
   }
-  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   pt::launch_column_sums<conv1x1_sums>(
       part, out, tiles, 2 * static_cast<int64_t>(Cout), stream);

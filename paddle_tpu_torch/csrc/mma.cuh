@@ -14,6 +14,21 @@
 // So two n8 accumulator tiles side by side, packed to bf16, are one k16 A
 // fragment (the flash kernels feed P and dS to the next product this way).
 //
+// The TF32 product, mma.sync.m16n8k8 (.tf32 operands, fp32 accumulators),
+// has the same C layout; its operands hold one 32-bit value a register:
+//   A (16 x 8), 4 registers: a0 (row g, col t), a1 (row g+8, col t), a2
+//     (row g, col t+4), a3 (row g+8, col t+4);
+//   B (8 x 8, k by n), 2 registers: b0 (k t, col g), b1 (k t+4, col g).
+// A product sums over k, so k may be renumbered alike in A and B: the fp32
+// flash forward takes k = t as element 2t and k = t+4 as element 2t+1 of
+// each group of 8, so a0/a2 (and b0/b1 of a [n][k] tile) are one 8-byte
+// pair, and an n8 accumulator tile's (c0, c2, c1, c3) is an A fragment over
+// its 8 columns. The 3xTF32 split keeps fp32 accuracy on these units: each
+// operand x = hi + lo, hi = x rounded to the nearest TF32 (10 explicit
+// mantissa bits, ties away from zero, as cvt.rna.tf32.f32 rounds), lo =
+// x - hi (exact in fp32) truncated to TF32, and a b = hi hi + hi lo + lo
+// hi in fp32, the dropped lo lo term below 2^-22 of |a b|.
+//
 // ldmatrix_x4 loads four 8 x 8 b16 tiles; lanes 8i..8i+7 give the row
 // addresses of tile i, and each lane receives (row g, cols 2t, 2t+1) of
 // each tile: tiles (rows 0-7, k 0-7), (rows 8-15, k 0-7), (rows 0-7, k
@@ -80,6 +95,58 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// ------------------------------ TF32 (3xTF32) ---------------------------------
+
+// x rounded to the nearest TF32, ties away from zero, as a 32-bit operand:
+// the results of cvt.rna.tf32.f32 for every x that is not a NaN, in two
+// integer operations (half a unit of the 13 dropped bits added to the
+// magnitude, then the bits cleared), which the card issues faster than
+// the cvt. A NaN does not survive it (the carry turns the card's
+// canonical NaN 0x7fffffff into -0): `split_tf32` keeps it in lo.
+__device__ __forceinline__ unsigned tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo, each a TF32 operand (see the layout comment above): hi is
+// x rounded to the nearest, lo the rest x - hi (exact in fp32) with its
+// low 13 bits cleared, one integer operation. Truncating lo costs a bit
+// of the small term (|lo| <= 2^-11 |x|, so lo's error stays below
+// 2^-21 |x|) and keeps a NaN: x - hi is NaN for a NaN x whatever hi
+// became, and clearing low bits leaves the card's NaN 0x7fffffff a NaN,
+// so every product with that operand is NaN. (A select for NaN in
+// `tf32_rna` instead, tried, slowed the fp32 flash forward by 58 %: its
+// splits are issue-bound on integer operations.)
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
+                                           unsigned& lo) {
+  hi = tf32_rna(x);
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
+}
+
+// d += a * b on the tensor cores: a 16 x 8, b 8 x 8 (TF32), d 16 x 8 fp32.
+// A 3xTF32 product is three of these on one accumulator (lo hi, hi lo,
+// then hi hi: the small terms first); a caller issues each of the three
+// over all its tiles in turn, so no product waits on the one before it.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the split A fragment, in the renumbered k order above, from the pair of
+// fp32 elements (2t, 2t+1) of a k8 group in row g (r0) and row g+8 (r8)
+__device__ __forceinline__ void split_a_pairs(unsigned (&hi)[4],
+                                              unsigned (&lo)[4],
+                                              float2 r0, float2 r8) {
+  split_tf32(r0.x, hi[0], lo[0]);
+  split_tf32(r8.x, hi[1], lo[1]);
+  split_tf32(r0.y, hi[2], lo[2]);
+  split_tf32(r8.y, hi[3], lo[3]);
+}
+
 // two fp32 values as one register of two bf16, lo in the low half (the
 // lower column of an mma fragment)
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
@@ -87,21 +154,21 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const unsigned*>(&v);
 }
 
-// ROWS rows of D bf16 (D a multiple of 8), from row0 of a global array
-// with a row stride of `stride` elements, into shared rows of LD elements,
-// by cp.async; rows at or past `rows` are zero-filled. THREADS threads
-// share the copy. The global rows must be 16-byte aligned.
-template <int ROWS, int D, int LD, int THREADS>
-__device__ __forceinline__ void load_rows_async(__nv_bfloat16* dst,
-                                                const __nv_bfloat16* src,
+// ROWS rows of D elements of T (D * sizeof(T) a multiple of 16), from row0
+// of a global array with a row stride of `stride` elements, into shared
+// rows of LD elements, by cp.async; rows at or past `rows` are zero-filled.
+// THREADS threads share the copy. The global rows must be 16-byte aligned.
+template <int ROWS, int D, int LD, int THREADS, typename T>
+__device__ __forceinline__ void load_rows_async(T* dst, const T* src,
                                                 int64_t stride, int row0,
                                                 int rows, int tid) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks a row
+  constexpr int kVec = 16 / sizeof(T);  // elements a 16-byte chunk
+  constexpr int kChunks = D / kVec;     // chunks a row
   static_assert((ROWS * kChunks) % THREADS == 0, "whole chunks a thread");
 #pragma unroll
   for (int i = 0; i < ROWS * kChunks / THREADS; ++i) {
     const int idx = tid + i * THREADS;
-    const int r = idx / kChunks, c = (idx % kChunks) * 8;
+    const int r = idx / kChunks, c = (idx % kChunks) * kVec;
     const int gr = row0 + r;
     const bool in = gr < rows;
     cp_async16(dst + r * LD + c, in ? src + gr * stride + c : src, in);
@@ -150,11 +217,12 @@ __device__ __forceinline__ void load_b_trans(unsigned (&r)[4],
                            n0 + (lane >> 4) * 8);
 }
 
-// true when a [B, L, H, D] bf16 array read through (sb, sl, sh) element
-// strides starts every row on a 16-byte boundary
-inline bool rows_aligned16(const void* p, int64_t sb, int64_t sl,
-                           int64_t sh) {
-  return aligned16(p) && sb % 8 == 0 && sl % 8 == 0 && sh % 8 == 0;
+// true when a [B, L, H, D] array of `elem` bytes an element, read through
+// (sb, sl, sh) element strides, starts every row on a 16-byte boundary
+inline bool rows_aligned16(const void* p, int64_t sb, int64_t sl, int64_t sh,
+                           int elem) {
+  return aligned16(p) && sb * elem % 16 == 0 && sl * elem % 16 == 0 &&
+         sh * elem % 16 == 0;
 }
 
 }  // namespace pt

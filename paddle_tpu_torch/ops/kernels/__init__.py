@@ -62,6 +62,32 @@ def composed_stats() -> dict:
     return dict(_composed)
 
 
+#: launches by design and by shape of the kernels with more than one
+#: design (the flash forward, the 1x1 conv): {kernel: {design: n}} and
+#: {kernel: {shape: n}}
+_designs: dict = {}
+_shapes: dict = {}
+
+
+def count_design(name: str, design: str, shape: str | None = None) -> None:
+    """Count one launch of kernel `name` under `design` (and `shape`)."""
+    d = _designs.setdefault(name, {})
+    d[design] = d.get(design, 0) + 1
+    if shape is not None:
+        d = _shapes.setdefault(name, {})
+        d[shape] = d.get(shape, 0) + 1
+
+
+def design_stats() -> dict:
+    """{kernel: {design: launches}} since the last :func:`reset_stats`."""
+    return {k: dict(v) for k, v in _designs.items()}
+
+
+def shape_stats() -> dict:
+    """{kernel: {shape: launches}} since the last :func:`reset_stats`."""
+    return {k: dict(v) for k, v in _shapes.items()}
+
+
 def _counters() -> dict:
     """{kernel: its module's launch counter dict}; the backward kernels
     have their own entries."""
@@ -87,7 +113,10 @@ def all_stats() -> dict:
 
 
 def reset_stats() -> None:
-    """Every launch counter and every composition count to 0."""
+    """Every launch counter, design and shape count and composition count
+    to 0."""
     for st in (*_counters().values(), _composed):
         for key in st:
             st[key] = 0
+    _designs.clear()
+    _shapes.clear()

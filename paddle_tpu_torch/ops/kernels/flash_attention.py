@@ -12,12 +12,15 @@ row and column tails (any L >= 1), and reads [B, L, H, D] through its
 strides. Outputs are ``out`` in the input type and ``lse`` [B, H, Lq]
 fp32, which the backward reuses.
 
-Designs (``kernel_design``): bf16 at head dim 64 or 128 with 16-byte
-aligned rows runs the forward, the one-pass backward and the split
-backward pair on the tensor cores (``mma.sync`` m16n8k16, fp32
+Designs (``fwd_design``, ``bwd_design``): at head dim 64 or 128 with
+16-byte aligned rows, bf16 runs the forward, the one-pass backward and
+the split backward pair on the tensor cores (``mma.sync`` m16n8k16, fp32
 accumulators, P and dS rounded to bf16 before the products that read
-them, as the reference does); fp32, other head dims and unaligned rows
-run on CUDA cores.
+them, as the reference does), and fp32 runs the forward on the TF32
+tensor cores in a 3xTF32 split (``mma.sync`` m16n8k8: each operand split
+into a TF32 hi and lo part, each product hi hi + hi lo + lo hi in fp32,
+which keeps fp32 accuracy); the fp32 backwards, other head dims and
+unaligned rows run on CUDA cores.
 
 Backward, chosen by the reference's gate (l.1109): while the one-pass
 kernel's whole-(b, h) dq, Lq * D * 4 bytes, fits ``_FUSED_BWD_DQ_BYTES``
@@ -43,11 +46,13 @@ Layout convention (paddle): q/k/v are [batch, seq, heads, head_dim].
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 
-from . import count_composed, launch, same_device, use_kernel
+from . import (count_composed, count_design, launch, same_device,
+               use_kernel)
 
 _stats = {"kernel": 0, "plain": 0}
 #: launches of the one-pass backward kernel (and runs of its plain version)
@@ -131,18 +136,37 @@ def kernel_takes(q, k, v, mask=None, causal: bool = False) -> bool:
     return not (causal and q.shape[1] > k.shape[1])
 
 
-def kernel_design(*tensors) -> str:
-    """The design the forward and backward launchers (one-pass and split)
-    pick for these [B, L, H, D] inputs (q first; the backward's dO too),
-    as ``csrc/flash_attention.cu`` and
-    ``csrc/flash_attention_bwd.cuh:tc_takes`` pick it: "mma.sync" for bf16
-    at D 64 or 128 with every row 16-byte aligned, else "cuda-core"."""
-    q = tensors[0]
-    aligned = all(t.data_ptr() % 16 == 0
-                  and all(st % 8 == 0 for st in t.stride()[:3])
-                  for t in tensors)
-    tc = q.dtype == torch.bfloat16 and q.shape[-1] in (64, 128)
-    return "mma.sync" if tc and aligned else "cuda-core"
+def _tc_shape(*tensors) -> bool:
+    """D 64 or 128 with every row of every [B, L, H, D] tensor 16-byte
+    aligned, strides counted in bytes (``csrc/mma.cuh:rows_aligned16``)."""
+    return tensors[0].shape[-1] in (64, 128) and all(
+        t.data_ptr() % 16 == 0
+        and all(st * t.element_size() % 16 == 0 for st in t.stride()[:3])
+        for t in tensors)
+
+
+def fwd_design(q, k, v) -> str:
+    """The design the forward launcher (``csrc/flash_attention.cu``)
+    picks for these inputs: on the tensor cores at D 64 or 128 with
+    aligned rows, "mma.sync" for bf16 and "mma.sync-3xtf32" for fp32;
+    else "cuda-core". A prediction: the launch counts the design its C
+    entry reports (``FWD_DESIGNS``)."""
+    if not _tc_shape(q, k, v):
+        return "cuda-core"
+    return "mma.sync" if q.dtype == torch.bfloat16 else "mma.sync-3xtf32"
+
+
+def bwd_design(q, k, v, do) -> str:
+    """The design the backward launchers (one-pass and split) pick, as
+    ``csrc/flash_attention_bwd.cuh:tc_takes`` picks it: "mma.sync" for
+    bf16 at D 64 or 128 with aligned rows, else "cuda-core" (fp32 too)."""
+    tc = q.dtype == torch.bfloat16 and _tc_shape(q, k, v, do)
+    return "mma.sync" if tc else "cuda-core"
+
+
+#: the forward's designs by the code its C entry reports
+#: (``csrc/flash_attention.cu:FwdDesign``)
+FWD_DESIGNS = ("cuda-core", "mma.sync", "mma.sync-3xtf32")
 
 
 def flash_attention_fwd(q, k, v, causal: bool = False, scale=None):
@@ -157,12 +181,15 @@ def flash_attention_fwd(q, k, v, causal: bool = False, scale=None):
     Lk = k.shape[1]
     out = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
+    design = ctypes.c_int(-1)
     launch("flash_attention", "pt_flash_attention_fwd", q.device,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
            lse.data_ptr(), *q.stride()[:3], *k.stride()[:3],
            *v.stride()[:3], B, H, Lq, Lk, D, int(bool(causal)),
-           float(scale), int(q.dtype == torch.bfloat16))
+           float(scale), int(q.dtype == torch.bfloat16),
+           ctypes.byref(design))
     _stats["kernel"] += 1
+    count_design("flash_attention", FWD_DESIGNS[design.value])
     return out, lse
 
 

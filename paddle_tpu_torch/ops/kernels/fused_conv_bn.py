@@ -15,6 +15,14 @@ and dx kernels and then forms ``dx = g @ w`` and ``dw = g^T @ x`` with
 The weight is the conv layer's (Cout, Cin, 1, 1), read as [Cout, Cin]
 without a transpose (the reference reshapes it to [Cin, Cout]).
 
+Designs (:func:`kernel_design`): bf16 runs a persistent warp-specialised
+kernel on ``wgmma`` fed by TMA loads (128-row output tiles, a ring of at
+least 4 stages, TMA stores of y), whose blocks each write one row of fp32
+partial sums; fp32 runs on CUDA cores and writes one row per 64 rows. The
+wrapper allocates one row per output tile (:func:`partial_rows`), as many
+as either may write; a second pass adds the rows written in a fixed
+order, so the sums repeat bit for bit.
+
 :func:`eligible` is the port's own. The reference's gates (Cin, Cout % 128,
 R >= 256, C <= 2048, on a TPU) were set by VMEM and the lane width; the
 H100 kernel needs Cin and Cout to be multiples of 8 (16-byte rows of bf16)
@@ -26,15 +34,30 @@ from __future__ import annotations
 import torch
 
 from . import fused_bn as _fbn
-from . import launch, same_device, use_kernel
+from . import count_design, launch, same_device, use_kernel
 
 #: conv1x1-with-statistics launches (and runs of its plain version)
 _stats = {"kernel": 0, "plain": 0}
 
 _TYPES = (torch.float32, torch.bfloat16)
-#: rows of y a block computes, by type (csrc/fused_conv_bn.cu BM, FBM): the
-#: wrapper sizes the fp32 partial sums [tiles, 2, Cout] with it
+#: rows of y an output tile holds, by type (csrc/fused_conv_bn.cu kWgBM,
+#: FBM)
 TILE_ROWS = {torch.bfloat16: 128, torch.float32: 64}
+
+
+def kernel_design(x2d) -> str:
+    """The design the launcher picks: "wgmma-tma" for bf16, "cuda-core"
+    for fp32."""
+    return "wgmma-tma" if x2d.dtype == torch.bfloat16 else "cuda-core"
+
+
+def partial_rows(R: int, dtype) -> int:
+    """Rows of fp32 partial sums [rows, 2, Cout] the wrapper allocates
+    for R rows of x: one per output tile's rows. The fp32 kernel writes
+    one a 64-row tile; the bf16 kernel one a block of its persistent grid,
+    which the launcher sizes from the card's SM count, at most one a
+    128-row tile, and it adds only the rows it wrote."""
+    return -(-R // TILE_ROWS[dtype])
 
 
 def conv1x1_stats_plain(x2d, w2d):
@@ -76,7 +99,7 @@ def conv1x1_stats(x2d, w2d):
     if R == 0:
         z = torch.zeros(Cout, dtype=torch.float32, device=x2d.device)
         return y, z, z.clone()
-    tiles = -(-R // TILE_ROWS[x2d.dtype])
+    tiles = partial_rows(R, x2d.dtype)
     part = torch.empty(tiles, 2, Cout, dtype=torch.float32,
                        device=x2d.device)
     out = torch.empty(2, Cout, dtype=torch.float32, device=x2d.device)
@@ -84,6 +107,8 @@ def conv1x1_stats(x2d, w2d):
            w2d.data_ptr(), y.data_ptr(), part.data_ptr(), out.data_ptr(), R,
            x2d.shape[1], Cout, tiles, int(x2d.dtype == torch.bfloat16))
     _stats["kernel"] += 1
+    count_design("conv1x1_stats", kernel_design(x2d),
+                 f"R={R} Cin={x2d.shape[1]} Cout={Cout}")
     return y, out[0], out[1]
 
 

@@ -111,18 +111,21 @@ def test_flash_kernel_takes_accepts(shape, causal, dtype):
 
 
 def test_kernel_design_follows_type_head_dim_and_alignment():
-    """The tensor-core forward and split pair take bf16 at D 64 or 128
-    with 16-byte aligned rows; everything else the CUDA-core kernels."""
+    """The bf16 tensor-core forward and split pair take bf16 at D 64 or
+    128 with 16-byte aligned rows; fp32 there takes the 3xTF32 forward and
+    the CUDA-core backwards; everything else the CUDA-core kernels."""
     bf16 = torch.bfloat16
     q, k, v = torch.zeros(2, 16, 3, 4, 64, dtype=bf16).unbind(2)
-    assert fa.kernel_design(q, k, v) == "mma.sync"
-    assert fa.kernel_design(q, k, v, torch.zeros_like(q)) == "mma.sync"
-    assert fa.kernel_design(*_qkv(D=128, dtype=bf16)) == "mma.sync"
-    assert fa.kernel_design(*(t.float() for t in (q, k, v))) == "cuda-core"
-    assert fa.kernel_design(*_qkv(D=32, dtype=bf16)) == "cuda-core"
+    assert fa.fwd_design(q, k, v) == "mma.sync"
+    assert fa.bwd_design(q, k, v, torch.zeros_like(q)) == "mma.sync"
+    assert fa.fwd_design(*_qkv(D=128, dtype=bf16)) == "mma.sync"
+    f32 = [t.float() for t in (q, k, v)]
+    assert fa.fwd_design(*f32) == "mma.sync-3xtf32"
+    assert fa.bwd_design(*f32, torch.zeros_like(f32[0])) == "cuda-core"
+    assert fa.fwd_design(*_qkv(D=32, dtype=bf16)) == "cuda-core"
     flat = torch.zeros(2 * 16 * 4 * 64 + 4, dtype=bf16)
     shifted = flat[4:].view(2, 16, 4, 64)  # rows start 8 bytes off
-    assert fa.kernel_design(shifted, k, v) == "cuda-core"
+    assert fa.fwd_design(shifted, k, v) == "cuda-core"
 
 
 def _one_pass_inputs(case):
@@ -155,7 +158,76 @@ def test_one_pass_backward_design(case, design):
     gate the backward is the one-pass kernel."""
     q, k, v, do = _one_pass_inputs(case)
     assert not fa.uses_split_bwd(q.shape[1], q.shape[-1])
-    assert fa.kernel_design(q, k, v, do) == design
+    assert fa.bwd_design(q, k, v, do) == design
+
+
+def _fp32_views(case):
+    """fp32 q, k, v for one forward-design case: strided views of one qkv
+    tensor (as the model passes them), rows a 4-byte offset off 16 bytes,
+    or another head dim."""
+    if case == "D64_views":
+        return torch.zeros(2, 16, 3, 4, 64).unbind(2)
+    if case == "D128":
+        return _qkv(D=128)
+    if case == "D96":
+        return _qkv(D=96)
+    if case == "D64_rows_4_bytes_off":
+        flat = torch.zeros(2 * 16 * 2 * 64 + 1)
+        return (flat[1:].view(2, 16, 2, 64), *_qkv(D=64)[1:])
+    # a row stride of 66 floats: every other row starts 8 bytes off
+    base = torch.zeros(2, 16, 2, 66)
+    return (base[..., :64], *_qkv(D=64)[1:])
+
+
+@pytest.mark.parametrize("case,fwd", [
+    ("D64_views", "mma.sync-3xtf32"), ("D128", "mma.sync-3xtf32"),
+    ("D96", "cuda-core"), ("D64_rows_4_bytes_off", "cuda-core"),
+    ("D64_row_stride_off", "cuda-core")])
+def test_fp32_forward_design_counts_bytes(case, fwd):
+    """fp32 takes the 3xTF32 tensor-core forward at D 64 or 128 when every
+    row is 16-byte aligned, counted in bytes (4 floats, not 8 elements as
+    for bf16), as ``csrc/mma.cuh:rows_aligned16`` counts; its backwards
+    stay on the CUDA cores whatever the alignment."""
+    q, k, v = _fp32_views(case)
+    assert fa.fwd_design(q, k, v) == fwd
+    assert fa.bwd_design(q, k, v, torch.zeros_like(q)) == "cuda-core"
+
+
+def test_bf16_designs_unchanged_by_the_byte_count():
+    """bf16 rows 4 bytes off (2 elements) are off 16 bytes too; 8 bf16
+    elements (16 bytes) are on it."""
+    bf16 = torch.bfloat16
+    flat = torch.zeros(2 * 16 * 2 * 64 + 8, dtype=bf16)
+    on = flat[8:].view(2, 16, 2, 64)
+    off = flat[2:2 + 2 * 16 * 2 * 64].view(2, 16, 2, 64)
+    k, v = _qkv(D=64, dtype=bf16)[1:]
+    assert fa.fwd_design(on, k, v) == "mma.sync"
+    assert fa.bwd_design(on, k, v, on) == "mma.sync"
+    assert fa.fwd_design(off, k, v) == "cuda-core"
+    assert fa.bwd_design(on, k, v, off) == "cuda-core"
+
+
+def test_forward_launch_counts_its_design(monkeypatch):
+    """On the card's route the forward counts each launch under the design
+    its C entry reports through its last argument (an index into
+    ``fa.FWD_DESIGNS``), not under the Python prediction, and
+    reset_stats clears it."""
+    kernels.reset_stats()
+    reported = iter((2, 1, 0))
+    monkeypatch.setattr(fa, "use_kernel", lambda t: True)
+    monkeypatch.setattr(
+        fa, "launch",
+        lambda *args: setattr(args[-1]._obj, "value", next(reported)))
+    q, k, v = torch.zeros(1, 16, 3, 2, 64).unbind(2)
+    fa.flash_attention_fwd(q, k, v, True)
+    fa.flash_attention_fwd(q.bfloat16(), k.bfloat16(), v.bfloat16(), True)
+    # a report that differs from the prediction is what counts
+    assert fa.fwd_design(q, k, v) == "mma.sync-3xtf32"
+    fa.flash_attention_fwd(q, k, v, True)
+    assert kernels.design_stats()["flash_attention"] == {
+        "mma.sync-3xtf32": 1, "mma.sync": 1, "cuda-core": 1}
+    kernels.reset_stats()
+    assert kernels.design_stats() == {}
 
 
 @pytest.mark.parametrize("x,g,b,takes", [

@@ -268,6 +268,50 @@ def test_conv_chain_gate(case):
     assert fcb.eligible(xs, ws, stride, pad, dil, groups, df, dtype) is want
 
 
+@pytest.mark.parametrize("R,dtype,rows", [
+    # bf16: one per 128-row tile, the most the persistent grid writes
+    (100352, torch.bfloat16, 784),   # layer2
+    (6272, torch.bfloat16, 49),      # layer4
+    (100, torch.bfloat16, 1),        # one tile
+    (129, torch.bfloat16, 2),        # R off the tile
+    (1, torch.bfloat16, 1),
+    (1000, torch.float32, 16),       # fp32: one per 64 rows
+    (64, torch.float32, 1),
+    (65, torch.float32, 2)])
+def test_conv_partial_rows_follow_the_tiles(R, dtype, rows):
+    assert fcb.TILE_ROWS == {torch.bfloat16: 128, torch.float32: 64}
+    assert fcb.partial_rows(R, dtype) == rows
+
+
+@pytest.mark.parametrize("R,Cin,Cout,dtype", [
+    (100352, 512, 128, torch.bfloat16), (300, 520, 72, torch.bfloat16),
+    (6272, 512, 2048, torch.bfloat16), (1000, 64, 24, torch.float32)])
+def test_conv_wrapper_sizes_the_partials_it_launches(R, Cin, Cout, dtype,
+                                                    monkeypatch):
+    """On the card's route the wrapper allocates [partial_rows, 2, Cout]
+    fp32 partials, passes that count to the launch as the rows the
+    kernel may write, and counts the launch under its design and
+    shape."""
+    seen = {}
+
+    def launch(name, entry, device, x, w, y, part, out, r, cin, cout,
+               cap, bf16):
+        seen.update(r=r, cin=cin, cout=cout, cap=cap, bf16=bf16)
+
+    monkeypatch.setattr(fcb, "use_kernel", lambda t: True)
+    monkeypatch.setattr(fcb, "launch", launch)
+    kernels.reset_stats()
+    fcb.conv1x1_stats(torch.zeros(R, Cin, dtype=dtype),
+                      torch.zeros(Cout, Cin, dtype=dtype))
+    assert seen == dict(r=R, cin=Cin, cout=Cout, bf16=int(
+        dtype == torch.bfloat16), cap=fcb.partial_rows(R, dtype))
+    design = "wgmma-tma" if dtype == torch.bfloat16 else "cuda-core"
+    assert kernels.design_stats()["conv1x1_stats"] == {design: 1}
+    assert kernels.shape_stats()["conv1x1_stats"] == {
+        f"R={R} Cin={Cin} Cout={Cout}": 1}
+    kernels.reset_stats()
+
+
 def test_kernel_counters_and_cpu_plain_runs():
     kernels.reset_stats()
     x = torch.randn(16, 8)

@@ -1,0 +1,126 @@
+"""The CPU's proof of the fp32 flash forward's error budget on the card.
+
+On an H100 the fp32 flash forward at head dim 64 and 128 runs on the TF32
+tensor cores in a 3xTF32 split (``csrc/flash_attention.cu``,
+``csrc/mma.cuh``): each operand x is split into hi = x rounded to the
+nearest TF32 (10 explicit mantissa bits, ties away from zero:
+``cvt.rna.tf32.f32``) and lo = x - hi with its 13 low bits cleared, and
+each product a b is taken as hi hi + hi lo + lo hi, in fp32. No CUDA runs
+here, so this file emulates that arithmetic in torch (TF32 rounding by
+bit masking) for both products of attention, S = Q K^T and O = P V, and
+holds the result against the JAX package's fp32 ``flash_attention`` on
+the same seeded numpy inputs: within 1e-4, the fp32 gate the card's
+kernel is held to against its plain version (``chip_smoke.TOL``). A
+single TF32 pass (one product of the rounded operands) on the same
+inputs errs by more than the split: only that order is asserted.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from paddle_tpu.ops.pallas import flash_attention as jfa
+from paddle_tpu_torch.models.gpt import GPTConfig
+
+GATE = 1e-4
+
+
+def tf32(x):
+    """x rounded to the nearest TF32, ties away from zero: add half a unit
+    of the 13 dropped bits to the magnitude, then clear them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def truncate(x):
+    """x with its 13 low mantissa bits cleared."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def split(x):
+    """(hi, lo) as ``csrc/mma.cuh:split_tf32`` forms them: hi = x rounded
+    to TF32, lo = x - hi truncated to TF32."""
+    hi = tf32(x)
+    return hi, truncate(x - hi)
+
+
+def mm_3xtf32(a, b):
+    """a @ b from three TF32 products in fp32, the small ones first."""
+    (ah, al), (bh, bl) = split(a), split(b)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def mm_tf32(a, b):
+    """a @ b from one product of the TF32-rounded operands."""
+    return tf32(a) @ tf32(b)
+
+
+def attention(q, k, v, mm, causal=True):
+    """[B, L, H, D] fp32 attention with both products taken by `mm`, the
+    kernel's order: unnormalised P = exp(S - max), O = (P V) / sum(P)."""
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    s = mm(qh, kh.transpose(-1, -2)) / np.sqrt(q.shape[-1])
+    if causal:
+        L = q.shape[1]
+        s = s.masked_fill(torch.ones(L, L, dtype=torch.bool).triu(1),
+                          float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = mm(p, vh) / p.sum(-1, keepdim=True)
+    return o.transpose(1, 2)
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits():
+    x = torch.tensor([1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -11,
+                      1.0 + 2.0 ** -11 - 2.0 ** -20, -(1.0 + 2.0 ** -11),
+                      3.0e-20, 0.0])
+    want = torch.tensor([1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10, 1.0,
+                         -(1.0 + 2.0 ** -10), tf32(torch.tensor([3.0e-20]))[0],
+                         0.0])
+    assert torch.equal(tf32(x), want)
+    r = tf32(torch.randn(1000, generator=torch.Generator().manual_seed(0)))
+    assert not (r.view(torch.int32) & 0x1FFF).any()
+    hi, lo = split(torch.tensor([np.pi], dtype=torch.float32))
+    assert abs(float(hi + lo) - np.pi) < 2.0 ** -21 * np.pi
+
+
+def test_tf32_split_keeps_nan():
+    """Half a unit added to 0x7fffffff (the card's canonical NaN) or to
+    0xffffffff carries into the sign and gives a zero, so hi loses such a
+    NaN; lo, x - hi truncated, keeps every NaN, so a product with that
+    operand is NaN. An infinity stays itself in hi."""
+    x = torch.tensor([0x7FFFFFFF, -1, 0x7F800001, 0x7FC00000, 0x7F800000,
+                      -0x800000], dtype=torch.int32).view(torch.float32)
+    hi, lo = split(x)
+    assert not hi[:2].isnan().any()
+    assert lo[:4].isnan().all()
+    assert (hi * 1.0 + lo * 1.0)[:4].isnan().all()
+    assert hi[4] == float("inf") and hi[5] == float("-inf")
+
+
+@pytest.mark.parametrize("shape", [
+    # GPTConfig.tiny()'s heads: B 2, L its 128 positions, H 4, D 16. The
+    # card runs D 16 on CUDA cores: this case checks the arithmetic only
+    "tiny",
+    # tiny's hidden width as one head, D 64: a shape the 3xTF32 kernel
+    # takes
+    "tiny-d64",
+    (1, 256, 2, 64)])
+def test_3xtf32_attention_within_the_fp32_gate_of_jax(shape):
+    if shape in ("tiny", "tiny-d64"):
+        cfg = GPTConfig.tiny()
+        heads = cfg.num_heads if shape == "tiny" else 1
+        shape = (2, cfg.max_position_embeddings, heads,
+                 cfg.hidden_size // heads)
+    rng = np.random.default_rng(sum(shape))
+    q, k, v = (rng.standard_normal(shape).astype(np.float32)
+               for _ in range(3))
+    want = np.asarray(jfa.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    split_err = float(np.abs(
+        attention(tq, tk, tv, mm_3xtf32).numpy() - want).max())
+    single_err = float(np.abs(
+        attention(tq, tk, tv, mm_tf32).numpy() - want).max())
+    assert split_err <= GATE
+    assert single_err > split_err

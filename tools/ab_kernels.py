@@ -9,17 +9,17 @@ Each run imports the kernels of the checkout at DIR (its
 ``paddle_tpu_torch`` and its ``chip_smoke`` helpers, so an older checkout
 works too), builds them there, and times, from replayed CUDA graphs
 (``chip_smoke.cuda_ms``): the flash forward in fp32 at the serving
-buckets (B 1, L 512 and 1,024), the forward and the one-pass backward at
+buckets (B 1, L 16 to 1,024), the forward and the one-pass backward at
 B 8 L 1,024 (the one-pass backward also at B 8 L 512 and at B 2 L 1,024
 H 16 D 128), the paged decode attention at the serving path's 32 lanes
 (fp32 and bf16) and the forward, the split dq and dk/dv kernels at B 1
 L 4,096 and 32,768 (the one-pass kernel there too), in fp32 and bf16, all
-H 12 D 64 causal; and the bf16 1x1 conv + statistics at ResNet-50's
-layer2 and layer4 shapes and one small one, whose outputs (y, sum, sumsq)
-it hashes. It writes ``chiprun_out/ab_NAME.json`` under the directory it
+H 12 D 64 causal; and the bf16 1x1 conv + statistics at the 12 shapes of
+the ResNet-50 step (``CONV_SHAPES``) and one small one, whose outputs (y,
+sum, sumsq) it hashes. It writes ``chiprun_out/ab_NAME.json`` under the directory it
 is started from. ``--compare`` prints,
-for each timing, the runs side by side, and whether every run's conv
-outputs hash alike (bit for bit). Run the checkouts in turns in one call
+for each timing, the runs side by side, and each run's conv output hash
+(runs of one checkout must agree bit for bit). Run the checkouts in turns in one call
 (parent, change, change, parent): two calls may land on two cards. Needs
 one card.
 """
@@ -37,6 +37,12 @@ import numpy as np
 #: where the runs' files go: chiprun_out/ under the directory the tool
 #: is started from (the tool moves into the checkout it times)
 OUT = os.path.abspath("chiprun_out")
+#: the ResNet-50 step's 1x1 conv shapes (R, Cin, Cout), as
+#: chip_smoke.RESNET_CONV_SHAPES lists them
+CONV_SHAPES = ((401408, 64, 64), (401408, 256, 64), (401408, 64, 256),
+               (401408, 256, 128), (100352, 512, 128), (100352, 128, 512),
+               (100352, 512, 256), (25088, 1024, 256), (25088, 256, 1024),
+               (25088, 1024, 512), (6272, 2048, 512), (6272, 512, 2048))
 
 
 def run(tree: str, tag: str) -> dict:
@@ -58,7 +64,7 @@ def run(tree: str, tag: str) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     f32, bf16 = torch.float32, torch.bfloat16
     ms = {}
-    for L in (512, 1024):
+    for L in (16, 32, 64, 128, 256, 512, 1024):
         q, k, v, _ = cs._attention_inputs(dev, gen, 1, L, L, 12, 64, f32)
         ms[f"forward float32 B1 L{L}"] = cs.cuda_ms(
             lambda: fa.flash_attention_fwd(q, k, v, True))
@@ -116,8 +122,7 @@ def run(tree: str, tag: str) -> dict:
             lambda: pa.paged_attention(q, kp, vp, bt, cl))
     gen = torch.Generator(device=dev).manual_seed(1)
     digests = {}
-    for R, Cin, Cout in ((100352, 512, 128), (6272, 512, 2048),
-                         (1000, 64, 24)):
+    for R, Cin, Cout in (*CONV_SHAPES, (1000, 64, 24)):
         x = torch.randn(R, Cin, device=dev, generator=gen).to(bf16)
         w = (torch.randn(Cout, Cin, device=dev, generator=gen)
              / Cin ** 0.5).to(bf16)
@@ -145,12 +150,15 @@ def compare(tags) -> None:
     runs = [json.load(open(os.path.join(OUT, f"ab_{t}.json"))) for t in tags]
     print(f"{'ms':<40}" + "".join(f"{t:>12}" for t in tags)
           + f"   [{runs[0]['card']}]")
-    for key in runs[0]["ms"]:
-        print(f"{key:<40}" + "".join(f"{r['ms'][key]:>12.4f}" for r in runs))
-    for shape, digest in runs[0]["conv1x1_sha256"].items():
-        same = all(r["conv1x1_sha256"][shape] == digest for r in runs)
-        print(f"conv1x1 bf16 {shape}: outputs bit for bit across runs: "
-              f"{same}")
+    keys = list(dict.fromkeys(k for r in runs for k in r["ms"]))
+    for key in keys:
+        print(f"{key:<40}" + "".join(
+            f"{r['ms'][key]:>12.4f}" if key in r["ms"] else f"{'-':>12}"
+            for r in runs))
+    shapes = dict.fromkeys(s for r in runs for s in r["conv1x1_sha256"])
+    for shape in shapes:
+        print(f"conv1x1 bf16 {shape:<22} sha256 " + " ".join(
+            r["conv1x1_sha256"].get(shape, "-")[:12] for r in runs))
 
 
 def main():

@@ -3,6 +3,7 @@
 port.
 
     python3 tools/profile_torch_resnet.py     # from the repository root
+    python3 tools/profile_torch_resnet.py --tree DIR --tag NAME
 
 Builds ResNet-50 (NHWC, fused BN, fused 1x1 conv + BN, 1000 classes,
 random weights from seed 0) and trains it with
@@ -20,13 +21,18 @@ activities), a window of steps:
   its column-sum pass), the softmax-CE kernels, the matrix
   products (the 1x1 chain's dx and dw), pooling, the optimizer's
   multi-tensor update, other elementwise and reduction kernels, copies;
+* the 1x1 conv + statistics group's device time a step, on its own;
 * the top kernels, and each hand-written kernel's launches per step;
 
 and the same window without the profiler, for its overhead. Writes
-``chiprun_out/profile_torch_resnet.json``. Needs a card.
+``chiprun_out/profile_torch_resnet.json`` under the directory it is
+started from (``profile_torch_resnet_NAME.json`` with ``--tag``). With
+``--tree`` it profiles the checkout at DIR (its ``paddle_tpu_torch``), so
+two checkouts can be compared in turns in one call. Needs a card.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -36,24 +42,18 @@ import time
 import numpy as np
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))))
-
-from paddle_tpu_torch import optimizer  # noqa: E402
-from paddle_tpu_torch.jit import TrainStep  # noqa: E402
-from paddle_tpu_torch.models.resnet import resnet50  # noqa: E402
-from paddle_tpu_torch.nn import functional as F  # noqa: E402
-from paddle_tpu_torch.ops import kernels  # noqa: E402
-from profile_torch_train import _device_summary  # noqa: E402
-
 B, HW = 128, 224
+#: chiprun_out/ under the directory the tool is started from
+OUT = os.path.abspath("chiprun_out")
+#: the group of the 1x1 conv + statistics kernel and its second pass
+CONV_GROUP = "conv1x1 + stats (kernel)"
 WARMUP, WINDOW = 2, 3
 
 #: device-kernel name fragments -> group (first match wins)
 GROUPS = (
     # each kernel's second pass, column_sums_kernel<tag>, goes with it
-    ("conv1x1 + stats (kernel)", ("conv1x1_bf16_kernel",
-                                  "conv1x1_f32_kernel", "conv1x1_sums")),
+    (CONV_GROUP, ("conv1x1_bf16_kernel", "conv1x1_wgmma_kernel",
+                   "conv1x1_f32_kernel", "conv1x1_sums")),
     ("fused BN forward (kernel)", ("bn_fwd_kernel",)),
     ("fused BN reduce (kernel)", ("bn_reduce_kernel", "bn_reduce_sums")),
     ("fused BN dx (kernel)", ("bn_dx_kernel",)),
@@ -70,9 +70,23 @@ GROUPS = (
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), help="the checkout to profile")
+    ap.add_argument("--tag", help="suffix of the output file's name")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_resnet: no CUDA card", file=sys.stderr)
         return 2
+    os.chdir(os.path.abspath(args.tree))
+    sys.path.insert(0, os.getcwd())
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.resnet import resnet50
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import kernels
+    # after the checkout's package: this helper's module imports it too
+    from profile_torch_train import _device_summary
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -100,6 +114,8 @@ def main():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     out = _device_summary(prof, wall, WINDOW, GROUPS)
+    out["conv1x1_ms_per_step"] = out["groups"].get(CONV_GROUP, {}).get(
+        "device_ms", 0.0)
     out["launches_per_step"] = {k: v["kernel"] / WINDOW
                                 for k, v in kernels.all_stats().items()}
     out["plain_runs"] = {k: v["plain"] for k, v in
@@ -112,9 +128,10 @@ def main():
     out["wall_ms_unprofiled"] = (time.perf_counter() - t0) * 1e3 / WINDOW
     out["loss"] = float(loss)
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    out.update(card=smi, batch=B, hw=HW, window=WINDOW)
-    os.makedirs("chiprun_out", exist_ok=True)
-    with open("chiprun_out/profile_torch_resnet.json", "w") as f:
+    out.update(card=smi, tree=os.getcwd(), batch=B, hw=HW, window=WINDOW)
+    os.makedirs(OUT, exist_ok=True)
+    name = "profile_torch_resnet" + (f"_{args.tag}" if args.tag else "")
+    with open(os.path.join(OUT, name + ".json"), "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps(out, indent=1))
     print(smi)

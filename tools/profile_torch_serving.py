@@ -2,6 +2,7 @@
 """Where the time goes in the PyTorch/H100 port's GPT-2 small serving path.
 
     python3 tools/profile_torch_serving.py     # from the repository root
+    python3 tools/profile_torch_serving.py --tree DIR --tag NAME
 
 Builds GPT-2 small at full width (fp32, random weights from seed 0) under
 ``paddle_tpu_torch.inference.ServingEngine(max_batch=32, max_len=1024,
@@ -12,13 +13,18 @@ CUDA activities):
 * a steady window of decode iterations with all 32 lanes active;
 
 For each: host wall time, device busy time (the sum of kernel times on the
-one stream), the idle share 1 - busy / wall, the paged attention kernels'
-device time and share of busy, the top kernels by device
-time, and each hand-written kernel's launches (from the wrappers'
-counters). Writes ``chiprun_out/profile_torch_serving.json``. Needs a card.
+one stream), the idle share 1 - busy / wall, the flash-attention forward
+kernels' and the paged attention kernels' device time and share of busy,
+the top kernels by device time, and each hand-written kernel's launches
+(from the wrappers' counters). Writes
+``chiprun_out/profile_torch_serving.json`` under the directory it is
+started from (``profile_torch_serving_NAME.json`` with ``--tag``). With
+``--tree`` it profiles the checkout at DIR (its ``paddle_tpu_torch``),
+so two checkouts can be compared in turns in one call. Needs a card.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -28,14 +34,9 @@ import time
 import numpy as np
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))))
-
-from paddle_tpu_torch.inference.serving import ServingEngine  # noqa: E402
-from paddle_tpu_torch.models.gpt import GPT, GPTConfig  # noqa: E402
-from paddle_tpu_torch.ops import kernels  # noqa: E402
-
 DECODE_WINDOW = 10
+#: chiprun_out/ under the directory the tool is started from
+OUT = os.path.abspath("chiprun_out")
 
 
 def _device_summary(prof, wall_s, n_iters):
@@ -54,6 +55,7 @@ def _device_summary(prof, wall_s, n_iters):
                   reverse=True)
     per = max(1, n_iters)
     paged_us = sum(t for k, (t, _) in by_name.items() if "paged_attn" in k)
+    flash_us = sum(t for k, (t, _) in by_name.items() if "flash_fwd" in k)
     return dict(
         wall_ms=wall_s * 1e3 / per,
         device_busy_ms=(busy_us / 1e3 / per) if n_ops else None,
@@ -61,14 +63,26 @@ def _device_summary(prof, wall_s, n_iters):
         device_ops_per_iteration=n_ops / per,
         paged_attention_ms=paged_us / 1e3 / per,
         paged_attention_share=(paged_us / busy_us) if n_ops else None,
+        flash_attention_ms=flash_us / 1e3 / per,
+        flash_attention_share=(flash_us / busy_us) if n_ops else None,
         top=[dict(name=k[:90], device_ms=t / 1e3 / per, calls=c / per)
              for t, k, c in rows[:12]])
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), help="the checkout to profile")
+    ap.add_argument("--tag", help="suffix of the output file's name")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_serving: no CUDA card", file=sys.stderr)
         return 2
+    os.chdir(os.path.abspath(args.tree))
+    sys.path.insert(0, os.getcwd())
+    from paddle_tpu_torch.inference.serving import ServingEngine
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.ops import kernels
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -128,9 +142,11 @@ def main():
         / DECODE_WINDOW
     eng.close()
 
-    out = dict(card=smi, prefill_960=prefill, decode_w32=decode)
-    os.makedirs("chiprun_out", exist_ok=True)
-    with open("chiprun_out/profile_torch_serving.json", "w") as f:
+    out = dict(card=smi, tree=os.getcwd(), prefill_960=prefill,
+               decode_w32=decode)
+    os.makedirs(OUT, exist_ok=True)
+    name = "profile_torch_serving" + (f"_{args.tag}" if args.tag else "")
+    with open(os.path.join(OUT, name + ".json"), "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps(out, indent=1))
     print(smi)
