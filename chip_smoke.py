@@ -86,12 +86,40 @@ failure:
               Lq > Lk; head dim 160): its entry's composition must run and
               none of its kernels, and output and gradients must agree with
               the same call on the CPU;
-14. report  - the `kernels` JSON line, the card's name and power limit, and
+14. bert    - BERT-Base with a 2-way head on the pooled output (12
+              layers, hidden 768, 12 heads, vocab 30522, dropout 0)
+              trained by jit.TrainStep(model, F.cross_entropy, AdamW(1e-4),
+              amp_dtype=bfloat16) at B 256, L 128 (the JAX package's
+              bench_bert_base configuration): 2 warm-up steps, then timed
+              steps on one batch; the loss must fall over the run (its
+              first AdamW update raises it on this model) and every loss
+              be finite; exact launches a step (layer norm 25,
+              flash forward 12 on mma.sync, one-pass backward 12, CE 1 + 1),
+              no plain run, no composition; step ms, samples/s, MFU and
+              peak memory;
+15. bert-cpu - the same model in fp32 at B 2, L 128, one TrainStep on the
+              card and on the CPU: loss, gradients and parameters after the
+              step agree (phase 7's tolerances);
+16. ernie   - ErnieForPretraining(ErnieConfig.base()) under O2 bf16 at B 32,
+              L 128 with knowledge-masked spans (the rest -100): the CE
+              kernel at V 40,000, exact launches, the loss finite and lower
+              after the update;
+17. amp     - BERT-Base in the eager loop at B 32, L 128 under
+              amp.auto_cast(level="O1"): bf16 (attention launches in bf16,
+              layer norm and CE in fp32) and fp16 (attention composes,
+              layer norm and CE in fp32), each loss against the fp32 loss
+              of the same weights; GradScaler skips a step with an
+              injected inf and backs off, on the card as on the CPU;
+18. report  - the `kernels` JSON line, the card's name and power limit, and
               the device JSON line last.
 
 Phase 3 also holds the ResNet kernels (fused BN forward, reduce and dx;
 1x1 conv + statistics) at the ResNet-50 shapes, fp32 and bf16, and at
-their edges.
+their edges, and the BERT and ERNIE steps' kernels: the flash forward and
+one-pass backward at B 256, L 128, H 12, D 64, non-causal (bf16, and fp32
+for correctness), the CE at N 256, V 2 and N 4,096, V 40,000, and layer
+norm at R 32,768, N 768, eps 1e-12, bf16; attention bounds count L^2
+(q, k) pairs when not causal, L(L + 1)/2 when causal.
 
 Numerics: float32 matrix products run in full fp32
 (torch.backends.cuda.matmul.allow_tf32 = False), so the card and the CPU
@@ -99,6 +127,7 @@ compute the same function. Needs one card and imports no JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -211,34 +240,50 @@ def launched_fwd_design(fn, want):
 # ----------------------------- phase 3: kernels -----------------------------
 
 
-def check_layer_norm(dev, gen, rows_list, N):
+def check_layer_norm(dev, gen, rows_list, N, eps=1e-5,
+                     dtypes=(torch.float32, torch.bfloat16)):
+    """The layer-norm kernel against its plain version at epsilon `eps`
+    (the shape string names it when it is not 1e-5)."""
     from paddle_tpu_torch.ops.kernels import layer_norm as ln
     rows = []
-    for dtype in (torch.float32, torch.bfloat16):
+    tag = "" if eps == 1e-5 else f" eps={eps:g}"
+    for dtype in dtypes:
         for R in rows_list:
             x = torch.randn(R, N, device=dev, generator=gen).to(dtype)
             g = (1 + 0.1 * torch.randn(N, device=dev, generator=gen)).to(dtype)
             b = (0.1 * torch.randn(N, device=dev, generator=gen)).to(dtype)
-            y = ln.layer_norm_fwd(x, g, b)
+            y = ln.layer_norm_fwd(x, g, b, eps)
             torch.cuda.synchronize()
             err = max_err(y, ln.layer_norm_plain(x.float(), g.float(),
-                                                 b.float()))
+                                                 b.float(), eps))
             isz = x.element_size()
             bnd, by = bound_ms(2 * R * N * isz + 2 * N * isz, 8 * R * N,
                                dtype)
             rows.append(dict(
-                kernel="layer_norm", dtype=str(dtype)[6:], shape=f"R={R} N={N}",
+                kernel="layer_norm", dtype=str(dtype)[6:],
+                shape=f"R={R} N={N}{tag}",
                 max_abs_err=err, tol=TOL[dtype],
-                ms=cuda_ms(lambda: ln.layer_norm_fwd(x, g, b)),
-                plain_ms=cuda_ms(lambda: ln.layer_norm_plain(x, g, b)),
+                ms=cuda_ms(lambda: ln.layer_norm_fwd(x, g, b, eps)),
+                plain_ms=cuda_ms(lambda: ln.layer_norm_plain(x, g, b, eps)),
                 library_ms=cuda_ms(lambda: torch.nn.functional.layer_norm(
-                    x, (N,), g, b, 1e-5)),
+                    x, (N,), g, b, eps)),
                 bound_ms=bnd, bound_by=by))
     return rows
 
 
+def mode(causal):
+    return "causal" if causal else "non-causal"
+
+
+def attention_pairs(L, causal):
+    """(q, k) pairs that attention computes at Lq == Lk == L: L^2, or
+    L(L + 1)/2 at or below the causal diagonal."""
+    return L * (L + 1) // 2 if causal else L * L
+
+
 def check_flash(dev, gen, lengths, H, D, B=1, dtypes=(torch.float32,
-                                                      torch.bfloat16)):
+                                                      torch.bfloat16),
+                causal=True):
     """The flash forward against its plain version on the same inputs
     (TOL), run twice (bit for bit), timed beside SDPA, with its design's
     bound (and the CUDA-core bound of the fp32 tensor-core design)."""
@@ -251,30 +296,31 @@ def check_flash(dev, gen, lengths, H, D, B=1, dtypes=(torch.float32,
             q, k, v = qkv.unbind(2)  # strided views, as the model passes them
             design = fa.fwd_design(q, k, v)
             out, lse = launched_fwd_design(
-                lambda: fa.flash_attention_fwd(q, k, v, causal=True), design)
-            again = fa.flash_attention_fwd(q, k, v, causal=True)
+                lambda: fa.flash_attention_fwd(q, k, v, causal=causal), design)
+            again = fa.flash_attention_fwd(q, k, v, causal=causal)
             torch.cuda.synchronize()
             if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
                 raise AssertionError(f"flash forward L={L} D={D} {dtype}: "
                                      f"two runs differ")
             ref_out, ref_lse = fa.flash_attention_plain(
-                q.float(), k.float(), v.float(), causal=True)
+                q.float(), k.float(), v.float(), causal=causal)
             err = max(max_err(out, ref_out), max_err(lse, ref_lse))
             isz = q.element_size()
-            pairs = L * (L + 1) // 2  # causal (q, k) pairs
+            pairs = attention_pairs(L, causal)
             bounds = design_bounds(B * (4 * L * H * D * isz + 4 * H * L),
                                    B * 4 * H * D * pairs, dtype, design)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             rows.append(dict(
                 kernel="flash_attention", dtype=str(dtype)[6:],
-                shape=f"B={B} L={L} H={H} D={D} causal", design=design,
+                shape=f"B={B} L={L} H={H} D={D} {mode(causal)}",
+                design=design,
                 max_abs_err=err, tol=TOL[dtype],
-                ms=cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, True)),
+                ms=cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, causal)),
                 plain_ms=cuda_ms(lambda: fa.flash_attention_plain(
-                    q, k, v, True)),
+                    q, k, v, causal)),
                 library_ms=cuda_ms(
                     lambda: torch.nn.functional.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=True)), **bounds))
+                        qt, kt, vt, is_causal=causal)), **bounds))
     return rows
 
 
@@ -330,7 +376,7 @@ def bwd_tol(dtype, ref):
 
 
 def check_flash_bwd(dev, gen, lengths, B, H, D,
-                    dtypes=(torch.float32, torch.bfloat16)):
+                    dtypes=(torch.float32, torch.bfloat16), causal=True):
     """The one-pass backward (the GPT step's, below the 6 MiB gate) against
     its plain version on the same inputs (bwd_tol), run twice: dk and dv
     must repeat bit for bit, dq (summed with atomics in a varying order)
@@ -346,10 +392,10 @@ def check_flash_bwd(dev, gen, lengths, B, H, D,
             qkv = torch.randn(B, L, 3, H, D, device=dev,
                               generator=gen).to(dtype)
             q, k, v = qkv.unbind(2)
-            out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+            out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
             do = torch.randn(B, L, H, D, device=dev, generator=gen).to(dtype)
-            got = fa.flash_attention_bwd(q, k, v, out, lse, do, True)
-            again = fa.flash_attention_bwd(q, k, v, out, lse, do, True)
+            got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal)
+            again = fa.flash_attention_bwd(q, k, v, out, lse, do, causal)
             torch.cuda.synchronize()
             if not (torch.equal(got[1], again[1])
                     and torch.equal(got[2], again[2])):
@@ -360,35 +406,35 @@ def check_flash_bwd(dev, gen, lengths, B, H, D,
             del again
             delta = fa.attention_delta(out, do)
             ref = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(),
-                                               lse, delta, do.float(), True)
+                                               lse, delta, do.float(), causal)
             ratio = max(max_err(g, r) / bwd_tol(dtype, r)
                         for g, r in zip(got, ref))
             err = max(max_err(g, r) for g, r in zip(got, ref))
             del ref
             isz = q.element_size()
-            pairs = L * (L + 1) // 2
+            pairs = attention_pairs(L, causal)
             # reads q, k, v, out, do and lse; writes dq, dk, dv; five
-            # products of 2*D operations per causal (q, k) pair
+            # products of 2*D operations per (q, k) pair
             bnd, by = bound_ms(B * H * (8 * L * D * isz + 4 * L),
                                B * H * 10 * D * pairs, dtype)
             leaves = [t.transpose(1, 2).detach().requires_grad_(True)
                       for t in (q, k, v)]
             ref_out = torch.nn.functional.scaled_dot_product_attention(
-                *leaves, is_causal=True)
+                *leaves, is_causal=causal)
             do_t = do.transpose(1, 2)
             rows.append(dict(
                 kernel="flash_attention_bwd", dtype=str(dtype)[6:],
-                shape=f"B={B} L={L} H={H} D={D} causal",
+                shape=f"B={B} L={L} H={H} D={D} {mode(causal)}",
                 design=fa.bwd_design(q, k, v, do),
                 max_abs_err=err, tol_ratio=ratio,
                 witnesses={"dq of a second run": repeat},
                 ms=cuda_ms(lambda: fa.flash_attention_bwd(
-                    q, k, v, out, lse, do, True), iters=5, reps=3),
+                    q, k, v, out, lse, do, causal), iters=5, reps=3),
                 split_ms=cuda_ms(lambda: _split_bwd(
                     fa, q, k, v, lse, fa.attention_delta(out, do), do,
-                    True), iters=5, reps=3),
+                    causal), iters=5, reps=3),
                 plain_ms=cuda_ms(lambda: fa.flash_attention_bwd_plain(
-                    q, k, v, lse, fa.attention_delta(out, do), do, True),
+                    q, k, v, lse, fa.attention_delta(out, do), do, causal),
                     iters=5, reps=3),
                 library_ms=cuda_ms(lambda: torch.autograd.grad(
                     ref_out, leaves, do_t, retain_graph=True),
@@ -737,14 +783,15 @@ def _ce_inputs(dev, gen, N, V, dtype):
     return x, lab, dnll, lib_lab
 
 
-def check_ce(dev, gen, N, V, iters=5):
+def check_ce(dev, gen, N, V, iters=5, dtypes=(torch.float32,
+                                              torch.bfloat16)):
     """Both CE kernels against their plain versions; `iters` calls in each
     timed graph (fewer at the long path's N 32,768, where one fp32 plain
     call holds some 30 GB)."""
     from paddle_tpu_torch.ops.kernels import softmax_ce as sce
     F = torch.nn.functional
     rows = []
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes:
         x, lab, dnll, lib_lab = _ce_inputs(dev, gen, N, V, dtype)
         nll, lse = sce.softmax_ce_fwd(x, lab)
         dl = sce.softmax_ce_bwd(x, lab, lse, dnll)
@@ -1476,22 +1523,9 @@ def train(cfg, card):
 
 def train_cross_check(cfg):
     """One fp32 TrainStep (AdamW) at b1 s128 on the card and on the CPU
-    (plain versions) from the same full-width weights.
-
-    Tolerances: the loss to 1e-4; each parameter's gradient to 2e-3 of its
-    own largest magnitude (fp32 sums in another order through 12 layers and
-    the 50304-way head, and the flash backward's dq atomics); each
-    parameter after the step to 2 * lr + 1e-6, since a first Adam step
-    moves an element by lr * g / (|g| + eps), so a near-zero gradient that
-    rounds to the other sign moves it by up to 2 * lr. A gradient that
-    misses the layer-norm or attention branch, as when a kernel's output
-    leaves the autograd graph, fails the gradient check by orders of
-    magnitude."""
-    from paddle_tpu_torch import optimizer
-    from paddle_tpu_torch.jit import TrainStep
+    (plain versions) from the same full-width weights, by
+    `step_cross_check`."""
     from paddle_tpu_torch.models.gpt import GPT
-    from paddle_tpu_torch.nn import functional as F
-    lr = 1e-4
     models = {"gpu": GPT(cfg, device="cuda",
                          generator=torch.Generator().manual_seed(1))}
     models["cpu"] = GPT(cfg, device="cpu")
@@ -1501,12 +1535,37 @@ def train_cross_check(cfg):
     ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 128)))
     labels = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 128)))
     labels[0, :5] = -100  # ignore_index rows
+    return step_cross_check("train-cpu", models,
+                            lambda m, i, lb: m.loss(i, lb), ids, labels)
+
+
+def step_cross_check(phase, models, loss_of, ids, labels, lr=1e-4,
+                     floor=0.0):
+    """One fp32 TrainStep (AdamW) of models["gpu"] and models["cpu"] (the
+    same weights) on the same batch, and the loss and every gradient of
+    ``loss_of(model, ids, labels)`` before it.
+
+    Tolerances: the loss to 1e-4; each parameter's gradient to 2e-3 of its
+    own largest magnitude, or of `floor` times the model's largest
+    gradient where that is larger (fp32 sums in another order through 12
+    layers and the output head, and the flash backward's dq atomics; a
+    floor for leaves whose exact gradient is 0, such as a separate key
+    bias: softmax ignores a shift shared by a row's scores); each
+    parameter after the step to 2 * lr + 1e-6, since a first Adam step
+    moves an element by lr * g / (|g| + eps), so a near-zero gradient that
+    rounds to the other sign moves it by up to 2 * lr. A gradient that
+    misses the layer-norm or attention branch, as when a kernel's output
+    leaves the autograd graph, fails the gradient check by orders of
+    magnitude."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import functional as F
     res = {}
     for name, m in models.items():
-        dev = m.device
+        dev = next(m.parameters()).device
         i, lb = ids.to(dev), labels.to(dev)
         params = dict(m.named_parameters())
-        loss = m.loss(i, lb)
+        loss = loss_of(m, i, lb)
         grads = torch.autograd.grad(loss, list(params.values()))
         opt = optimizer.AdamW(learning_rate=lr, parameters=m.parameters(),
                               weight_decay=0.01)
@@ -1519,20 +1578,22 @@ def train_cross_check(cfg):
     g, c = res["gpu"], res["cpu"]
     loss_err = max(abs(g["loss"] - c["loss"]),
                    abs(g["step_loss"] - c["step_loss"]))
+    top = max(float(v.abs().max()) for v in c["grads"].values())
+    scale = {k: max(float(v.abs().max()), floor * top)
+             for k, v in c["grads"].items()}
     grad_ratio = max(float((g["grads"][k] - c["grads"][k]).abs().max())
-                     / (2e-3 * float(c["grads"][k].abs().max()) + 1e-12)
-                     for k in c["grads"])
+                     / (2e-3 * scale[k] + 1e-12) for k in c["grads"])
     param_err = max(float((g["params"][k] - c["params"][k]).abs().max())
                     for k in c["params"])
     zero = [k for k, v in g["grads"].items() if not v.abs().max() > 0]
-    log(f"train-cpu: loss card {g['loss']:.6f} cpu {c['loss']:.6f} "
+    log(f"{phase}: loss card {g['loss']:.6f} cpu {c['loss']:.6f} "
         f"(|diff| {loss_err:.3e}, atol 1e-4); gradients of "
         f"{len(c['grads'])} parameters: worst error / (2e-3 * scale) "
         f"{grad_ratio:.3e}; parameters after one step: max |diff| "
         f"{param_err:.3e} (atol {2 * lr + 1e-6:g})")
     if zero or not (loss_err <= 1e-4 and grad_ratio <= 1.0
                     and param_err <= 2 * lr + 1e-6):
-        raise AssertionError(f"train-cpu: card and CPU disagree (zero "
+        raise AssertionError(f"{phase}: card and CPU disagree (zero "
                              f"gradients {zero})")
     return dict(loss=g["loss"], loss_cpu=c["loss"], loss_err=loss_err,
                 grad_err_over_tol=grad_ratio, param_err=param_err,
@@ -2108,6 +2169,367 @@ def no_composed(path):
                              f"{composed}")
 
 
+# ----------------------- phases 14-17: BERT, ERNIE, amp -----------------------
+
+BERT_B, BERT_L = 256, 128
+BERT_WARMUP, BERT_STEPS = 2, 6
+#: launches per O2 step of the BERT-Base classifier: the embeddings' layer
+#: norm and two a layer, one attention a layer, one loss
+BERT_PER_STEP = {"layer_norm": 25, "flash_attention": 12,
+                 "flash_attention_bwd": 12, "softmax_ce_fwd": 1,
+                 "softmax_ce_bwd": 1}
+#: ERNIE's MLM head adds a layer norm; its loss is over V 40,000
+ERNIE_PER_STEP = dict(BERT_PER_STEP, layer_norm=26)
+ERNIE_B, ERNIE_STEPS = 32, 2
+AMP_B = 32
+#: an O1 step's loss against the fp32 loss of the same weights on the card:
+#: bf16 rounds activations to 8 significant bits, fp16 to 11 (the full-width
+#: model on the CPU moves the loss of 0.84 by 1.5e-4 in either)
+AMP_LOSS_TOL = {"bfloat16": 2e-2, "float16": 2e-3}
+
+
+def bert_config():
+    """bench.py's BERT-Base (bench_bert_base): 12 layers, hidden 768, 12
+    heads, FFN 3072, vocab 30522, every dropout 0."""
+    from paddle_tpu_torch.models.bert import BertConfig
+    cfg = BertConfig.base()
+    cfg.dropout = 0.0
+    return cfg
+
+
+def bert_classifier(cfg, device, seed):
+    """bench.py's model: BERT and a Linear(hidden, 2) head on the pooled
+    output, weights drawn from `seed`."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.models.bert import Bert
+
+    class BertCls(nn.Layer):
+        def __init__(self):
+            super().__init__(device)
+            gen = torch.Generator().manual_seed(seed)
+            self.cfg = cfg
+            self.bert = Bert(cfg, device=device, generator=gen)
+            self.head = nn.Linear(cfg.hidden_size, 2, device=device,
+                                  generator=gen)
+            self.name_parameters()
+
+        def forward(self, ids):
+            return self.head(self.bert(ids)[1])
+
+    return BertCls()
+
+
+def bert_batch(cfg, B, L, seed=0):
+    """int32 ids and 0/1 labels from numpy seed `seed` (on the CPU)."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, cfg.vocab_size, (B, L)).astype(np.int32)
+    labels = rng.integers(0, 2, (B,)).astype(np.int32)
+    return torch.from_numpy(ids), torch.from_numpy(labels)
+
+
+def exact_launches(path, stats, per_step, steps):
+    """Raise unless each kernel of `per_step` launched its count a step,
+    no plain version ran and no other kernel launched."""
+    for name, st in stats.items():
+        want = per_step.get(name, 0) * steps
+        if st["plain"] != 0 or st["kernel"] != want:
+            raise AssertionError(f"{path}: {name} counters {st}, want "
+                                 f"{want} kernel launches and no plain run")
+
+
+def mma_attention(path, steps, layers=12):
+    """Raise unless every flash forward of the run reported "mma.sync"."""
+    from paddle_tpu_torch.ops import kernels
+    got = kernels.design_stats().get("flash_attention")
+    if got != {"mma.sync": layers * steps}:
+        raise AssertionError(f"{path}: flash forward designs {got}, want "
+                             f"{layers * steps} on mma.sync")
+
+
+def bert_train(card):
+    """bench_bert_base: the BERT-Base classifier trained by
+    jit.TrainStep(model, F.cross_entropy, AdamW(1e-4),
+    amp_dtype=bfloat16) at B 256, L 128: warm-up steps, then timed steps on
+    one batch; exact launches, every attention on mma.sync, no plain run
+    or composition, the loss falls over the run."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import kernels
+    cfg = bert_config()
+    model = bert_classifier(cfg, "cuda", seed=0)
+    opt = optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters())
+    step = TrainStep(model, F.cross_entropy, opt, amp_dtype=torch.bfloat16)
+    ids, labels = (t.cuda() for t in bert_batch(cfg, BERT_B, BERT_L))
+    losses = [float(step(ids, labels)) for _ in range(BERT_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_stats()
+    times = []
+    for _ in range(BERT_STEPS):
+        t0 = time.perf_counter()
+        loss = step(ids, labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    stats = kernels.all_stats()
+    no_composed("bert")
+    exact_launches("bert", stats, BERT_PER_STEP, BERT_STEPS)
+    mma_attention("bert", BERT_STEPS)
+    # AdamW's first step moves every weight by about lr, which at lr 1e-4
+    # overshoots on this model: the loss rises, then falls below its start
+    # within three more steps (BERT-Base on the CPU, B 8 and 32, fp32 and
+    # O2; the reference's tiny BERT does the same), so the gate is the run
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"bert: the loss did not fall over the run, "
+                             f"or a loss is not finite: {losses}")
+    step_ms = float(np.median(times)) * 1e3
+    flops = model_flops(model, BERT_B, BERT_L)
+    res = dict(batch=BERT_B, seq=BERT_L, steps=BERT_STEPS,
+               warmup=BERT_WARMUP, losses=losses, step_ms=step_ms,
+               step_ms_all=[t * 1e3 for t in times],
+               samples_per_s=BERT_B / (step_ms / 1e3),
+               first_update_lowers_loss=losses[1] < losses[0],
+               model_flops=flops, mfu=flops / (step_ms / 1e3) / BF16_PEAK,
+               launches=stats,
+               launches_per_step={k: v["kernel"] / BERT_STEPS
+                                  for k, v in stats.items()},
+               designs=kernels.design_stats(),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               card=card)
+    log(f"bert: BERT-Base O2 bf16 b{BERT_B} s{BERT_L}: step {step_ms:.2f} "
+        f"ms (median of {BERT_STEPS}), {res['samples_per_s']:.1f} "
+        f"samples/s, MFU {res['mfu']:.4f} (model FLOPs {flops:.4e} over "
+        f"{BF16_PEAK:.0e}), peak {res['peak_mem_gb']:.2f} GB [{card}]")
+    log(f"bert: loss {' '.join(f'{x:.4f}' for x in losses)}")
+    log(f"bert: launches per step {json.dumps(res['launches_per_step'])}")
+    del step, model, opt
+    torch.cuda.empty_cache()
+    return res
+
+
+def bert_cross_check():
+    """The BERT-Base classifier in fp32 at B 2, L 128: one TrainStep on
+    the card and on the CPU from the same weights (`step_cross_check`,
+    with a floor of 1e-3 of the largest gradient for the key biases)."""
+    from paddle_tpu_torch.nn import functional as F
+    cfg = bert_config()
+    models = {"gpu": bert_classifier(cfg, "cuda", seed=1),
+              "cpu": bert_classifier(cfg, "cpu", seed=1)}
+    ids, labels = bert_batch(cfg, 2, BERT_L, seed=1)
+    res = step_cross_check("bert-cpu", models,
+                           lambda m, i, lb: F.cross_entropy(m(i), lb),
+                           ids, labels, floor=1e-3)
+    del models
+    torch.cuda.empty_cache()
+    return res
+
+
+def ernie_batch(cfg, B, L, seed=0):
+    """Ids with knowledge-masked spans (1-4 tokens after gaps of 2-11,
+    from numpy seed `seed`) and their labels, -100 outside the spans."""
+    from paddle_tpu_torch.models.ernie import ernie_mask_tokens
+    rng = np.random.default_rng(seed)
+    raw = rng.integers(5, cfg.vocab_size, (B, L))
+    spans = []
+    for _ in range(B):
+        row, pos = [], 0
+        while True:
+            pos += int(rng.integers(2, 12))
+            end = pos + int(rng.integers(1, 5))
+            if end > L:
+                break
+            row.append((pos, end))
+            pos = end
+        spans.append(row)
+    ids, labels = ernie_mask_tokens(raw, spans, mask_token_id=3)
+    return torch.from_numpy(ids), torch.from_numpy(labels)
+
+
+def ernie_train(card):
+    """ErnieForPretraining(ErnieConfig.base()) under O2 bf16 at B 32, L 128
+    with knowledge-masked labels: the CE kernel at V 40,000 with
+    ignore_index; two steps, exact launches, the loss finite and lower
+    after the update."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.ernie import ErnieConfig, ErnieForPretraining
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import kernels
+    cfg = ErnieConfig.base()
+    cfg.dropout = 0.0
+    model = ErnieForPretraining(cfg, device="cuda",
+                                generator=torch.Generator().manual_seed(4))
+    opt = optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters())
+    step = TrainStep(model, F.cross_entropy, opt, amp_dtype=torch.bfloat16)
+    ids, labels = (t.cuda() for t in ernie_batch(cfg, ERNIE_B, BERT_L))
+    kernels.reset_stats()
+    losses = [float(step(ids, labels)) for _ in range(ERNIE_STEPS)]
+    stats = kernels.all_stats()
+    no_composed("ernie")
+    exact_launches("ernie", stats, ERNIE_PER_STEP, ERNIE_STEPS)
+    mma_attention("ernie", ERNIE_STEPS)
+    masked = int((labels != -100).sum())
+    log(f"ernie: ERNIE-3.0 Base O2 bf16 b{ERNIE_B} s{BERT_L}, {masked} of "
+        f"{labels.numel()} tokens in masked spans, V {cfg.vocab_size}: "
+        f"loss {' '.join(f'{x:.4f}' for x in losses)}; launches "
+        f"{json.dumps({k: v['kernel'] for k, v in stats.items()})} [{card}]")
+    if not all(np.isfinite(losses)) or not losses[1] < losses[0]:
+        raise AssertionError(f"ernie: the loss did not fall: {losses}")
+    del step, model, opt
+    torch.cuda.empty_cache()
+    return dict(batch=ERNIE_B, seq=BERT_L, masked_tokens=masked,
+                vocab=cfg.vocab_size, losses=losses, launches=stats)
+
+
+@contextlib.contextmanager
+def launch_dtypes():
+    """{kernel: {input type: calls}} of the flash forward, layer-norm and
+    CE forward wrappers inside the block (their Functions look the
+    wrappers up when they run)."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import layer_norm as ln
+    from paddle_tpu_torch.ops.kernels import softmax_ce as sce
+    seen = {}
+    saved = [(fa, "flash_attention_fwd"), (ln, "layer_norm_fwd"),
+             (sce, "softmax_ce_fwd")]
+    originals = [getattr(mod, fn) for mod, fn in saved]
+    for (mod, fn), orig in zip(saved, originals):
+        def wrapped(x, *a, _orig=orig, _key=fn, **kw):
+            d = seen.setdefault(_key, {})
+            d[str(x.dtype)[6:]] = d.get(str(x.dtype)[6:], 0) + 1
+            return _orig(x, *a, **kw)
+        setattr(mod, fn, wrapped)
+    try:
+        yield seen
+    finally:
+        for (mod, fn), orig in zip(saved, originals):
+            setattr(mod, fn, orig)
+
+
+def amp_eager_step(model, opt, scaler, ids, labels, dtype, inject=False):
+    """The eager O1 loop's step: the loss under auto_cast, then
+    scaler.scale(loss).backward(); scaler.step(opt); scaler.update(). With
+    `inject`, one gradient element is set to inf before the step."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nn import functional as F
+    with amp.auto_cast(level="O1", dtype=dtype):
+        loss = F.cross_entropy(model(ids), labels)
+    scaler.scale(loss).backward()
+    if inject:
+        model.head.weight.grad[0, 0] = float("inf")
+    scaler.step(opt)
+    scaler.update()
+    opt.clear_grad()
+    return float(loss.detach())
+
+
+#: what an O1 step's forward hands each kernel wrapper (the flash forward,
+#: layer norm and CE): bf16 attention launches in bf16; fp16 attention
+#: composes; layer norm and the CE get float32 (the black list)
+AMP_FWD_DTYPES = {
+    "bfloat16": {"flash_attention_fwd": {"bfloat16": 12},
+                 "layer_norm_fwd": {"float32": 25},
+                 "softmax_ce_fwd": {"float32": 1}},
+    "float16": {"layer_norm_fwd": {"float32": 25},
+                "softmax_ce_fwd": {"float32": 1}}}
+
+
+def amp_scaler_run(cfg, state, device, ids, labels):
+    """Three fp16 O1 steps with GradScaler(init_loss_scaling=1024,
+    decr_every_n_nan_or_inf=1), an inf injected into the second one's
+    gradient: [(loss, scale, skipped)] and the parameters after."""
+    from paddle_tpu_torch import amp, optimizer
+    model = bert_classifier(cfg, device, seed=2)
+    model.load_state_dict({k: v.to(device) for k, v in state.items()})
+    opt = optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters())
+    scaler = amp.GradScaler(init_loss_scaling=1024.0,
+                            decr_every_n_nan_or_inf=1)
+    seq = []
+    for i in range(3):
+        before = [p.detach().clone() for p in model.parameters()]
+        loss = amp_eager_step(model, opt, scaler, ids.to(device),
+                              labels.to(device), "float16", inject=i == 1)
+        skipped = all(torch.equal(p, b)
+                      for p, b in zip(model.parameters(), before))
+        seq.append((loss, float(scaler.get_loss_scaling()), skipped))
+    return seq, {k: v.detach().cpu() for k, v in model.named_parameters()}
+
+
+def amp_check(card):
+    """BERT-Base in the eager loop at B 32, L 128 under amp.auto_cast O1:
+    one bf16 and one fp16 step from the same weights, each with its
+    kernels' input types (AMP_FWD_DTYPES), launches and compositions
+    checked and its loss held against the fp32 loss of those weights on
+    the card (AMP_LOSS_TOL); then GradScaler's skip and back-off on an
+    injected inf, on the card and on the CPU at B 2, L 16 (the same
+    sequence; losses 2e-3, parameters 4 * lr + 1e-6: two Adam steps)."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import kernels
+    cfg = bert_config()
+    model = bert_classifier(cfg, "cuda", seed=2)
+    state = {k: v.detach().cpu().clone()
+             for k, v in model.state_dict().items()}
+    ids, labels = (t.cuda() for t in bert_batch(cfg, AMP_B, BERT_L, seed=2))
+    with torch.no_grad():
+        loss32 = float(F.cross_entropy(model(ids), labels))
+    res = dict(batch=AMP_B, seq=BERT_L, loss_fp32=loss32, card=card)
+    for dtype in ("bfloat16", "float16"):
+        model.load_state_dict({k: v.cuda() for k, v in state.items()})
+        opt = optimizer.AdamW(learning_rate=1e-4,
+                              parameters=model.parameters())
+        scaler = amp.GradScaler(init_loss_scaling=1024.0)
+        kernels.reset_stats()
+        with launch_dtypes() as seen:
+            loss = amp_eager_step(model, opt, scaler, ids, labels, dtype)
+        torch.cuda.synchronize()
+        stats = kernels.all_stats()
+        composed = kernels.composed_stats()
+        want_composed = {k: 0 for k in composed}
+        per_step = dict(BERT_PER_STEP)
+        if dtype == "float16":
+            want_composed["flash_attention"] = 12
+            per_step.pop("flash_attention")
+            per_step.pop("flash_attention_bwd")
+        err = abs(loss - loss32)
+        res[dtype] = dict(loss=loss, loss_err=err, tol=AMP_LOSS_TOL[dtype],
+                          fwd_dtypes=seen, composed=composed,
+                          launches={k: v["kernel"] for k, v in
+                                    stats.items()},
+                          scale=float(scaler.get_loss_scaling()))
+        log(f"amp: O1 {dtype} b{AMP_B} s{BERT_L}: loss {loss:.6f} against "
+            f"fp32 {loss32:.6f} (|diff| {err:.3e}, tol "
+            f"{AMP_LOSS_TOL[dtype]:g}); kernel inputs {json.dumps(seen)}; "
+            f"compositions {json.dumps(composed)} [{card}]")
+        exact_launches(f"amp {dtype}", stats, per_step, 1)
+        if (seen != AMP_FWD_DTYPES[dtype] or composed != want_composed
+                or not err <= AMP_LOSS_TOL[dtype]):
+            raise AssertionError(f"amp {dtype}: {res[dtype]}")
+        if dtype == "bfloat16":
+            mma_attention("amp bfloat16", 1)
+    del model
+    torch.cuda.empty_cache()
+    # B 2, L 16: fp16 products on a host CPU without fp16 units are slow
+    # (the scaler's rule does not depend on the batch)
+    runs = {dev: amp_scaler_run(cfg, state, dev, *bert_batch(
+        cfg, 2, 16, seed=3)) for dev in ("cuda", "cpu")}
+    (gseq, gp), (cseq, cp) = runs["cuda"], runs["cpu"]
+    param_err = max(float((gp[k] - cp[k]).abs().max()) for k in cp)
+    loss_err = max(abs(g[0] - c[0]) for g, c in zip(gseq, cseq))
+    res["scaler"] = dict(card=gseq, cpu=cseq, param_err=param_err,
+                         loss_err=loss_err)
+    log(f"amp: fp16 GradScaler (loss, scale, skipped) card {gseq}, cpu "
+        f"{cseq}; parameters max |diff| {param_err:.3e} (atol 4.01e-4)")
+    if ([g[1:] for g in gseq] != [c[1:] for c in cseq]
+            or [g[2] for g in gseq] != [False, True, False]
+            or gseq[1][1] != gseq[0][1] / 2 or loss_err > 2e-3
+            or param_err > 4 * 1e-4 + 1e-6):
+        raise AssertionError(f"amp: GradScaler on the card and the CPU "
+                             f"differ: {res['scaler']}")
+    return res
+
+
 # --------------------------------- main -------------------------------------
 
 
@@ -2225,7 +2647,18 @@ def main():
             + check_layer_norm(dev, gen, (LONG_L,), 768)
             + check_ce(dev, gen, LONG_L, 50304, iters=1)
             + check_flash_long(dev, gen)
-            + check_flash_bwd_split(dev, gen))
+            + check_flash_bwd_split(dev, gen)
+            # the BERT step's (B 256 L 128, non-causal; the 2-way head; the
+            # embeddings' eps 1e-12) and ERNIE's MLM loss (B 32, V 40,000)
+            + check_flash(dev, gen, (BERT_L,), 12, 64, B=BERT_B,
+                          causal=False)
+            + check_flash_bwd(dev, gen, (BERT_L,), BERT_B, 12, 64,
+                              causal=False)
+            + check_ce(dev, gen, BERT_B, 2, dtypes=(torch.bfloat16,))
+            + check_ce(dev, gen, ERNIE_B * BERT_L, 40000,
+                       dtypes=(torch.bfloat16,))
+            + check_layer_norm(dev, gen, (BERT_B * BERT_L,), 768, eps=1e-12,
+                               dtypes=(torch.bfloat16,)))
     for r in rows:
         r.setdefault("tol_ratio", r["max_abs_err"] / r.get("tol", 1.0))
         r.setdefault("design", "cuda-core")
@@ -2291,15 +2724,24 @@ def main():
     resnet_rc = resnet_recompute_check(dev)
     # 13. the composed routes (C1-C3) against the CPU
     composed = check_composed(dev)
+    # 14. train BERT-Base (bench_bert_base): O2 bf16, B 256, L 128
+    bert = bert_train(smi)
+    # 15. its fp32 step on the card against the CPU, B 2
+    bert_cpu = bert_cross_check()
+    # 16. ERNIE-3.0 Base pretraining step, knowledge-masked spans, V 40,000
+    ernie = ernie_train(smi)
+    # 17. amp O1 in the eager loop (bf16, fp16 with GradScaler)
+    amp_res = amp_check(smi)
 
-    # 14. report: launches from each path's own run (counters reset just
+    # 18. report: launches from each path's own run (counters reset just
     # before it); times at the main path's shape
     result = dict(card=smi, capability=cap, checks=rows, edges=edges,
                   serve=served, cpu_cross_check=cpu_res, train=trained,
                   train_cpu_cross_check=train_cpu, resnet=resnet,
                   resnet_cpu_cross_check=resnet_cpu, long=long,
                   remat_equivalence=remat, resnet_recompute=resnet_rc,
-                  composed=composed)
+                  composed=composed, bert=bert, bert_cpu_cross_check=bert_cpu,
+                  ernie=ernie, amp=amp_res)
     kern = []
     for kname, meta in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == kname]
@@ -2308,7 +2750,8 @@ def main():
         by_path = {"serve": served["launches"][kname]["kernel"],
                    "train": trained["launches"][kname]["kernel"],
                    "resnet": resnet["launches"][kname]["kernel"],
-                   "long": long["launches"][kname]["kernel"]}
+                   "long": long["launches"][kname]["kernel"],
+                   "bert": bert["launches"][kname]["kernel"]}
         kern.append(dict(
             name=kname, route="cuda", source=meta["source"],
             replaces=meta["replaces"], launches=sum(by_path.values()),

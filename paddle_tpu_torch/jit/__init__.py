@@ -88,7 +88,11 @@ class TrainStep:
             out, self.buffers = self.apply_fn(compute, self.buffers, *inputs)
             loss = self._loss_fn(out, batch[-1])
             grads = torch.autograd.grad(
-                loss, [self.params[k] for k in names])
+                loss, [self.params[k] for k in names], allow_unused=True)
+        # a parameter the loss does not reach (ERNIE's pooler under the MLM
+        # loss) gets a zero gradient, as jax.grad gives it
+        grads = [torch.zeros_like(self.params[k]) if g is None else g
+                 for k, g in zip(names, grads)]
         self.optimizer.apply_fn(self.params, dict(zip(names, grads)),
                                 self.opt_state, lr=lr, t=self._t,
                                 fused=self.fused_opt)

@@ -21,6 +21,7 @@ from .. import nn
 from .._platform import resolve_device
 from ..distributed.fleet.utils import recompute, recompute_policies
 from ..nn import functional as F
+from ..ops._dispatch import maybe_autocast
 from ..ops.kernels import paged_attention as _pa
 
 
@@ -194,7 +195,9 @@ class GPT(nn.Layer):
     def logits(self, x):
         x = self.ln_f(x)
         if self.cfg.tie_word_embeddings:
-            return torch.matmul(x, self.wte.weight.t())
+            # the reference's ``matmul`` op: white-listed under autocast
+            x, w = maybe_autocast("matmul", x, self.wte.weight)
+            return torch.matmul(x, w.t())
         return self.lm_head(x)
 
     def forward(self, input_ids):

@@ -1,6 +1,7 @@
 """The functionals of the ported slices (counterpart of
 ``paddle_tpu/nn/functional/__init__.py``): ``linear`` (l.228),
-``embedding`` (l.244), ``gelu`` (l.80), ``relu``, ``dropout`` (l.270),
+``embedding`` (l.244), ``gelu`` (l.80), ``relu``, ``tanh`` (l.74),
+``softmax`` (l.188), ``log_softmax`` (l.198), ``dropout`` (l.270),
 ``layer_norm`` (l.534), ``scaled_dot_product_attention`` (l.1285),
 ``cross_entropy`` (l.897), ``conv2d`` (l.377), ``max_pool2d`` (l.456),
 ``adaptive_avg_pool2d`` (l.491), ``flatten`` (``ops/manipulation.py:75``),
@@ -13,20 +14,28 @@ versions (on a CPU tensor), through autograd Functions. The large matrix
 products stay with ``torch.matmul`` and the other convolutions with
 ``torch.nn.functional.conv2d`` (cuDNN on a card), as the JAX package left
 them to XLA.
+
+Under ``amp.auto_cast`` the entries that the reference's AMP lists name
+cast their inputs as its dispatch does (``ops/_dispatch.py``): ``linear``
+and ``conv2d`` to the amp type; ``layer_norm``, ``cross_entropy`` and
+``log_softmax`` to float32. The others follow their inputs.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as _tF
 
+from ...framework.dtype import convert_dtype
 from ...ops._bn_common import _bn_axes, _bn_stats
+from ...ops._dispatch import maybe_autocast
 from ...ops.kernels import flash_attention as _fa
 from ...ops.kernels import fused_bn as _fbn
 from ...ops.kernels import fused_conv_bn as _fcb
 from ...ops.kernels import layer_norm as _ln
 from ...ops.kernels import softmax_ce as _sce
 
-__all__ = ["linear", "embedding", "gelu", "relu", "dropout", "layer_norm",
+__all__ = ["linear", "embedding", "gelu", "relu", "tanh", "softmax",
+           "log_softmax", "dropout", "layer_norm",
            "scaled_dot_product_attention", "cross_entropy", "conv2d",
            "max_pool2d", "adaptive_avg_pool2d", "flatten", "batch_norm",
            "conv2d_bn"]
@@ -34,6 +43,7 @@ __all__ = ["linear", "embedding", "gelu", "relu", "dropout", "layer_norm",
 
 def linear(x, weight, bias=None):
     """x @ weight + bias, with paddle's [in, out] weight layout."""
+    x, weight, bias = maybe_autocast("linear", x, weight, bias)
     out = torch.matmul(x, weight)
     return out if bias is None else out + bias
 
@@ -54,6 +64,25 @@ def relu(x):
     return torch.relu(x)
 
 
+def tanh(x):
+    return torch.tanh(x)
+
+
+def softmax(x, axis=-1, dtype=None):
+    """Softmax over ``axis`` in x's type, then cast to ``dtype`` if given
+    (as the reference casts its result)."""
+    out = torch.softmax(x, dim=axis)
+    return out if dtype is None else out.to(convert_dtype(dtype))
+
+
+def log_softmax(x, axis=-1, dtype=None):
+    """Log-softmax over ``axis`` (float32 under autocast), then cast to
+    ``dtype`` if given."""
+    (x,) = maybe_autocast("log_softmax", x)
+    out = torch.log_softmax(x, dim=axis)
+    return out if dtype is None else out.to(convert_dtype(dtype))
+
+
 def dropout(x, p=0.5, training=True, generator=None):
     """Upscale-in-train dropout: kept values are divided by 1 - p."""
     if not training or p == 0.0:
@@ -71,6 +100,7 @@ def layer_norm(x, normalized_shape, weight, bias, epsilon=1e-5):
         raise NotImplementedError(
             f"layer_norm over {list(normalized_shape)}: only the last dim "
             f"({x.shape[-1]}) is ported")
+    x, weight, bias = maybe_autocast("layer_norm", x, weight, bias)
     return _ln.fused_layer_norm(x, weight, bias, epsilon)
 
 
@@ -107,7 +137,8 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
     ``reduction="mean"`` divides by the number of in-range labels (or by
     their summed class weights). Soft labels: -sum(soft * log_softmax),
     weighted by the class of each row's largest soft label."""
-    logits = input
+    logits, label, weight = maybe_autocast("cross_entropy", input, label,
+                                           weight)
     ax = axis if axis >= 0 else logits.dim() + axis
     n_cls = logits.shape[ax]
     if soft_label:
@@ -192,6 +223,7 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
     layout. NHWC runs as a channels-last view of the same memory
     (``x.permute(0, 3, 1, 2)`` with a channels-last weight), so nothing is
     transposed and the output comes back as an NHWC view."""
+    x, weight, bias = maybe_autocast("conv2d", x, weight, bias)
     stride, dilation = _pair(stride), _pair(dilation)
     nhwc = not data_format.startswith("NC")
     xin = x.permute(0, 3, 1, 2) if nhwc else x

@@ -17,6 +17,10 @@ which is an XLA composition in the reference too. The backward keeps only
 take (fp16, fp64, beta in another type than gamma; ``kernel_takes``)
 compose on a card, as XLA composes them in the reference (l.159-173):
 the plain version through autograd, counted in ``composed_stats``.
+
+``fused_residual_dropout_ln`` is the residual + dropout + layer-norm
+epilogue of the fused transformer layers (reference l.215), composed
+around the same Function.
 """
 from __future__ import annotations
 
@@ -129,3 +133,16 @@ def fused_layer_norm(x, gamma, beta, eps: float = 1e-5):
         return layer_norm_plain(x.reshape(-1, x.shape[-1]), gamma, beta,
                                 float(eps)).reshape(x.shape)
     return LayerNormFunction.apply(x, gamma, beta, float(eps))
+
+
+def fused_residual_dropout_ln(x, residual, gamma, beta, *, p: float = 0.0,
+                              eps: float = 1e-5, generator=None,
+                              training: bool = True):
+    """LN(residual + dropout(x)): the upscale-in-train dropout of x (kept
+    values divided by 1 - p), the residual add, then ``fused_layer_norm``
+    (its kernel on a card)."""
+    if training and p > 0.0:
+        keep = torch.rand(x.shape, generator=generator,
+                          device=x.device) >= p
+        x = torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)
+    return fused_layer_norm(residual + x, gamma, beta, eps)

@@ -443,3 +443,78 @@ def test_fp16_cross_entropy_matches_jax_xla(card_route):
     assert kernels.composed_stats()["softmax_ce"] == before + 1
     np.testing.assert_allclose(got.float().numpy(), want.reshape(-1),
                                rtol=1e-5, atol=1e-5)
+
+
+# ------------------ the BERT path and amp on the card route -------------------
+
+
+def _force_attention_card_route(mp):
+    """Only attention dispatches as on a card (its launch raises); layer
+    norm and the CE keep their CPU plain versions."""
+    def launch(*args, **kw):
+        raise LaunchReached(args[0])
+    mp.setattr(fa, "use_kernel", lambda t: True)
+    mp.setattr(fa, "launch", launch)
+
+
+def test_bert_attention_mask_composes_on_the_card(monkeypatch):
+    """Bert's attention_mask becomes the additive [B, 1, 1, L] mask, which
+    a card composes in every layer (counted), as the reference composes
+    float masks; without a mask the same model reaches the kernel."""
+    from paddle_tpu_torch.models.bert import Bert, BertConfig
+    _force_attention_card_route(monkeypatch)
+    torch.manual_seed(0)
+    model = Bert(BertConfig.tiny(), device="cpu")
+    ids = torch.randint(0, 1000, (2, 16))
+    mask = torch.ones(2, 16, dtype=torch.long)
+    mask[1, 10:] = 0
+    kernels.reset_stats()
+    seq, pooled = model(ids, attention_mask=mask)
+    assert kernels.composed_stats()["flash_attention"] == 2
+    assert kernels.all_stats()["flash_attention"] == {"kernel": 0,
+                                                      "plain": 0}
+    with pytest.raises(LaunchReached):
+        model(ids)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cross_entropy_v2_launches_the_kernel(dtype, card_route):
+    """BERT's 2-way head (V 2) reaches the CE kernel on a card, where the
+    reference's gate (V >= 4096, N >= 64) composes: a deliberate
+    difference (ROADMAP queue C); the numbers agree either way."""
+    kernels.reset_stats()
+    with pytest.raises(LaunchReached):
+        F.cross_entropy(torch.ones(256, 2, dtype=dtype),
+                        torch.zeros(256, dtype=torch.int64))
+    assert not any(kernels.composed_stats().values())
+
+
+def test_fp16_o1_routes_on_the_card(card_route):
+    """Under amp.auto_cast(dtype="float16") a card composes fp16
+    attention (its q, k, v come fp16 from the white-listed linear), while
+    layer norm and the CE get float32 inputs (black list) and reach their
+    kernels, as the reference's dispatch casts them. Moved to the white
+    list, they get fp16 and compose too."""
+    from paddle_tpu_torch import amp
+    rng = np.random.default_rng(8)
+    x, w = _t(rng, 2, 16, 64), _t(rng, 64, 64)
+    g, b = torch.ones(64), torch.zeros(64)
+    logits, lab = _t(rng, 8, 10), torch.zeros(8, dtype=torch.int64)
+    with amp.auto_cast(level="O1", dtype="float16"):
+        q = F.linear(x, w).reshape(2, 16, 4, 16)
+        assert q.dtype == torch.float16
+        kernels.reset_stats()
+        out = F.scaled_dot_product_attention(q, q, q)
+        assert out.dtype == torch.float16
+        assert kernels.composed_stats()["flash_attention"] == 1
+        with pytest.raises(LaunchReached, match="layer_norm"):
+            F.layer_norm(x.half(), 64, g, b)
+        with pytest.raises(LaunchReached, match="softmax_ce"):
+            F.cross_entropy(logits.half(), lab)
+    with amp.auto_cast(level="O1", dtype="float16",
+                       custom_white_list={"layer_norm", "cross_entropy"}):
+        kernels.reset_stats()
+        assert F.layer_norm(x, 64, g, b).dtype == torch.float16
+        F.cross_entropy(logits, lab)
+        composed = kernels.composed_stats()
+        assert composed["layer_norm"] == 1 and composed["softmax_ce"] == 1

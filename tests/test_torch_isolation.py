@@ -112,3 +112,30 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
     r = subprocess.run([sys.executable, str(alone)], capture_output=True,
                        text=True, timeout=120, cwd=tmp_path, env=env)
     assert r.returncode != 0 and '"ok"' not in r.stdout
+
+
+def test_the_scan_covers_the_bert_ernie_and_amp_modules():
+    names = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    assert {"paddle_tpu_torch/nn/transformer.py",
+            "paddle_tpu_torch/models/bert.py",
+            "paddle_tpu_torch/models/ernie.py",
+            "paddle_tpu_torch/incubate/nn/__init__.py",
+            "paddle_tpu_torch/amp/__init__.py",
+            "paddle_tpu_torch/ops/_dispatch.py"} <= names
+
+
+def test_bert_ernie_and_transformer_entry_points_default_to_cuda(
+        monkeypatch):
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.incubate.nn import FusedTransformerEncoderLayer
+    from paddle_tpu_torch.models import (Bert, BertConfig, ErnieConfig,
+                                         ErnieForPretraining)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda **kw: Bert(BertConfig.tiny(), **kw),
+                 lambda **kw: ErnieForPretraining(ErnieConfig.tiny(), **kw),
+                 lambda **kw: nn.Transformer(32, 4, 1, 1, 64, **kw),
+                 lambda **kw: nn.MultiHeadAttention(32, 4, **kw),
+                 lambda **kw: FusedTransformerEncoderLayer(32, 4, 64, **kw)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+        assert next(make(device="cpu").parameters()).device.type == "cpu"

@@ -3,6 +3,7 @@
 
     python3 tools/profile_torch_train.py          # from the repository root
     python3 tools/profile_torch_train.py --long   # B 1 x 32,768, remat "full"
+    python3 tools/profile_torch_train.py --bert   # BERT-Base, B 256 x 128
 
 Builds GPT-2 small at full width (random weights from seed 0, dropout 0)
 and trains it with ``paddle_tpu_torch.jit.TrainStep(model, F.cross_entropy,
@@ -10,7 +11,10 @@ AdamW(lr=1e-4, weight_decay=0.01), amp_dtype=torch.bfloat16)`` at batch 8,
 sequence 1024 on one card (the JAX package's ``bench_gpt2`` configuration),
 or with ``--long`` on one 32,768-token sequence (max_position_embeddings
 32,768) with ``GPTConfig.remat = "full"``, whose attention backward is the
-split dq / dk-dv pair. After the warm-up steps (two; one with ``--long``)
+split dq / dk-dv pair, or with ``--bert`` the BERT-Base classifier of
+``chip_smoke.py``'s bert phase (the JAX package's ``bench_bert_base``: B
+256, L 128, AdamW(1e-4), O2 bf16). After the warm-up steps (two; one with
+``--long``)
 it measures, with ``torch.profiler`` (CPU and CUDA activities), a window
 of steps (three; one with ``--long``, a step of seconds):
 
@@ -24,7 +28,8 @@ of steps (three; one with ``--long``, a step of seconds):
 
 and the same window without the profiler, for its overhead. Writes
 ``chiprun_out/profile_torch_train.json`` (``profile_torch_train_long.json``
-with ``--long``). Needs a card.
+with ``--long``, ``profile_torch_train_bert.json`` with ``--bert``). Needs a
+card.
 """
 from __future__ import annotations
 
@@ -48,7 +53,8 @@ from paddle_tpu_torch.nn import functional as F  # noqa: E402
 from paddle_tpu_torch.ops import kernels  # noqa: E402
 
 #: (batch, sequence, remat, warm-up steps, profiled steps) of each run
-RUNS = {"b8s1024": (8, 1024, "", 2, 3), "long": (1, 32768, "full", 1, 1)}
+RUNS = {"b8s1024": (8, 1024, "", 2, 3), "long": (1, 32768, "full", 1, 1),
+        "bert": (256, 128, "", 2, 3)}
 
 #: device-kernel name fragments -> group (first match wins)
 GROUPS = (
@@ -114,29 +120,39 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--long", action="store_true",
                     help="B 1 x 32,768 tokens with remat 'full'")
+    ap.add_argument("--bert", action="store_true",
+                    help="the BERT-Base classifier at B 256 x 128")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_train: no CUDA card", file=sys.stderr)
         return 2
-    run = "long" if args.long else "b8s1024"
+    run = "long" if args.long else "bert" if args.bert else "b8s1024"
     B, L, remat, warmup, window = RUNS[run]
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    cfg = GPTConfig.gpt2_small()
-    cfg.dropout = cfg.attn_dropout = 0.0
-    cfg.max_position_embeddings = max(L, cfg.max_position_embeddings)
-    cfg.remat = remat
-    model = GPT(cfg, device="cuda",
-                generator=torch.Generator().manual_seed(0))
+    if args.bert:
+        import chip_smoke
+        cfg = chip_smoke.bert_config()
+        model = chip_smoke.bert_classifier(cfg, "cuda", seed=0)
+        ids, labels = (t.cuda() for t in chip_smoke.bert_batch(cfg, B, L))
+    else:
+        cfg = GPTConfig.gpt2_small()
+        cfg.dropout = cfg.attn_dropout = 0.0
+        cfg.max_position_embeddings = max(L, cfg.max_position_embeddings)
+        cfg.remat = remat
+        model = GPT(cfg, device="cuda",
+                    generator=torch.Generator().manual_seed(0))
+        rng = np.random.default_rng(0)
+        ids = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                            (B, L))).cuda()
+        labels = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                               (B, L))).cuda()
     opt = optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters(),
                           weight_decay=0.01)
     step = TrainStep(model, F.cross_entropy, opt, amp_dtype=torch.bfloat16)
-    rng = np.random.default_rng(0)
-    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, L))).cuda()
-    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, L))).cuda()
     for _ in range(warmup):
         step(ids, labels)
     torch.cuda.synchronize()
@@ -164,7 +180,7 @@ def main():
     out.update(card=smi, batch=B, seq=L, remat=remat, window=window,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     os.makedirs("chiprun_out", exist_ok=True)
-    name = "_long" if args.long else ""
+    name = {"long": "_long", "bert": "_bert"}.get(run, "")
     with open(f"chiprun_out/profile_torch_train{name}.json", "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps(out, indent=1))
