@@ -2,6 +2,8 @@
 """Drive the PyTorch/H100 port (paddle_tpu_torch) once on one CUDA card.
 
     python3 chip_smoke.py            # from the repository root
+    python3 chip_smoke.py --phases health,health_trip,fit_resume
+                                     # phases 1-2, then only those named
 
 Phases, each of which raises (exit code != 0, with its traceback) on a
 failure:
@@ -110,7 +112,37 @@ failure:
               layer norm and CE in fp32), each loss against the fp32 loss
               of the same weights; GradScaler skips a step with an
               injected inf and backs off, on the card as on the CPU;
-18. report  - the `kernels` JSON line, the card's name and power limit, and
+18. health  - the training-health sentinel on phase 6's step (GPT-2
+              small, O2 bf16, AdamW(1e-4, wd 0.01), b8 s1024): health off
+              and on (interval 1) in turns, 10 rounds of off, on, each 2
+              warm-up and 6 timed steps, then interval 10 the same way
+              (6 rounds of 20 timed steps); a run of steps is timed with
+              one wait at its end, so the host may queue ahead as a
+              training loop does: step ms off and on, the overhead (the
+              median of the rounds') and its spread, the sentinel's host
+              ms a step (forming, decoding, fetching), the groups, and the
+              sentinel's device operations a fetched step (torch.profiler,
+              a step with it against one without, which update alike); its
+              loss must be the step's bit for bit, grad_norm and
+              update_ratio within 1e-5 of direct readings, every value
+              finite, the path's kernels launched and no plain version;
+19. health_trip - NaN in one element of blocks.5's first layer-norm weight
+              (the step's fp32 masters), one step: the sentinel trips with
+              bad_param_groups ["blocks.5"], the replay names the layer-norm
+              kernel's wrapper in blocks.5.ln1, the layer-norm kernel
+              launches in the replay (no plain run), and
+              health_nonfinite_total counts the sentinel and the eager trip;
+20. fit_resume - hapi.Model(GPT-2 small).fit in fp32 (as Model builds its
+              TrainStep) at b8 s1024 with the sentinel on, 8 steps:
+              uninterrupted; with FaultTolerantCheckpoint(save_freq_steps=
+              2, keep_last_n=2) and HealthMonitor(action="rollback") and a
+              weight poisoned after step 5 (one rollback, to step 4); then
+              the newest file truncated and a fresh fit(resume=) from other
+              weights: the corrupt file skipped, the restored state and the
+              first resumed loss bit for bit, later losses within
+              FIT_LOSS_ATOL of the uninterrupted run; save and load seconds,
+              file bytes, the fp32 step ms;
+21. report  - the `kernels` JSON line, the card's name and power limit, and
               the device JSON line last.
 
 Phase 3 also holds the ResNet kernels (fused BN forward, reduce and dx;
@@ -2533,6 +2565,436 @@ def amp_check(card):
 # --------------------------------- main -------------------------------------
 
 
+# --------------- phases 18-20: health sentinel, trip, fit + resume ---------------
+
+HEALTH_WARMUP, HEALTH_STEPS, HEALTH_STEPS_10 = 2, 6, 20
+#: off and on alternate run by run: the host's pace drifts over seconds
+HEALTH_ROUNDS, HEALTH_ROUNDS_10 = 10, 6
+#: the checkpoint directory of phase 20 (git-ignored; removed after)
+CKPT_DIR = "ckpt_smoke"
+FIT_STEPS = 8
+#: resumed losses after the first, against the uninterrupted run (fp32,
+#: loss near 10.9): only the order of dq's fp32 atomic sums differs
+FIT_LOSS_ATOL = 1e-3
+
+
+@contextlib.contextmanager
+def env_var(name, value):
+    """Set environment variable `name` to `value` (None: unset) inside."""
+    prev = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = prev
+
+
+def timed_steps(step, ids, labels, n):
+    """(mean ms a step, losses) of a run of `n` steps, waited for once at
+    its end: the host queues ahead of the card as a training loop does."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [step(ids, labels) for _ in range(n)]
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n, [float(x) for x in losses]
+
+
+def device_ops(fn):
+    """(device operations, device ms) of one call of `fn`, from
+    torch.profiler's CUDA activity; (None, None) if it recorded none."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not evs:
+        return None, None
+    return len(evs), sum(e.time_range.elapsed_us() for e in evs) / 1e3
+
+
+def rel(a, b):
+    return abs(a - b) / abs(b)
+
+
+def health_train(cfg, card):
+    """Phase 18: the sentinel's cost and readings on the O2 bf16 GPT step
+    (bench.py:527-533): health off and on (interval 1) in turns, then
+    interval 10; returns the results and the on-step (phase 19 trips it)."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import kernels
+    model = GPT(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+
+    def make(on, interval=1):
+        with env_var("PADDLE_TPU_HEALTH_INTERVAL", str(interval)):
+            opt = optimizer.AdamW(learning_rate=1e-4,
+                                  parameters=model.parameters(),
+                                  weight_decay=0.01)
+            return TrainStep(model, F.cross_entropy, opt,
+                             amp_dtype=torch.bfloat16, health=on)
+
+    rng = np.random.default_rng(0)
+    ids, labels = (torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TRAIN_B, TRAIN_L))).to("cuda") for _ in range(2))
+    off, on, on10 = make(False), make(True), make(True, 10)
+    # ms a step of each run (a run's mean), by variant, one run a round
+    ms = {"off": [], "on": [], "off10": [], "on10": []}
+    stats = None
+    for rnd in range(HEALTH_ROUNDS):
+        for name, st in (("off", off), ("on", on)):
+            timed_steps(st, ids, labels, HEALTH_WARMUP)
+            kernels.reset_stats()
+            t, _ = timed_steps(st, ids, labels, HEALTH_STEPS)
+            if name == "on" and rnd == 0:  # the health path's launches
+                stats = kernels.all_stats()
+                no_composed("health")
+                exact_launches("health", stats, PER_STEP, HEALTH_STEPS)
+            ms[name].append(t)
+    for rnd in range(HEALTH_ROUNDS_10):
+        for name, st in (("off10", off), ("on10", on10)):
+            timed_steps(st, ids, labels, HEALTH_WARMUP)
+            ms[name].append(timed_steps(st, ids, labels, HEALTH_STEPS_10)[0])
+    if on10.last_health is None or on10.last_health["step"] % 10:
+        raise AssertionError(f"health: interval 10 fetched at "
+                             f"{on10.last_health}")
+
+    def overhead(a, b):
+        """The median of the rounds' overheads (each round pairs the two
+        runs made back to back), and each round's."""
+        per_round = [x / y - 1 for x, y in zip(ms[a], ms[b])]
+        return float(np.median(per_round)), per_round
+
+    frac1, rounds1 = overhead("on", "off")
+    frac10, rounds10 = overhead("on10", "off10")
+
+    # the sentinel's host time a step at interval 1, over one more run:
+    # forming the vector; decoding one (its wait for the copy included,
+    # at a step's start or inside the fetch); the fetch (the previous
+    # vector's decode, then the copy)
+    host = dict.fromkeys(("stats_vec", "flush_health", "fetch"), 0.0)
+
+    def timed(key, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                host[key] += time.perf_counter() - t0
+        return call
+
+    probe = on._health_probe
+    probe.stats_vec = timed("stats_vec", probe.stats_vec)
+    on.flush_health = timed("flush_health", on.flush_health)
+    on._fetch = timed("fetch", on._fetch)
+    try:
+        timed_steps(on, ids, labels, HEALTH_STEPS)
+    finally:
+        del probe.stats_vec, on.flush_health, on._fetch
+    host_ms = {k: v * 1e3 / HEALTH_STEPS for k, v in host.items()}
+
+    # the readings against direct ones on one more step
+    seen = {}
+    apply_fn = on.optimizer.apply_fn
+
+    def spy(params, grads, state, **kw):
+        seen["grad_norm"] = float(torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g.float()) for g in grads.values()])))
+        return apply_fn(params, grads, state, **kw)
+
+    old = {k: p.detach().clone() for k, p in on.params.items()}
+    on.optimizer.apply_fn = spy
+    try:
+        loss = float(on(ids, labels))
+    finally:
+        del on.optimizer.apply_fn
+    num = torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(on.params[k].detach() - v)
+         for k, v in old.items()]))
+    den = torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(v) for v in old.values()]))
+    h = on.last_health
+    ratio = float(num / den)
+    values = [h["loss"], h["grad_norm"], h["param_norm"], h["update_ratio"],
+              *h["group_grad_norms"].values()]
+    errs = {"grad_norm": rel(h["grad_norm"], seen["grad_norm"]),
+            "update_ratio": rel(h["update_ratio"], ratio)}
+    if (h["loss"] != loss or max(errs.values()) > 1e-5 or h["nonfinite"]
+            or not all(np.isfinite(values))):
+        raise AssertionError(f"health: sentinel {h} against loss {loss}, "
+                             f"grad norm {seen['grad_norm']}, update ratio "
+                             f"{ratio}: relative errors {errs}")
+    del old
+    # the sentinel's device operations: one fetched step against one
+    # without it (the same kernels and update otherwise)
+    n_on, dev_on = device_ops(lambda: on(ids, labels))
+    n_off, dev_off = device_ops(lambda: off(ids, labels))
+    sentinel_ops = None if n_on is None else n_on - n_off
+    sentinel_dev_ms = None if n_on is None else dev_on - dev_off
+    res = dict(batch=TRAIN_B, seq=TRAIN_L, warmup=HEALTH_WARMUP,
+               steps=HEALTH_STEPS, steps_interval_10=HEALTH_STEPS_10,
+               rounds=HEALTH_ROUNDS, rounds_interval_10=HEALTH_ROUNDS_10,
+               step_ms=ms, step_ms_off=float(np.median(ms["off"])),
+               step_ms_on=float(np.median(ms["on"])),
+               overhead_frac=frac1, overhead_frac_rounds=rounds1,
+               step_ms_off_10=float(np.median(ms["off10"])),
+               step_ms_on_10=float(np.median(ms["on10"])),
+               overhead_frac_10=frac10, overhead_frac_10_rounds=rounds10,
+               groups=len(on._health_probe.group_names),
+               group_names=on._health_probe.group_names,
+               sentinel_host_ms=host_ms,
+               sentinel_device_ops=sentinel_ops,
+               sentinel_device_ms=sentinel_dev_ms,
+               step_device_ops=(n_on, n_off), step_device_ms=(dev_on, dev_off),
+               reading=h, direct=dict(loss=loss, update_ratio=ratio,
+                                      grad_norm=seen["grad_norm"]),
+               rel_err=errs, launches=stats, card=card)
+    log(f"health: GPT-2 small O2 b{TRAIN_B} s{TRAIN_L}: step_ms_off "
+        f"{res['step_ms_off']:.2f} step_ms_on {res['step_ms_on']:.2f} "
+        f"(medians of {HEALTH_ROUNDS} runs of {HEALTH_STEPS}, one wait a "
+        f"run) overhead_frac {frac1:+.4f} (median of the rounds) "
+        f"(rounds {', '.join(f'{x:+.4f}' for x in rounds1)}); interval 10 "
+        f"(medians of {HEALTH_ROUNDS_10} runs of {HEALTH_STEPS_10}) "
+        f"{res['step_ms_off_10']:.2f} / {res['step_ms_on_10']:.2f} "
+        f"overhead_frac {frac10:+.4f} "
+        f"(rounds {', '.join(f'{x:+.4f}' for x in rounds10)}); host ms a "
+        f"step {json.dumps({k: round(v, 4) for k, v in host_ms.items()})}; groups "
+        f"{res['groups']}; sentinel device ops {sentinel_ops} "
+        f"({sentinel_dev_ms if sentinel_dev_ms is None else round(sentinel_dev_ms, 4)} "
+        f"ms; step {n_on} / {n_off} ops) [{card}]")
+    log(f"health: step ms off {json.dumps(ms['off'])} on "
+        f"{json.dumps(ms['on'])}")
+    log(f"health: grad_norm {h['grad_norm']:.6e} (direct {seen['grad_norm']:.6e}) "
+        f"update_ratio {h['update_ratio']:.6e} (direct {ratio:.6e}) "
+        f"relative errors {json.dumps(errs)}; loss {h['loss']} == step's")
+    del off, on10
+    torch.cuda.empty_cache()
+    return res, on, (ids, labels)
+
+
+def health_trip(step, batch, card):
+    """Phase 19: NaN in blocks.5's first layer-norm weight (the step's
+    masters); one step trips the sentinel, names the group, and the replay
+    names the layer-norm kernel's wrapper in blocks.5.ln1."""
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.profiler import health, metrics
+    counter = metrics.default_registry().get("health_nonfinite_total")
+    before = {src: counter.value(src=src) for src in ("sentinel", "eager")}
+    with torch.no_grad():
+        step.params["blocks.5.ln1.weight"].view(-1)[0] = float("nan")
+    kernels.reset_stats()
+    t0 = time.perf_counter()
+    step(*batch)
+    # reading them decodes the step's vector and runs the replay
+    h, att = step.last_health, step.last_attribution
+    torch.cuda.synchronize()
+    trip_s = time.perf_counter() - t0
+    st = kernels.all_stats()
+    counts = {src: counter.value(src=src) - before[src] for src in before}
+    # the step's own launches, then the replay's: embeddings, blocks 0-4
+    # (two norms and one attention each), then blocks.5.ln1, which fails
+    replay = {"layer_norm": 2 * 5 + 1, "flash_attention": 5}
+    want = {k: PER_STEP.get(k, 0) + replay.get(k, 0) for k in st}
+    ok = (h["nonfinite"] and h["bad_param_groups"] == ["blocks.5"]
+          and att is not None and att["op"] == "layer_norm"
+          and att["layer"] == "blocks.5.ln1"
+          and all(v["plain"] == 0 and v["kernel"] == want[k]
+                  for k, v in st.items())
+          and counts == {"sentinel": 1, "eager": 1})
+    res = dict(bad_param_groups=h["bad_param_groups"], attribution=att,
+               launches=st, nonfinite_total=counts, seconds=trip_s, card=card)
+    log(f"health_trip: nonfinite {h['nonfinite']} bad_param_groups "
+        f"{h['bad_param_groups']} attribution {json.dumps(att)}; launches "
+        f"in the step and its replay {json.dumps({k: v for k, v in st.items() if v['kernel']})}; "
+        f"health_nonfinite_total +{json.dumps(counts)}; {trip_s:.2f} s [{card}]")
+    if not ok:
+        raise AssertionError(f"health_trip: {res}, want launches {want}")
+    health.reset()
+    return res
+
+
+def fit_resume(cfg, card):
+    """Phase 20: hapi.Model(GPT-2 small).fit in fp32 (as Model builds its
+    TrainStep) at b8 s1024 with the sentinel on: an uninterrupted run; a
+    run with FaultTolerantCheckpoint(save_freq_steps=2, keep_last_n=2) and
+    HealthMonitor(rollback) that a callback poisons after step 5; then a
+    fresh fit(resume=) past a truncated newest file."""
+    import shutil
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.hapi import callbacks as cb
+    from paddle_tpu_torch.io import Dataset
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.profiler import events, health, metrics
+
+    class Batches(Dataset):
+        def __len__(self):
+            return FIT_STEPS * TRAIN_B
+
+        def __getitem__(self, i):
+            rng = np.random.default_rng(100 + i)
+            return (rng.integers(0, cfg.vocab_size, TRAIN_L),
+                    rng.integers(0, cfg.vocab_size, TRAIN_L))
+
+    class Record(cb.Callback):
+        def __init__(self):
+            super().__init__()
+            self.losses, self.ms = [], []
+
+        def on_train_batch_begin(self, step, logs=None):
+            self.t0 = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            self.ms.append((time.perf_counter() - self.t0) * 1e3)
+            self.losses.append(logs["loss"][0])
+
+    class Poison(cb.Callback):
+        def on_train_batch_end(self, step, logs=None):
+            if step == 4:  # after the fifth step
+                with torch.no_grad():
+                    self.model._train_step.params[
+                        "blocks.5.mlp.fc1.weight"].view(-1)[0] = float("nan")
+
+    def model(seed):
+        net = GPT(cfg, device="cuda",
+                  generator=torch.Generator().manual_seed(seed))
+        m = Model(net)
+        m.prepare(optimizer.AdamW(1e-4, parameters=net.parameters(),
+                                  weight_decay=0.01), F.cross_entropy)
+        return m
+
+    def fit(m, callbacks, **kw):
+        m.fit(Batches(), batch_size=TRAIN_B, epochs=1, shuffle=False,
+              verbose=0, callbacks=callbacks, **kw)
+
+    reg = metrics.default_registry()
+    d = os.path.abspath(CKPT_DIR)
+    shutil.rmtree(d, ignore_errors=True)
+    health.reset()
+    try:
+        with env_var("PADDLE_TPU_HEALTH", "1"):
+            # run 0: uninterrupted
+            rec0 = Record()
+            m = model(0)
+            kernels.reset_stats()
+            fit(m, [rec0])
+            stats = kernels.all_stats()
+            designs = kernels.design_stats()
+            no_composed("fit")
+            exact_launches("fit", stats, PER_STEP, FIT_STEPS)
+            del m
+            torch.cuda.empty_cache()
+            # run 1: checkpoints, a poisoned weight, one rollback
+            rec1 = Record()
+            m = model(0)
+            ftc = cb.FaultTolerantCheckpoint(d, save_freq_steps=2,
+                                             keep_last_n=2)
+            hm = cb.HealthMonitor(action="rollback", checkpoint=ftc)
+            saves = []
+            save = ftc.manager.save
+
+            def timed_save(state, step):
+                t0 = time.perf_counter()
+                out = save(state, step)
+                saves.append(dict(step=step,
+                                  seconds=time.perf_counter() - t0,
+                                  bytes=os.path.getsize(
+                                      ftc.manager.path_for(step))))
+                return out
+
+            ftc.manager.save = timed_save
+            rolled = reg.get("health_rollback_total").total()
+            events.default_event_log().clear()
+            fit(m, [ftc, hm, Poison(), rec1])
+            rollbacks = events.recent(20, kind="health_rollback")
+            rolled = reg.get("health_rollback_total").total() - rolled
+            del m, ftc, hm
+            torch.cuda.empty_cache()
+            files = ckpt.CheckpointManager(d).steps()
+            # truncate the newest file; a fresh job resumes past it
+            newest = os.path.join(d, f"ckpt_{files[0]}")
+            with open(newest, "r+b") as f:
+                f.truncate(os.path.getsize(newest) // 2)
+            t0 = time.perf_counter()
+            blob = ckpt.load(os.path.join(d, "ckpt_4"))
+            load_s = time.perf_counter() - t0
+            skipped = reg.get("checkpoint_corrupt_skipped_total").total()
+            rec2 = Record()
+            m = model(1)
+            restored, restore_s = {}, []
+            restore = m._restore_for_resume
+
+            def timed_restore(*a, **kw):
+                t0 = time.perf_counter()
+                out = restore(*a, **kw)
+                restore_s.append(time.perf_counter() - t0)
+                net = {k: v.detach().cpu()
+                       for k, v in m.network.state_dict().items()}
+                restored["network"] = all(
+                    torch.equal(net[k], v) for k, v in blob["network"].items()
+                ) and net.keys() == blob["network"].keys()
+                ts = m._pending_ts_state
+                restored["train_step"] = ts["t"] == blob["train_step"]["t"] \
+                    and all(torch.equal(torch.as_tensor(a), b) for a, b in zip(
+                        ts["opt_flat"], blob["train_step"]["opt_flat"]))
+                return out
+
+            m._restore_for_resume = timed_restore
+            fit(m, [rec2], resume=d)
+            skipped = reg.get("checkpoint_corrupt_skipped_total").total() \
+                - skipped
+            del m
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    l0, l1, l2 = rec0.losses, rec1.losses, rec2.losses
+    later = [abs(a - b) for a, b in zip(l2[1:], l0[5:])]
+    step_ms = float(np.median(rec0.ms[1:]))
+    res = dict(batch=TRAIN_B, seq=TRAIN_L, steps=FIT_STEPS,
+               losses=dict(uninterrupted=l0, rollback=l1, resumed=l2),
+               step_ms_fp32=step_ms, step_ms_all=rec0.ms,
+               saves=saves, load_seconds=load_s,
+               restore_seconds=restore_s[0] if restore_s else None,
+               files_after_rollback_run=files, rollback_events=rollbacks,
+               health_rollback_total=rolled,
+               checkpoint_corrupt_skipped_total=skipped, restored=restored,
+               later_loss_abs_diff=later, loss_atol=FIT_LOSS_ATOL,
+               launches=stats, designs=designs, card=card)
+    log(f"fit_resume: Model.fit GPT-2 small fp32 b{TRAIN_B} s{TRAIN_L}: "
+        f"step {step_ms:.2f} ms (median of {FIT_STEPS - 1}); saves "
+        + ", ".join(f"step {s['step']} {s['seconds']:.3f} s {s['bytes']} B"
+                    for s in saves)
+        + f"; load {load_s:.3f} s; resume restore "
+        f"{res['restore_seconds']:.3f} s (past the truncated file) [{card}]")
+    log(f"fit_resume: losses uninterrupted {json.dumps(l0)}; rollback run "
+        f"{json.dumps(l1)}; resumed {json.dumps(l2)}; later |diff| "
+        f"{json.dumps(later)} (atol {FIT_LOSS_ATOL}); rollbacks "
+        f"{json.dumps(rollbacks)}; flash forward designs "
+        f"{json.dumps(designs)}")
+    ok = (len(rollbacks) == 1 and rollbacks[0]["restored_step"] == 4
+          and rolled == 1 and files == [8, 4] and skipped == 1
+          and restored == {"network": True, "train_step": True}
+          and len(l0) == FIT_STEPS and all(np.isfinite(l0))
+          and l1[0] == l0[0] and np.isnan(l1[5]) and len(l2) == 4
+          and all(np.isfinite(l2)) and l2[0] == l1[4]
+          and max(later) <= FIT_LOSS_ATOL)
+    if not ok:
+        raise AssertionError(f"fit_resume: {res}")
+    return res
+
+
 KERNELS = {
     "layer_norm": dict(source="paddle_tpu_torch/csrc/layer_norm.cu",
                        replaces="paddle_tpu/ops/pallas/layer_norm.py:44",
@@ -2583,7 +3045,45 @@ KERNELS = {
         main=("bfloat16", f"B=1 L={LONG_L} H={LONG_H} D={LONG_D} causal")),
 }
 
-def main():
+#: the phases `--phases` may name, in the order they run
+PHASES = ("health", "health_trip", "fit_resume")
+
+
+def only_phases(phases, cfg, smi, name):
+    """Run the named phases of PHASES alone (after the device and build
+    phases); health_trip needs health's step."""
+    res = {}
+    if "health" in phases:
+        res["health"], tripped, batch = health_train(cfg, smi)
+        if "health_trip" in phases:
+            res["health_trip"] = health_trip(tripped, batch, smi)
+        del tripped, batch
+        torch.cuda.empty_cache()
+    if "fit_resume" in phases:
+        res["fit_resume"] = fit_resume(cfg, smi)
+    with open(os.path.join(OUT_DIR, "chip_smoke_phases.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    print(smi)
+    print(json.dumps({"ok": True, "phases": sorted(res), "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser(description="Drive the port on one card.")
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated names of " + ", ".join(PHASES)
+                    + ": run only those after the device and build phases")
+    args = ap.parse_args(argv)
+    phases = None
+    if args.phases is not None:
+        phases = set(args.phases.split(","))
+        if not phases <= set(PHASES) or (
+                "health_trip" in phases and "health" not in phases):
+            ap.error(f"--phases: names of {PHASES}; health_trip needs "
+                     f"health")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
         return 2
@@ -2613,6 +3113,10 @@ def main():
     _native.load()
     log(f"build: kernels ready in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_native.last_build_seconds:.2f} s)")
+    if phases is not None:
+        cfg = GPTConfig.gpt2_small()
+        cfg.dropout = cfg.attn_dropout = 0.0
+        return only_phases(phases, cfg, smi, name)
 
     # 3. kernels against their plain versions: serving shapes, the GPT
     # training step's (b8 s1024 bf16), the ResNet-50 step's (b128 224) and
@@ -2626,8 +3130,8 @@ def main():
                           dtypes=(torch.float32,))
             + check_flash(dev, gen, (4096,), 16, 128,
                           dtypes=(torch.float32,))
-            + check_flash(dev, gen, (TRAIN_L,), 12, 64, B=TRAIN_B,
-                          dtypes=(torch.bfloat16,))
+            # the training step's: bf16 under O2, fp32 under Model.fit
+            + check_flash(dev, gen, (TRAIN_L,), 12, 64, B=TRAIN_B)
             + check_flash(dev, gen, (1000, 4096), 12, 64,
                           dtypes=(torch.bfloat16,))
             + check_flash(dev, gen, (4096,), 16, 128,
@@ -2732,8 +3236,16 @@ def main():
     ernie = ernie_train(smi)
     # 17. amp O1 in the eager loop (bf16, fp16 with GradScaler)
     amp_res = amp_check(smi)
+    # 18. the health sentinel's cost and readings on the O2 GPT step
+    health_res, tripped, batch = health_train(cfg, smi)
+    # 19. a NaN parameter trips it; the replay names the layer-norm kernel
+    trip = health_trip(tripped, batch, smi)
+    del tripped, batch
+    torch.cuda.empty_cache()
+    # 20. Model.fit in fp32: checkpoints, rollback, resume past corruption
+    fit_res = fit_resume(cfg, smi)
 
-    # 18. report: launches from each path's own run (counters reset just
+    # 21. report: launches from each path's own run (counters reset just
     # before it); times at the main path's shape
     result = dict(card=smi, capability=cap, checks=rows, edges=edges,
                   serve=served, cpu_cross_check=cpu_res, train=trained,
@@ -2741,7 +3253,8 @@ def main():
                   resnet_cpu_cross_check=resnet_cpu, long=long,
                   remat_equivalence=remat, resnet_recompute=resnet_rc,
                   composed=composed, bert=bert, bert_cpu_cross_check=bert_cpu,
-                  ernie=ernie, amp=amp_res)
+                  ernie=ernie, amp=amp_res, health=health_res,
+                  health_trip=trip, fit_resume=fit_res)
     kern = []
     for kname, meta in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == kname]
@@ -2751,7 +3264,9 @@ def main():
                    "train": trained["launches"][kname]["kernel"],
                    "resnet": resnet["launches"][kname]["kernel"],
                    "long": long["launches"][kname]["kernel"],
-                   "bert": bert["launches"][kname]["kernel"]}
+                   "bert": bert["launches"][kname]["kernel"],
+                   "health": health_res["launches"][kname]["kernel"],
+                   "fit": fit_res["launches"][kname]["kernel"]}
         kern.append(dict(
             name=kname, route="cuda", source=meta["source"],
             replaces=meta["replaces"], launches=sum(by_path.values()),

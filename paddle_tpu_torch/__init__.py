@@ -9,6 +9,8 @@ PyTorch version beside its wrapper in ``ops/kernels/``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
+from .framework.flags import get_flags, set_flags
+from .framework.io import load, save
 from .framework.random import seed
 
-__all__ = ["seed"]
+__all__ = ["get_flags", "load", "save", "seed", "set_flags"]

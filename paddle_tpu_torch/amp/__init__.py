@@ -7,10 +7,10 @@ inputs); ``decorate(level="O2")`` casts a model's float32 parameters to
 the amp type. bf16 needs no loss scaling; ``GradScaler`` scales
 dynamically for float16. Unscaling and the finite check are one pass over
 all gradients with one host sync, as the reference's
-``_unscale_and_check`` (l.33) is one program.
-
-The reference's metrics (``amp_found_inf_total``, ``amp_loss_scale``) are
-not kept here: they come with the port's observability (ROADMAP A10).
+``_unscale_and_check`` (l.33) is one program. ``GradScaler`` keeps the
+reference's metrics: ``amp_found_inf_total`` counts the unscale passes
+that found a nonfinite gradient, ``amp_loss_scale`` holds the newest
+scale.
 """
 from __future__ import annotations
 
@@ -19,6 +19,17 @@ import contextlib
 import torch
 
 from ..ops._dispatch import amp_state
+from ..profiler import metrics as _metrics_mod
+
+_REG = _metrics_mod.default_registry()
+_M_FOUND_INF = _REG.counter(
+    "amp_found_inf_total",
+    "GradScaler unscale passes that found nonfinite scaled gradients "
+    "(each one skips the optimizer step and feeds the loss-scale backoff)")
+_M_LOSS_SCALE = _REG.gauge(
+    "amp_loss_scale",
+    "current dynamic loss scale of the newest GradScaler — a collapsing "
+    "value means gradients keep overflowing")
 
 
 def _amp_dtype(dtype) -> torch.dtype:
@@ -100,6 +111,8 @@ class GradScaler:
         self._bad_steps = 0
         self._found_inf = False
         self._unscaled = False
+        if enable and _metrics_mod.enabled():
+            _M_LOSS_SCALE.set(self._scale)
 
     def scale(self, loss):
         if not self._enable:
@@ -116,6 +129,8 @@ class GradScaler:
         self._found_inf = (_unscale_and_check(grads, 1.0 / self._scale)
                            if grads else False)
         self._unscaled = True
+        if self._found_inf and _metrics_mod.enabled():
+            _M_FOUND_INF.inc()
 
     def step(self, optimizer):
         """Unscale, step the optimizer unless a gradient is not finite,
@@ -149,6 +164,9 @@ class GradScaler:
                 self._scale *= self._incr_ratio
                 self._good_steps = 0
         self._found_inf = False
+        if _metrics_mod.enabled():
+            # scale as a gauge: loss-scale collapse is visible in a snapshot
+            _M_LOSS_SCALE.set(self._scale)
 
     def is_enable(self):
         return self._enable
@@ -161,6 +179,8 @@ class GradScaler:
 
     def set_init_loss_scaling(self, v):
         self._scale = float(v)
+        if self._enable and _metrics_mod.enabled():
+            _M_LOSS_SCALE.set(self._scale)
 
     def state_dict(self):
         return {"scale": self._scale, "incr_ratio": self._incr_ratio,
@@ -172,6 +192,8 @@ class GradScaler:
         self._scale = sd.get("scale", self._scale)
         self._good_steps = sd.get("good_steps", 0)
         self._bad_steps = sd.get("bad_steps", 0)
+        if self._enable and _metrics_mod.enabled():
+            _M_LOSS_SCALE.set(self._scale)
 
 
 __all__ = ["auto_cast", "amp_guard", "decorate", "GradScaler"]

@@ -1,4 +1,5 @@
 """Distributed training (counterpart of ``paddle_tpu/distributed``).
 
-Only ``fleet.utils.recompute`` is ported so far; the collectives, the
-parallel engines and the control plane are later slices."""
+Ported so far: ``fleet.utils.recompute`` and single-host
+``checkpoint``; the collectives, the parallel engines, the multi-host
+checkpoint coordinator and the control plane are later slices."""

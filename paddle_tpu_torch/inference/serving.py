@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from .._platform import resolve_device
+from ..fault import site as _fault_site
 from ..ops.kernels import paged_attention as _pa
 from .sampling import SamplingParams, sample_logits
 
@@ -301,6 +302,9 @@ class ServingEngine:
         """Validate and build a Request WITHOUT enqueueing it."""
         if self._closed:
             raise RuntimeError("engine is closed")
+        # chaos: an armed `serving.admit` fails admission before the
+        # request exists (the reference's shed drill)
+        _fault_site("serving.admit")
         req = Request(prompt, max_new_tokens, eos_id, sampling=sampling)
         if not req.prompt:
             raise ValueError("empty prompt")
@@ -633,6 +637,12 @@ class ServingEngine:
                 seeds, steps)
 
     def _decode_iteration(self, active_slots: List[int]) -> int:
+        # chaos: an armed `serving.decode=N:delay` sleeps here, inflating
+        # TTFT/TPOT as a slow device would (the SLO-breach drill)
+        try:
+            _fault_site("serving.decode")
+        except Exception:
+            pass  # only delay/no-op kinds make sense here; ignore others
         (W, tokens, slot_map, lane_active, temp, top_k, top_p, seeds,
          steps) = self._lane_arrays(active_slots)
         t0 = time.perf_counter()

@@ -15,10 +15,13 @@ and counts the run in :func:`composed_stats`, apart from ``_stats``.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ... import _native
 from ..._platform import require_hopper
+from ...profiler import health as _health
 
 
 def use_kernel(t: torch.Tensor) -> bool:
@@ -30,6 +33,20 @@ def use_kernel(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise RuntimeError(f"no kernel or plain version for device {t.device}")
+
+
+def checked(op: str):
+    """Decorate a wrapper's entry point so that, under FLAGS_check_nan_inf
+    (or a health replay), its output is checked under the name `op` with
+    the per-op check suspended inside it: the kernel's launch is invisible
+    to the per-op check and its plain version's aten ops are not the
+    reference's op (``profiler.health.run_checked``)."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            return _health.run_checked(op, fn, *args, **kwargs)
+        return wrapper
+    return deco
 
 
 def same_device(name: str, *tensors: torch.Tensor) -> None:

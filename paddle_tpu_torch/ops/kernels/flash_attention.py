@@ -51,7 +51,7 @@ import math
 
 import torch
 
-from . import (count_composed, count_design, launch, same_device,
+from . import (checked, count_composed, count_design, launch, same_device,
                use_kernel)
 
 _stats = {"kernel": 0, "plain": 0}
@@ -423,6 +423,7 @@ def attention_composition(q, k, v, mask=None, causal: bool = False,
     return torch.einsum("bhlm,bmhd->blhd", probs, v.float()).to(q.dtype)
 
 
+@checked("flash_attention")
 def flash_attention(q, k, v, mask=None, causal: bool = False, scale=None,
                     dropout_p: float = 0.0, generator=None):
     """Dispatch (counterpart of ``paddle_tpu``'s ``flash_attention``):

@@ -31,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from .._bn_common import _bn_stats
-from . import count_composed, launch, same_device, use_kernel
+from . import checked, count_composed, launch, same_device, use_kernel
 
 #: forward launches (and runs of its plain version)
 _stats = {"kernel": 0, "plain": 0}
@@ -286,6 +286,7 @@ def _fused(x, z, gamma, beta, epsilon, data_format, act):
     return y2d.reshape(cl_shape).movedim(-1, 1), mean, var
 
 
+@checked("fused_bn_relu")
 def fused_bn_relu(x, gamma, beta, *, epsilon=1e-5, data_format="NCHW",
                   act="relu"):
     """Training-mode BN + activation in one fused op: (y, batch_mean,
@@ -294,6 +295,7 @@ def fused_bn_relu(x, gamma, beta, *, epsilon=1e-5, data_format="NCHW",
     return _fused(x, None, gamma, beta, epsilon, data_format, act)
 
 
+@checked("fused_bn_add_relu")
 def fused_bn_add_relu(x, z, gamma, beta, *, epsilon=1e-5,
                       data_format="NCHW", act="relu"):
     """y = act(BN_train(x) + z), the ResNet block tail; gradients flow to

@@ -34,7 +34,7 @@ from __future__ import annotations
 import torch
 
 from . import fused_bn as _fbn
-from . import count_design, launch, same_device, use_kernel
+from . import checked, count_design, launch, same_device, use_kernel
 
 #: conv1x1-with-statistics launches (and runs of its plain version)
 _stats = {"kernel": 0, "plain": 0}
@@ -179,6 +179,7 @@ def eligible(x_shape, w_shape, stride, padding, dilation, groups,
     return dtype in _TYPES
 
 
+@checked("fused_conv1x1_bn_act")
 def fused_conv1x1_bn_act(x, w, gamma, beta, *, residual=None, epsilon=1e-5,
                          act="relu"):
     """Training-mode ``act(BN(conv1x1(x)) [+ residual])`` over channels-last

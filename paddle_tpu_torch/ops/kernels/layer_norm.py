@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from . import count_composed, launch, same_device, use_kernel
+from . import checked, count_composed, launch, same_device, use_kernel
 
 _stats = {"kernel": 0, "plain": 0}
 
@@ -125,6 +125,7 @@ class LayerNormFunction(torch.autograd.Function):
         return dx.reshape(dy.shape), dg, db, None
 
 
+@checked("layer_norm")
 def fused_layer_norm(x, gamma, beta, eps: float = 1e-5):
     """LayerNorm over the last dim of x (any leading shape): the Function,
     or on a card the composition for types the kernel does not take."""

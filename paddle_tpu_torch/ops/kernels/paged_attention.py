@@ -30,7 +30,7 @@ import math
 
 import torch
 
-from . import launch, same_device, use_kernel
+from . import checked, launch, same_device, use_kernel
 
 _stats = {"kernel": 0, "plain": 0}
 
@@ -169,6 +169,7 @@ def check_args(q, k_pages, v_pages, block_tables, context_lens) -> None:
         raise ValueError("paged_attention: B must be <= 65535")
 
 
+@checked("paged_attention")
 def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
                     scale=None):
     """Single-token decode attention over a paged KV pool: q [B, H, D];

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from . import count_composed, launch, same_device, use_kernel
+from . import checked, count_composed, launch, same_device, use_kernel
 
 #: forward launches (and runs of its plain version)
 _stats = {"kernel": 0, "plain": 0}
@@ -138,6 +138,7 @@ class SoftmaxCEFunction(torch.autograd.Function):
         return softmax_ce_bwd(logits2d, labels, lse, dnll), None
 
 
+@checked("cross_entropy")
 def fused_softmax_ce(logits, labels):
     """nll [*batch] fp32 for hard labels over the last axis of ``logits``.
     Out-of-range labels give a finite nll (= lse) for the caller to mask;

@@ -113,18 +113,26 @@ class Optimizer:
             return g
         return g + wd * p
 
-    def _apply(self, ps, gs, slots, lr, t, kw) -> list:
-        """One `_update` over parameters ``ps`` (updated in place) with
-        gradients ``gs`` and slot dicts ``slots``; returns the new slot
-        dicts. A gradient in another type than its parameter is taken in
-        fp32, as in the reference."""
+    def _apply(self, ps, gs, slots, lr, t, kw, inplace=True):
+        """One `_update` over parameters ``ps`` with gradients ``gs`` and
+        slot dicts ``slots``; returns (the new parameters, the new slot
+        dicts). ``inplace`` writes the new values into ``ps`` (and returns
+        ``ps``); otherwise ``ps`` are left as they were and the new values
+        come back as new tensors of their types. A gradient in another
+        type than its parameter is taken in fp32, as in the reference."""
         gs = [g.float() if g.dtype != p.dtype else g for p, g in zip(ps, gs)]
         names = list(slots[0]) if slots else []
         s_in = {k: TensorGroup([s[k] for s in slots]) for k in names}
         new_p, new_s = self._update(TensorGroup(ps), TensorGroup(gs), s_in,
                                     lr, t, **kw)
-        torch._foreach_copy_(ps, new_p.ts)
-        return [{k: new_s[k].ts[i] for k in new_s} for i in range(len(ps))]
+        if inplace:
+            torch._foreach_copy_(ps, new_p.ts)
+            out = ps
+        else:
+            out = [q if q.dtype == p.dtype else q.to(p.dtype)
+                   for p, q in zip(ps, new_p.ts)]
+        return out, [{k: new_s[k].ts[i] for k in new_s}
+                     for i in range(len(ps))]
 
     @staticmethod
     def _param_name(p, i: int) -> str:
@@ -150,7 +158,7 @@ class Optimizer:
                 slots = self._init_slots(p)
             self._slots[id(p)] = self._apply(
                 [p], [g], [slots], lr, self._step_count,
-                self._param_kw(names[id(p)]))[0]
+                self._param_kw(names[id(p)]))[1][0]
 
     def clear_grad(self, set_to_zero=False):
         for p in self._parameter_list:
@@ -173,10 +181,12 @@ class Optimizer:
 
     @torch.no_grad()
     def apply_fn(self, params: dict, grads: dict, state: dict, lr=None,
-                 t=1, fused=False):
+                 t=1, fused=False, inplace=True):
         """Update ``params`` ({name: tensor}) in place from ``grads`` and
         rebind the slot tensors of ``state`` ({name: slot dict}); returns
-        (params, state).
+        (params, state). With ``inplace=False`` ``params`` keep their values
+        and the first result is a new dict of new tensors (the reference's
+        functional form), bit for bit what the in-place update writes.
 
         Parameters are taken in sorted name order (the reference's pytree
         order). ``fused=True`` (elementwise optimizers only) runs one
@@ -201,14 +211,17 @@ class Optimizer:
             else:
                 key = ("solo", n)
             groups.setdefault(key, []).append(n)
+        out = params if inplace else dict(params)
         for group in groups.values():
             kw = dict(self._param_kw(group[0]))
-            new = self._apply([params[n] for n in group],
-                              [grads[n] for n in group],
-                              [state[n] for n in group], lr, t, kw)
-            for n, s in zip(group, new):
+            new_p, new_s = self._apply([params[n] for n in group],
+                                       [grads[n] for n in group],
+                                       [state[n] for n in group], lr, t, kw,
+                                       inplace)
+            for n, q, s in zip(group, new_p, new_s):
+                out[n] = q
                 state[n] = s
-        return params, state
+        return out, state
 
     # -- checkpointing -------------------------------------------------------
     def state_dict(self) -> dict:
