@@ -2,7 +2,7 @@
 """Drive the PyTorch/H100 port (paddle_tpu_torch) once on one CUDA card.
 
     python3 chip_smoke.py            # from the repository root
-    python3 chip_smoke.py --phases health,health_trip,fit_resume
+    python3 chip_smoke.py --phases health,health_trip,fit_resume,transformer
                                      # phases 1-2, then only those named
 
 Phases, each of which raises (exit code != 0, with its traceback) on a
@@ -84,10 +84,11 @@ failure:
               agree;
 13. composed - each input that the reference composes in XLA and the
               port, on a card, in torch (fp16 layer norm, attention,
-              cross-entropy and fused BN; a float and a bool mask; causal
-              Lq > Lk; head dim 160): its entry's composition must run and
-              none of its kernels, and output and gradients must agree with
-              the same call on the CPU;
+              cross-entropy and fused BN; a float mask and a 3-D bool
+              mask, which the kernels' gate refuses; causal Lq > Lk; head
+              dim 160): its entry's composition must run and none of its
+              kernels, and output and gradients must agree with the same
+              call on the CPU;
 14. bert    - BERT-Base with a 2-way head on the pooled output (12
               layers, hidden 768, 12 heads, vocab 30522, dropout 0)
               trained by jit.TrainStep(model, F.cross_entropy, AdamW(1e-4),
@@ -142,8 +143,39 @@ failure:
               first resumed loss bit for bit, later losses within
               FIT_LOSS_ATOL of the uninterrupted run; save and load seconds,
               file bytes, the fp32 step ms;
-21. report  - the `kernels` JSON line, the card's name and power limit, and
+21. transformer - Transformer-base (nn.Transformer() at the reference's
+              defaults: d_model 512, 8 heads, 6 + 6 layers, FFN 2048; a
+              shared 37,000-token embedding tied to the output, sinusoidal
+              positions) trained by jit.TrainStep(model, F.cross_entropy,
+              Adam(0.9, 0.98, 1e-9) over NoamDecay(512, 4000),
+              amp_dtype=bfloat16) at B 32, sources padded to 128 and
+              targets to 112, with bool masks (key padding, and
+              tril-and-padding in the decoder), residual dropout 0.1 and
+              attention dropout 0: 2 warm-up and 8 timed steps; exact
+              launches a step (masked forward 18 on mma.sync, masked
+              one-pass 18, layer norm 30, CE 1 + 1), no plain run or
+              composition, the loss falls over the run; step ms, tokens/s
+              padded and real, MFU and peak memory; then its fp32 step
+              with every dropout 0 at B 2 on the card and on the CPU
+              (phase 15's tolerances, the CPU's ReLU branches matched to
+              the card's where the two round a pre-activation to
+              opposite sides of 0);
+22. report  - the `kernels` JSON line, the card's name and power limit, and
               the device JSON line last.
+
+Phase 3 also holds the flash kernels with their bool-mask operand (the
+`*_masked` counters): the forward, one-pass backward and split pair
+against their masked plain versions at phase 21's B 32, H 8, D 64
+shapes (encoder L 128 with [B, 1, 1, L] key padding, decoder L 112 with
+tril-and-padding [B, 1, L, L], cross-attention Lq 112 Lk 128), bf16 and
+fp32, timed beside SDPA with the same bool attn_mask; the split pair at
+B 1, L 32,768, H 12 with the last 2,768 keys padded away, against its
+plain versions one head at a time; and, for correctness, every design
+(bf16 and fp32 at D 64 and 128, fp32 at Lq <= 32, D 80 on CUDA cores)
+with random [B, H, Lq, Lk] masks and whole rows masked, shared
+[1, 1, Lq, Lk] masks, Lq != Lk, tails and the mask with causal: a row
+with no visible key must give exactly 0 in out and dq and lse -inf,
+nothing NaN, the forward and the split pair bit for bit twice.
 
 Phase 3 also holds the ResNet kernels (fused BN forward, reduce and dx;
 1x1 conv + statistics) at the ResNet-50 shapes, fp32 and bf16, and at
@@ -160,6 +192,7 @@ compute the same function. Needs one card and imports no JAX.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -253,14 +286,15 @@ def max_err(got, ref):
     return float((got.float() - ref.float()).abs().max())
 
 
-def launched_fwd_design(fn, want):
+def launched_fwd_design(fn, want, name="flash_attention"):
     """fn's result, where fn makes one flash-forward launch: the design its
-    C entry reported (counted in `design_stats`) must be `want`, the
-    wrapper's prediction `fwd_design`."""
+    C entry reported (counted in `design_stats` under `name`, the masked
+    forward's apart) must be `want`, the wrapper's prediction
+    `fwd_design`."""
     from paddle_tpu_torch.ops import kernels
-    before = kernels.design_stats().get("flash_attention", {})
+    before = kernels.design_stats().get(name, {})
     res = fn()
-    after = kernels.design_stats().get("flash_attention", {})
+    after = kernels.design_stats().get(name, {})
     ran = {d: n - before.get(d, 0) for d, n in after.items()
            if n != before.get(d, 0)}
     if ran != {want: 1}:
@@ -513,9 +547,11 @@ def event_ms(fn, reps=2):
     return start.elapsed_time(end) / reps
 
 
-def _split_bwd(fa, q, k, v, lse, delta, do, causal):
-    return (fa.flash_attention_bwd_dq(q, k, v, lse, delta, do, causal),
-            *fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal))
+def _split_bwd(fa, q, k, v, lse, delta, do, causal, mask=None):
+    return (fa.flash_attention_bwd_dq(q, k, v, lse, delta, do, causal,
+                                      mask=mask),
+            *fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal,
+                                        mask=mask))
 
 
 def _split_plain(fa, q, k, v, lse, delta, do, causal):
@@ -772,6 +808,305 @@ def check_split_edges(dev, gen):
                 worst["flash_attention_bwd_dkv"], *r[1:])
     torch.cuda.synchronize()
     return worst
+
+
+# --------------------- phase 3: the flash kernels' bool mask ---------------
+
+#: phase 21's attention: nn.Transformer at its defaults (8 heads of 64) at
+#: B 32, sources padded to 128 and targets to 112
+TB_B, TB_LS, TB_LT, TB_H, TB_D = 32, 128, 112, 8, 64
+#: the masked kernels' counters, by the unmasked kernel's name
+MASKED = {"flash_attention": "flash_attention_masked",
+          "flash_attention_bwd": "flash_attention_bwd_masked",
+          "flash_attention_bwd_dq": "flash_attention_bwd_dq_masked",
+          "flash_attention_bwd_dkv": "flash_attention_bwd_dkv_masked"}
+
+
+def padding_masks(src_len, tgt_len, Ls, Lt):
+    """(src_mask [B, 1, 1, Ls], tgt_mask [B, 1, Lt, Lt], memory_mask
+    [B, 1, 1, Ls]), bool, True = attend, for rows of `src_len` and
+    `tgt_len` real tokens (int64 [B] tensors): real keys only, and in the
+    target the lower triangle too."""
+    dev = src_len.device
+    src = torch.arange(Ls, device=dev) < src_len[:, None]
+    tgt = torch.arange(Lt, device=dev) < tgt_len[:, None]
+    tril = torch.ones(Lt, Lt, dtype=torch.bool, device=dev).tril()
+    return (src[:, None, None, :], tril & tgt[:, None, None, :],
+            src[:, None, None, :])
+
+
+def make_mask(dev, gen, kind, B, H, Lq, Lk):
+    """A bool mask of `kind`: "pad" [B, 1, 1, Lk] (lengths Lk/2..Lk),
+    "tril_pad" [B, 1, Lq, Lk] (the same and the lower triangle), "random"
+    [B, H, Lq, Lk] (30 % masked, and every fourth row of head 0 masked
+    whole) or "shared" [1, 1, Lq, Lk] (random, row 0 masked whole)."""
+    if kind in ("pad", "tril_pad"):
+        lens = torch.randint(Lk // 2, Lk + 1, (B,), device=dev, generator=gen)
+        m = torch.arange(Lk, device=dev) < lens[:, None]
+        m = m[:, None, None, :]
+        if kind == "tril_pad":
+            m = m & torch.ones(Lq, Lk, dtype=torch.bool, device=dev).tril(
+                diagonal=Lk - Lq)
+        return m
+    shape = (B, H, Lq, Lk) if kind == "random" else (1, 1, Lq, Lk)
+    m = torch.rand(shape, device=dev, generator=gen) > 0.3
+    if kind == "random":
+        m[:, 0, ::4] = False
+    else:
+        m[:, :, 0] = False
+    return m
+
+
+def empty_rows(mask, causal, B, H, Lq, Lk):
+    """[B, Lq, H] bool: the query rows that see no key."""
+    keep = mask.expand(B, H, Lq, Lk)
+    if causal:
+        keep = keep & torch.ones(Lq, Lk, dtype=torch.bool,
+                                 device=mask.device).tril(diagonal=Lk - Lq)
+    return (~keep.any(dim=-1)).transpose(1, 2)
+
+
+def masked_ratios(fa, q, k, v, do, mask, causal, design):
+    """The four masked kernels on one input against their plain versions
+    on fp32 copies: {kernel: (max abs error, worst error / tolerance)}
+    (TOL forward, bwd_tol backward; lse on the rows that see a key, -inf
+    on the others in both), after checking that a row with no visible
+    key gives exactly 0 in out and dq (one-pass and split), that nothing
+    is NaN, that the forward reports `design` and repeats bit for bit,
+    and that the split pair repeats bit for bit."""
+    B, Lq, H, _ = q.shape
+    Lk = k.shape[1]
+    dtype = q.dtype
+    out, lse = launched_fwd_design(
+        lambda: fa.flash_attention_fwd(q, k, v, causal, mask=mask), design,
+        name="flash_attention_masked")
+    again = fa.flash_attention_fwd(q, k, v, causal, mask=mask)
+    f32 = [t.float() for t in (q, k, v)]
+    ref_out, ref_lse = fa.flash_attention_plain(*f32, causal, mask=mask)
+    delta = fa.attention_delta(out, do)
+    one = fa.flash_attention_bwd(q, k, v, out, lse, do, causal, mask=mask)
+    split = _split_bwd(fa, q, k, v, lse, delta, do, causal, mask)
+    split2 = _split_bwd(fa, q, k, v, lse, delta, do, causal, mask)
+    ref = fa.flash_attention_bwd_plain(*f32, lse, delta, do.float(), causal,
+                                       mask=mask)
+    torch.cuda.synchronize()
+    empty = empty_rows(mask, causal, B, H, Lq, Lk)
+    seen = ~empty.transpose(1, 2)
+    where = f"B={B} Lq={Lq} Lk={Lk} H={H} D={q.shape[-1]} {dtype} {design}"
+    if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+        raise AssertionError(f"masked forward {where}: two runs differ")
+    if not all(torch.equal(a, b) for a, b in zip(split, split2)):
+        raise AssertionError(f"masked split pair {where}: two runs differ")
+    if not torch.equal(torch.isinf(lse), ~seen) or not torch.equal(
+            torch.isinf(ref_lse), ~seen):
+        raise AssertionError(f"masked forward {where}: lse is not -inf "
+                             f"exactly on the rows that see no key")
+    for name, t in (("out", out), ("one-pass dq", one[0]),
+                    ("split dq", split[0])):
+        if bool(empty.any()) and bool(t[empty].abs().max() != 0):
+            raise AssertionError(f"masked {name} {where}: a row with no "
+                                 f"visible key is not exactly 0")
+    if any(bool(torch.isnan(t).any()) for t in (out, *one, *split)):
+        raise AssertionError(f"masked kernels {where}: NaN")
+    fwd = max(max_err(out, ref_out), max_err(lse[seen], ref_lse[seen]))
+
+    def worst(got, want):
+        return (max(max_err(g, r) for g, r in zip(got, want)),
+                max(max_err(g, r) / bwd_tol(dtype, r)
+                    for g, r in zip(got, want)))
+
+    return {"flash_attention_masked": (fwd, fwd / TOL[dtype]),
+            "flash_attention_bwd_masked": worst(one, ref),
+            "flash_attention_bwd_dq_masked": worst(split[:1], ref[:1]),
+            "flash_attention_bwd_dkv_masked": worst(split[1:], ref[1:])}
+
+
+def masked_bounds(q, k, mask, isz):
+    """((bytes, FLOPs) forward, (bytes, FLOPs) one-pass backward) of
+    masked, non-causal attention: the mask's own bytes (never expanded)
+    beside the tensors', and the operations of all Lq * Lk (q, k) pairs,
+    which the kernels walk: the masked pairs are computed and then
+    dropped."""
+    B, Lq, H, D = q.shape
+    Lk = k.shape[1]
+    pairs = Lq * Lk
+    mb = mask.numel()
+    fwd = (B * H * ((2 * Lq + 2 * Lk) * D * isz + 4 * Lq) + mb,
+           B * H * 4 * D * pairs)
+    bwd = (B * H * ((4 * Lq + 4 * Lk) * D * isz + 8 * Lq) + mb,
+           B * H * 10 * D * pairs)
+    return fwd, bwd
+
+
+def check_flash_masked(dev, gen):
+    """Timed rows of the masked forward and one-pass backward at phase
+    21's shapes (B 32, H 8, D 64): the encoder's self-attention (L 128,
+    [B, 1, 1, L] key padding), the decoder's (L 112, tril-and-padding
+    [B, 1, L, L]) and cross-attention (Lq 112, Lk 128, [B, 1, 1, Lk]), in
+    bf16 (the O2 step's) and fp32 (its cross-check's), each held to its
+    plain version by `masked_ratios` (which runs the split pair too: its
+    worst error / tolerance is returned beside the rows) and timed beside
+    its plain version and SDPA's call (forward, and backward by summed
+    device-kernel time) with the same bool mask."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    rows = []
+    split = {MASKED["flash_attention_bwd_dq"]: 0.0,
+             MASKED["flash_attention_bwd_dkv"]: 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        for Lq, Lk, kind in ((TB_LS, TB_LS, "pad"),
+                             (TB_LT, TB_LT, "tril_pad"),
+                             (TB_LT, TB_LS, "pad")):
+            B, H, D = TB_B, TB_H, TB_D
+            q, k, v, do = _attention_inputs(dev, gen, B, Lq, Lk, H, D, dtype)
+            mask = make_mask(dev, gen, kind, B, H, Lq, Lk)
+            design = fa.fwd_design(q, k, v)
+            r = masked_ratios(fa, q, k, v, do, mask, False, design)
+            for name in split:
+                split[name] = max(split[name], r[name][1])
+            out, lse = fa.flash_attention_fwd(q, k, v, False, mask=mask)
+            (fb, ff), (bb, bf) = masked_bounds(q, k, mask, q.element_size())
+            leaves = [t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v)]
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            ref_out = sdpa(*leaves, attn_mask=mask)
+            do_t = do.transpose(1, 2)
+            shape = f"B={B} Lq={Lq} Lk={Lk} H={H} D={D} {kind}"
+            common = dict(dtype=str(dtype)[6:], shape=shape, mask=list(
+                mask.shape), witnesses={})
+            rows.append(dict(
+                kernel="flash_attention_masked", design=design,
+                max_abs_err=r["flash_attention_masked"][0],
+                tol_ratio=r["flash_attention_masked"][1],
+                ms=cuda_ms(lambda: fa.flash_attention_fwd(
+                    q, k, v, False, mask=mask)),
+                plain_ms=cuda_ms(lambda: fa.flash_attention_plain(
+                    q, k, v, False, mask=mask)),
+                library_ms=cuda_ms(lambda: sdpa(
+                    *(t.detach() for t in leaves), attn_mask=mask)),
+                **design_bounds(fb, ff, dtype, design), **common))
+            bwd = fa.bwd_design(q, k, v, do)
+            rows.append(dict(
+                kernel="flash_attention_bwd_masked", design=bwd,
+                max_abs_err=r["flash_attention_bwd_masked"][0],
+                tol_ratio=r["flash_attention_bwd_masked"][1],
+                ms=cuda_ms(lambda: fa.flash_attention_bwd(
+                    q, k, v, out, lse, do, False, mask=mask), iters=5,
+                    reps=3),
+                plain_ms=cuda_ms(lambda: fa.flash_attention_bwd_plain(
+                    q, k, v, lse, fa.attention_delta(out, do), do, False,
+                    mask=mask), iters=5, reps=3),
+                library_ms=cuda_ms(lambda: torch.autograd.grad(
+                    ref_out, leaves, do_t, retain_graph=True), iters=5,
+                    reps=3, graph=False),
+                **design_bounds(bb, bf, dtype, bwd), **common))
+            del leaves, ref_out
+    return rows, split
+
+
+def check_masked_edges(dev, gen):
+    """Correctness only: the four masked kernels (`masked_ratios`) in
+    every design: bf16 and fp32 at D 64 and 128 (tensor cores; fp32 also
+    at Lq <= 32, its 2-warp block), D 80 (CUDA cores); random
+    [B, H, Lq, Lk] masks with whole rows masked, a shared [1, 1, Lq, Lk]
+    one, key padding and tril-and-padding; Lq != Lk, tails off the
+    64-row tile (100, 112, 130), and the mask with causal (the interior
+    tiles of the causal walk need the mask too). Returns {kernel: worst
+    error / tolerance}."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    worst = dict.fromkeys(MASKED.values(), 0.0)
+    cases = [(2, 4, 100, 130, 64, "random", False),
+             (2, 4, 112, 112, 64, "random", True),
+             (2, 4, 100, 130, 64, "shared", True),
+             (2, 4, 130, 100, 128, "random", False),
+             (2, 4, 200, 200, 128, "tril_pad", True),
+             (2, 4, 100, 130, 80, "random", True),
+             (2, 4, 64, 64, 80, "pad", False),
+             (3, 2, 20, 20, 64, "random", True),
+             (3, 2, 20, 45, 64, "pad", False)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, H, Lq, Lk, D, kind, causal in cases:
+            q, k, v, do = _attention_inputs(dev, gen, B, Lq, Lk, H, D, dtype)
+            mask = make_mask(dev, gen, kind, B, H, Lq, Lk)
+            r = masked_ratios(fa, q, k, v, do, mask, causal,
+                              fa.fwd_design(q, k, v))
+            for name, (_, x) in r.items():
+                worst[name] = max(worst[name], x)
+    return worst
+
+
+def check_split_masked(dev, gen):
+    """The split pair with the mask at the long path's B 1, L 32,768,
+    H 12, D 64, bf16, non-causal, the last 2,768 keys padded away by a
+    [1, 1, 1, L] mask: against its plain versions one head at a time
+    (bwd_tol; every row sees a key), run twice, bit for bit, and timed
+    beside SDPA's backward with the same mask where its memory-efficient
+    backend takes it (else None). Returns the dq and dk/dv rows."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    B, L, H, D, pad = 1, LONG_L, LONG_H, LONG_D, 2768
+    dtype = torch.bfloat16
+    q, k, v, do = _attention_inputs(dev, gen, B, L, L, H, D, dtype)
+    mask = (torch.arange(L, device=dev) < L - pad)[None, None, None, :]
+    out, lse = fa.flash_attention_fwd(q, k, v, False, mask=mask)
+    delta = fa.attention_delta(out, do)
+    got = _split_bwd(fa, q, k, v, lse, delta, do, False, mask)
+    again = _split_bwd(fa, q, k, v, lse, delta, do, False, mask)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("masked split pair L 32,768: two runs differ")
+    del again
+    args = [t.float() for t in (q, k, v)] + [lse, delta, do.float()]
+    plains = [functools.partial(f, mask=mask) for f in (
+        fa.flash_attention_bwd_dq_plain, fa.flash_attention_bwd_dkv_plain)]
+    ref = (plain_by_head(plains[0], *args, causal=False),
+           *plain_by_head(plains[1], *args, causal=False))
+    ratios = [max_err(g, r) / bwd_tol(dtype, r) for g, r in zip(got, ref)]
+    errs = [max_err(g, r) for g, r in zip(got, ref)]
+    del got, ref, args
+    torch.cuda.empty_cache()
+    ms = [cuda_ms(lambda: f(q, k, v, lse, delta, do, False, mask=mask),
+                  iters=1, reps=3, warmup=1)
+          for f in (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)]
+    plain_ms = [event_ms(lambda: plain_by_head(f, q, k, v, lse, delta, do,
+                                               causal=False), reps=1)
+                for f in plains]
+    leaves = [t.transpose(1, 2).detach().requires_grad_(True)
+              for t in (q, k, v)]
+    try:
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            lib_out = torch.nn.functional.scaled_dot_product_attention(
+                *leaves, attn_mask=mask)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(
+            lib_out, leaves, do.transpose(1, 2), retain_graph=True),
+            iters=1, reps=3, graph=False)
+        del lib_out
+    except RuntimeError as e:  # the library call only: no kernel's route
+        log(f"split masked: SDPA's backward with the mask not timed: {e}")
+        lib_ms = None
+    del leaves
+    torch.cuda.empty_cache()
+    isz = q.element_size()
+    read = B * H * (4 * L * D * isz + 8 * L) + mask.numel()
+    pairs = L * L
+    rows = []
+    for name, nbytes, flops, err, ratio, t, pt in (
+            ("flash_attention_bwd_dq_masked", read + B * H * L * D * isz,
+             B * H * 6 * D * pairs, errs[0], ratios[0], ms[0], plain_ms[0]),
+            ("flash_attention_bwd_dkv_masked",
+             read + 2 * B * H * L * D * isz, B * H * 8 * D * pairs,
+             max(errs[1:]), max(ratios[1:]), ms[1], plain_ms[1])):
+        bnd, by = bound_ms(nbytes, flops, dtype)
+        rows.append(dict(
+            kernel=name, dtype="bfloat16",
+            shape=f"B=1 Lq={L} Lk={L} H={H} D={D} pad {pad}",
+            mask=list(mask.shape), design=fa.bwd_design(q, k, v, do),
+            max_abs_err=err, tol_ratio=ratio, ms=t, plain_ms=pt,
+            plain_shape=f"L={L}, one head at a time", library_ms=lib_ms,
+            bound_ms=bnd, bound_by=by))
+    del q, k, v, do, out, lse, delta
+    torch.cuda.empty_cache()
+    return rows
 
 
 #: softmax CE dlogits, per element relative to the element's own size
@@ -1572,10 +1907,11 @@ def train_cross_check(cfg):
 
 
 def step_cross_check(phase, models, loss_of, ids, labels, lr=1e-4,
-                     floor=0.0):
+                     floor=0.0, hold=True):
     """One fp32 TrainStep (AdamW) of models["gpu"] and models["cpu"] (the
     same weights) on the same batch, and the loss and every gradient of
-    ``loss_of(model, ids, labels)`` before it.
+    ``loss_of(model, ids, labels)`` before it (``ids`` a tensor or a tuple
+    of the model's inputs, passed in order).
 
     Tolerances: the loss to 1e-4; each parameter's gradient to 2e-3 of its
     own largest magnitude, or of `floor` times the model's largest
@@ -1588,21 +1924,24 @@ def step_cross_check(phase, models, loss_of, ids, labels, lr=1e-4,
     rounds to the other sign moves it by up to 2 * lr. A gradient that
     misses the layer-norm or attention branch, as when a kernel's output
     leaves the autograd graph, fails the gradient check by orders of
-    magnitude."""
+    magnitude. With hold=False a disagreement is returned (``held``
+    False) instead of raised."""
     from paddle_tpu_torch import optimizer
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.nn import functional as F
     res = {}
     for name, m in models.items():
         dev = next(m.parameters()).device
-        i, lb = ids.to(dev), labels.to(dev)
+        i = tuple(t.to(dev) for t in (ids if isinstance(ids, tuple)
+                                      else (ids,)))
+        lb = labels.to(dev)
         params = dict(m.named_parameters())
-        loss = loss_of(m, i, lb)
+        loss = loss_of(m, *i, lb)
         grads = torch.autograd.grad(loss, list(params.values()))
         opt = optimizer.AdamW(learning_rate=lr, parameters=m.parameters(),
                               weight_decay=0.01)
         step = TrainStep(m, F.cross_entropy, opt)
-        step_loss = step(i, lb)
+        step_loss = step(*i, lb)
         res[name] = dict(
             loss=float(loss.detach()), step_loss=float(step_loss),
             grads={k: g.detach().cpu() for k, g in zip(params, grads)},
@@ -1613,23 +1952,32 @@ def step_cross_check(phase, models, loss_of, ids, labels, lr=1e-4,
     top = max(float(v.abs().max()) for v in c["grads"].values())
     scale = {k: max(float(v.abs().max()), floor * top)
              for k, v in c["grads"].items()}
-    grad_ratio = max(float((g["grads"][k] - c["grads"][k]).abs().max())
-                     / (2e-3 * scale[k] + 1e-12) for k in c["grads"])
+    ratios = {k: float((g["grads"][k] - c["grads"][k]).abs().max())
+              / (2e-3 * scale[k] + 1e-12) for k in c["grads"]}
+    grad_ratio = max(ratios.values())
+    worst = sorted(ratios, key=ratios.get)[-3:][::-1]
     param_err = max(float((g["params"][k] - c["params"][k]).abs().max())
                     for k in c["params"])
     zero = [k for k, v in g["grads"].items() if not v.abs().max() > 0]
     log(f"{phase}: loss card {g['loss']:.6f} cpu {c['loss']:.6f} "
         f"(|diff| {loss_err:.3e}, atol 1e-4); gradients of "
         f"{len(c['grads'])} parameters: worst error / (2e-3 * scale) "
-        f"{grad_ratio:.3e}; parameters after one step: max |diff| "
+        f"{grad_ratio:.3e} ("
+        + ", ".join(f"{k} {ratios[k]:.3e}, max |g| "
+                    f"{float(c['grads'][k].abs().max()):.3e}"
+                    for k in worst)
+        + f"; top |g| {top:.3e})"
+        + f"; parameters after one step: max |diff| "
         f"{param_err:.3e} (atol {2 * lr + 1e-6:g})")
-    if zero or not (loss_err <= 1e-4 and grad_ratio <= 1.0
-                    and param_err <= 2 * lr + 1e-6):
+    held = not zero and (loss_err <= 1e-4 and grad_ratio <= 1.0
+                         and param_err <= 2 * lr + 1e-6)
+    if hold and not held:
         raise AssertionError(f"{phase}: card and CPU disagree (zero "
                              f"gradients {zero})")
     return dict(loss=g["loss"], loss_cpu=c["loss"], loss_err=loss_err,
-                grad_err_over_tol=grad_ratio, param_err=param_err,
-                n_params=len(c["grads"]))
+                grad_err_over_tol=grad_ratio,
+                worst_grads={k: ratios[k] for k in worst},
+                param_err=param_err, n_params=len(c["grads"]), held=held)
 
 
 # ------------------------------ phase 8: resnet ------------------------------
@@ -2088,7 +2436,11 @@ COMPOSED_TOL = {torch.float32: 1e-4, torch.float16: 2.0 ** -9}
 COMPOSED_KERNELS = {
     "layer_norm": ("layer_norm",),
     "flash_attention": ("flash_attention", "flash_attention_bwd",
-                        "flash_attention_bwd_dq", "flash_attention_bwd_dkv"),
+                        "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                        "flash_attention_masked",
+                        "flash_attention_bwd_masked",
+                        "flash_attention_bwd_dq_masked",
+                        "flash_attention_bwd_dkv_masked"),
     "softmax_ce": ("softmax_ce_fwd", "softmax_ce_bwd"),
     "fused_bn": ("fused_bn_fwd", "fused_bn_bwd_reduce", "fused_bn_bwd_dx")}
 
@@ -2129,9 +2481,12 @@ def composed_cases():
         (f"float mask B={B} L={L} H={H} D={D}", "flash_attention", sdpa,
          (*(t(B, L, H, D) for _ in range(3)),
           torch.where(keep, 0.0, -1e9))),
-        (f"bool mask B={B} L={L} H={H} D={D} causal", "flash_attention",
+        # 3-D: a bool mask the kernels' gate refuses (phase 3 and 21 run
+        # the 4-D ones that broadcast on the masked kernels)
+        (f"3-D bool mask [1, L, L] B={B} L={L} H={H} D={D} causal",
+         "flash_attention",
          lambda q, k, v, m: sdpa(q, k, v, m, causal=True),
-         (*(t(B, L, H, D) for _ in range(3)), keep)),
+         (*(t(B, L, H, D) for _ in range(3)), keep[:1, 0])),
         (f"causal Lq={L} > Lk={L // 2}", "flash_attention",
          lambda q, k, v: sdpa(q, k, v, causal=True),
          (t(B, L, H, D), t(B, L // 2, H, D), t(B, L // 2, H, D))),
@@ -2269,10 +2624,11 @@ def exact_launches(path, stats, per_step, steps):
                                  f"{want} kernel launches and no plain run")
 
 
-def mma_attention(path, steps, layers=12):
-    """Raise unless every flash forward of the run reported "mma.sync"."""
+def mma_attention(path, steps, layers=12, name="flash_attention"):
+    """Raise unless every flash forward of the run (counted under `name`)
+    reported "mma.sync"."""
     from paddle_tpu_torch.ops import kernels
-    got = kernels.design_stats().get("flash_attention")
+    got = kernels.design_stats().get(name)
     if got != {"mma.sync": layers * steps}:
         raise AssertionError(f"{path}: flash forward designs {got}, want "
                              f"{layers * steps} on mma.sync")
@@ -2995,6 +3351,249 @@ def fit_resume(cfg, card):
     return res
 
 
+# --------------- phase 21: Transformer-base on padded batches ---------------
+
+#: Vaswani et al. 2017's shared En-De BPE vocabulary (section 5.1)
+TB_VOCAB = 37000
+TB_WARMUP, TB_STEPS = 2, 8
+#: launches per O2 step of Transformer-base (6 + 6 layers, post-norm):
+#: the encoder's self-attention, the decoder's self- and cross-attention,
+#: all with bool masks; two layer norms an encoder layer, three a decoder
+#: layer; one loss over the padded targets
+TB_PER_STEP = {"layer_norm": 30, "flash_attention_masked": 18,
+               "flash_attention_bwd_masked": 18, "softmax_ce_fwd": 1,
+               "softmax_ce_bwd": 1}
+
+
+def sinusoid_table(L, d):
+    """Vaswani et al.'s fixed positions (section 3.5): sin on even dims,
+    cos on odd, [L, d] fp32."""
+    pos = np.arange(L)[:, None]
+    ang = pos / np.power(10000.0, 2 * np.arange(d // 2)[None, :] / d)
+    table = np.zeros((L, d), np.float32)
+    table[:, 0::2] = np.sin(ang)
+    table[:, 1::2] = np.cos(ang)
+    return table
+
+
+def transformer_base(device, seed, dropout=0.1, layers=6, vocab=TB_VOCAB,
+                     max_len=TB_LS):
+    """Transformer-base for translation around nn.Transformer() at the
+    reference's defaults (d_model 512, 8 heads, FFN 2048, ReLU,
+    post-norm): one embedding shared by source, target and output
+    (section 3.4), scaled by sqrt(d_model), plus fixed sinusoidal
+    positions, with dropout on the sum; the logits are the decoder's
+    output times the embedding's transpose. Residual and FFN dropout
+    `dropout`, attention dropout 0; weights drawn from `seed`. The test's
+    twin (tests/test_torch_masked_attention.py) builds the same model in
+    both packages."""
+    from paddle_tpu_torch import nn
+
+    class TransformerBase(nn.Layer):
+        def __init__(self):
+            super().__init__(device)
+            gen = torch.Generator().manual_seed(seed)
+            self.d_model = 512
+            self.embedding = nn.Embedding(vocab, 512, device=device,
+                                          generator=gen)
+            self.transformer = nn.Transformer(
+                num_encoder_layers=layers, num_decoder_layers=layers,
+                dropout=dropout, attn_dropout=0.0, device=device,
+                generator=gen)
+            self.dropout = nn.Dropout(dropout)
+            self._position = torch.from_numpy(sinusoid_table(
+                max_len, 512)).to(self._device)
+            self.name_parameters()
+
+        def _embed(self, ids):
+            x = self.embedding(ids) * math.sqrt(self.d_model)
+            return self.dropout(
+                x + self._position[:ids.shape[1]].to(x.dtype))
+
+        def forward(self, src, tgt, src_mask, tgt_mask, memory_mask):
+            h = self.transformer(self._embed(src), self._embed(tgt),
+                                 src_mask, tgt_mask, memory_mask)
+            return torch.matmul(h, self.embedding.weight.t())
+
+    return TransformerBase()
+
+
+def tb_batch(B, Ls, Lt, seed=0, vocab=TB_VOCAB):
+    """A bucketed batch from numpy seed `seed`, on the CPU: (src, tgt_in,
+    src_mask, tgt_mask, memory_mask, labels). Source rows of 64..Ls and
+    target rows of 56..Lt real tokens (half to full), random ids, pad id
+    0; tgt_in is the target shifted right behind a BOS of 1; labels are
+    -100 past each target. Masks from `padding_masks`."""
+    rng = np.random.default_rng(seed)
+    src_len = rng.integers(Ls // 2, Ls + 1, B)
+    tgt_len = rng.integers(Lt // 2, Lt + 1, B)
+    src = rng.integers(2, vocab, (B, Ls))
+    tgt = rng.integers(2, vocab, (B, Lt))
+    src[np.arange(Ls)[None, :] >= src_len[:, None]] = 0
+    past = np.arange(Lt)[None, :] >= tgt_len[:, None]
+    tgt_in = np.concatenate([np.ones((B, 1), np.int64), tgt[:, :-1]], 1)
+    tgt_in[past] = 0
+    labels = np.where(past, -100, tgt)
+    masks = padding_masks(torch.from_numpy(src_len),
+                          torch.from_numpy(tgt_len), Ls, Lt)
+    return (torch.from_numpy(src), torch.from_numpy(tgt_in), *masks,
+            torch.from_numpy(labels))
+
+
+def tb_flops(model, B, Ls, Lt):
+    """Model FLOPs of one step, bench.py's way (6 per parameter and token
+    it sees, plus 12 * d_model per attended (q, k) pair and layer): the
+    encoder's parameters see B * Ls tokens, the decoder's and the tied
+    output projection B * Lt (the embedding lookup is free); attention
+    counts all Ls^2, Lt^2 and Lt * Ls pairs of the padded batch, as the
+    kernels walk them."""
+    enc = sum(p.numel() for p in model.transformer.encoder.parameters())
+    dec = sum(p.numel() for p in model.transformer.decoder.parameters())
+    out = model.embedding.weight.numel()
+    layers = len(model.transformer.encoder.layers)
+    pairs = B * (Ls * Ls + Lt * Lt + Lt * Ls)
+    return (6 * (enc * B * Ls + (dec + out) * B * Lt)
+            + 12 * model.d_model * layers * pairs)
+
+
+def transformer_train(card):
+    """Transformer-base (Vaswani et al. 2017, Table 3) trained on padded
+    batches by jit.TrainStep(model, F.cross_entropy, Adam(0.9, 0.98,
+    1e-9) over NoamDecay(512, warmup 4000), amp_dtype=bfloat16) at B 32,
+    sources padded to 128 and targets to 112, residual dropout 0.1,
+    attention dropout 0: warm-up steps, then timed steps on one batch,
+    the scheduler stepped after each. Every attention takes its bool mask
+    to the masked kernels (exact launches, mma.sync, no plain run or
+    composition); the loss must fall over the run; step ms, tokens/s
+    (padded and real), MFU and peak memory."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import kernels
+    torch.manual_seed(0)  # dropout's stream
+    before = torch.cuda.memory_allocated()
+    model = transformer_base("cuda", seed=0)
+    sched = optimizer.lr.NoamDecay(d_model=512, warmup_steps=4000)
+    opt = optimizer.Adam(learning_rate=sched, beta1=0.9, beta2=0.98,
+                         epsilon=1e-9, parameters=model.parameters())
+    step = TrainStep(model, F.cross_entropy, opt, amp_dtype=torch.bfloat16)
+    batch = [t.cuda() for t in tb_batch(TB_B, TB_LS, TB_LT)]
+    losses = []
+    for _ in range(TB_WARMUP):
+        losses.append(float(step(*batch)))
+        sched.step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_stats()
+    times = []
+    for _ in range(TB_STEPS):
+        t0 = time.perf_counter()
+        loss = step(*batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        sched.step()
+    stats = kernels.all_stats()
+    no_composed("transformer")
+    exact_launches("transformer", stats, TB_PER_STEP, TB_STEPS)
+    mma_attention("transformer", TB_STEPS, layers=18,
+                  name="flash_attention_masked")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"transformer: the loss did not fall over the "
+                             f"run, or a loss is not finite: {losses}")
+    step_ms = float(np.median(times)) * 1e3
+    flops = tb_flops(model, TB_B, TB_LS, TB_LT)
+    real = int(batch[2].sum()) + int((batch[-1] != -100).sum())
+    padded = TB_B * (TB_LS + TB_LT)
+    res = dict(batch=TB_B, src_len=TB_LS, tgt_len=TB_LT, steps=TB_STEPS,
+               warmup=TB_WARMUP, losses=losses, lr_last=sched.get_lr(),
+               step_ms=step_ms, step_ms_all=[t * 1e3 for t in times],
+               tokens_per_s=padded / (step_ms / 1e3),
+               real_tokens=real, real_tokens_per_s=real / (step_ms / 1e3),
+               model_flops=flops, mfu=flops / (step_ms / 1e3) / BF16_PEAK,
+               launches=stats,
+               launches_per_step={k: v["kernel"] / TB_STEPS
+                                  for k, v in stats.items()},
+               designs=kernels.design_stats(),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               peak_mem_own_gb=(torch.cuda.max_memory_allocated()
+                                - before) / 1e9,
+               card=card)
+    log(f"transformer: Transformer-base O2 bf16 b{TB_B} src {TB_LS} tgt "
+        f"{TB_LT}, bool masks: step {step_ms:.2f} ms (median of "
+        f"{TB_STEPS}), {res['tokens_per_s']:.1f} tokens/s padded, "
+        f"{res['real_tokens_per_s']:.1f} real ({real} a step), MFU "
+        f"{res['mfu']:.4f} (model FLOPs {flops:.4e} over {BF16_PEAK:.0e}), "
+        f"peak {res['peak_mem_gb']:.2f} GB ({res['peak_mem_own_gb']:.2f} "
+        f"above what was allocated before the model) [{card}]")
+    log(f"transformer: loss {' '.join(f'{x:.4f}' for x in losses)}")
+    log(f"transformer: launches per step "
+        f"{json.dumps(res['launches_per_step'])}")
+    del step, model, opt, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def match_relu(models, inputs):
+    """Hooks that give the CPU model's FFN first layers the card's
+    pre-activation wherever the two devices round one to opposite sides
+    of ReLU's 0, so that both differentiate the same piece of the
+    piecewise-linear function. Without them one such flip puts a token's
+    whole term into the gradient of the FFN before the ReLU on one device
+    and not on the other, and its difference flows back through every
+    earlier layer: a difference of the function at a point within
+    rounding of its kink, not of the kernels. The value moves by the
+    devices' rounding difference and the gradient still flows through it.
+    Returns (the hooks, {layer: flips in the CPU's latest forward})."""
+    card, flips = {}, {}
+    names = [n for n, _ in models["cpu"].named_modules()
+             if n.endswith("linear1")]
+    hooks = [models["gpu"].get_submodule(n).register_forward_hook(
+        lambda mod, a, out, n=n: card.__setitem__(n, out.detach().cpu()))
+        for n in names]
+    dev = next(models["gpu"].parameters()).device
+    with torch.no_grad():
+        models["gpu"](*(t.to(dev) for t in inputs))
+    for h in hooks:
+        h.remove()
+
+    def snap(mod, a, out, n):
+        flip = (out > 0) != (card[n] > 0)
+        flips[n] = int(flip.sum())
+        return out + torch.where(flip, card[n] - out, 0.0).detach()
+
+    return [models["cpu"].get_submodule(n).register_forward_hook(
+        functools.partial(snap, n=n)) for n in names], flips
+
+
+def transformer_cross_check(seed=1, hold=True):
+    """Transformer-base in fp32 with every dropout 0 at B 2 (sources 128,
+    targets 112, bool masks): one TrainStep on the card and on the CPU
+    from the same weights (`step_cross_check`, with phase 15's floor of
+    1e-3 of the largest gradient for the key biases, whose exact gradient
+    is 0), the CPU's ReLU branches matched to the card's (`match_relu`;
+    the flips are counted). tools/tb_grad_check.py runs it at more seeds
+    and against kernels broken on purpose."""
+    from paddle_tpu_torch.nn import functional as F
+    models = {"gpu": transformer_base("cuda", seed=seed, dropout=0.0),
+              "cpu": transformer_base("cpu", seed=seed, dropout=0.0)}
+    *inputs, labels = tb_batch(2, TB_LS, TB_LT, seed=seed)
+    hooks, flips = match_relu(models, inputs)
+    try:
+        res = step_cross_check(
+            f"transformer-cpu seed {seed}", models,
+            lambda m, *a: F.cross_entropy(m(*a[:-1]), a[-1]),
+            tuple(inputs), labels, floor=1e-3, hold=hold)
+    finally:
+        for h in hooks:
+            h.remove()
+    log(f"transformer-cpu seed {seed}: ReLU branches matched to the card's "
+        f"at {sum(flips.values())} pre-activations {json.dumps(flips)}")
+    del models
+    torch.cuda.empty_cache()
+    return dict(res, seed=seed, relu_flips=sum(flips.values()))
+
+
 KERNELS = {
     "layer_norm": dict(source="paddle_tpu_torch/csrc/layer_norm.cu",
                        replaces="paddle_tpu/ops/pallas/layer_norm.py:44",
@@ -3043,10 +3642,40 @@ KERNELS = {
         source="paddle_tpu_torch/csrc/flash_attention_bwd_split.cu",
         replaces="paddle_tpu/ops/pallas/flash_attention.py:1071",
         main=("bfloat16", f"B=1 L={LONG_L} H={LONG_H} D={LONG_D} causal")),
+    # the same kernels with the bool-mask operand (counted apart), on
+    # phase 21's path: the encoder's self-attention is the main row (the
+    # reference's small path: L 128 <= 512)
+    "flash_attention_masked": dict(
+        source="paddle_tpu_torch/csrc/flash_attention.cu",
+        replaces="paddle_tpu/ops/pallas/flash_attention.py:533",
+        main=("bfloat16", f"B={TB_B} Lq={TB_LS} Lk={TB_LS} H={TB_H} "
+                          f"D={TB_D} pad")),
+    "flash_attention_bwd_masked": dict(
+        source="paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+        replaces="paddle_tpu/ops/pallas/flash_attention.py:566",
+        main=("bfloat16", f"B={TB_B} Lq={TB_LS} Lk={TB_LS} H={TB_H} "
+                          f"D={TB_D} pad")),
 }
 
+
+def split_masked(kname, rows, paths):
+    """For the split pair's entries: its masked row (phase 3 only; no
+    main path sends a sequence past the one-pass gate with a mask) as
+    `masked`, with its launches on the main paths (`paths`: {path: its
+    result, with its run's launches})."""
+    if kname not in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        return {}
+    r = next(r for r in rows if r["kernel"] == MASKED[kname])
+    launches = sum(res["launches"][MASKED[kname]]["kernel"]
+                   for res in paths.values())
+    return {"masked": dict(
+        shape=f"{r['shape']} {r['dtype']}", design=r["design"],
+        launches=launches, max_abs_err=r["max_abs_err"], ms=r["ms"],
+        plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+        bound_by=r["bound_by"], library_ms=r["library_ms"])}
+
 #: the phases `--phases` may name, in the order they run
-PHASES = ("health", "health_trip", "fit_resume")
+PHASES = ("health", "health_trip", "fit_resume", "transformer")
 
 
 def only_phases(phases, cfg, smi, name):
@@ -3061,6 +3690,9 @@ def only_phases(phases, cfg, smi, name):
         torch.cuda.empty_cache()
     if "fit_resume" in phases:
         res["fit_resume"] = fit_resume(cfg, smi)
+    if "transformer" in phases:
+        res["transformer"] = transformer_train(smi)
+        res["transformer_cpu_cross_check"] = transformer_cross_check()
     with open(os.path.join(OUT_DIR, "chip_smoke_phases.json"), "w") as f:
         json.dump(res, f, indent=1)
     print(smi)
@@ -3163,6 +3795,10 @@ def main(argv=None):
                        dtypes=(torch.bfloat16,))
             + check_layer_norm(dev, gen, (BERT_B * BERT_L,), 768, eps=1e-12,
                                dtypes=(torch.bfloat16,)))
+    # the bool-mask operand: phase 21's attention shapes, and the split
+    # pair at the long path's length
+    masked_rows, masked_split = check_flash_masked(dev, gen)
+    rows += masked_rows + check_split_masked(dev, gen)
     for r in rows:
         r.setdefault("tol_ratio", r["max_abs_err"] / r.get("tol", 1.0))
         r.setdefault("design", "cuda-core")
@@ -3191,6 +3827,9 @@ def main(argv=None):
                              f"{bad}")
     edges = {**check_edges(dev, gen), **check_resnet_edges(dev, gen),
              **check_split_edges(dev, gen)}
+    for part in (masked_split, check_masked_edges(dev, gen)):
+        for kname, ratio in part.items():
+            edges[kname] = max(edges.get(kname, 0.0), ratio)
     log("edges: worst error / tolerance " + ", ".join(
         f"{k} {v:.3f}" for k, v in edges.items()))
     if not all(v <= 1.0 for v in edges.values()):
@@ -3244,8 +3883,12 @@ def main(argv=None):
     torch.cuda.empty_cache()
     # 20. Model.fit in fp32: checkpoints, rollback, resume past corruption
     fit_res = fit_resume(cfg, smi)
+    # 21. Transformer-base on padded batches with bool masks, O2 bf16, and
+    # its fp32 step against the CPU
+    tb = transformer_train(smi)
+    tb_cpu = transformer_cross_check()
 
-    # 21. report: launches from each path's own run (counters reset just
+    # 22. report: launches from each path's own run (counters reset just
     # before it); times at the main path's shape
     result = dict(card=smi, capability=cap, checks=rows, edges=edges,
                   serve=served, cpu_cross_check=cpu_res, train=trained,
@@ -3254,19 +3897,18 @@ def main(argv=None):
                   remat_equivalence=remat, resnet_recompute=resnet_rc,
                   composed=composed, bert=bert, bert_cpu_cross_check=bert_cpu,
                   ernie=ernie, amp=amp_res, health=health_res,
-                  health_trip=trip, fit_resume=fit_res)
+                  health_trip=trip, fit_resume=fit_res, transformer=tb,
+                  transformer_cpu_cross_check=tb_cpu)
+    paths = {"serve": served, "train": trained, "resnet": resnet,
+             "long": long, "bert": bert, "health": health_res,
+             "fit": fit_res, "transformer": tb}
     kern = []
     for kname, meta in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == kname]
         main_row = next(r for r in mine if (r["dtype"], r["shape"][
             :len(meta["main"][1])]) == meta["main"])
-        by_path = {"serve": served["launches"][kname]["kernel"],
-                   "train": trained["launches"][kname]["kernel"],
-                   "resnet": resnet["launches"][kname]["kernel"],
-                   "long": long["launches"][kname]["kernel"],
-                   "bert": bert["launches"][kname]["kernel"],
-                   "health": health_res["launches"][kname]["kernel"],
-                   "fit": fit_res["launches"][kname]["kernel"]}
+        by_path = {p: res["launches"][kname]["kernel"]
+                   for p, res in paths.items()}
         kern.append(dict(
             name=kname, route="cuda", source=meta["source"],
             replaces=meta["replaces"], launches=sum(by_path.values()),
@@ -3281,7 +3923,8 @@ def main(argv=None):
                if "bound_cuda_core_ms" in main_row else {}),
             **({"plain_at": main_row["plain_shape"],
                 "one_pass_ms": main_row["one_pass_ms"]}
-               if "plain_shape" in main_row else {})))
+               if "plain_shape" in main_row else {}),
+            **split_masked(kname, rows, paths)))
     result["kernels"] = kern
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)

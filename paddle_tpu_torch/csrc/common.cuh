@@ -10,6 +10,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace pt {
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -73,6 +75,14 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// Call f(std::true_type) when the optional mask pointer m is set, else
+// f(std::false_type): an entry launches the instance of its kernel with
+// the mask operand compiled in (kMask) only for a call that passes one.
+template <class F>
+inline cudaError_t with_mask(const void* m, F f) {
+  return m ? f(std::true_type{}) : f(std::false_type{});
 }
 
 }  // namespace pt

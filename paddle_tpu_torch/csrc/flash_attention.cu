@@ -51,6 +51,19 @@
 //   bank). K and V tiles stream through shared memory as fp32; online
 //   softmax in fp32.
 //
+// The bool mask (the reference's `_apply_mask`, l.164, whose tiles
+// `_mask_spec` l.758 and `_small_mask_spec` l.518 stream beside K and V):
+// an optional [B, H, Lq, Lk] byte array read through four element strides,
+// 0 on a broadcast dim, so a [B, 1, 1, Lk] key-padding mask is never
+// expanded. Each thread reads the bytes of the scores it holds (in the mma
+// designs by the accumulator fragment's row and column) and a masked score
+// becomes -inf before the running max. Every design compiles the mask in
+// or out (`kMask`, chosen per call by `pt::with_mask`), so the kernels
+// without it are unchanged; with it every tile is masked element by
+// element, causal interior tiles too. A row with no visible key keeps
+// l = 0 and gives out exactly 0 and lse -inf, the plain version's
+// convention, which the backwards read as P = 0.
+//
 // All: tiles wholly above the causal diagonal are never loaded
 // (kv_offset = Lk - Lq, as at l.820), and only the tiles that cross it or
 // the key tail are masked element by element; on the tensor cores causal
@@ -82,7 +95,24 @@ struct FaArgs {
   int B, H, Lq, Lk, D;
   int causal;
   float scale;
+  const uint8_t* mask;  // bool [B, H, Lq, Lk] through its strides, or null
+  int64_t smb, smh, smq, smk;  // 0 on a broadcast dim
 };
+
+// this block's (b, h) slice of the mask: element (row, col) is at
+// row * smq + col * smk
+__device__ __forceinline__ const uint8_t* mask_slice(const FaArgs& a, int b,
+                                                     int hh) {
+  return a.mask + b * a.smb + hh * a.smh;
+}
+
+// whether the mask (mk, this (b, h)'s slice) hides key `col` (< Lk) from
+// query row `row`; a row past Lq reads no mask byte and is hidden (its
+// output is never written)
+__device__ __forceinline__ bool mask_hides(const FaArgs& a, const uint8_t* mk,
+                                           int row, int col) {
+  return row >= a.Lq || !mk[row * a.smq + col * a.smk];
+}
 
 // ------------------------------ CUDA cores -----------------------------------
 
@@ -91,7 +121,7 @@ __host__ __device__ inline size_t smem_floats(int D) {
          kBQ * (kBK + 1);
 }
 
-template <typename T, int DMAX>
+template <typename T, int DMAX, bool kMask>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FaArgs a) {
   extern __shared__ float smem[];
   const int D = a.D;
@@ -111,6 +141,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FaArgs a) {
   const T* q = static_cast<const T*>(a.q) + b * a.sqb + hh * a.sqh;
   const T* k = static_cast<const T*>(a.k) + b * a.skb + hh * a.skh;
   const T* v = static_cast<const T*>(a.v) + b * a.svb + hh * a.svh;
+  const uint8_t* mk = kMask ? mask_slice(a, b, hh) : nullptr;
 
   for (int idx = tid; idx < kBQ * D; idx += kThreads) {
     const int rr = idx / D, d = idx - rr * D;
@@ -157,7 +188,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FaArgs a) {
 #pragma unroll
     for (int j = 0; j < kHalfK; ++j) {
       const int col = k0 + hf + 2 * j;
-      const bool ok = col < a.Lk && (!a.causal || qrow + kv_off >= col);
+      bool ok = col < a.Lk && (!a.causal || qrow + kv_off >= col);
+      if constexpr (kMask) ok = ok && !mask_hides(a, mk, qrow, col);
       s[j] = ok ? s[j] * a.scale : -INFINITY;
       mt = fmaxf(mt, s[j]);
     }
@@ -202,13 +234,13 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FaArgs a) {
   }
 }
 
-template <typename T, int DMAX>
+template <typename T, int DMAX, bool kMask>
 cudaError_t launch(const FaArgs& a, cudaStream_t stream) {
   const size_t smem = smem_floats(a.D) * sizeof(float);
-  cudaError_t err = pt::allow_smem(flash_fwd_kernel<T, DMAX>, smem);
+  cudaError_t err = pt::allow_smem(flash_fwd_kernel<T, DMAX, kMask>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Lq + kBQ - 1) / kBQ, a.H, a.B);
-  flash_fwd_kernel<T, DMAX><<<grid, kThreads, smem, stream>>>(a);
+  flash_fwd_kernel<T, DMAX, kMask><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -227,7 +259,7 @@ constexpr size_t tc_smem_bytes() {
          sizeof(__nv_bfloat16);
 }
 
-template <int D>
+template <int D, bool kMask>
 __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(FaArgs a) {
   constexpr int LD = D + 8;  // padded shared row, in elements
   constexpr int KD = D / 16; // k16 steps over the head dim
@@ -252,6 +284,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(FaArgs a) {
   const bf16* q = static_cast<const bf16*>(a.q) + b * a.sqb + hh * a.sqh;
   const bf16* k = static_cast<const bf16*>(a.k) + b * a.skb + hh * a.skh;
   const bf16* v = static_cast<const bf16*>(a.v) + b * a.svb + hh * a.svh;
+  const uint8_t* mk = kMask ? mask_slice(a, b, hh) : nullptr;
 
   int n_tiles = (a.Lk + kTcBK - 1) / kTcBK;
   if (a.causal)  // the last key any row of this tile may see
@@ -307,9 +340,10 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(FaArgs a) {
       }
     }
 
-    // scale to base 2; mask the tiles that cross the diagonal or the tail
+    // scale to base 2; mask the tiles that cross the diagonal or the
+    // tail, and with a mask every tile
     const int k0 = it * kTcBK;
-    const bool edge = k0 + kTcBK > a.Lk ||
+    const bool edge = kMask || k0 + kTcBK > a.Lk ||
                       (a.causal && k0 + kTcBK - 1 > q0 + kv_off);
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -320,7 +354,11 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(FaArgs a) {
         if (edge) {
           const int col = k0 + n * 8 + 2 * t + (e & 1);
           const int row = row0 + (e >> 1) * 8;
-          if (col >= a.Lk || (a.causal && col > row + kv_off)) x = -INFINITY;
+          if (col >= a.Lk || (a.causal && col > row + kv_off)) {
+            x = -INFINITY;
+          } else if constexpr (kMask) {
+            if (mask_hides(a, mk, row, col)) x = -INFINITY;
+          }
         }
         s[n][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -395,13 +433,13 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(FaArgs a) {
   }
 }
 
-template <int D>
+template <int D, bool kMask>
 cudaError_t launch_tc(const FaArgs& a, cudaStream_t stream) {
   constexpr size_t smem = tc_smem_bytes<D>();
-  cudaError_t err = pt::allow_smem(flash_fwd_tc_kernel<D>, smem);
+  cudaError_t err = pt::allow_smem(flash_fwd_tc_kernel<D, kMask>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Lq + kTcBQ - 1) / kTcBQ, a.H, a.B);
-  flash_fwd_tc_kernel<D><<<grid, kTcThreads, smem, stream>>>(a);
+  flash_fwd_tc_kernel<D, kMask><<<grid, kTcThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -421,7 +459,7 @@ constexpr size_t tf32_smem_bytes() {
                           2 * BK * (D + 4));
 }
 
-template <int D, int WARPS>
+template <int D, int WARPS, bool kMask>
 __global__ void __launch_bounds__(WARPS * 32)
     flash_fwd_tf32_kernel(FaArgs a) {
   constexpr int BQ = 16 * WARPS, BK = tf32_bk<D, WARPS>();
@@ -451,6 +489,7 @@ __global__ void __launch_bounds__(WARPS * 32)
   const float* q = static_cast<const float*>(a.q) + b * a.sqb + hh * a.sqh;
   const float* k = static_cast<const float*>(a.k) + b * a.skb + hh * a.skh;
   const float* v = static_cast<const float*>(a.v) + b * a.svb + hh * a.svh;
+  const uint8_t* mk = kMask ? mask_slice(a, b, hh) : nullptr;
 
   int n_tiles = (a.Lk + BK - 1) / BK;
   if (a.causal)  // the last key any row of this tile may see
@@ -534,9 +573,10 @@ __global__ void __launch_bounds__(WARPS * 32)
       for (int n = 0; n < NK; ++n) pt::mma_tf32(s[n], ahi, bhi[n][0], bhi[n][1]);
     }
 
-    // scale to base 2; mask the tiles that cross the diagonal or the tail
+    // scale to base 2; mask the tiles that cross the diagonal or the
+    // tail, and with a mask every tile
     const int k0 = it * BK;
-    const bool edge = k0 + BK > a.Lk ||
+    const bool edge = kMask || k0 + BK > a.Lk ||
                       (a.causal && k0 + BK - 1 > q0 + kv_off);
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -547,7 +587,11 @@ __global__ void __launch_bounds__(WARPS * 32)
         if (edge) {
           const int col = k0 + n * 8 + 2 * t + (e & 1);
           const int row = row0 + (e >> 1) * 8;
-          if (col >= a.Lk || (a.causal && col > row + kv_off)) x = -INFINITY;
+          if (col >= a.Lk || (a.causal && col > row + kv_off)) {
+            x = -INFINITY;
+          } else if constexpr (kMask) {
+            if (mask_hides(a, mk, row, col)) x = -INFINITY;
+          }
         }
         s[n][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -638,14 +682,16 @@ __global__ void __launch_bounds__(WARPS * 32)
   }
 }
 
-template <int D, int WARPS>
+template <int D, int WARPS, bool kMask>
 cudaError_t launch_tf32_rows(const FaArgs& a, cudaStream_t stream) {
   constexpr size_t smem = tf32_smem_bytes<D, WARPS>();
-  cudaError_t err = pt::allow_smem(flash_fwd_tf32_kernel<D, WARPS>, smem);
+  cudaError_t err =
+      pt::allow_smem(flash_fwd_tf32_kernel<D, WARPS, kMask>, smem);
   if (err != cudaSuccess) return err;
   constexpr int BQ = 16 * WARPS;
   const dim3 grid((a.Lq + BQ - 1) / BQ, a.H, a.B);
-  flash_fwd_tf32_kernel<D, WARPS><<<grid, WARPS * 32, smem, stream>>>(a);
+  flash_fwd_tf32_kernel<D, WARPS, kMask>
+      <<<grid, WARPS * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -659,11 +705,12 @@ cudaError_t launch_tf32_rows(const FaArgs& a, cudaStream_t stream) {
 #define PT_TF32_Q32_MAX_LQ 32
 #endif
 
-template <int D>
+template <int D, bool kMask>
 cudaError_t launch_tf32(const FaArgs& a, cudaStream_t stream) {
   if constexpr (D == 64)
-    if (a.Lq <= PT_TF32_Q32_MAX_LQ) return launch_tf32_rows<64, 2>(a, stream);
-  return launch_tf32_rows<D, 4>(a, stream);
+    if (a.Lq <= PT_TF32_Q32_MAX_LQ)
+      return launch_tf32_rows<64, 2, kMask>(a, stream);
+  return launch_tf32_rows<D, 4, kMask>(a, stream);
 }
 
 }  // namespace
@@ -674,16 +721,20 @@ enum FwdDesign { kCudaCore = 0, kMmaBf16 = 1, kMma3xTf32 = 2 };
 
 // q [B, Lq, H, D], k/v [B, Lk, H, D] with element strides (last dim
 // contiguous); out [B, Lq, H, D] contiguous in the input type; lse
-// [B, H, Lq] fp32. D <= 128 and even. For causal, Lk >= Lq. *design is
-// set to the design launched (FwdDesign).
+// [B, H, Lq] fp32; mask null or a bool [B, H, Lq, Lk] read through element
+// strides smb, smh, smq, smk (0 on a broadcast dim; true = attend). D <= 128
+// and even. For causal, Lk >= Lq. *design is set to the design launched
+// (FwdDesign).
 extern "C" int pt_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, float* lse,
-    int64_t sqb, int64_t sql, int64_t sqh, int64_t skb, int64_t skl,
-    int64_t skh, int64_t svb, int64_t svl, int64_t svh, int B, int H, int Lq,
+    const void* mask, int64_t sqb, int64_t sql, int64_t sqh, int64_t skb,
+    int64_t skl, int64_t skh, int64_t svb, int64_t svl, int64_t svh,
+    int64_t smb, int64_t smh, int64_t smq, int64_t smk, int B, int H, int Lq,
     int Lk, int D, int causal, float scale, int is_bf16, int* design,
     void* stream) {
   FaArgs a{q,   k,   v,   out, lse, sqb, sql, sqh, skb,    skl,   skh,
-           svb, svl, svh, B,   H,   Lq,  Lk,  D,   causal, scale};
+           svb, svl, svh, B,   H,   Lq,  Lk,  D,   causal, scale,
+           static_cast<const uint8_t*>(mask), smb, smh, smq, smk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // the design by type, head dim and alignment; the wrapper's
   // `fwd_design` predicts the same
@@ -692,20 +743,20 @@ extern "C" int pt_flash_attention_fwd(
                   pt::rows_aligned16(q, sqb, sql, sqh, elem) &&
                   pt::rows_aligned16(k, skb, skl, skh, elem) &&
                   pt::rows_aligned16(v, svb, svl, svh, elem);
-  cudaError_t err;
-  if (tc && is_bf16) {
-    *design = kMmaBf16;
-    err = D == 64 ? launch_tc<64>(a, s) : launch_tc<128>(a, s);
-  } else if (tc) {
-    *design = kMma3xTf32;
-    err = D == 64 ? launch_tf32<64>(a, s) : launch_tf32<128>(a, s);
-  } else {
+  return static_cast<int>(pt::with_mask(mask, [&](auto m) {
+    constexpr bool M = decltype(m)::value;
+    if (tc && is_bf16) {
+      *design = kMmaBf16;
+      return D == 64 ? launch_tc<64, M>(a, s) : launch_tc<128, M>(a, s);
+    }
+    if (tc) {
+      *design = kMma3xTf32;
+      return D == 64 ? launch_tf32<64, M>(a, s) : launch_tf32<128, M>(a, s);
+    }
     *design = kCudaCore;
     if (is_bf16)
-      err = D <= 64 ? launch<__nv_bfloat16, 64>(a, s)
-                    : launch<__nv_bfloat16, 128>(a, s);
-    else
-      err = D <= 64 ? launch<float, 64>(a, s) : launch<float, 128>(a, s);
-  }
-  return static_cast<int>(err);
+      return D <= 64 ? launch<__nv_bfloat16, 64, M>(a, s)
+                     : launch<__nv_bfloat16, 128, M>(a, s);
+    return D <= 64 ? launch<float, 64, M>(a, s) : launch<float, 128, M>(a, s);
+  }));
 }

@@ -41,37 +41,37 @@ namespace {
 
 using pt::fa_bwd::BwdArgs;
 
-template <typename T, int DMAX>
+template <typename T, int DMAX, bool kMask>
 __global__ void __launch_bounds__(pt::fa_bwd::kThreads)
     flash_bwd_kernel(BwdArgs a) {
-  pt::fa_bwd::kv_walk<T, DMAX, true>(a);
+  pt::fa_bwd::kv_walk<T, DMAX, true, kMask>(a);
 }
 
-template <int D>
+template <int D, bool kMask>
 __global__ void __launch_bounds__(pt::fa_bwd::kTcThreads)
     flash_bwd_tc_kernel(BwdArgs a) {
-  pt::fa_bwd::kv_walk_tc<D, true>(a);
+  pt::fa_bwd::kv_walk_tc<D, true, kMask>(a);
 }
 
-template <typename T, int DMAX>
+template <typename T, int DMAX, bool kMask>
 cudaError_t launch(const BwdArgs& a, cudaStream_t stream) {
   using namespace pt::fa_bwd;
   const size_t smem = kv_walk_smem_floats(a.D) * sizeof(float);
-  cudaError_t err = pt::allow_smem(flash_bwd_kernel<T, DMAX>, smem);
+  cudaError_t err = pt::allow_smem(flash_bwd_kernel<T, DMAX, kMask>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Lk + kBK - 1) / kBK, a.B * a.H);
-  flash_bwd_kernel<T, DMAX><<<grid, kThreads, smem, stream>>>(a);
+  flash_bwd_kernel<T, DMAX, kMask><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool kMask>
 cudaError_t launch_tc(const BwdArgs& a, cudaStream_t stream) {
   using namespace pt::fa_bwd;
   constexpr size_t smem = kv_walk_tc_smem_bytes<D, true>();
-  cudaError_t err = pt::allow_smem(flash_bwd_tc_kernel<D>, smem);
+  cudaError_t err = pt::allow_smem(flash_bwd_tc_kernel<D, kMask>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Lk + kBK - 1) / kBK, a.B * a.H);
-  flash_bwd_tc_kernel<D><<<grid, kTcThreads, smem, stream>>>(a);
+  flash_bwd_tc_kernel<D, kMask><<<grid, kTcThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -80,25 +80,29 @@ cudaError_t launch_tc(const BwdArgs& a, cudaStream_t stream) {
 // q [B, Lq, H, D], k/v [B, Lk, H, D], dout [B, Lq, H, D] with element
 // strides (last dim contiguous); lse and delta [B, H, Lq] fp32; dq
 // [B, Lq, H, D] fp32, zeroed; dk/dv [B, Lk, H, D] contiguous in the input
-// type. D <= 128, a multiple of 8; B * H <= 65535. For causal, Lk >= Lq.
+// type; mask null or the forward's bool [B, H, Lq, Lk] through element
+// strides smb, smh, smq, smk (0 on a broadcast dim). D <= 128, a multiple
+// of 8; B * H <= 65535. For causal, Lk >= Lq.
 extern "C" int pt_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, float* dq, void* dk, void* dv,
-    int64_t sqb, int64_t sql, int64_t sqh, int64_t skb, int64_t skl,
-    int64_t skh, int64_t svb, int64_t svl, int64_t svh, int64_t sob,
-    int64_t sol, int64_t soh, int B, int H, int Lq, int Lk, int D, int causal,
+    const void* mask, int64_t sqb, int64_t sql, int64_t sqh, int64_t skb,
+    int64_t skl, int64_t skh, int64_t svb, int64_t svl, int64_t svh,
+    int64_t sob, int64_t sol, int64_t soh, int64_t smb, int64_t smh,
+    int64_t smq, int64_t smk, int B, int H, int Lq, int Lk, int D, int causal,
     float scale, int is_bf16, void* stream) {
   BwdArgs a{q,   k,   v,   dout, lse, delta, dq, dk,  dv,  sqb, sql,
             sqh, skb, skl, skh,  svb, svl,   svh, sob, sol, soh, B,
-            H,   Lq,  Lk,  D,    causal, scale};
+            H,   Lq,  Lk,  D,    causal, scale,
+            static_cast<const uint8_t*>(mask), smb, smh, smq, smk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (is_bf16 && pt::fa_bwd::tc_takes(a))
-    err = D == 64 ? launch_tc<64>(a, s) : launch_tc<128>(a, s);
-  else if (is_bf16)
-    err = D <= 64 ? launch<__nv_bfloat16, 64>(a, s)
-                  : launch<__nv_bfloat16, 128>(a, s);
-  else
-    err = D <= 64 ? launch<float, 64>(a, s) : launch<float, 128>(a, s);
-  return static_cast<int>(err);
+  return static_cast<int>(pt::with_mask(mask, [&](auto m) {
+    constexpr bool M = decltype(m)::value;
+    if (is_bf16 && pt::fa_bwd::tc_takes(a))
+      return D == 64 ? launch_tc<64, M>(a, s) : launch_tc<128, M>(a, s);
+    if (is_bf16)
+      return D <= 64 ? launch<__nv_bfloat16, 64, M>(a, s)
+                     : launch<__nv_bfloat16, 128, M>(a, s);
+    return D <= 64 ? launch<float, 64, M>(a, s) : launch<float, 128, M>(a, s);
+  }));
 }

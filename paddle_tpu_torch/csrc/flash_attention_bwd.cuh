@@ -30,6 +30,14 @@
 // goes to shared memory, and the warps add dS K into the fp32 dq buffer
 // with atomics, 16 q rows a warp.
 //
+// The bool mask, as in the forward (flash_attention.cu): an optional
+// [B, H, Lq, Lk] byte array read through four element strides (0 on a
+// broadcast dim); P is 0 where it is false, so dS is too. A row with no
+// visible key (lse -inf, from the forward) gets P = 0 everywhere: dq 0 and
+// nothing added to dk or dv. Both walks compile the mask in or out
+// (`kMask`), so the walks without it are unchanged; with it every tile is
+// masked element by element.
+//
 // Rows past Lq and keys past Lk are zero-filled and masked, so any L >= 1
 // works; q, k, v and dO are read through their [B, L, H, D] strides (last
 // dim contiguous). Offsets that can pass 2^31 are int64 (a row index times
@@ -73,7 +81,15 @@ struct BwdArgs {
   int B, H, Lq, Lk, D;
   int causal;
   float scale;
+  const uint8_t* mask; // bool [B, H, Lq, Lk] through its strides, or null
+  int64_t smb, smh, smq, smk;  // 0 on a broadcast dim
 };
+
+// the (b, h) slice of the mask, element (row, col) at row * smq + col * smk
+__device__ __forceinline__ const uint8_t* mask_slice(const BwdArgs& a, int b,
+                                                     int hh) {
+  return a.mask + b * a.smb + hh * a.smh;
+}
 
 // shared floats of the k-tile walk
 inline size_t kv_walk_smem_floats(int D) {
@@ -83,11 +99,13 @@ inline size_t kv_walk_smem_floats(int D) {
 
 // S = Q K^T and dP = dO V^T on this thread's 4 x 4 micro-tile (rows
 // ty + 16 i of Qs/Os, keys tx + 16 j of Ks/Vs), then P and dS into Ps / Ss
-// (Ps may be null: the dq walk needs dS alone).
+// (Ps may be null: the dq walk needs dS alone); with kMask, mk is the
+// (b, h) slice of the mask.
+template <bool kMask>
 __device__ __forceinline__ void p_ds_tile(
     const float* Qs, const float* Os, const float* Ks, const float* Vs,
     const float* Ls, const float* Dl, float* Ps, float* Ss, int DP, int D,
-    int q0, int k0, int tx, int ty, const BwdArgs& a) {
+    int q0, int k0, int tx, int ty, const uint8_t* mk, const BwdArgs& a) {
   const int kv_off = a.Lk - a.Lq;
   float s[kRI][kCJ], dp[kRI][kCJ];
 #pragma unroll
@@ -124,8 +142,9 @@ __device__ __forceinline__ void p_ds_tile(
     for (int j = 0; j < kCJ; ++j) {
       const int c = tx + kTX * j;
       const int kj = k0 + c;
-      const bool ok = qi < a.Lq && kj < a.Lk &&
-                      (!a.causal || qi + kv_off >= kj) && l != -INFINITY;
+      bool ok = qi < a.Lq && kj < a.Lk &&
+                (!a.causal || qi + kv_off >= kj) && l != -INFINITY;
+      if constexpr (kMask) ok = ok && mk[qi * a.smq + kj * a.smk];
       const float p = ok ? expf(s[i][j] * a.scale - l) : 0.f;
       if (Ps != nullptr) Ps[r * kPS + c] = p;
       Ss[r * kPS + c] = p * (dp[i][j] - dl);
@@ -134,7 +153,7 @@ __device__ __forceinline__ void p_ds_tile(
 }
 
 // One block per (64-key tile = blockIdx.x, b * h = blockIdx.y).
-template <typename T, int DMAX, bool kDq>
+template <typename T, int DMAX, bool kDq, bool kMask>
 __device__ __forceinline__ void kv_walk(const BwdArgs& a) {
   constexpr int kDJ = DMAX / kTX;  // dims per thread
   extern __shared__ float smem[];
@@ -164,6 +183,7 @@ __device__ __forceinline__ void kv_walk(const BwdArgs& a) {
   const T* dout = static_cast<const T*>(a.dout) + b * a.sob + hh * a.soh;
   const float* lse = a.lse + static_cast<int64_t>(bh) * a.Lq;
   const float* delta = a.delta + static_cast<int64_t>(bh) * a.Lq;
+  const uint8_t* mk = kMask ? mask_slice(a, b, hh) : nullptr;
   const int64_t row_stride = static_cast<int64_t>(a.H) * D;  // dq, dk, dv
 
   for (int idx = tid; idx < kBK * D; idx += kThreads) {
@@ -202,7 +222,8 @@ __device__ __forceinline__ void kv_walk(const BwdArgs& a) {
     }
     __syncthreads();
 
-    p_ds_tile(Qs, Os, Ks, Vs, Ls, Dl, Ps, Ss, DP, D, q0, k0, tx, ty, a);
+    p_ds_tile<kMask>(Qs, Os, Ks, Vs, Ls, Dl, Ps, Ss, DP, D, q0, k0, tx, ty,
+                     mk, a);
     __syncthreads();
 
     // dV += P^T dO and dK += dS^T Q: keys ty + 16 i, dims tx + 16 j
@@ -339,7 +360,7 @@ constexpr size_t kv_walk_tc_smem_bytes() {
 // [key][d]) through ldmatrix.trans, kDqN columns at a time so that no
 // D-wide accumulator lives beside dK and dV, and adds each chunk, times
 // scale, with two-float atomics (`add_dq_tile`).
-template <int D, bool kDq>
+template <int D, bool kDq, bool kMask>
 __device__ __forceinline__ void kv_walk_tc(const BwdArgs& a) {
   constexpr int LD = D + 8;   // padded shared row, in elements
   constexpr int KD = D / 16;  // k16 steps over the head dim
@@ -369,6 +390,7 @@ __device__ __forceinline__ void kv_walk_tc(const BwdArgs& a) {
   const bf16* dout = static_cast<const bf16*>(a.dout) + b * a.sob + hh * a.soh;
   const float* lse = a.lse + static_cast<int64_t>(bh) * a.Lq;
   const float* delta = a.delta + static_cast<int64_t>(bh) * a.Lq;
+  const uint8_t* mk = kMask ? mask_slice(a, b, hh) : nullptr;
 
   // first q tile with a row that sees key k0: rows r with r + kv_off >= k0
   int qt = 0;
@@ -444,7 +466,9 @@ __device__ __forceinline__ void kv_walk_tc(const BwdArgs& a) {
     }
 
     // P^T and dS^T in place; only tiles that cross the diagonal are
-    // masked element by element (rows past Lq have lse +inf)
+    // masked element by element (rows past Lq have lse +inf), and with a
+    // mask every tile by the mask (keys past Lk meet zero-filled K and V
+    // rows, and read no mask byte)
     const bool edge = a.causal && k0 + kBK - 1 > q0 + kv_off;
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
@@ -458,6 +482,11 @@ __device__ __forceinline__ void kv_walk_tc(const BwdArgs& a) {
           const int e = 2 * i + j;
           float p = exp2f(s[n][e] * sl2 - lq);
           if (edge && key0 + 8 * i > q0 + c + kv_off) p = 0.f;
+          if constexpr (kMask) {
+            const int row = q0 + c, key = key0 + 8 * i;
+            if (row >= a.Lq || key >= a.Lk || !mk[row * a.smq + key * a.smk])
+              p = 0.f;
+          }
           s[n][e] = p;
           dp[n][e] = p * (dp[n][e] - dl);
         }

@@ -70,7 +70,7 @@ constexpr size_t dq_tc_smem_bytes() {
          sizeof(__nv_bfloat16);
 }
 
-template <int D>
+template <int D, bool kMask>
 __global__ void __launch_bounds__(kTcThreads)
     flash_bwd_dq_tc_kernel(BwdArgs a) {
   constexpr int LD = D + 8;   // padded shared row, in elements
@@ -96,6 +96,7 @@ __global__ void __launch_bounds__(kTcThreads)
   const bf16* k = static_cast<const bf16*>(a.k) + b * a.skb + hh * a.skh;
   const bf16* v = static_cast<const bf16*>(a.v) + b * a.svb + hh * a.svh;
   const bf16* dout = static_cast<const bf16*>(a.dout) + b * a.sob + hh * a.soh;
+  const uint8_t* mk = kMask ? pt::fa_bwd::mask_slice(a, b, hh) : nullptr;
 
   // k tiles with a key that some row of this tile sees: keys <= the last
   // real row + kv_off
@@ -167,10 +168,10 @@ __global__ void __launch_bounds__(kTcThreads)
     }
 
     // dS in place of dP; only tiles that cross the diagonal or the key
-    // tail are masked element by element
+    // tail, and with a mask every tile, are masked element by element
     const int k0 = kt * kBK;
-    const bool edge =
-        k0 + kBK > a.Lk || (a.causal && k0 + kBK - 1 > q0 + kv_off);
+    const bool edge = kMask || k0 + kBK > a.Lk ||
+                      (a.causal && k0 + kBK - 1 > q0 + kv_off);
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
 #pragma unroll
@@ -179,8 +180,12 @@ __global__ void __launch_bounds__(kTcThreads)
         float p = exp2f(s[n][e] * sl2 - lq[i]);
         if (edge) {
           const int col = k0 + n * 8 + 2 * t + (e & 1);
-          if (col >= a.Lk || (a.causal && col > row0 + 8 * i + kv_off))
+          if (col >= a.Lk || (a.causal && col > row0 + 8 * i + kv_off)) {
             p = 0.f;
+          } else if constexpr (kMask) {
+            const int row = row0 + 8 * i;
+            if (row >= a.Lq || !mk[row * a.smq + col * a.smk]) p = 0.f;
+          }
         }
         dp[n][e] = p * (dp[n][e] - dl[i]);
       }
@@ -222,29 +227,29 @@ __global__ void __launch_bounds__(kTcThreads)
   }
 }
 
-template <int D>
+template <int D, bool kMask>
 __global__ void __launch_bounds__(kTcThreads)
     flash_bwd_dkv_tc_kernel(BwdArgs a) {
-  pt::fa_bwd::kv_walk_tc<D, false>(a);
+  pt::fa_bwd::kv_walk_tc<D, false, kMask>(a);
 }
 
-template <int D>
+template <int D, bool kMask>
 cudaError_t launch_dq_tc(const BwdArgs& a, cudaStream_t stream) {
   constexpr size_t smem = dq_tc_smem_bytes<D>();
-  cudaError_t err = pt::allow_smem(flash_bwd_dq_tc_kernel<D>, smem);
+  cudaError_t err = pt::allow_smem(flash_bwd_dq_tc_kernel<D, kMask>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Lq + kBQ - 1) / kBQ, a.B * a.H);
-  flash_bwd_dq_tc_kernel<D><<<grid, kTcThreads, smem, stream>>>(a);
+  flash_bwd_dq_tc_kernel<D, kMask><<<grid, kTcThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool kMask>
 cudaError_t launch_dkv_tc(const BwdArgs& a, cudaStream_t stream) {
   constexpr size_t smem = pt::fa_bwd::kv_walk_tc_smem_bytes<D, false>();
-  cudaError_t err = pt::allow_smem(flash_bwd_dkv_tc_kernel<D>, smem);
+  cudaError_t err = pt::allow_smem(flash_bwd_dkv_tc_kernel<D, kMask>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Lk + kBK - 1) / kBK, a.B * a.H);
-  flash_bwd_dkv_tc_kernel<D><<<grid, kTcThreads, smem, stream>>>(a);
+  flash_bwd_dkv_tc_kernel<D, kMask><<<grid, kTcThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -255,7 +260,7 @@ inline size_t dq_smem_floats(int D) {
          2 * kBQ;
 }
 
-template <typename T, int DMAX>
+template <typename T, int DMAX, bool kMask>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdArgs a) {
   constexpr int kDJ = DMAX / kTX;  // dims per thread
   extern __shared__ float smem[];
@@ -285,6 +290,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdArgs a) {
   const T* dout = static_cast<const T*>(a.dout) + b * a.sob + hh * a.soh;
   const float* lse = a.lse + static_cast<int64_t>(bh) * a.Lq;
   const float* delta = a.delta + static_cast<int64_t>(bh) * a.Lq;
+  const uint8_t* mk = kMask ? pt::fa_bwd::mask_slice(a, b, hh) : nullptr;
   const int64_t row_stride = static_cast<int64_t>(a.H) * D;  // dq
 
   for (int idx = tid; idx < kBQ * D; idx += kThreads) {
@@ -324,8 +330,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdArgs a) {
     }
     __syncthreads();
 
-    pt::fa_bwd::p_ds_tile(Qs, Os, Ks, Vs, Ls, Dl, nullptr, Ss, DP, D, q0, k0,
-                          tx, ty, a);
+    pt::fa_bwd::p_ds_tile<kMask>(Qs, Os, Ks, Vs, Ls, Dl, nullptr, Ss, DP, D,
+                                 q0, k0, tx, ty, mk, a);
     __syncthreads();
 
     // dQ += dS K: rows ty + 16 i, dims tx + 16 j
@@ -360,28 +366,29 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdArgs a) {
   }
 }
 
-template <typename T, int DMAX>
+template <typename T, int DMAX, bool kMask>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdArgs a) {
-  pt::fa_bwd::kv_walk<T, DMAX, false>(a);
+  pt::fa_bwd::kv_walk<T, DMAX, false, kMask>(a);
 }
 
-template <typename T, int DMAX>
+template <typename T, int DMAX, bool kMask>
 cudaError_t launch_dq(const BwdArgs& a, cudaStream_t stream) {
   const size_t smem = dq_smem_floats(a.D) * sizeof(float);
-  cudaError_t err = pt::allow_smem(flash_bwd_dq_kernel<T, DMAX>, smem);
+  cudaError_t err = pt::allow_smem(flash_bwd_dq_kernel<T, DMAX, kMask>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Lq + kBQ - 1) / kBQ, a.B * a.H);
-  flash_bwd_dq_kernel<T, DMAX><<<grid, kThreads, smem, stream>>>(a);
+  flash_bwd_dq_kernel<T, DMAX, kMask><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, int DMAX>
+template <typename T, int DMAX, bool kMask>
 cudaError_t launch_dkv(const BwdArgs& a, cudaStream_t stream) {
   const size_t smem = pt::fa_bwd::kv_walk_smem_floats(a.D) * sizeof(float);
-  cudaError_t err = pt::allow_smem(flash_bwd_dkv_kernel<T, DMAX>, smem);
+  cudaError_t err =
+      pt::allow_smem(flash_bwd_dkv_kernel<T, DMAX, kMask>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Lk + kBK - 1) / kBK, a.B * a.H);
-  flash_bwd_dkv_kernel<T, DMAX><<<grid, kThreads, smem, stream>>>(a);
+  flash_bwd_dkv_kernel<T, DMAX, kMask><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -389,49 +396,57 @@ cudaError_t launch_dkv(const BwdArgs& a, cudaStream_t stream) {
 
 // q [B, Lq, H, D], k/v [B, Lk, H, D], dout [B, Lq, H, D] with element
 // strides (last dim contiguous); lse and delta [B, H, Lq] fp32; dq
-// [B, Lq, H, D] contiguous in the input type. D <= 128, a multiple of 8;
-// B * H <= 65535. For causal, Lk >= Lq.
+// [B, Lq, H, D] contiguous in the input type; mask null or the forward's
+// bool [B, H, Lq, Lk] through element strides smb, smh, smq, smk (0 on a
+// broadcast dim). D <= 128, a multiple of 8; B * H <= 65535. For causal,
+// Lk >= Lq.
 extern "C" int pt_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
-    const float* lse, const float* delta, void* dq, int64_t sqb, int64_t sql,
-    int64_t sqh, int64_t skb, int64_t skl, int64_t skh, int64_t svb,
-    int64_t svl, int64_t svh, int64_t sob, int64_t sol, int64_t soh, int B,
-    int H, int Lq, int Lk, int D, int causal, float scale, int is_bf16,
-    void* stream) {
+    const float* lse, const float* delta, void* dq, const void* mask,
+    int64_t sqb, int64_t sql, int64_t sqh, int64_t skb, int64_t skl,
+    int64_t skh, int64_t svb, int64_t svl, int64_t svh, int64_t sob,
+    int64_t sol, int64_t soh, int64_t smb, int64_t smh, int64_t smq,
+    int64_t smk, int B, int H, int Lq, int Lk, int D, int causal, float scale,
+    int is_bf16, void* stream) {
   BwdArgs a{q,   k,   v,   dout, lse, delta, dq,  nullptr, nullptr,
             sqb, sql, sqh, skb,  skl, skh,   svb, svl,     svh,
-            sob, sol, soh, B,    H,   Lq,    Lk,  D,       causal, scale};
+            sob, sol, soh, B,    H,   Lq,    Lk,  D,       causal, scale,
+            static_cast<const uint8_t*>(mask), smb, smh, smq, smk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (is_bf16 && pt::fa_bwd::tc_takes(a))
-    err = D == 64 ? launch_dq_tc<64>(a, s) : launch_dq_tc<128>(a, s);
-  else if (is_bf16)
-    err = D <= 64 ? launch_dq<__nv_bfloat16, 64>(a, s)
-                  : launch_dq<__nv_bfloat16, 128>(a, s);
-  else
-    err = D <= 64 ? launch_dq<float, 64>(a, s) : launch_dq<float, 128>(a, s);
-  return static_cast<int>(err);
+  return static_cast<int>(pt::with_mask(mask, [&](auto m) {
+    constexpr bool M = decltype(m)::value;
+    if (is_bf16 && pt::fa_bwd::tc_takes(a))
+      return D == 64 ? launch_dq_tc<64, M>(a, s) : launch_dq_tc<128, M>(a, s);
+    if (is_bf16)
+      return D <= 64 ? launch_dq<__nv_bfloat16, 64, M>(a, s)
+                     : launch_dq<__nv_bfloat16, 128, M>(a, s);
+    return D <= 64 ? launch_dq<float, 64, M>(a, s)
+                   : launch_dq<float, 128, M>(a, s);
+  }));
 }
 
 // The same inputs; dk/dv [B, Lk, H, D] contiguous in the input type.
 extern "C" int pt_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
-    const float* lse, const float* delta, void* dk, void* dv, int64_t sqb,
-    int64_t sql, int64_t sqh, int64_t skb, int64_t skl, int64_t skh,
-    int64_t svb, int64_t svl, int64_t svh, int64_t sob, int64_t sol,
-    int64_t soh, int B, int H, int Lq, int Lk, int D, int causal, float scale,
-    int is_bf16, void* stream) {
+    const float* lse, const float* delta, void* dk, void* dv,
+    const void* mask, int64_t sqb, int64_t sql, int64_t sqh, int64_t skb,
+    int64_t skl, int64_t skh, int64_t svb, int64_t svl, int64_t svh,
+    int64_t sob, int64_t sol, int64_t soh, int64_t smb, int64_t smh,
+    int64_t smq, int64_t smk, int B, int H, int Lq, int Lk, int D, int causal,
+    float scale, int is_bf16, void* stream) {
   BwdArgs a{q,   k,   v,   dout, lse, delta, nullptr, dk,  dv,
             sqb, sql, sqh, skb,  skl, skh,   svb,     svl, svh,
-            sob, sol, soh, B,    H,   Lq,    Lk,      D,   causal, scale};
+            sob, sol, soh, B,    H,   Lq,    Lk,      D,   causal, scale,
+            static_cast<const uint8_t*>(mask), smb, smh, smq, smk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (is_bf16 && pt::fa_bwd::tc_takes(a))
-    err = D == 64 ? launch_dkv_tc<64>(a, s) : launch_dkv_tc<128>(a, s);
-  else if (is_bf16)
-    err = D <= 64 ? launch_dkv<__nv_bfloat16, 64>(a, s)
-                  : launch_dkv<__nv_bfloat16, 128>(a, s);
-  else
-    err = D <= 64 ? launch_dkv<float, 64>(a, s) : launch_dkv<float, 128>(a, s);
-  return static_cast<int>(err);
+  return static_cast<int>(pt::with_mask(mask, [&](auto m) {
+    constexpr bool M = decltype(m)::value;
+    if (is_bf16 && pt::fa_bwd::tc_takes(a))
+      return D == 64 ? launch_dkv_tc<64, M>(a, s) : launch_dkv_tc<128, M>(a, s);
+    if (is_bf16)
+      return D <= 64 ? launch_dkv<__nv_bfloat16, 64, M>(a, s)
+                     : launch_dkv<__nv_bfloat16, 128, M>(a, s);
+    return D <= 64 ? launch_dkv<float, 64, M>(a, s)
+                   : launch_dkv<float, 128, M>(a, s);
+  }));
 }

@@ -68,7 +68,7 @@ class FusedMultiHeadAttention(Layer):
         out = torch.matmul(ctx.reshape(B, L, E),
                            self.linear_weight) + self.linear_bias
         if self.normalize_before:
-            out = F.dropout(out, self.dropout_rate, self.training)
+            out = F.dropout(out, self.dropout_rate, training=self.training)
             return (x + out).to(x.dtype)
         return fused_residual_dropout_ln(
             out, x, self.ln_scale, self.ln_bias, p=self.dropout_rate,
@@ -105,10 +105,10 @@ class FusedFeedForward(Layer):
              if self.normalize_before else src)
         h = torch.matmul(h, self.linear1_weight) + self.linear1_bias
         h = F.gelu(h) if self.activation == "gelu" else F.relu(h)
-        h = F.dropout(h, self.act_dropout_rate, self.training)
+        h = F.dropout(h, self.act_dropout_rate, training=self.training)
         h = torch.matmul(h, self.linear2_weight) + self.linear2_bias
         if self.normalize_before:
-            h = F.dropout(h, self.dropout_rate, self.training)
+            h = F.dropout(h, self.dropout_rate, training=self.training)
             return (src + h).to(src.dtype)
         return fused_residual_dropout_ln(
             h, src, self.ln_scale, self.ln_bias, p=self.dropout_rate,

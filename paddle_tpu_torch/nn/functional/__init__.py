@@ -83,12 +83,29 @@ def log_softmax(x, axis=-1, dtype=None):
     return out if dtype is None else out.to(convert_dtype(dtype))
 
 
-def dropout(x, p=0.5, training=True, generator=None):
-    """Upscale-in-train dropout: kept values are divided by 1 - p."""
+def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
+            name=None, *, generator=None):
+    """Dropout with the reference's signature (l.270). ``axis`` (an int or
+    a list of dims) draws the keep mask over those dims only and
+    broadcasts it over the rest. ``mode="upscale_in_train"`` divides kept
+    values by 1 - p in training and is the identity in eval;
+    ``"downscale_in_infer"`` keeps values unscaled in training and
+    multiplies by 1 - p in eval. Any other mode raises."""
+    if mode not in ("upscale_in_train", "downscale_in_infer"):
+        raise ValueError(f"dropout: mode {mode!r}; one of "
+                         f"'upscale_in_train', 'downscale_in_infer'")
     if not training or p == 0.0:
+        if mode == "downscale_in_infer" and not training:
+            return x * (1.0 - p)
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
-    return torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)
+    shape = list(x.shape)
+    if axis is not None:
+        axes = [axis] if isinstance(axis, int) else list(axis)
+        shape = [s if i in axes else 1 for i, s in enumerate(shape)]
+    keep = torch.rand(shape, generator=generator, device=x.device) >= p
+    if mode == "upscale_in_train":
+        return torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)
+    return torch.where(keep, x, 0.0).to(x.dtype)
 
 
 def layer_norm(x, normalized_shape, weight, bias, epsilon=1e-5):

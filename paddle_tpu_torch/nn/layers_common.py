@@ -21,12 +21,20 @@ from .layer import Layer, xavier_uniform
 
 
 class Linear(Layer):
-    def __init__(self, in_features, out_features, bias_attr=None, *,
-                 device=None, dtype=None, generator=None):
+    """``x @ W + b`` with the reference's signature (l.136):
+    ``bias_attr=False`` leaves out the bias; ``weight_attr=False`` keeps
+    the default weight (and the bias), as in the reference; any other
+    attribute than None or False raises (``_no_attr``)."""
+
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 bias_attr=None, name=None, *, device=None, dtype=None,
+                 generator=None):
         super().__init__(device, dtype)
+        _no_attr(weight_attr, "Linear weight_attr")
+        no_bias = _no_attr(bias_attr, "Linear bias_attr")
         self.weight = self.create_parameter(
             xavier_uniform((in_features, out_features), generator))
-        self.bias = (None if bias_attr is False else
+        self.bias = (None if no_bias else
                      self.create_parameter(torch.zeros(out_features)))
 
     def forward(self, x):
@@ -64,14 +72,18 @@ class LayerNorm(Layer):
 
 
 class Dropout(torch.nn.Module):
-    """Drops activations in training mode; the identity in ``eval()``."""
+    """``F.dropout`` in the layer's training mode, with the reference's
+    signature (l.172): ``axis`` and ``mode`` as there."""
 
-    def __init__(self, p=0.5):
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train", name=None):
         super().__init__()
         self.p = p
+        self.axis = axis
+        self.mode = mode
 
     def forward(self, x):
-        return F.dropout(x, p=self.p, training=self.training)
+        return F.dropout(x, p=self.p, axis=self.axis, training=self.training,
+                         mode=self.mode)
 
 
 class LayerList(torch.nn.ModuleList):

@@ -3,9 +3,11 @@
 decoder layers and stacks, and ``Transformer``.
 
 Attention goes through ``F.scaled_dot_product_attention`` in paddle's
-[batch, seq, heads, head_dim] layout: unmasked attention takes the flash
-kernels (their plain versions on the CPU), a mask the torch composition,
-as in the reference. Parameter names are the reference's
+[batch, seq, heads, head_dim] layout: unmasked attention and a 4-D bool
+mask whose dims are each 1 or full (a key-padding or causal-and-padding
+mask, True = attend) take the flash kernels (their plain versions on the
+CPU), any other mask the torch composition, as in the reference.
+Parameter names are the reference's
 (``layers.0.self_attn.q_proj.weight``, ``linear1``, ``norm1``, ...), so its
 weights load one to one. Every layer takes ``device=``, ``dtype=`` and
 ``generator=`` as the port's models do.
@@ -19,7 +21,7 @@ import torch
 
 from . import functional as F
 from .layer import Layer
-from .layers_common import Dropout, LayerList, LayerNorm, Linear, _no_attr
+from .layers_common import Dropout, LayerList, LayerNorm, Linear
 
 
 def _kw(device, dtype, generator):
@@ -39,7 +41,6 @@ class MultiHeadAttention(Layer):
                  vdim=None, need_weights=False, weight_attr=None,
                  bias_attr=None, *, device=None, dtype=None, generator=None):
         super().__init__(device, dtype)
-        _no_attr(weight_attr, "MultiHeadAttention weight_attr")
         self.embed_dim = embed_dim
         self.kdim = kdim or embed_dim
         self.vdim = vdim or embed_dim
@@ -50,11 +51,12 @@ class MultiHeadAttention(Layer):
                              f"num_heads {num_heads}")
         self.dropout = dropout
         self.need_weights = need_weights
-        kw = _kw(device, dtype, generator)
-        self.q_proj = Linear(embed_dim, embed_dim, bias_attr, **kw)
-        self.k_proj = Linear(self.kdim, embed_dim, bias_attr, **kw)
-        self.v_proj = Linear(self.vdim, embed_dim, bias_attr, **kw)
-        self.out_proj = Linear(embed_dim, embed_dim, bias_attr, **kw)
+        attrs = dict(weight_attr=weight_attr, bias_attr=bias_attr,
+                     **_kw(device, dtype, generator))
+        self.q_proj = Linear(embed_dim, embed_dim, **attrs)
+        self.k_proj = Linear(self.kdim, embed_dim, **attrs)
+        self.v_proj = Linear(self.vdim, embed_dim, **attrs)
+        self.out_proj = Linear(embed_dim, embed_dim, **attrs)
 
     def _shape(self, x):
         return x.reshape(x.shape[0], x.shape[1], self.num_heads,
@@ -110,13 +112,14 @@ class TransformerEncoderLayer(Layer):
         attn_dropout = dropout if attn_dropout is None else attn_dropout
         act_dropout = dropout if act_dropout is None else act_dropout
         kw = _kw(device, dtype, generator)
+        attrs = dict(weight_attr=weight_attr, bias_attr=bias_attr, **kw)
         self.normalize_before = normalize_before
         self.self_attn = MultiHeadAttention(
             d_model, nhead, dropout=attn_dropout, weight_attr=weight_attr,
             bias_attr=bias_attr, **kw)
-        self.linear1 = Linear(d_model, dim_feedforward, bias_attr, **kw)
+        self.linear1 = Linear(d_model, dim_feedforward, **attrs)
         self.dropout = Dropout(act_dropout)
-        self.linear2 = Linear(dim_feedforward, d_model, bias_attr, **kw)
+        self.linear2 = Linear(dim_feedforward, d_model, **attrs)
         self.norm1 = LayerNorm(d_model, device=device, dtype=dtype)
         self.norm2 = LayerNorm(d_model, device=device, dtype=dtype)
         self.dropout1 = Dropout(dropout)
@@ -189,6 +192,7 @@ class TransformerDecoderLayer(Layer):
         attn_dropout = dropout if attn_dropout is None else attn_dropout
         act_dropout = dropout if act_dropout is None else act_dropout
         kw = _kw(device, dtype, generator)
+        attrs = dict(weight_attr=weight_attr, bias_attr=bias_attr, **kw)
         self.normalize_before = normalize_before
         self.self_attn = MultiHeadAttention(
             d_model, nhead, dropout=attn_dropout, weight_attr=weight_attr,
@@ -196,9 +200,9 @@ class TransformerDecoderLayer(Layer):
         self.cross_attn = MultiHeadAttention(
             d_model, nhead, dropout=attn_dropout, weight_attr=weight_attr,
             bias_attr=bias_attr, **kw)
-        self.linear1 = Linear(d_model, dim_feedforward, bias_attr, **kw)
+        self.linear1 = Linear(d_model, dim_feedforward, **attrs)
         self.dropout = Dropout(act_dropout)
-        self.linear2 = Linear(dim_feedforward, d_model, bias_attr, **kw)
+        self.linear2 = Linear(dim_feedforward, d_model, **attrs)
         self.norm1 = LayerNorm(d_model, device=device, dtype=dtype)
         self.norm2 = LayerNorm(d_model, device=device, dtype=dtype)
         self.norm3 = LayerNorm(d_model, device=device, dtype=dtype)

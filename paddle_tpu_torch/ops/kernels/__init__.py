@@ -8,9 +8,9 @@ there is no fallback: the wrapper launches or raises.
 
 An input that the reference's dispatch sends to an XLA composition (fp16
 or fp64 layer norm, attention, cross-entropy and fused BN; a masked
-attention; causal attention with Lq > Lk, or a head dim the flash kernels
-do not take) goes to the module's torch composition instead, on the card
-as on the CPU. Each module's entry decides that with its ``kernel_takes``
+attention other than by a 4-D bool mask the flash kernels stream; causal
+attention with Lq > Lk, or a head dim the flash kernels do not take) goes
+to the module's torch composition instead, on the card as on the CPU. Each module's entry decides that with its ``kernel_takes``
 and counts the run in :func:`composed_stats`, apart from ``_stats``.
 """
 from __future__ import annotations
@@ -107,7 +107,8 @@ def shape_stats() -> dict:
 
 def _counters() -> dict:
     """{kernel: its module's launch counter dict}; the backward kernels
-    have their own entries."""
+    have their own entries, and so do the flash kernels' launches with
+    the bool-mask operand (``*_masked``)."""
     from . import (flash_attention, fused_bn, fused_conv_bn, layer_norm,
                    paged_attention, softmax_ce)
     return {"layer_norm": layer_norm._stats,
@@ -115,6 +116,12 @@ def _counters() -> dict:
             "flash_attention_bwd": flash_attention._bwd_stats,
             "flash_attention_bwd_dq": flash_attention._bwd_dq_stats,
             "flash_attention_bwd_dkv": flash_attention._bwd_dkv_stats,
+            "flash_attention_masked": flash_attention._mask_stats,
+            "flash_attention_bwd_masked": flash_attention._bwd_mask_stats,
+            "flash_attention_bwd_dq_masked":
+                flash_attention._bwd_dq_mask_stats,
+            "flash_attention_bwd_dkv_masked":
+                flash_attention._bwd_dkv_mask_stats,
             "paged_attention": paged_attention._stats,
             "softmax_ce_fwd": softmax_ce._stats,
             "softmax_ce_bwd": softmax_ce._bwd_stats,

@@ -37,10 +37,22 @@ without atomics. delta = rowsum(dO * O) is a torch composition, computed
 once for either, as it is XLA in the reference (l.970, 1023). See the
 sources for the designs.
 
+The bool mask (the reference's ``_apply_mask``, l.164): every kernel and
+plain version takes an optional 4-D bool mask whose dims are each 1 or
+full against [B, H, Lq, Lk] (``mask_takes``, the reference's gate at
+l.1240-1251), True = attend. The kernels read it through four element
+strides, 0 on a broadcast dim, so an expanded [B, 1, 1, Lk] key-padding
+mask is never materialised, and drop a masked score to -inf before the
+running max. A row with no visible key gives out exactly 0, lse -inf
+and dq 0, and adds nothing to dk or dv. A launch or plain run with a
+mask counts in its kernel's ``*_mask_stats`` in place of ``_stats``. A
+float mask (its gradient is real), a mask of another rank and one that
+does not broadcast compose.
+
 ``FlashAttentionFunction`` is the counterpart of the ``jax.custom_vjp`` at
 l.1118-1155: one Function on both devices, whose forward and backward
 launch the kernels for CUDA tensors and run the plain versions for CPU
-ones.
+ones; it saves the mask and gives it no gradient.
 
 Layout convention (paddle): q/k/v are [batch, seq, heads, head_dim].
 """
@@ -60,6 +72,17 @@ _bwd_stats = {"kernel": 0, "plain": 0}
 #: launches of the split backward's dq and dk/dv kernels (and plain runs)
 _bwd_dq_stats = {"kernel": 0, "plain": 0}
 _bwd_dkv_stats = {"kernel": 0, "plain": 0}
+#: the same four with the bool-mask operand: a masked launch (or plain
+#: run) counts here and not above
+_mask_stats = {"kernel": 0, "plain": 0}
+_bwd_mask_stats = {"kernel": 0, "plain": 0}
+_bwd_dq_mask_stats = {"kernel": 0, "plain": 0}
+_bwd_dkv_mask_stats = {"kernel": 0, "plain": 0}
+
+
+def _count(unmasked, masked, mask, route):
+    (unmasked if mask is None else masked)[route] += 1
+
 
 #: the one-pass backward's whole-(b, h) dq bound (reference l.955): above
 #: it, Lq * D * 4 bytes, the split pair runs
@@ -69,18 +92,32 @@ _TYPES = (torch.float32, torch.bfloat16)
 _MAX_D = 128
 
 
-def flash_attention_plain(q, k, v, causal: bool = False, scale=None):
-    """(out [B, Lq, H, D] in q's type, lse [B, H, Lq] fp32), in fp32.
-    Causal masking uses kv_offset = Lk - Lq; a row with no visible key
-    gives out 0 and lse -inf."""
-    B, Lq, H, D = q.shape
-    Lk = k.shape[1]
-    if scale is None:
-        scale = 1.0 / math.sqrt(D)
-    s = torch.einsum("blhd,bmhd->bhlm", q.float(), k.float()) * scale
+def _visible(q, k, causal, mask):
+    """[.., Lq, Lk] bool, True where a query row sees a key: the causal
+    triangle (kv_offset = Lk - Lq) and the bool mask, broadcast; None when
+    every key is visible."""
+    Lq, Lk = q.shape[1], k.shape[1]
+    keep = None
     if causal:
         keep = torch.ones(Lq, Lk, dtype=torch.bool, device=q.device).tril(
             diagonal=Lk - Lq)
+    if mask is not None:
+        keep = mask if keep is None else keep & mask
+    return keep
+
+
+def flash_attention_plain(q, k, v, causal: bool = False, scale=None,
+                          mask=None):
+    """(out [B, Lq, H, D] in q's type, lse [B, H, Lq] fp32), in fp32.
+    Causal masking uses kv_offset = Lk - Lq; ``mask`` is a bool
+    [B|1, H|1, Lq|1, Lk|1] mask (True = attend); a masked score is -inf,
+    and a row with no visible key gives out exactly 0 and lse -inf."""
+    B, Lq, H, D = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    s = torch.einsum("blhd,bmhd->bhlm", q.float(), k.float()) * scale
+    keep = _visible(q, k, causal, mask)
+    if keep is not None:
         s = s.masked_fill(~keep, float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
@@ -118,15 +155,29 @@ def check_args(q, k, v, causal: bool) -> None:
         raise ValueError("flash_attention: B and H must be <= 65535")
 
 
+def mask_takes(q, k, mask) -> bool:
+    """Whether the kernels (their plain versions on the CPU) take ``mask``,
+    as the reference's ``_pallas_eligible`` does (l.1240-1251): a 4-D
+    bool mask whose dims are each 1 or full against [B, H, Lq, Lk]. A
+    float mask composes, since its gradient is real (l.1241-1247), and so
+    does a mask of another rank or one that does not broadcast."""
+    if mask is None:
+        return True
+    if mask.dim() != 4 or mask.dtype != torch.bool:
+        return False
+    B, Lq, H, _ = q.shape
+    return all(n in (1, full) for n, full in zip(mask.shape,
+                                                 (B, H, Lq, k.shape[1])))
+
+
 def kernel_takes(q, k, v, mask=None, causal: bool = False) -> bool:
     """Whether the flash kernels take this attention on a card: the
     counterpart of the reference's ``_pallas_eligible`` (l.1217-1253).
     False, and ``flash_attention`` composes, for fp16 or fp64 (or mixed)
     types, causal with Lq > Lk (rows with no visible key), a head dim
     above 128 or not a multiple of 8 (the reference's compile probe,
-    ``_pallas_fa_ok``, fails there), a float mask (its gradient is real)
-    and a bool mask (no kernel streams masks yet)."""
-    if mask is not None:
+    ``_pallas_fa_ok``, fails there) and a mask ``mask_takes`` refuses."""
+    if not mask_takes(q, k, mask):
         return False
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _TYPES:
         return False
@@ -169,14 +220,40 @@ def bwd_design(q, k, v, do) -> str:
 FWD_DESIGNS = ("cuda-core", "mma.sync", "mma.sync-3xtf32")
 
 
-def flash_attention_fwd(q, k, v, causal: bool = False, scale=None):
-    """Attention forward: (out [B, Lq, H, D], lse [B, H, Lq] fp32)."""
+def _check_mask(q, k, mask) -> None:
+    """Raise ValueError unless the kernels take ``mask`` (``mask_takes``)."""
+    if not mask_takes(q, k, mask):
+        raise ValueError(
+            f"flash_attention: mask {mask.dtype} {tuple(mask.shape)}; the "
+            f"kernels take a 4-D bool mask whose dims are each 1 or full "
+            f"against {(q.shape[0], q.shape[2], q.shape[1], k.shape[1])}")
+
+
+def _mask_args(q, k, mask):
+    """The mask operand of the C entries, for a mask the caller has
+    checked (``_check_mask``): (pointer, its four element strides over
+    [B, H, Lq, Lk], 0 on a broadcast dim, so an expanded mask is never
+    materialised), or a null pointer and zeros."""
+    if mask is None:
+        return None, (0, 0, 0, 0)
+    same_device("flash_attention", q, mask)
+    B, Lq, H, _ = q.shape
+    m = mask.expand(B, H, Lq, k.shape[1])
+    return m.data_ptr(), m.stride()
+
+
+def flash_attention_fwd(q, k, v, causal: bool = False, scale=None,
+                        mask=None):
+    """Attention forward: (out [B, Lq, H, D], lse [B, H, Lq] fp32), with
+    an optional bool mask (``mask_takes``; True = attend)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    _check_mask(q, k, mask)
     if not use_kernel(q):
-        _stats["plain"] += 1
-        return flash_attention_plain(q, k, v, causal, scale)
+        _count(_stats, _mask_stats, mask, "plain")
+        return flash_attention_plain(q, k, v, causal, scale, mask)
     check_args(q, k, v, causal)
+    mptr, mstrides = _mask_args(q, k, mask)
     B, Lq, H, D = q.shape
     Lk = k.shape[1]
     out = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
@@ -184,38 +261,40 @@ def flash_attention_fwd(q, k, v, causal: bool = False, scale=None):
     design = ctypes.c_int(-1)
     launch("flash_attention", "pt_flash_attention_fwd", q.device,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-           lse.data_ptr(), *q.stride()[:3], *k.stride()[:3],
-           *v.stride()[:3], B, H, Lq, Lk, D, int(bool(causal)),
+           lse.data_ptr(), mptr, *q.stride()[:3], *k.stride()[:3],
+           *v.stride()[:3], *mstrides, B, H, Lq, Lk, D, int(bool(causal)),
            float(scale), int(q.dtype == torch.bfloat16),
            ctypes.byref(design))
-    _stats["kernel"] += 1
-    count_design("flash_attention", FWD_DESIGNS[design.value])
+    _count(_stats, _mask_stats, mask, "kernel")
+    count_design("flash_attention" if mask is None
+                 else "flash_attention_masked", FWD_DESIGNS[design.value])
     return out, lse
 
 
-def _p_ds(q, k, v, lse, delta, do, causal, scale):
+def _p_ds(q, k, v, lse, delta, do, causal, scale, mask=None):
     """(P, dS) [B, H, Lq, Lk] fp32: P = exp(S * scale - lse) (0 above the
-    causal diagonal) and dS = P * (dP - delta), dP = dO V^T."""
-    Lq, Lk = q.shape[1], k.shape[1]
+    causal diagonal and where the bool mask is False, so a row with no
+    visible key, lse -inf, gives 0) and dS = P * (dP - delta),
+    dP = dO V^T."""
     s = torch.einsum("blhd,bmhd->bhlm", q.float(), k.float()) * scale
     p = torch.exp(s - lse[..., None])
     del s
-    if causal:
-        keep = torch.ones(Lq, Lk, dtype=torch.bool, device=q.device).tril(
-            diagonal=Lk - Lq)
+    keep = _visible(q, k, causal, mask)
+    if keep is not None:
         p = torch.where(keep, p, 0.0)
     dp = torch.einsum("blhd,bmhd->bhlm", do.float(), v.float())
     return p, p * (dp - delta[..., None])
 
 
 def flash_attention_bwd_plain(q, k, v, lse, delta, do, causal: bool = False,
-                              scale=None):
+                              scale=None, mask=None):
     """(dq, dk, dv) in q's type, computed in fp32 from P = exp(S * scale -
     lse) and dS = P * (dP - delta), with delta = rowsum(dO * O) [B, H, Lq]
-    fp32 (the TPU kernels' arithmetic)."""
+    fp32 (the TPU kernels' arithmetic), under the same optional bool mask
+    as the forward."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    p, ds = _p_ds(q, k, v, lse, delta, do, causal, scale)
+    p, ds = _p_ds(q, k, v, lse, delta, do, causal, scale, mask)
     dv = torch.einsum("bhlm,blhd->bmhd", p, do.float())
     dq = torch.einsum("bhlm,bmhd->blhd", ds, k.float()) * scale
     dk = torch.einsum("bhlm,blhd->bmhd", ds, q.float()) * scale
@@ -223,23 +302,25 @@ def flash_attention_bwd_plain(q, k, v, lse, delta, do, causal: bool = False,
 
 
 def flash_attention_bwd_dq_plain(q, k, v, lse, delta, do,
-                                 causal: bool = False, scale=None):
+                                 causal: bool = False, scale=None,
+                                 mask=None):
     """dq = dS K * scale in q's type, computed in fp32 (the split
     backward's dq walk, reference l.282)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    _, ds = _p_ds(q, k, v, lse, delta, do, causal, scale)
+    _, ds = _p_ds(q, k, v, lse, delta, do, causal, scale, mask)
     return (torch.einsum("bhlm,bmhd->blhd", ds, k.float()) * scale).to(
         q.dtype)
 
 
 def flash_attention_bwd_dkv_plain(q, k, v, lse, delta, do,
-                                  causal: bool = False, scale=None):
+                                  causal: bool = False, scale=None,
+                                  mask=None):
     """(dk, dv) = (dS^T Q * scale, P^T dO) in k's type, computed in fp32
     (the split backward's dk/dv walk, reference l.353)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    p, ds = _p_ds(q, k, v, lse, delta, do, causal, scale)
+    p, ds = _p_ds(q, k, v, lse, delta, do, causal, scale, mask)
     dv = torch.einsum("bhlm,blhd->bmhd", p, do.float())
     del p
     dk = torch.einsum("bhlm,blhd->bmhd", ds, q.float()) * scale
@@ -258,10 +339,13 @@ def attention_delta(out, do):
     return (do.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
 
 
-def _bwd_launch_args(q, k, v, lse, delta, do, causal, scale):
+def _bwd_launch_args(q, k, v, lse, delta, do, causal, scale, mask):
     """Checks what the backward kernels take; returns (do, lse, delta)
-    ready for them and the strides and sizes every entry takes last."""
+    ready for them and the mask pointer, strides and sizes every entry
+    takes last."""
     check_args(q, k, v, causal)
+    _check_mask(q, k, mask)
+    mptr, mstrides = _mask_args(q, k, mask)
     same_device("flash_attention_bwd", q, do, lse, delta)
     B, Lq, H, D = q.shape
     if do.shape != q.shape or do.dtype != q.dtype:
@@ -276,66 +360,66 @@ def _bwd_launch_args(q, k, v, lse, delta, do, causal, scale):
         do = do.contiguous()
     lse = lse.float().contiguous()
     delta = delta.float().contiguous()
-    tail = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *do.stride()[:3], B, H, Lq, k.shape[1], D, int(bool(causal)),
-            float(scale), int(q.dtype == torch.bfloat16))
+    tail = (mptr, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *do.stride()[:3], *mstrides, B, H, Lq, k.shape[1], D,
+            int(bool(causal)), float(scale), int(q.dtype == torch.bfloat16))
     return do, lse, delta, tail
 
 
 def flash_attention_bwd_dq(q, k, v, lse, delta, do, causal: bool = False,
-                           scale=None):
+                           scale=None, mask=None):
     """The split backward's dq [B, Lq, H, D] in q's type: the dq kernel
     for CUDA tensors, its plain version for CPU ones."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if not use_kernel(q):
-        _bwd_dq_stats["plain"] += 1
+        _count(_bwd_dq_stats, _bwd_dq_mask_stats, mask, "plain")
         return flash_attention_bwd_dq_plain(q, k, v, lse, delta, do, causal,
-                                            scale)
+                                            scale, mask)
     do, lse, delta, tail = _bwd_launch_args(q, k, v, lse, delta, do, causal,
-                                            scale)
+                                            scale, mask)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     launch("flash_attention_bwd_dq", "pt_flash_attention_bwd_dq", q.device,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *tail)
-    _bwd_dq_stats["kernel"] += 1
+    _count(_bwd_dq_stats, _bwd_dq_mask_stats, mask, "kernel")
     return dq
 
 
 def flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal: bool = False,
-                            scale=None):
+                            scale=None, mask=None):
     """The split backward's (dk, dv) [B, Lk, H, D] in k's type: the dk/dv
     kernel for CUDA tensors, its plain version for CPU ones."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if not use_kernel(q):
-        _bwd_dkv_stats["plain"] += 1
+        _count(_bwd_dkv_stats, _bwd_dkv_mask_stats, mask, "plain")
         return flash_attention_bwd_dkv_plain(q, k, v, lse, delta, do, causal,
-                                             scale)
+                                             scale, mask)
     do, lse, delta, tail = _bwd_launch_args(q, k, v, lse, delta, do, causal,
-                                            scale)
+                                            scale, mask)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
     launch("flash_attention_bwd_dkv", "pt_flash_attention_bwd_dkv",
            q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
            *tail)
-    _bwd_dkv_stats["kernel"] += 1
+    _count(_bwd_dkv_stats, _bwd_dkv_mask_stats, mask, "kernel")
     return dk, dv
 
 
 def flash_attention_bwd_fused(q, k, v, lse, delta, do, causal: bool = False,
-                              scale=None):
+                              scale=None, mask=None):
     """The one-pass backward's (dq, dk, dv) in q's type: its kernel for
     CUDA tensors, its plain version for CPU ones."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if not use_kernel(q):
-        _bwd_stats["plain"] += 1
+        _count(_bwd_stats, _bwd_mask_stats, mask, "plain")
         return flash_attention_bwd_plain(q, k, v, lse, delta, do, causal,
-                                         scale)
+                                         scale, mask)
     do, lse, delta, tail = _bwd_launch_args(q, k, v, lse, delta, do, causal,
-                                            scale)
+                                            scale, mask)
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
@@ -343,44 +427,48 @@ def flash_attention_bwd_fused(q, k, v, lse, delta, do, causal: bool = False,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
            dv.data_ptr(), *tail)
-    _bwd_stats["kernel"] += 1
+    _count(_bwd_stats, _bwd_mask_stats, mask, "kernel")
     return dq.to(q.dtype), dk, dv
 
 
 def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = False,
-                        scale=None):
+                        scale=None, mask=None):
     """Attention backward: (dq, dk, dv) in q's type, from the forward's
-    ``out`` and ``lse`` and the output gradient ``do``: the one-pass
-    backward while Lq * D * 4 bytes fit the gate, the split pair above
-    it. delta is formed once, for either."""
+    ``out`` and ``lse``, the output gradient ``do`` and the forward's
+    mask: the one-pass backward while Lq * D * 4 bytes fit the gate, the
+    split pair above it. delta is formed once, for either."""
     if out.shape != q.shape:
         raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} "
                          f"against q {tuple(q.shape)}")
     delta = attention_delta(out, do)
     if not uses_split_bwd(q.shape[1], q.shape[-1]):
         return flash_attention_bwd_fused(q, k, v, lse, delta, do, causal,
-                                         scale)
-    return (flash_attention_bwd_dq(q, k, v, lse, delta, do, causal, scale),
-            *flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal, scale))
+                                         scale, mask)
+    return (flash_attention_bwd_dq(q, k, v, lse, delta, do, causal, scale,
+                                   mask),
+            *flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal, scale,
+                                     mask))
 
 
 class FlashAttentionFunction(torch.autograd.Function):
-    """Unmasked attention (causal or not) through the flash kernels: the
-    forward saves ``out`` and ``lse``, the backward recomputes P from them."""
+    """Attention (causal or not, with or without a bool mask) through the
+    flash kernels: the forward saves ``out``, ``lse`` and the mask, the
+    backward recomputes P from them. The mask gets no gradient (None), as
+    the reference's vjp gives a bool mask a float0 one (l.1146-1153)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        out, lse = flash_attention_fwd(q, k, v, causal, scale)
-        ctx.save_for_backward(q, k, v, out, lse)
+    def forward(ctx, q, k, v, mask, causal, scale):
+        out, lse = flash_attention_fwd(q, k, v, causal, scale, mask)
+        ctx.save_for_backward(q, k, v, out, lse, mask)
         ctx.causal, ctx.scale = causal, scale
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, out, lse, mask = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, ctx.causal,
-                                         ctx.scale)
-        return dq, dk, dv, None, None
+                                         ctx.scale, mask)
+        return dq, dk, dv, None, None, None
 
 
 _NEG = -1e30
@@ -427,16 +515,21 @@ def attention_composition(q, k, v, mask=None, causal: bool = False,
 def flash_attention(q, k, v, mask=None, causal: bool = False, scale=None,
                     dropout_p: float = 0.0, generator=None):
     """Dispatch (counterpart of ``paddle_tpu``'s ``flash_attention``):
-    the flash kernels (their plain versions on the CPU) for unmasked
-    attention they take; ``attention_composition``, counted in
-    ``composed_stats``, for dropout > 0 (weight dropout needs the
-    normalised probabilities, which the online softmax never forms), for
-    a mask, and on a card for whatever ``kernel_takes`` refuses."""
-    if (dropout_p > 0.0 or mask is not None
-            or (use_kernel(q) and not kernel_takes(q, k, v, mask, causal))):
+    the flash kernels (their plain versions on the CPU) for attention
+    they take, unmasked or with a bool mask that ``mask_takes``;
+    ``attention_composition``, counted in ``composed_stats``, for
+    dropout > 0 (weight dropout needs the normalised probabilities, which
+    the online softmax never forms), for any other mask (a float mask's
+    gradient is real), and on a card for whatever ``kernel_takes``
+    refuses. A mask the kernels take launches them or raises: there is
+    no way round to the composition."""
+    takes = (kernel_takes(q, k, v, mask, causal) if use_kernel(q)
+             else mask_takes(q, k, mask))
+    if dropout_p > 0.0 or not takes:
         count_composed("flash_attention")
         return attention_composition(q, k, v, mask, causal, scale,
                                      dropout_p, generator)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    return FlashAttentionFunction.apply(q, k, v, bool(causal), float(scale))
+    return FlashAttentionFunction.apply(q, k, v, mask, bool(causal),
+                                        float(scale))

@@ -103,8 +103,12 @@ def test_multihead_attention_matches_reference(mask):
     tout, tw = tm(_tt(q), _tt(k), _tt(v), tmask)
     assert jw is None and tw is None
     _close(tout, jout, LAYER_ATOL)
+    # a 4-D bool mask takes the flash kernels (their masked plain
+    # versions here), an additive one composes, as in the reference
     composed = kernels.composed_stats()["flash_attention"]
-    assert composed == (0 if mask == "none" else 1)
+    assert composed == (1 if mask == "additive" else 0)
+    masked = kernels.all_stats()["flash_attention_masked"]["plain"]
+    assert masked == (1 if mask == "bool" else 0)
 
 
 def test_multihead_attention_caches_match_reference():

@@ -33,7 +33,11 @@ TOL = {torch.float32: 1e-5, torch.float16: 2.0 ** -9}
 ENTRY_KERNELS = {
     "layer_norm": ("layer_norm",),
     "flash_attention": ("flash_attention", "flash_attention_bwd",
-                        "flash_attention_bwd_dq", "flash_attention_bwd_dkv"),
+                        "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                        "flash_attention_masked",
+                        "flash_attention_bwd_masked",
+                        "flash_attention_bwd_dq_masked",
+                        "flash_attention_bwd_dkv_masked"),
     "softmax_ce": ("softmax_ce_fwd", "softmax_ce_bwd"),
     "fused_bn": ("fused_bn_fwd", "fused_bn_bwd_reduce", "fused_bn_bwd_dx")}
 
@@ -90,8 +94,8 @@ def test_flash_kernel_takes_refuses(case):
         q, k, v = _qkv(D=12)
     elif case == "float_mask":
         mask = torch.zeros(2, 1, 16, 16)
-    else:
-        mask = torch.ones(2, 1, 16, 16, dtype=torch.bool)
+    else:  # a bool mask whose Lq dim is neither 1 nor full
+        mask = torch.ones(2, 1, 8, 16, dtype=torch.bool)
     assert not fa.kernel_takes(q, k, v, mask, causal)
 
 
@@ -286,9 +290,12 @@ def _cases():
         ("float_mask", "flash_attention", sdpa,
          (*(_t(rng, B, L, H, D) for _ in range(3)),
           torch.where(keep, 0.0, -1e9))),
+        # a bool mask the kernels refuse: 3-D (the reference's gate takes
+        # 4-D masks only); a 4-D one that broadcasts reaches the launch
+        # (test_card_route_launches_what_the_kernels_take)
         ("bool_mask", "flash_attention",
          lambda q, k, v, m: sdpa(q, k, v, m, causal=True),
-         (*(_t(rng, B, L, H, D) for _ in range(3)), keep)),
+         (*(_t(rng, B, L, H, D) for _ in range(3)), keep[:1, 0])),
         ("causal_lq_gt_lk", "flash_attention",
          lambda q, k, v: sdpa(q, k, v, causal=True),
          (_t(rng, B, L, H, D), _t(rng, B, L // 2, H, D),
@@ -351,10 +358,12 @@ def _bf16_qkv(D=64, Lq=16, Lk=16):
 
 
 @pytest.mark.parametrize("case", ["layer_norm", "flash_attention",
-                                  "flash_attention_lq_lt_lk", "softmax_ce",
+                                  "flash_attention_lq_lt_lk",
+                                  "flash_attention_bool_mask", "softmax_ce",
                                   "fused_bn"])
 def test_card_route_launches_what_the_kernels_take(case, card_route):
-    """Control: fp32/bf16 inputs the kernels take reach the launch."""
+    """Control: fp32/bf16 inputs the kernels take reach the launch, a 4-D
+    bool mask whose dims are each 1 or full among them."""
     kernels.reset_stats()
     with pytest.raises(LaunchReached):
         if case == "layer_norm":
@@ -364,6 +373,9 @@ def test_card_route_launches_what_the_kernels_take(case, card_route):
         elif case == "flash_attention_lq_lt_lk":
             F.scaled_dot_product_attention(*_bf16_qkv(D=128, Lq=5, Lk=9),
                                            is_causal=True)
+        elif case == "flash_attention_bool_mask":
+            keep = torch.ones(1, 1, 16, 16, dtype=torch.bool).tril()
+            F.scaled_dot_product_attention(*_bf16_qkv(), attn_mask=keep)
         elif case == "softmax_ce":
             F.cross_entropy(torch.ones(4, 8, dtype=torch.bfloat16),
                             torch.zeros(4, dtype=torch.int64))

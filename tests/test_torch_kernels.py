@@ -412,7 +412,9 @@ class TestPagedAttention:
         assert set(kernels.all_stats()) == {
             "layer_norm", "flash_attention", "flash_attention_bwd",
             "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-            "paged_attention", "softmax_ce_fwd", "softmax_ce_bwd",
+            "flash_attention_masked", "flash_attention_bwd_masked",
+            "flash_attention_bwd_dq_masked",
+            "flash_attention_bwd_dkv_masked", "paged_attention", "softmax_ce_fwd", "softmax_ce_bwd",
             "fused_bn_fwd", "fused_bn_bwd_reduce", "fused_bn_bwd_dx",
             "conv1x1_stats"}
 

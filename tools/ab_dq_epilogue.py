@@ -111,7 +111,7 @@ def main():
         lib = ctypes.CDLL(path)
         lib.pt_flash_attention_bwd.restype = ctypes.c_int
         lib.pt_flash_attention_bwd.argtypes = (
-            [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 12
+            [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 16
             + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
                                     ctypes.c_void_p])
         libs[name] = lib
@@ -126,7 +126,7 @@ def main():
         out, lse = fa.flash_attention_fwd(q, k, v, True)
         delta = fa.attention_delta(out, do)
         do, lse, delta, tail = fa._bwd_launch_args(
-            q, k, v, lse, delta, do, True, 1.0 / D ** 0.5)
+            q, k, v, lse, delta, do, True, 1.0 / D ** 0.5, None)
         row, ref = {}, None
         for name, lib in libs.items():
             def call(lib=lib):

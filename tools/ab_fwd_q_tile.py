@@ -74,7 +74,7 @@ def main():
         lib = ctypes.CDLL(path)
         lib.pt_flash_attention_fwd.restype = ctypes.c_int
         lib.pt_flash_attention_fwd.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 9
+            [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 13
             + [ctypes.c_int] * 6
             + [ctypes.c_float, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
                ctypes.c_void_p])
@@ -95,8 +95,9 @@ def main():
                 design = ctypes.c_int(-1)
                 _native.check(lib.pt_flash_attention_fwd(
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    lse.data_ptr(), *q.stride()[:3], *k.stride()[:3],
-                    *v.stride()[:3], 1, H, L, L, D, 1, D ** -0.5, 0,
+                    lse.data_ptr(), None, *q.stride()[:3],
+                    *k.stride()[:3], *v.stride()[:3], 0, 0, 0, 0, 1, H, L,
+                    L, D, 1, D ** -0.5, 0,
                     ctypes.byref(design),
                     torch.cuda.current_stream().cuda_stream), name)
                 if fa.FWD_DESIGNS[design.value] != "mma.sync-3xtf32":
