@@ -286,21 +286,26 @@ def max_err(got, ref):
     return float((got.float() - ref.float()).abs().max())
 
 
-def launched_fwd_design(fn, want, name="flash_attention"):
-    """fn's result, where fn makes one flash-forward launch: the design its
-    C entry reported (counted in `design_stats` under `name`, the masked
-    forward's apart) must be `want`, the wrapper's prediction
-    `fwd_design`."""
+def launched_design(fn, want, names=("flash_attention",)):
+    """fn's result, where fn launches each flash kernel of `names` once:
+    the design each C entry reported (counted in `design_stats` under its
+    name, masked launches apart) must be `want`, the wrapper's prediction
+    (`fwd_design`, `bwd_design`)."""
     from paddle_tpu_torch.ops import kernels
-    before = kernels.design_stats().get(name, {})
+    before = kernels.design_stats()
     res = fn()
-    after = kernels.design_stats().get(name, {})
-    ran = {d: n - before.get(d, 0) for d, n in after.items()
-           if n != before.get(d, 0)}
-    if ran != {want: 1}:
-        raise AssertionError(f"flash forward: launched {ran}, the wrapper "
-                             f"predicts {want}")
+    after = kernels.design_stats()
+    for name in names:
+        b, a = before.get(name, {}), after.get(name, {})
+        ran = {d: n - b.get(d, 0) for d, n in a.items() if n != b.get(d, 0)}
+        if ran != {want: 1}:
+            raise AssertionError(f"{name}: launched {ran}, the wrapper "
+                                 f"predicts {want}")
     return res
+
+
+#: the split backward's two kernels
+SPLIT = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 
 
 # ----------------------------- phase 3: kernels -----------------------------
@@ -361,7 +366,7 @@ def check_flash(dev, gen, lengths, H, D, B=1, dtypes=(torch.float32,
                               generator=gen).to(dtype)
             q, k, v = qkv.unbind(2)  # strided views, as the model passes them
             design = fa.fwd_design(q, k, v)
-            out, lse = launched_fwd_design(
+            out, lse = launched_design(
                 lambda: fa.flash_attention_fwd(q, k, v, causal=causal), design)
             again = fa.flash_attention_fwd(q, k, v, causal=causal)
             torch.cuda.synchronize()
@@ -446,11 +451,13 @@ def check_flash_bwd(dev, gen, lengths, B, H, D,
     """The one-pass backward (the GPT step's, below the 6 MiB gate) against
     its plain version on the same inputs (bwd_tol), run twice: dk and dv
     must repeat bit for bit, dq (summed with atomics in a varying order)
-    within bwd_tol of the first run. Times: the backward as the model
-    calls it (delta, the zeroed fp32 dq, the kernel and dq's cast), its
-    plain version, SDPA's backward (summed device-kernel time) and, as
-    `split_ms`, delta and the split pair (dq then dk/dv) on the same
-    inputs in the same call: the other route past the gate."""
+    within bwd_tol of the first run; the design its C entry reports must
+    be `bwd_design`'s. Times: the backward as the model calls it (delta,
+    the zeroed fp32 dq, the kernel and dq's cast), its plain version,
+    SDPA's backward (summed device-kernel time) and, as `split_ms`, delta
+    and the split pair (dq then dk/dv) on the same inputs in the same
+    call: the other route past the gate. Bounds at the design's peak (and
+    the CUDA-core one beside a 3xTF32 row's, `design_bounds`)."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     rows = []
     for dtype in dtypes:
@@ -460,7 +467,10 @@ def check_flash_bwd(dev, gen, lengths, B, H, D,
             q, k, v = qkv.unbind(2)
             out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
             do = torch.randn(B, L, H, D, device=dev, generator=gen).to(dtype)
-            got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal)
+            design = fa.bwd_design(q, k, v, do)
+            got = launched_design(lambda: fa.flash_attention_bwd(
+                q, k, v, out, lse, do, causal), design,
+                ("flash_attention_bwd",))
             again = fa.flash_attention_bwd(q, k, v, out, lse, do, causal)
             torch.cuda.synchronize()
             if not (torch.equal(got[1], again[1])
@@ -481,8 +491,8 @@ def check_flash_bwd(dev, gen, lengths, B, H, D,
             pairs = attention_pairs(L, causal)
             # reads q, k, v, out, do and lse; writes dq, dk, dv; five
             # products of 2*D operations per (q, k) pair
-            bnd, by = bound_ms(B * H * (8 * L * D * isz + 4 * L),
-                               B * H * 10 * D * pairs, dtype)
+            bounds = design_bounds(B * H * (8 * L * D * isz + 4 * L),
+                                   B * H * 10 * D * pairs, dtype, design)
             leaves = [t.transpose(1, 2).detach().requires_grad_(True)
                       for t in (q, k, v)]
             ref_out = torch.nn.functional.scaled_dot_product_attention(
@@ -491,7 +501,7 @@ def check_flash_bwd(dev, gen, lengths, B, H, D,
             rows.append(dict(
                 kernel="flash_attention_bwd", dtype=str(dtype)[6:],
                 shape=f"B={B} L={L} H={H} D={D} {mode(causal)}",
-                design=fa.bwd_design(q, k, v, do),
+                design=design,
                 max_abs_err=err, tol_ratio=ratio,
                 witnesses={"dq of a second run": repeat},
                 ms=cuda_ms(lambda: fa.flash_attention_bwd(
@@ -504,8 +514,7 @@ def check_flash_bwd(dev, gen, lengths, B, H, D,
                     iters=5, reps=3),
                 library_ms=cuda_ms(lambda: torch.autograd.grad(
                     ref_out, leaves, do_t, retain_graph=True),
-                    iters=5, reps=3, graph=False),
-                bound_ms=bnd, bound_by=by))
+                    iters=5, reps=3, graph=False), **bounds))
             del got, leaves, ref_out
     return rows
 
@@ -651,7 +660,8 @@ def check_flash_bwd_split(dev, gen):
         design = fa.bwd_design(q, k, v, do)
         out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
         delta = fa.attention_delta(out, do)
-        got = _split_bwd(fa, q, k, v, lse, delta, do, True)
+        got = launched_design(lambda: _split_bwd(
+            fa, q, k, v, lse, delta, do, True), design, SPLIT)
         again = _split_bwd(fa, q, k, v, lse, delta, do, True)
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
@@ -705,14 +715,13 @@ def check_flash_bwd_split(dev, gen):
                 ("flash_attention_bwd_dkv", max(errs[1:]),
                  max(ratios[1:]), witness[1], ms_dkv, plain[1],
                  (kb, kf))):
-            bnd, by = bound_ms(nb, fl, dtype)
             rows.append(dict(
                 kernel=name, dtype=str(dtype)[6:], shape=shape,
                 design=design, max_abs_err=err, tol_ratio=ratio, ms=ms,
                 plain_ms=pms,
                 plain_shape=f"L={L}, one head at a time",
                 library_ms=lib_ms, one_pass_ms=fused_ms, witnesses=wit,
-                bound_ms=bnd, bound_by=by))
+                **design_bounds(nb, fl, dtype, design)))
         del q, k, v, do, out, lse, delta
         torch.cuda.empty_cache()
     return rows
@@ -734,7 +743,7 @@ def check_flash_long(dev, gen):
                                        LONG_D, dtype)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         design = fa.fwd_design(q, k, v)
-        out, lse = launched_fwd_design(
+        out, lse = launched_design(
             lambda: fa.flash_attention_fwd(q, k, v, causal=True), design)
         ref_out, ref_lse = plain_by_head(fa.flash_attention_plain,
                                          q.float(), k.float(), v.float())
@@ -872,20 +881,26 @@ def masked_ratios(fa, q, k, v, do, mask, causal, design):
     (TOL forward, bwd_tol backward; lse on the rows that see a key, -inf
     on the others in both), after checking that a row with no visible
     key gives exactly 0 in out and dq (one-pass and split), that nothing
-    is NaN, that the forward reports `design` and repeats bit for bit,
-    and that the split pair repeats bit for bit."""
+    is NaN, that the forward reports `design` and the backwards
+    `bwd_design`'s, that the forward repeats bit for bit, and that the
+    split pair repeats bit for bit."""
     B, Lq, H, _ = q.shape
     Lk = k.shape[1]
     dtype = q.dtype
-    out, lse = launched_fwd_design(
+    bwd = fa.bwd_design(q, k, v, do)
+    out, lse = launched_design(
         lambda: fa.flash_attention_fwd(q, k, v, causal, mask=mask), design,
-        name="flash_attention_masked")
+        (MASKED["flash_attention"],))
     again = fa.flash_attention_fwd(q, k, v, causal, mask=mask)
     f32 = [t.float() for t in (q, k, v)]
     ref_out, ref_lse = fa.flash_attention_plain(*f32, causal, mask=mask)
     delta = fa.attention_delta(out, do)
-    one = fa.flash_attention_bwd(q, k, v, out, lse, do, causal, mask=mask)
-    split = _split_bwd(fa, q, k, v, lse, delta, do, causal, mask)
+    one = launched_design(lambda: fa.flash_attention_bwd(
+        q, k, v, out, lse, do, causal, mask=mask), bwd,
+        (MASKED["flash_attention_bwd"],))
+    split = launched_design(lambda: _split_bwd(
+        fa, q, k, v, lse, delta, do, causal, mask), bwd,
+        tuple(MASKED[n] for n in SPLIT))
     split2 = _split_bwd(fa, q, k, v, lse, delta, do, causal, mask)
     ref = fa.flash_attention_bwd_plain(*f32, lse, delta, do.float(), causal,
                                        mask=mask)
@@ -1204,14 +1219,52 @@ def check_ce(dev, gen, N, V, iters=5, dtypes=(torch.float32,
     return rows
 
 
+def nan_backward(fa, q, k, v, out, lse, causal, design, do):
+    """Worst error / bwd_tol of the one-pass backward and the split pair
+    (reporting `design`) on the finite values, for inputs with a NaN in
+    row r = L // 2 of q[1, :, 2] (forward's out and lse given), after
+    checking where each is NaN against the plain version: dq and dv
+    exactly where it is, dk on every key that row sees. The plain version
+    also turns the dk rows of keys the row does not see NaN (0 times a
+    NaN delta); the kernels never walk the tiles above the diagonal, so
+    there dk need only not be NaN where the plain version is finite."""
+    L = q.shape[1]
+    delta = fa.attention_delta(out, do)
+    ref = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), lse,
+                                       delta, do.float(), causal)
+    one = launched_design(lambda: fa.flash_attention_bwd(
+        q, k, v, out, lse, do, causal), design, ("flash_attention_bwd",))
+    split = launched_design(lambda: _split_bwd(
+        fa, q, k, v, lse, delta, do, causal), design, SPLIT)
+    seen = slice(0, L // 2 + 1 if causal else L)
+    worst = 0.0
+    for kind, got in (("one-pass", one), ("split", split)):
+        nan = [g.isnan() for g in got]
+        want = [r.isnan() for r in ref]
+        if not (torch.equal(nan[0], want[0]) and torch.equal(nan[2], want[2])
+                and torch.equal(nan[1][1, seen, 2], want[1][1, seen, 2])
+                and not (nan[1] & ~want[1]).any() and nan[0].any()):
+            raise AssertionError(
+                f"{kind} backward {q.dtype} L={L} D={q.shape[-1]}: NaN in "
+                f"q gives {[int(n.sum()) for n in nan]} NaN, the plain "
+                f"version {[int(w.sum()) for w in want]}")
+        for g, r in zip(got, ref):
+            fin = ~(g.isnan() | r.isnan())
+            if fin.any():
+                worst = max(worst, max_err(g[fin], r[fin]) / bwd_tol(
+                    q.dtype, r[fin]))
+    return worst
+
+
 def check_edges(dev, gen):
     """Correctness only, at the limits each kernel claims beyond the main
     path's shapes: any R and N up to 4096 (layer norm); any L >= 1, ragged
     tails, Lk > Lq with the causal offset, D from 8 to 128 (flash, where
     D = 128 needs more than 48 KB of shared memory), rows off the 16-byte
-    boundary (the CUDA-core design), each design as `fwd_design` names it
-    and as the launch reports it, the forward run twice, bit for bit, and
-    a NaN (both signs) in q or v kept where the plain version keeps it;
+    boundary (the CUDA-core design), each design as `fwd_design` and
+    `bwd_design` name it and as the launches report it, the forward run
+    twice, bit for bit, and a NaN (both signs) in q or v kept where the
+    plain version keeps it (`nan_backward` for a NaN in q);
     ctx 0, one token,
     page and partition boundaries, contexts past the block table, one long
     lane among short ones, rows off the 16-byte width, repeated bit for
@@ -1256,7 +1309,7 @@ def check_edges(dev, gen):
                 raise AssertionError(f"flash forward D={D} off={off} "
                                      f"{dtype}: design "
                                      f"{fa.fwd_design(q, k, v)}, want {want}")
-            out, lse = launched_fwd_design(
+            out, lse = launched_design(
                 lambda: fa.flash_attention_fwd(q, k, v, causal), want)
             again = fa.flash_attention_fwd(q, k, v, causal)
             if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
@@ -1268,7 +1321,8 @@ def check_edges(dev, gen):
             worst["flash_attention"] = max(worst["flash_attention"],
                                            err / tol)
             do = randn(2, Lq, 3, D, dtype=dtype)
-            got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal)
+            got = launched_design(lambda: fa.flash_attention_bwd(
+                q, k, v, out, lse, do, causal), want, ("flash_attention_bwd",))
             ref = fa.flash_attention_bwd_plain(
                 q.float(), k.float(), v.float(), lse,
                 fa.attention_delta(out, do), do.float(), causal)
@@ -1288,7 +1342,7 @@ def check_edges(dev, gen):
             (q if where == "q" else v)[1, L // 2, 2, D // 3] = nan.item()
             want = ("mma.sync" if dtype == torch.bfloat16
                     else "mma.sync-3xtf32")
-            out, lse = launched_fwd_design(
+            out, lse = launched_design(
                 lambda: fa.flash_attention_fwd(q, k, v, causal), want)
             ref_out, ref_lse = fa.flash_attention_plain(
                 q.float(), k.float(), v.float(), causal)
@@ -1304,6 +1358,11 @@ def check_edges(dev, gen):
                     max_err(got[fin], ref[fin]) / tol)
             if not ref_out.isnan().any():
                 raise AssertionError("flash forward NaN edge: no NaN")
+            if where == "q":
+                worst["flash_attention_bwd"] = max(
+                    worst["flash_attention_bwd"],
+                    nan_backward(fa, q, k, v, out, lse, causal, want,
+                                 randn(*q.shape, dtype=dtype)))
         for N, V, out_of_range in ((3, 1001, False), (1, 5000, False),
                                    (4, 50304, True), (7, 30, False)):
             x = (2 * randn(N, V, dtype=torch.float32)).to(dtype)
@@ -3250,6 +3309,13 @@ def fit_resume(cfg, card):
             designs = kernels.design_stats()
             no_composed("fit")
             exact_launches("fit", stats, PER_STEP, FIT_STEPS)
+            # every fp32 one-pass backward on the TF32 tensor cores
+            want = PER_STEP["flash_attention_bwd"] * FIT_STEPS
+            if designs.get("flash_attention_bwd") != {
+                    "mma.sync-3xtf32": want}:
+                raise AssertionError(f"fit: one-pass backward designs "
+                                     f"{designs}, want {want} on "
+                                     f"mma.sync-3xtf32")
             del m
             torch.cuda.empty_cache()
             # run 1: checkpoints, a poisoned weight, one rollback
@@ -3337,8 +3403,7 @@ def fit_resume(cfg, card):
     log(f"fit_resume: losses uninterrupted {json.dumps(l0)}; rollback run "
         f"{json.dumps(l1)}; resumed {json.dumps(l2)}; later |diff| "
         f"{json.dumps(later)} (atol {FIT_LOSS_ATOL}); rollbacks "
-        f"{json.dumps(rollbacks)}; flash forward designs "
-        f"{json.dumps(designs)}")
+        f"{json.dumps(rollbacks)}; flash designs {json.dumps(designs)}")
     ok = (len(rollbacks) == 1 and rollbacks[0]["restored_step"] == 4
           and rolled == 1 and files == [8, 4] and skipped == 1
           and restored == {"network": True, "train_step": True}

@@ -715,16 +715,12 @@ cudaError_t launch_tf32(const FaArgs& a, cudaStream_t stream) {
 
 }  // namespace
 
-// the designs, as written to the entry's `design` (the wrapper's
-// `FWD_DESIGNS` names them in this order)
-enum FwdDesign { kCudaCore = 0, kMmaBf16 = 1, kMma3xTf32 = 2 };
-
 // q [B, Lq, H, D], k/v [B, Lk, H, D] with element strides (last dim
 // contiguous); out [B, Lq, H, D] contiguous in the input type; lse
 // [B, H, Lq] fp32; mask null or a bool [B, H, Lq, Lk] read through element
 // strides smb, smh, smq, smk (0 on a broadcast dim; true = attend). D <= 128
 // and even. For causal, Lk >= Lq. *design is set to the design launched
-// (FwdDesign).
+// (pt::Design).
 extern "C" int pt_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, float* lse,
     const void* mask, int64_t sqb, int64_t sql, int64_t sqh, int64_t skb,
@@ -746,14 +742,14 @@ extern "C" int pt_flash_attention_fwd(
   return static_cast<int>(pt::with_mask(mask, [&](auto m) {
     constexpr bool M = decltype(m)::value;
     if (tc && is_bf16) {
-      *design = kMmaBf16;
+      *design = pt::kMmaBf16;
       return D == 64 ? launch_tc<64, M>(a, s) : launch_tc<128, M>(a, s);
     }
     if (tc) {
-      *design = kMma3xTf32;
+      *design = pt::kMma3xTf32;
       return D == 64 ? launch_tf32<64, M>(a, s) : launch_tf32<128, M>(a, s);
     }
-    *design = kCudaCore;
+    *design = pt::kCudaCore;
     if (is_bf16)
       return D <= 64 ? launch<__nv_bfloat16, 64, M>(a, s)
                      : launch<__nv_bfloat16, 128, M>(a, s);

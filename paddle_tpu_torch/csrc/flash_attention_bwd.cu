@@ -25,16 +25,24 @@
 // atomics into a [B, Lq, H, D] buffer the wrapper zeroes and then casts, so
 // its summation order varies from run to run (the tolerance says so); dk
 // and dv are written once and repeat bit for bit. The walk, shared with the
-// split dk/dv kernel, is in flash_attention_bwd.cuh, in two designs:
+// split dk/dv kernel, is in flash_attention_bwd.cuh, in three designs:
 // - bf16 at D 64 or 128 with 16-byte aligned rows: `kv_walk_tc<D, true>`,
 //   4 warps on the tensor cores (mma.sync m16n8k16). P^T and dS^T leave
 //   their products as bf16 A fragments for dV and dK; dS^T is also staged
 //   in shared memory, and each warp adds 16 q rows of dS K into dq with
 //   two-float atomics. Shared memory ~64 (~112) KB a block at D 64 (128).
-// - fp32, other head dims and unaligned rows: `kv_walk<T, D, true>`, 256
+// - fp32 at D 64 or 128 with 16-byte aligned rows: `kv_walk_tf32<D,
+//   true>`, 4 warps on the TF32 tensor cores (mma.sync m16n8k8), each
+//   product hi hi + hi lo + lo hi of a 3xTF32 split, which keeps fp32
+//   accuracy: the bf16 walk's design with fp32 tiles, whose fragment
+//   layout sets how the operands are read and where dS^T is staged (see
+//   the walk). Shared memory ~85 (~107) KB at D 64 (128, where the q tile
+//   is 32 rows), so two blocks share an SM.
+// - other head dims and unaligned rows: `kv_walk<T, D, true>`, 256
 //   threads on CUDA cores, P and dS kept in shared memory as fp32 tiles;
 //   ~98 KB at D = 64 and ~162 KB at D = 128.
-// Both raise the 48 KB default cap on shared memory at launch.
+// All raise the 48 KB default cap on shared memory at launch; the entry
+// reports the design it launched.
 #include "flash_attention_bwd.cuh"
 
 namespace {
@@ -51,6 +59,12 @@ template <int D, bool kMask>
 __global__ void __launch_bounds__(pt::fa_bwd::kTcThreads)
     flash_bwd_tc_kernel(BwdArgs a) {
   pt::fa_bwd::kv_walk_tc<D, true, kMask>(a);
+}
+
+template <int D, bool kMask>
+__global__ void __launch_bounds__(pt::fa_bwd::kTcThreads)
+    flash_bwd_tf32_kernel(BwdArgs a) {
+  pt::fa_bwd::kv_walk_tf32<D, true, kMask>(a);
 }
 
 template <typename T, int DMAX, bool kMask>
@@ -75,6 +89,17 @@ cudaError_t launch_tc(const BwdArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <int D, bool kMask>
+cudaError_t launch_tf32(const BwdArgs& a, cudaStream_t stream) {
+  using namespace pt::fa_bwd;
+  constexpr size_t smem = kv_walk_tf32_smem_bytes<D, true>();
+  cudaError_t err = pt::allow_smem(flash_bwd_tf32_kernel<D, kMask>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Lk + kBK - 1) / kBK, a.B * a.H);
+  flash_bwd_tf32_kernel<D, kMask><<<grid, kTcThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q [B, Lq, H, D], k/v [B, Lk, H, D], dout [B, Lq, H, D] with element
@@ -82,7 +107,8 @@ cudaError_t launch_tc(const BwdArgs& a, cudaStream_t stream) {
 // [B, Lq, H, D] fp32, zeroed; dk/dv [B, Lk, H, D] contiguous in the input
 // type; mask null or the forward's bool [B, H, Lq, Lk] through element
 // strides smb, smh, smq, smk (0 on a broadcast dim). D <= 128, a multiple
-// of 8; B * H <= 65535. For causal, Lk >= Lq.
+// of 8; B * H <= 65535. For causal, Lk >= Lq. *design is set to the
+// design launched (pt::Design).
 extern "C" int pt_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, float* dq, void* dk, void* dv,
@@ -90,16 +116,26 @@ extern "C" int pt_flash_attention_bwd(
     int64_t skl, int64_t skh, int64_t svb, int64_t svl, int64_t svh,
     int64_t sob, int64_t sol, int64_t soh, int64_t smb, int64_t smh,
     int64_t smq, int64_t smk, int B, int H, int Lq, int Lk, int D, int causal,
-    float scale, int is_bf16, void* stream) {
+    float scale, int is_bf16, int* design, void* stream) {
   BwdArgs a{q,   k,   v,   dout, lse, delta, dq, dk,  dv,  sqb, sql,
             sqh, skb, skl, skh,  svb, svl,   svh, sob, sol, soh, B,
             H,   Lq,  Lk,  D,    causal, scale,
             static_cast<const uint8_t*>(mask), smb, smh, smq, smk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // the design by type, head dim and alignment; the wrapper's
+  // `bwd_design` predicts the same
+  const bool tc = pt::fa_bwd::tc_takes(a, is_bf16 ? 2 : 4);
   return static_cast<int>(pt::with_mask(mask, [&](auto m) {
     constexpr bool M = decltype(m)::value;
-    if (is_bf16 && pt::fa_bwd::tc_takes(a))
+    if (tc && is_bf16) {
+      *design = pt::kMmaBf16;
       return D == 64 ? launch_tc<64, M>(a, s) : launch_tc<128, M>(a, s);
+    }
+    if (tc) {
+      *design = pt::kMma3xTf32;
+      return D == 64 ? launch_tf32<64, M>(a, s) : launch_tf32<128, M>(a, s);
+    }
+    *design = pt::kCudaCore;
     if (is_bf16)
       return D <= 64 ? launch<__nv_bfloat16, 64, M>(a, s)
                      : launch<__nv_bfloat16, 128, M>(a, s);

@@ -1,8 +1,9 @@
 // Tensor-core building blocks for the hand-written Hopper kernels:
 // 16-byte asynchronous copies into shared memory (cp.async), 8 x 8 tile
 // loads from shared memory into mma fragments (ldmatrix, plain and
-// transposed), and the bf16 m16n8k16 product with fp32 accumulators
-// (mma.sync).
+// transposed, and plain on fp32 data for the TF32 fragments), the bf16
+// m16n8k16 product and the TF32 m16n8k8 one in a 3xTF32 split, both with
+// fp32 accumulators (mma.sync).
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major), 4 registers of two bf16: a0 (row g, cols 2t and
@@ -146,6 +147,65 @@ __device__ __forceinline__ void split_a_pairs(unsigned (&hi)[4],
   split_tf32(r0.y, hi[2], lo[2]);
   split_tf32(r8.y, hi[3], lo[3]);
 }
+
+// a fragment's four fp32 values (x0..x3 for registers 0..3) split into
+// hi and lo
+__device__ __forceinline__ void split4(float x0, float x1, float x2, float x3,
+                                       unsigned (&hi)[4], unsigned (&lo)[4]) {
+  split_tf32(x0, hi[0], lo[0]);
+  split_tf32(x1, hi[1], lo[1]);
+  split_tf32(x2, hi[2], lo[2]);
+  split_tf32(x3, hi[3], lo[3]);
+}
+
+// the same for fragment registers loaded as raw bits (ldmatrix)
+__device__ __forceinline__ void split4(const unsigned (&x)[4],
+                                       unsigned (&hi)[4], unsigned (&lo)[4]) {
+  split4(__uint_as_float(x[0]), __uint_as_float(x[1]), __uint_as_float(x[2]),
+         __uint_as_float(x[3]), hi, lo);
+}
+
+// d += a b in 3xTF32: lo hi, hi lo, then hi hi (b0/b1 hi in bh0/bh1, lo in
+// bl0/bl1); ptxas interleaves the calls on independent accumulators
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const unsigned (&ahi)[4],
+                                           const unsigned (&alo)[4],
+                                           unsigned bh0, unsigned bh1,
+                                           unsigned bl0, unsigned bl1) {
+  mma_tf32(d, alo, bh0, bh1);
+  mma_tf32(d, ahi, bl0, bl1);
+  mma_tf32(d, ahi, bh0, bh1);
+}
+
+// ldmatrix on fp32 data: an 8 x 8 b16 tile is 8 rows of 4 floats, and
+// lane (g, t) receives float (row g, col t) of it, the TF32 fragments'
+// own (unrenumbered) k order. With rows of LD floats, LD = 4 mod 8, the
+// 8 rows of a tile fall on distinct banks.
+// The A fragment (16 x 8) of rows row0.., cols k0.. of a row-major fp32
+// tile: tiles (rows 0-7, k 0-3), (rows 8-15, k 0-3), (rows 0-7, k 4-7),
+// (rows 8-15, k 4-7) are a0..a3.
+template <int LD>
+__device__ __forceinline__ void load_a_f32(unsigned (&r)[4], const float* s,
+                                           int row0, int k0, int lane) {
+  const int i = lane >> 3;
+  ldmatrix_x4(r, s + (row0 + (lane & 7) + (i & 1) * 8) * LD + k0 +
+                     (i >> 1) * 4);
+}
+
+// the B fragments of two n8 tiles (n0..n0+15), k0..k0+7, from an fp32
+// tile stored [n][k]: r[0], r[1] (b0, b1) for n0..n0+7 and r[2], r[3] for
+// n0+8..n0+15
+template <int LD>
+__device__ __forceinline__ void load_b_f32(unsigned (&r)[4], const float* s,
+                                           int n0, int k0, int lane) {
+  const int i = lane >> 3;
+  ldmatrix_x4(r, s + (n0 + (lane & 7) + (i >> 1) * 8) * LD + k0 +
+                     (i & 1) * 4);
+}
+
+// the designs a launcher reports to its wrapper (`int* design` of the
+// flash entries; the wrapper's `DESIGNS` names them in this order)
+enum Design { kCudaCore = 0, kMmaBf16 = 1, kMma3xTf32 = 2 };
 
 // two fp32 values as one register of two bf16, lo in the low half (the
 // lower column of an mma fragment)

@@ -80,8 +80,8 @@ def composed_stats() -> dict:
 
 
 #: launches by design and by shape of the kernels with more than one
-#: design (the flash forward, the 1x1 conv): {kernel: {design: n}} and
-#: {kernel: {shape: n}}
+#: design (the flash forward and backwards, the 1x1 conv):
+#: {kernel: {design: n}} and {kernel: {shape: n}}
 _designs: dict = {}
 _shapes: dict = {}
 

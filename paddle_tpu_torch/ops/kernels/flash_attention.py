@@ -16,11 +16,12 @@ Designs (``fwd_design``, ``bwd_design``): at head dim 64 or 128 with
 16-byte aligned rows, bf16 runs the forward, the one-pass backward and
 the split backward pair on the tensor cores (``mma.sync`` m16n8k16, fp32
 accumulators, P and dS rounded to bf16 before the products that read
-them, as the reference does), and fp32 runs the forward on the TF32
-tensor cores in a 3xTF32 split (``mma.sync`` m16n8k8: each operand split
-into a TF32 hi and lo part, each product hi hi + hi lo + lo hi in fp32,
-which keeps fp32 accuracy); the fp32 backwards, other head dims and
-unaligned rows run on CUDA cores.
+them, as the reference does), and fp32 runs them on the TF32 tensor
+cores in a 3xTF32 split (``mma.sync`` m16n8k8: each operand split into a
+TF32 hi and lo part, each product hi hi + hi lo + lo hi in fp32, which
+keeps fp32 accuracy); other head dims and unaligned rows run on CUDA
+cores. Every launch counts the design its C entry reports
+(``design_stats``).
 
 Backward, chosen by the reference's gate (l.1109): while the one-pass
 kernel's whole-(b, h) dq, Lq * D * 4 bytes, fits ``_FUSED_BWD_DQ_BYTES``
@@ -196,28 +197,31 @@ def _tc_shape(*tensors) -> bool:
         for t in tensors)
 
 
-def fwd_design(q, k, v) -> str:
-    """The design the forward launcher (``csrc/flash_attention.cu``)
-    picks for these inputs: on the tensor cores at D 64 or 128 with
-    aligned rows, "mma.sync" for bf16 and "mma.sync-3xtf32" for fp32;
-    else "cuda-core". A prediction: the launch counts the design its C
-    entry reports (``FWD_DESIGNS``)."""
-    if not _tc_shape(q, k, v):
+def _design(q, *tensors) -> str:
+    """On the tensor cores at D 64 or 128 with every row aligned,
+    "mma.sync" for bf16 and "mma.sync-3xtf32" for fp32; else
+    "cuda-core"."""
+    if not _tc_shape(q, *tensors):
         return "cuda-core"
     return "mma.sync" if q.dtype == torch.bfloat16 else "mma.sync-3xtf32"
 
 
+def fwd_design(q, k, v) -> str:
+    """The design the forward launcher (``csrc/flash_attention.cu``)
+    picks for these inputs (``_design``). A prediction: the launch counts
+    the design its C entry reports (``DESIGNS``)."""
+    return _design(q, k, v)
+
+
 def bwd_design(q, k, v, do) -> str:
     """The design the backward launchers (one-pass and split) pick, as
-    ``csrc/flash_attention_bwd.cuh:tc_takes`` picks it: "mma.sync" for
-    bf16 at D 64 or 128 with aligned rows, else "cuda-core" (fp32 too)."""
-    tc = q.dtype == torch.bfloat16 and _tc_shape(q, k, v, do)
-    return "mma.sync" if tc else "cuda-core"
+    ``csrc/flash_attention_bwd.cuh:tc_takes`` picks it (``_design``, dO's
+    rows aligned too). A prediction, as ``fwd_design`` is."""
+    return _design(q, k, v, do)
 
 
-#: the forward's designs by the code its C entry reports
-#: (``csrc/flash_attention.cu:FwdDesign``)
-FWD_DESIGNS = ("cuda-core", "mma.sync", "mma.sync-3xtf32")
+#: the designs by the code the C entries report (``csrc/mma.cuh:Design``)
+DESIGNS = ("cuda-core", "mma.sync", "mma.sync-3xtf32")
 
 
 def _check_mask(q, k, mask) -> None:
@@ -266,9 +270,15 @@ def flash_attention_fwd(q, k, v, causal: bool = False, scale=None,
            float(scale), int(q.dtype == torch.bfloat16),
            ctypes.byref(design))
     _count(_stats, _mask_stats, mask, "kernel")
-    count_design("flash_attention" if mask is None
-                 else "flash_attention_masked", FWD_DESIGNS[design.value])
+    _count_design("flash_attention", mask, design)
     return out, lse
+
+
+def _count_design(name, mask, design) -> None:
+    """Count a launch of kernel `name` (its ``_masked`` counter with a
+    mask) under the design its C entry reported into ``design``."""
+    count_design(name if mask is None else name + "_masked",
+                 DESIGNS[design.value])
 
 
 def _p_ds(q, k, v, lse, delta, do, causal, scale, mask=None):
@@ -342,7 +352,7 @@ def attention_delta(out, do):
 def _bwd_launch_args(q, k, v, lse, delta, do, causal, scale, mask):
     """Checks what the backward kernels take; returns (do, lse, delta)
     ready for them and the mask pointer, strides and sizes every entry
-    takes last."""
+    takes before its design out-parameter."""
     check_args(q, k, v, causal)
     _check_mask(q, k, mask)
     mptr, mstrides = _mask_args(q, k, mask)
@@ -379,10 +389,13 @@ def flash_attention_bwd_dq(q, k, v, lse, delta, do, causal: bool = False,
     do, lse, delta, tail = _bwd_launch_args(q, k, v, lse, delta, do, causal,
                                             scale, mask)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    design = ctypes.c_int(-1)
     launch("flash_attention_bwd_dq", "pt_flash_attention_bwd_dq", q.device,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-           lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *tail)
+           lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *tail,
+           ctypes.byref(design))
     _count(_bwd_dq_stats, _bwd_dq_mask_stats, mask, "kernel")
+    _count_design("flash_attention_bwd_dq", mask, design)
     return dq
 
 
@@ -400,11 +413,13 @@ def flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal: bool = False,
                                             scale, mask)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
+    design = ctypes.c_int(-1)
     launch("flash_attention_bwd_dkv", "pt_flash_attention_bwd_dkv",
            q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-           *tail)
+           *tail, ctypes.byref(design))
     _count(_bwd_dkv_stats, _bwd_dkv_mask_stats, mask, "kernel")
+    _count_design("flash_attention_bwd_dkv", mask, design)
     return dk, dv
 
 
@@ -423,11 +438,13 @@ def flash_attention_bwd_fused(q, k, v, lse, delta, do, causal: bool = False,
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
+    design = ctypes.c_int(-1)
     launch("flash_attention_bwd", "pt_flash_attention_bwd", q.device,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-           dv.data_ptr(), *tail)
+           dv.data_ptr(), *tail, ctypes.byref(design))
     _count(_bwd_stats, _bwd_mask_stats, mask, "kernel")
+    _count_design("flash_attention_bwd", mask, design)
     return dq.to(q.dtype), dk, dv
 
 

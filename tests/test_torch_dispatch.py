@@ -117,7 +117,7 @@ def test_flash_kernel_takes_accepts(shape, causal, dtype):
 def test_kernel_design_follows_type_head_dim_and_alignment():
     """The bf16 tensor-core forward and split pair take bf16 at D 64 or
     128 with 16-byte aligned rows; fp32 there takes the 3xTF32 forward and
-    the CUDA-core backwards; everything else the CUDA-core kernels."""
+    backwards; everything else the CUDA-core kernels."""
     bf16 = torch.bfloat16
     q, k, v = torch.zeros(2, 16, 3, 4, 64, dtype=bf16).unbind(2)
     assert fa.fwd_design(q, k, v) == "mma.sync"
@@ -125,7 +125,7 @@ def test_kernel_design_follows_type_head_dim_and_alignment():
     assert fa.fwd_design(*_qkv(D=128, dtype=bf16)) == "mma.sync"
     f32 = [t.float() for t in (q, k, v)]
     assert fa.fwd_design(*f32) == "mma.sync-3xtf32"
-    assert fa.bwd_design(*f32, torch.zeros_like(f32[0])) == "cuda-core"
+    assert fa.bwd_design(*f32, torch.zeros_like(f32[0])) == "mma.sync-3xtf32"
     assert fa.fwd_design(*_qkv(D=32, dtype=bf16)) == "cuda-core"
     flat = torch.zeros(2 * 16 * 4 * 64 + 4, dtype=bf16)
     shifted = flat[4:].view(2, 16, 4, 64)  # rows start 8 bytes off
@@ -143,6 +143,13 @@ def _one_pass_inputs(case):
                                                       dtype=bf16))
     if case == "fp32_D64":
         return (*_qkv(D=64), torch.zeros(2, 16, 2, 64))
+    if case == "fp32_D128":
+        return (*_qkv(D=128), torch.zeros(2, 16, 2, 128))
+    if case == "fp32_D96":
+        return (*_qkv(D=96), torch.zeros(2, 16, 2, 96))
+    if case == "fp32_do_4_bytes_off":
+        flat = torch.zeros(2 * 16 * 2 * 64 + 1)
+        return (*_qkv(D=64), flat[1:].view(2, 16, 2, 64))
     if case == "bf16_D96":
         return (*_qkv(D=96, dtype=bf16), torch.zeros(2, 16, 2, 96,
                                                      dtype=bf16))
@@ -153,13 +160,15 @@ def _one_pass_inputs(case):
 
 @pytest.mark.parametrize("case,design", [
     ("bf16_D64", "mma.sync"), ("bf16_D128", "mma.sync"),
-    ("fp32_D64", "cuda-core"), ("bf16_D96", "cuda-core"),
-    ("bf16_do_off_by_one", "cuda-core")])
+    ("fp32_D64", "mma.sync-3xtf32"), ("fp32_D128", "mma.sync-3xtf32"),
+    ("fp32_D96", "cuda-core"), ("fp32_do_4_bytes_off", "cuda-core"),
+    ("bf16_D96", "cuda-core"), ("bf16_do_off_by_one", "cuda-core")])
 def test_one_pass_backward_design(case, design):
-    """The one-pass backward takes the tensor-core walk for bf16 at D 64
-    or 128 when q, k, v and dO all have 16-byte aligned rows (the
-    launcher's `tc_takes`), the CUDA-core walk otherwise; below the 6 MiB
-    gate the backward is the one-pass kernel."""
+    """The one-pass backward takes a tensor-core walk at D 64 or 128 when
+    q, k, v and dO all have 16-byte aligned rows (the launcher's
+    `tc_takes`): bf16 the mma.sync one, fp32 the 3xTF32 one; the CUDA-core
+    walk otherwise. Below the 6 MiB gate the backward is the one-pass
+    kernel."""
     q, k, v, do = _one_pass_inputs(case)
     assert not fa.uses_split_bwd(q.shape[1], q.shape[-1])
     assert fa.bwd_design(q, k, v, do) == design
@@ -188,13 +197,12 @@ def _fp32_views(case):
     ("D96", "cuda-core"), ("D64_rows_4_bytes_off", "cuda-core"),
     ("D64_row_stride_off", "cuda-core")])
 def test_fp32_forward_design_counts_bytes(case, fwd):
-    """fp32 takes the 3xTF32 tensor-core forward at D 64 or 128 when every
-    row is 16-byte aligned, counted in bytes (4 floats, not 8 elements as
-    for bf16), as ``csrc/mma.cuh:rows_aligned16`` counts; its backwards
-    stay on the CUDA cores whatever the alignment."""
+    """fp32 takes the 3xTF32 tensor-core forward and backwards at D 64 or
+    128 when every row is 16-byte aligned, counted in bytes (4 floats, not
+    8 elements as for bf16), as ``csrc/mma.cuh:rows_aligned16`` counts."""
     q, k, v = _fp32_views(case)
     assert fa.fwd_design(q, k, v) == fwd
-    assert fa.bwd_design(q, k, v, torch.zeros_like(q)) == "cuda-core"
+    assert fa.bwd_design(q, k, v, torch.zeros_like(q)) == fwd
 
 
 def test_bf16_designs_unchanged_by_the_byte_count():
@@ -214,7 +222,7 @@ def test_bf16_designs_unchanged_by_the_byte_count():
 def test_forward_launch_counts_its_design(monkeypatch):
     """On the card's route the forward counts each launch under the design
     its C entry reports through its last argument (an index into
-    ``fa.FWD_DESIGNS``), not under the Python prediction, and
+    ``fa.DESIGNS``), not under the Python prediction, and
     reset_stats clears it."""
     kernels.reset_stats()
     reported = iter((2, 1, 0))
@@ -232,6 +240,32 @@ def test_forward_launch_counts_its_design(monkeypatch):
         "mma.sync-3xtf32": 1, "mma.sync": 1, "cuda-core": 1}
     kernels.reset_stats()
     assert kernels.design_stats() == {}
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_backward_launches_count_their_design(monkeypatch, masked):
+    """On the card's route each backward entry (the one-pass kernel, the
+    split dq and dk/dv kernels) counts its launch under the design its C
+    entry reports through its last argument, under the ``_masked`` name
+    with a bool mask."""
+    kernels.reset_stats()
+    reported = iter((2, 1, 0))
+    monkeypatch.setattr(fa, "use_kernel", lambda t: True)
+    monkeypatch.setattr(
+        fa, "launch",
+        lambda *args: setattr(args[-1]._obj, "value", next(reported)))
+    q, k, v = torch.zeros(1, 16, 3, 2, 64).unbind(2)
+    lse, delta = torch.zeros(1, 2, 16), torch.zeros(1, 2, 16)
+    mask = torch.ones(1, 1, 1, 16, dtype=torch.bool) if masked else None
+    fa.flash_attention_bwd_fused(q, k, v, lse, delta, q, True, mask=mask)
+    fa.flash_attention_bwd_dq(q, k, v, lse, delta, q, True, mask=mask)
+    fa.flash_attention_bwd_dkv(q, k, v, lse, delta, q, True, mask=mask)
+    sfx = "_masked" if masked else ""
+    assert kernels.design_stats() == {
+        f"flash_attention_bwd{sfx}": {"mma.sync-3xtf32": 1},
+        f"flash_attention_bwd_dq{sfx}": {"mma.sync": 1},
+        f"flash_attention_bwd_dkv{sfx}": {"cuda-core": 1}}
+    kernels.reset_stats()
 
 
 @pytest.mark.parametrize("x,g,b,takes", [

@@ -1,8 +1,9 @@
-"""The CPU's proof of the fp32 flash forward's error budget on the card.
+"""The CPU's proof of the fp32 flash kernels' error budget on the card.
 
-On an H100 the fp32 flash forward at head dim 64 and 128 runs on the TF32
-tensor cores in a 3xTF32 split (``csrc/flash_attention.cu``,
-``csrc/mma.cuh``): each operand x is split into hi = x rounded to the
+On an H100 the fp32 flash forward and backwards at head dim 64 and 128
+run on the TF32 tensor cores in a 3xTF32 split (``csrc/flash_attention.cu``,
+``csrc/flash_attention_bwd.cuh``, ``csrc/mma.cuh``): each operand x is
+split into hi = x rounded to the
 nearest TF32 (10 explicit mantissa bits, ties away from zero:
 ``cvt.rna.tf32.f32``) and lo = x - hi with its 13 low bits cleared, and
 each product a b is taken as hi hi + hi lo + lo hi, in fp32. No CUDA runs
@@ -10,14 +11,19 @@ here, so this file emulates that arithmetic in torch (TF32 rounding by
 bit masking) for both products of attention, S = Q K^T and O = P V, and
 holds the result against the JAX package's fp32 ``flash_attention`` on
 the same seeded numpy inputs: within 1e-4, the fp32 gate the card's
-kernel is held to against its plain version (``chip_smoke.TOL``). A
-single TF32 pass (one product of the rounded operands) on the same
-inputs errs by more than the split: only that order is asserted.
+kernel is held to against its plain version (``chip_smoke.TOL``). The
+backward's five products (S = Q K^T, dP = dO V^T, dV = P^T dO,
+dK = dS^T Q, dQ = dS K, with dS = P (dP - delta)) are emulated the same
+way and held against ``jax.vjp`` of the same function, within 1e-4 of
+each gradient's scale (``chip_smoke.bwd_tol``). A single TF32 pass (one
+product of the rounded operands) on the same inputs errs by more than
+the split: only that order is asserted.
 """
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from paddle_tpu.ops.pallas import flash_attention as jfa
@@ -124,3 +130,74 @@ def test_3xtf32_attention_within_the_fp32_gate_of_jax(shape):
         attention(tq, tk, tv, mm_tf32).numpy() - want).max())
     assert split_err <= GATE
     assert single_err > split_err
+
+
+def attention_bwd(q, k, v, do, mm, causal=False, mask=None):
+    """(dq, dk, dv) of [B, L, H, D] fp32 attention with the five products
+    taken by `mm`, as the kernels order them: lse and O from the forward's
+    products, delta = rowsum(dO * O) in fp32, P = exp(S - lse), 0 where
+    the causal triangle or the bool mask ([B|1, 1, Lq|1, Lk], True =
+    attend) hides a pair, dS = P (dP - delta)."""
+    qh, kh, vh, dh = (t.transpose(1, 2) for t in (q, k, v, do))
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    s = mm(qh, kh.transpose(-1, -2)) * scale
+    L = q.shape[1]
+    keep = torch.ones(L, L, dtype=torch.bool)
+    if causal:
+        keep = keep.tril()
+    if mask is not None:
+        keep = keep & mask
+    s = s.masked_fill(~keep, float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    lse = m + torch.log(p.sum(-1, keepdim=True))
+    o = mm(p, vh) / p.sum(-1, keepdim=True)
+    delta = (dh * o).sum(-1, keepdim=True)
+    p = torch.where(keep, torch.exp(s - lse), 0.0)
+    ds = p * (mm(dh, vh.transpose(-1, -2)) - delta)
+    dv = mm(p.transpose(-1, -2), dh)
+    dk = mm(ds.transpose(-1, -2), qh) * scale
+    dq = mm(ds, kh) * scale
+    return tuple(t.transpose(1, 2) for t in (dq, dk, dv))
+
+
+def _masks(kind, B, L, rng):
+    """None, or the bool mask of `kind` as numpy: "pad" [B, 1, 1, L] (each
+    row's length in L/2..L), "tril_pad" [B, 1, L, L] (the same and the
+    lower triangle), the masks Transformer-base's attention takes."""
+    if kind is None:
+        return None
+    lens = rng.integers(L // 2, L + 1, B)
+    m = (np.arange(L)[None, :] < lens[:, None])[:, None, None, :]
+    if kind == "tril_pad":
+        m = m & np.tril(np.ones((L, L), dtype=bool))
+    return m
+
+
+@pytest.mark.parametrize("causal,kind", [
+    (True, None), (False, None), (False, "pad"), (False, "tril_pad")])
+def test_3xtf32_backward_within_the_fp32_gate_of_jax(causal, kind):
+    """The one-pass kernel's and the split pair's arithmetic (both take
+    the same five products) at B 2, L 128, H 2, D 64, against jax.vjp of
+    the JAX package's fp32 flash_attention on the same inputs."""
+    shape = (2, 128, 2, 64)
+    rng = np.random.default_rng(7 + causal + 2 * (kind is not None))
+    q, k, v, do = (rng.standard_normal(shape).astype(np.float32)
+                   for _ in range(4))
+    mask = _masks(kind, shape[0], shape[1], rng)
+    jm = None if mask is None else jnp.asarray(mask)
+    _, vjp = jax.vjp(lambda a, b, c: jfa.flash_attention(
+        a, b, c, mask=jm, causal=causal), *map(jnp.asarray, (q, k, v)))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(do))]
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    tm = None if mask is None else torch.from_numpy(mask)
+
+    def errs(mm):
+        got = attention_bwd(tq, tk, tv, tdo, mm, causal, tm)
+        return [float(np.abs(g.numpy() - w).max())
+                / (GATE * max(1.0, float(np.abs(w).max())))
+                for g, w in zip(got, want)]
+
+    split, single = errs(mm_3xtf32), errs(mm_tf32)
+    assert max(split) <= 1.0, split
+    assert all(b > a for a, b in zip(split, single)), (split, single)

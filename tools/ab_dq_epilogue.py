@@ -113,6 +113,7 @@ def main():
         lib.pt_flash_attention_bwd.argtypes = (
             [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 16
             + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
+                                    ctypes.POINTER(ctypes.c_int),
                                     ctypes.c_void_p])
         libs[name] = lib
     _native.load()
@@ -136,6 +137,7 @@ def main():
                     q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *tail,
+                    ctypes.byref(ctypes.c_int()),
                     torch.cuda.current_stream().cuda_stream), name)
                 return dq, dk, dv
             got = call()

@@ -100,7 +100,7 @@ def main():
                     L, D, 1, D ** -0.5, 0,
                     ctypes.byref(design),
                     torch.cuda.current_stream().cuda_stream), name)
-                if fa.FWD_DESIGNS[design.value] != "mma.sync-3xtf32":
+                if fa.DESIGNS[design.value] != "mma.sync-3xtf32":
                     raise AssertionError(f"{name}: design {design.value}")
                 return out
             err = cs.max_err(call(), ref)

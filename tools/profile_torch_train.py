@@ -4,6 +4,8 @@
     python3 tools/profile_torch_train.py          # from the repository root
     python3 tools/profile_torch_train.py --long   # B 1 x 32,768, remat "full"
     python3 tools/profile_torch_train.py --bert   # BERT-Base, B 256 x 128
+    python3 tools/profile_torch_train.py --fit    # hapi Model, fp32
+    python3 tools/profile_torch_train.py --fit --tree DIR --tag NAME
 
 Builds GPT-2 small at full width (random weights from seed 0, dropout 0)
 and trains it with ``paddle_tpu_torch.jit.TrainStep(model, F.cross_entropy,
@@ -13,8 +15,12 @@ or with ``--long`` on one 32,768-token sequence (max_position_embeddings
 32,768) with ``GPTConfig.remat = "full"``, whose attention backward is the
 split dq / dk-dv pair, or with ``--bert`` the BERT-Base classifier of
 ``chip_smoke.py``'s bert phase (the JAX package's ``bench_bert_base``: B
-256, L 128, AdamW(1e-4), O2 bf16). After the warm-up steps (two; one with
-``--long``)
+256, L 128, AdamW(1e-4), O2 bf16), or with ``--fit`` GPT-2 small at b8
+s1024 in fp32 as ``hapi.Model`` trains it (``Model(net).prepare(AdamW(1e-4,
+weight_decay=0.01), F.cross_entropy)``, one ``train_batch`` a step, the
+step ``Model.fit`` takes: its attention backward is the fp32 one-pass
+kernel, its matrix products fp32 cuBLAS with TF32 off). After the warm-up
+steps (two; one with ``--long``)
 it measures, with ``torch.profiler`` (CPU and CUDA activities), a window
 of steps (three; one with ``--long``, a step of seconds):
 
@@ -28,8 +34,11 @@ of steps (three; one with ``--long``, a step of seconds):
 
 and the same window without the profiler, for its overhead. Writes
 ``chiprun_out/profile_torch_train.json`` (``profile_torch_train_long.json``
-with ``--long``, ``profile_torch_train_bert.json`` with ``--bert``). Needs a
-card.
+with ``--long``, ``_bert`` with ``--bert``, ``_fit`` with ``--fit``, then
+``_NAME`` with ``--tag``) under the directory it is started from. With
+``--tree`` it profiles the checkout at DIR (its ``paddle_tpu_torch``, and
+its ``chip_smoke`` for ``--bert``), so a parent and a change can be
+profiled in one call with this tool. Needs a card.
 """
 from __future__ import annotations
 
@@ -43,24 +52,20 @@ import time
 import numpy as np
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))))
-
-from paddle_tpu_torch import optimizer  # noqa: E402
-from paddle_tpu_torch.jit import TrainStep  # noqa: E402
-from paddle_tpu_torch.models.gpt import GPT, GPTConfig  # noqa: E402
-from paddle_tpu_torch.nn import functional as F  # noqa: E402
-from paddle_tpu_torch.ops import kernels  # noqa: E402
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+#: where the output goes: chiprun_out/ under the directory started from
+OUT = os.path.abspath("chiprun_out")
 
 #: (batch, sequence, remat, warm-up steps, profiled steps) of each run
 RUNS = {"b8s1024": (8, 1024, "", 2, 3), "long": (1, 32768, "full", 1, 1),
-        "bert": (256, 128, "", 2, 3)}
+        "bert": (256, 128, "", 2, 3), "fit": (8, 1024, "", 2, 3)}
 
 #: device-kernel name fragments -> group (first match wins)
 GROUPS = (
     ("flash_attention_bwd_dq", ("flash_bwd_dq_",)),
     ("flash_attention_bwd_dkv", ("flash_bwd_dkv_",)),
-    ("flash_attention_bwd", ("flash_bwd_kernel", "flash_bwd_tc_kernel")),
+    ("flash_attention_bwd", ("flash_bwd_kernel", "flash_bwd_tc_kernel",
+                             "flash_bwd_tf32_kernel")),
     ("flash_attention", ("flash_fwd_",)),
     ("layer_norm", ("layer_norm_fwd_kernel",)),
     ("softmax_ce_fwd", ("ce_fwd_kernel",)),
@@ -122,11 +127,23 @@ def main():
                     help="B 1 x 32,768 tokens with remat 'full'")
     ap.add_argument("--bert", action="store_true",
                     help="the BERT-Base classifier at B 256 x 128")
+    ap.add_argument("--fit", action="store_true",
+                    help="GPT-2 small b8 s1024 in fp32 through hapi.Model")
+    ap.add_argument("--tree", default=ROOT, help="the checkout to profile")
+    ap.add_argument("--tag", help="suffix of the output file's name")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_train: no CUDA card", file=sys.stderr)
         return 2
-    run = "long" if args.long else "bert" if args.bert else "b8s1024"
+    os.chdir(os.path.abspath(args.tree))
+    sys.path.insert(0, os.getcwd())
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import kernels
+    run = ("long" if args.long else "bert" if args.bert
+           else "fit" if args.fit else "b8s1024")
     B, L, remat, warmup, window = RUNS[run]
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(
@@ -152,7 +169,16 @@ def main():
                                                (B, L))).cuda()
     opt = optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters(),
                           weight_decay=0.01)
-    step = TrainStep(model, F.cross_entropy, opt, amp_dtype=torch.bfloat16)
+    if args.fit:
+        from paddle_tpu_torch.hapi import Model
+        m = Model(model)
+        m.prepare(opt, F.cross_entropy)
+
+        def step(ids, labels):
+            return m.train_batch([ids], [labels])[0]
+    else:
+        step = TrainStep(model, F.cross_entropy, opt,
+                         amp_dtype=torch.bfloat16)
     for _ in range(warmup):
         step(ids, labels)
     torch.cuda.synchronize()
@@ -170,6 +196,7 @@ def main():
                                 for k, v in kernels.all_stats().items()}
     out["plain_runs"] = {k: v["plain"] for k, v in
                          kernels.all_stats().items()}
+    out["designs"] = kernels.design_stats()
 
     t0 = time.perf_counter()
     for _ in range(window):
@@ -177,11 +204,14 @@ def main():
     torch.cuda.synchronize()
     out["wall_ms_unprofiled"] = (time.perf_counter() - t0) * 1e3 / window
     out["loss"] = float(loss)
-    out.update(card=smi, batch=B, seq=L, remat=remat, window=window,
+    out.update(card=smi, tree=os.getcwd(), batch=B, seq=L, remat=remat,
+               window=window, dtype="float32" if args.fit else "O2 bfloat16",
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    os.makedirs("chiprun_out", exist_ok=True)
-    name = {"long": "_long", "bert": "_bert"}.get(run, "")
-    with open(f"chiprun_out/profile_torch_train{name}.json", "w") as f:
+    os.makedirs(OUT, exist_ok=True)
+    name = {"long": "_long", "bert": "_bert", "fit": "_fit"}.get(run, "")
+    name += f"_{args.tag}" if args.tag else ""
+    with open(os.path.join(OUT, f"profile_torch_train{name}.json"),
+              "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps(out, indent=1))
     print(smi)

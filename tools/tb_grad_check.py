@@ -21,11 +21,14 @@ tensors (the CPU's plain versions stay as they are):
   kernel that drops its mask operand would compute;
 - ``fwd_tf32``: q, k and v rounded to TF32 (10-bit significand, to
   nearest) before the fp32 forward, so that its Q K^T is what one TF32
-  pass would give in place of the 3xTF32 split.
+  pass would give in place of the 3xTF32 split;
+- ``bwd_tf32``: q, k, v and dO rounded so before the fp32 one-pass
+  backward, so that its S, dP and the TF32 operand of each of dV, dK and
+  dQ are what one TF32 pass would give.
 
 Writes ``chiprun_out/tb_grad_check.json`` under the directory it is
-started from; exits 1 when a seed fails the check or ``bwd_no_mask``
-passes it. Needs one card.
+started from; exits 1 when a seed fails the check or ``bwd_no_mask`` or
+``bwd_tf32`` passes it. Needs one card.
 """
 from __future__ import annotations
 
@@ -53,7 +56,8 @@ def control(name):
     the block runs (see the module's docstring)."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     attr = {"bwd_no_mask": "flash_attention_bwd_fused",
-            "fwd_tf32": "flash_attention_fwd"}[name]
+            "fwd_tf32": "flash_attention_fwd",
+            "bwd_tf32": "flash_attention_bwd_fused"}[name]
     orig = getattr(fa, attr)
 
     def bwd_no_mask(q, k, v, lse, delta, do, causal=False, scale=None,
@@ -66,8 +70,14 @@ def control(name):
             q, k, v = tf32(q), tf32(k), tf32(v)
         return orig(q, k, v, causal, scale, mask)
 
-    setattr(fa, attr, {"bwd_no_mask": bwd_no_mask,
-                       "fwd_tf32": fwd_tf32}[name])
+    def bwd_tf32(q, k, v, lse, delta, do, causal=False, scale=None,
+                 mask=None):
+        if q.is_cuda:
+            q, k, v, do = tf32(q), tf32(k), tf32(v), tf32(do)
+        return orig(q, k, v, lse, delta, do, causal, scale, mask)
+
+    setattr(fa, attr, {"bwd_no_mask": bwd_no_mask, "fwd_tf32": fwd_tf32,
+                       "bwd_tf32": bwd_tf32}[name])
     try:
         yield
     finally:
@@ -92,7 +102,7 @@ def main(argv=None) -> int:
     res = {"seeds": [cs.transformer_cross_check(int(s), hold=False)
                      for s in args.seeds.split(",")], "controls": {}}
     if not args.no_controls:
-        for name in ("bwd_no_mask", "fwd_tf32"):
+        for name in ("bwd_no_mask", "fwd_tf32", "bwd_tf32"):
             with control(name):
                 res["controls"][name] = cs.transformer_cross_check(
                     1, hold=False)
@@ -105,8 +115,9 @@ def main(argv=None) -> int:
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "tb_grad_check.json"), "w") as f:
         json.dump(res, f, indent=1)
-    ok = all(r["held"] for r in res["seeds"]) and not res["controls"].get(
-        "bwd_no_mask", {"held": False})["held"]
+    ok = all(r["held"] for r in res["seeds"]) and not any(
+        res["controls"].get(name, {"held": False})["held"]
+        for name in ("bwd_no_mask", "bwd_tf32"))
     return 0 if ok else 1
 
 
