@@ -14,12 +14,16 @@ failure:
               the serving and training paths' shapes, fp32 and bf16, with
               kernel, plain, library and bound times and the design timed
               ("mma.sync" on the tensor cores, "mma.sync-3xtf32" for the
-              fp32 flash forward on the TF32 tensor cores, with the
+              fp32 flash kernels on the TF32 tensor cores, with the
               CUDA-core bound beside its own, "wgmma-tma" for the bf16 1x1
-              conv, or "cuda-core"; the flash forward run twice, bit for
-              bit, in fp32 at every serving prefill bucket 16-1,024 and at
-              L 1,000, 4,096 and D 128 L 4,096; the 1x1 conv at the 12
-              shapes of the ResNet step, run twice, bit for bit; the flash
+              conv and "wgmma-3xtf32" for the fp32 one, or "cuda-core";
+              an empty kernel's time is the floor of any launch, stated
+              beside each bound below it; the flash forward run twice, bit
+              for bit, in fp32 at every serving prefill bucket 16-1,024
+              and at L 1,000, 4,096 and D 128 L 4,096; the 1x1 conv at
+              the 12 shapes of the ResNet step in fp32 and bf16, run
+              twice, bit for bit, fp32 at Cin 2,048 also against fp64; the
+              flash
               forward and split pair in bf16 also at L 1,000 and at D 128;
               the one-pass backward also at B 2 L 1,024 H 16 D 128, run
               twice (dk, dv bit for bit, dq within tolerance) and beside
@@ -32,7 +36,7 @@ failure:
               edges each kernel claims (ragged tails, Lk != Lq, D 8-128,
               ctx 0, page and partition boundaries, contexts past the
               block table, N up to 4096, V off the vector width, labels
-              out of range);
+              out of range, a NaN in the 1x1 conv's x or w);
 4. serve    - GPT-2 small at full width (12 layers, hidden 768, 12 heads,
               vocab 50304, fp32, random weights from a seed) through
               ServingEngine(max_batch=32, max_len=1024, page_size=16): 64
@@ -160,7 +164,19 @@ failure:
               (phase 15's tolerances, the CPU's ReLU branches matched to
               the card's where the two round a pre-activation to
               opposite sides of 0);
-22. report  - the `kernels` JSON line, the card's name and power limit, and
+22. resnet_fit - ResNet-50 (NHWC, 1000 classes) trained in fp32 through
+              hapi.Model(net).prepare(Momentum(0.1, 0.9),
+              F.cross_entropy).fit, as Model builds its step, at
+              bench_resnet50's B 128, 224x224 on one repeated seeded batch,
+              under PyTorch's default TF32 flags (cuDNN's allow_tf32 True):
+              first the port's fp32 conv2d (stem 7x7/2, layer1 3x3)
+              against the same call with the flag off, forward and
+              gradients bit for bit; then 2 warm-up and 8 timed steps;
+              exact launches a step, all 32 1x1 convs on "wgmma-3xtf32",
+              no plain run or composition, the first update lowers the
+              loss and every loss stays finite and below 3 times the
+              first; step ms, images/s, MFU and peak memory;
+23. report  - the `kernels` JSON line, the card's name and power limit, and
               the device JSON line last.
 
 Phase 3 also holds the flash kernels with their bool-mask operand (the
@@ -186,8 +202,10 @@ norm at R 32,768, N 768, eps 1e-12, bf16; attention bounds count L^2
 (q, k) pairs when not causal, L(L + 1)/2 when causal.
 
 Numerics: float32 matrix products run in full fp32
-(torch.backends.cuda.matmul.allow_tf32 = False), so the card and the CPU
-compute the same function. Needs one card and imports no JAX.
+(torch.backends.cuda.matmul.allow_tf32 = False, and cuDNN's flag off
+too), so the card and the CPU compute the same function; phase 22 runs
+under PyTorch's defaults, where the port's fp32 conv2d switches cuDNN's
+TF32 off inside each call. Needs one card and imports no JAX.
 """
 from __future__ import annotations
 
@@ -210,7 +228,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 #: the peak of a design whose operations run elsewhere than its type's
-DESIGN_PEAK = {"mma.sync-3xtf32": 495e12 / 3}
+DESIGN_PEAK = {"mma.sync-3xtf32": 495e12 / 3, "wgmma-3xtf32": 495e12 / 3}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 OUT_DIR = "chiprun_out"
 
@@ -280,6 +298,16 @@ def cuda_ms(fn, iters=20, reps=5, warmup=3, graph=True):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (iters * reps)
+
+
+def launch_floor_ms():
+    """The card's floor for one launch: an empty kernel (one warp,
+    csrc/layer_norm.cu pt_empty) timed as every kernel row is, from a
+    replayed CUDA graph (cuda_ms)."""
+    from paddle_tpu_torch import _native
+    lib = _native.load()
+    return cuda_ms(lambda: _native.check(lib.pt_empty(
+        torch.cuda.current_stream().cuda_stream), "empty"))
 
 
 def max_err(got, ref):
@@ -1630,8 +1658,13 @@ def check_conv1x1(dev, gen, shapes, dtypes=(torch.float32, torch.bfloat16)):
     products' magnitudes (|x| @ |w|^T: the fp32 sums run in another
     order), and sum / sumsq to 1e-5 of the sums of |y| and y^2 of the
     kernel's stored y; a second run must repeat y and the sums bit for
-    bit. Library: the product alone, x @ w^T (no single PyTorch call
-    computes y and its statistics)."""
+    bit. fp32 at Cin >= 2048 (the longest chain of the split's products)
+    is also held to the same gate against the product in fp64, with a
+    single TF32 pass on the same inputs beside it (reported, and expected
+    past the gate). Bounds at the design's peak (the fp32 design's
+    3xTF32, with the CUDA-core bound beside it). Library: the product
+    alone, x @ w^T (no single PyTorch call computes y and its
+    statistics)."""
     from paddle_tpu_torch.ops.kernels import fused_conv_bn as fcb
     rows = []
     for dtype in dtypes:
@@ -1647,14 +1680,17 @@ def check_conv1x1(dev, gen, shapes, dtypes=(torch.float32, torch.bfloat16)):
                                      f" {dtype}: two runs differ")
             del again
             ratio, err = conv_ratio(x, w, y, s, ss, dtype)
+            design = fcb.kernel_design(x)
+            extra = {}
+            if dtype == torch.float32 and Cin >= 2048:
+                extra["witnesses"] = {"fp64": conv_fp64_ratio(x, w, y)}
+                extra["single_tf32_pass_ratio"] = conv_fp64_ratio(
+                    x, w, (tf32_round(x) @ tf32_round(w).t()))
             isz = x.element_size()
-            bnd, by = bound_ms((R * Cin + Cout * Cin + R * Cout) * isz
-                               + 8 * Cout, 2 * R * Cin * Cout + 3 * R * Cout,
-                               dtype)
             wt = w.t()
             rows.append(dict(
                 kernel="conv1x1_stats", dtype=str(dtype)[6:],
-                shape=conv_shape(R, Cin, Cout), design=fcb.kernel_design(x),
+                shape=conv_shape(R, Cin, Cout), design=design,
                 max_abs_err=err, tol_ratio=ratio,
                 library_call="x @ w^T, the product alone",
                 ms=cuda_ms(lambda: fcb.conv1x1_stats(x, w), iters=5,
@@ -1662,10 +1698,55 @@ def check_conv1x1(dev, gen, shapes, dtypes=(torch.float32, torch.bfloat16)):
                 plain_ms=cuda_ms(lambda: fcb.conv1x1_stats_plain(x, w),
                                  iters=5, reps=3),
                 library_ms=cuda_ms(lambda: x @ wt, iters=5, reps=3),
-                bound_ms=bnd, bound_by=by))
+                **design_bounds((R * Cin + Cout * Cin + R * Cout) * isz
+                                + 8 * Cout, 2 * R * Cin * Cout + 3 * R * Cout,
+                                dtype, design), **extra))
             del x, w, y
             torch.cuda.empty_cache()
     return rows
+
+
+def tf32_round(t):
+    """fp32 t rounded to the nearest TF32, ties away from zero (the
+    kernels' hi)."""
+    return ((t.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(
+        torch.float32)
+
+
+def conv_fp64_ratio(x, w, y):
+    """Worst |y - x w^T| / (RN_RTOL |x w^T| + SUM_RTOL |x| |w|^T) of an
+    fp32 y against the product in fp64."""
+    ref = x.double() @ w.double().t()
+    terms = x.double().abs() @ w.double().abs().t()
+    tol = RN_RTOL[torch.float32] * ref.abs() + SUM_RTOL * terms + 1e-300
+    return float(((y.double() - ref).abs() / tol).max())
+
+
+def check_conv1x1_nan(dev, gen):
+    """A NaN in x (one row) or in w (one output channel), fp32 and bf16, at
+    a shape off every tile (R 300, Cin 520, Cout 72): y and the sums must
+    be NaN exactly where the plain version's are, and nowhere else."""
+    from paddle_tpu_torch.ops.kernels import fused_conv_bn as fcb
+    for dtype in (torch.float32, torch.bfloat16):
+        for where in ("x", "w"):
+            R, Cin, Cout = 300, 520, 72
+            x = torch.randn(R, Cin, device=dev, generator=gen).to(dtype)
+            w = (torch.randn(Cout, Cin, device=dev, generator=gen)
+                 / Cin ** 0.5).to(dtype)
+            if where == "x":
+                x[7, 13] = float("nan")
+            else:
+                w[5, 100] = float("nan")
+            got = fcb.conv1x1_stats(x, w)
+            want = fcb.conv1x1_stats_plain(x, w)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("y", "sum", "sumsq"), got, want):
+                if not (b.isnan().any() and torch.equal(a.isnan(),
+                                                        b.isnan())):
+                    raise AssertionError(
+                        f"conv1x1_stats {dtype} NaN in {where}: {name} is "
+                        f"NaN at {int(a.isnan().sum())} places, the plain "
+                        f"version at {int(b.isnan().sum())}")
 
 
 def conv_ratio(x, w, y, s, ss, dtype):
@@ -1689,9 +1770,10 @@ def check_resnet_edges(dev, gen):
     """Correctness only, beyond the main path's shapes: R = 1, R off every
     tile, C from 8 to 2048 (13: the scalar route; 64 and 200: off the
     TPU's 128-lane gate), the add and no-ReLU forms; the 1x1 conv with
-    R = 1, R off its 128/64-row tiles, Cin 8 and Cin off its 64-deep k
-    stage, Cout off its 64/128 column tile (16, 72, 136, 200), Cin < Cout
-    and Cin > Cout, each run twice, bit for bit. Returns {kernel: worst
+    R = 1, R off its 128-row tiles, Cin 8 and Cin off its k stage (64
+    deep in bf16, 32 in fp32), Cout off its 64/128 column tile (16, 72,
+    136, 200), Cin < Cout and Cin > Cout, each run twice, bit for bit,
+    and a NaN in x or w (check_conv1x1_nan). Returns {kernel: worst
     error / tolerance}."""
     from paddle_tpu_torch.ops.kernels import fused_bn as fb
     from paddle_tpu_torch.ops.kernels import fused_conv_bn as fcb
@@ -1740,6 +1822,7 @@ def check_resnet_edges(dev, gen):
                                      f" {dtype}: two runs differ")
             worst["conv1x1_stats"] = max(worst["conv1x1_stats"], conv_ratio(
                 x, w, y, s, ss, dtype)[0])
+    check_conv1x1_nan(dev, gen)
     torch.cuda.synchronize()
     return worst
 
@@ -3659,6 +3742,207 @@ def transformer_cross_check(seed=1, hold=True):
     return dict(res, seed=seed, relu_flips=sum(flips.values()))
 
 
+# ------------------------- phase 22: resnet_fit (fp32) -------------------------
+
+RESNET_FIT_WARMUP, RESNET_FIT_STEPS = 2, 8
+
+
+@contextlib.contextmanager
+def default_tf32_flags():
+    """PyTorch's default TF32 flags inside, as a user's process has them
+    (fp32 matrix products in full fp32, cuDNN's fp32 convolutions allowed
+    TF32); this script's own (both off) come back after."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+
+
+def check_conv2d_fp32(dev):
+    """The port's fp32 F.conv2d under PyTorch's default flags (cuDNN's
+    allow_tf32 True) against the same call with the flag off, forward and
+    the input and weight gradients, bit for bit (cuDNN deterministic in
+    both), at ResNet-50's stem (7x7 stride 2, 3 -> 64, B 8 224x224) and a
+    layer1 3x3 (64 -> 64, B 8 56x56), NHWC: the call runs in full fp32
+    whatever the global flag. torch's own conv2d under the default flags
+    is reported beside it (its distance is what one TF32 pass changes)."""
+    from paddle_tpu_torch.nn import functional as F
+    tF = torch.nn.functional
+    gen = torch.Generator(device=dev).manual_seed(3)
+    out = {}
+    prev_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, (B, H, Cin, Cout, k, stride, pad) in {
+                "stem 7x7/2": (8, 224, 3, 64, 7, 2, 3),
+                "layer1 3x3": (8, 56, 64, 64, 3, 1, 1)}.items():
+            x = torch.randn(B, H, H, Cin, device=dev, generator=gen)
+            w = torch.randn(Cout, Cin, k, k, device=dev,
+                            generator=gen) / (Cin * k * k) ** 0.5
+            dy = None
+            res = {}
+            for flag in (True, False):
+                torch.backends.cudnn.allow_tf32 = flag
+                xi = x.clone().requires_grad_(True)
+                wi = w.clone().requires_grad_(True)
+                y = F.conv2d(xi, wi, None, stride, pad, 1, 1, "NHWC")
+                if dy is None:
+                    dy = torch.randn(y.shape, device=dev, generator=gen)
+                gx, gw = torch.autograd.grad(y, (xi, wi), dy)
+                res[flag] = (y.detach(), gx, gw)
+            torch.backends.cudnn.allow_tf32 = True
+            raw = tF.conv2d(x.permute(0, 3, 1, 2), w, None, stride,
+                            pad).permute(0, 2, 3, 1)
+            ref = res[False][0]
+            raw_rel = float((raw - ref).abs().max() / ref.abs().max())
+            same = all(torch.equal(a, b) for a, b in zip(res[True],
+                                                         res[False]))
+            out[name] = dict(bit_for_bit=same, torch_default_rel=raw_rel)
+            log(f"resnet_fit: F.conv2d fp32 {name} under the default flags "
+                f"against allow_tf32=False: forward, dx, dw bit for bit "
+                f"{same}; torch's conv2d under the default flags differs "
+                f"by {raw_rel:.3e} of max |y| (reported)")
+            if not same:
+                raise AssertionError(f"resnet_fit: the port's fp32 conv2d "
+                                     f"{name} depends on cuDNN's TF32 flag")
+    finally:
+        torch.backends.cudnn.deterministic = prev_det
+    return out
+
+
+def resnet_fit(card):
+    """Phase 22: ResNet-50 (NHWC, 1000 classes, random weights from seed
+    0) trained in fp32 through hapi.Model(net).prepare(Momentum(0.1, 0.9),
+    F.cross_entropy).fit(...), as Model builds its TrainStep (no amp
+    type), at bench_resnet50's B 128, 224x224, on one seeded batch
+    repeated, under PyTorch's default TF32 flags: 2 warm-up and 8 timed
+    steps. Exact launches a step (RESNET_PER_STEP), every 1x1 conv at the
+    12 shapes of RESNET_CONV_SHAPES on the "wgmma-3xtf32" design, no plain
+    run or composition; the first update lowers the loss and every loss
+    stays finite and below 3 times the first (phase 8's rule); step ms
+    (one train_batch: the batch's copy to the card and the loss's fetch
+    included), images/s, MFU (phase 8's convention), peak memory (and
+    above what earlier phases left allocated). Before it,
+    check_conv2d_fp32."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.hapi import callbacks as cb
+    from paddle_tpu_torch.io import Dataset
+    from paddle_tpu_torch.models.resnet import resnet50
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import kernels
+    n_steps = RESNET_FIT_WARMUP + RESNET_FIT_STEPS
+    rng = np.random.default_rng(0)
+    imgs = rng.standard_normal((RESNET_B, RESNET_HW, RESNET_HW, 3),
+                               dtype=np.float32)
+    labels = rng.integers(0, 1000, RESNET_B)
+
+    class Batch(Dataset):
+        def __len__(self):
+            return n_steps * RESNET_B
+
+        def __getitem__(self, i):
+            return imgs[i % RESNET_B], labels[i % RESNET_B]
+
+    class Record(cb.Callback):
+        def __init__(self):
+            super().__init__()
+            self.losses, self.ms = [], []
+
+        def on_train_batch_begin(self, step, logs=None):
+            if step == RESNET_FIT_WARMUP:  # counts from the timed steps
+                torch.cuda.synchronize()
+                kernels.reset_stats()
+            self.t0 = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            self.ms.append((time.perf_counter() - self.t0) * 1e3)
+            self.losses.append(logs["loss"][0])
+
+    with default_tf32_flags():
+        conv2d = check_conv2d_fp32(torch.device("cuda"))
+        net = resnet50(data_format="NHWC", device="cuda",
+                       generator=torch.Generator().manual_seed(0))
+        m = Model(net)
+        m.prepare(optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                     parameters=net.parameters()),
+                  F.cross_entropy)
+        rec = Record()
+        torch.cuda.reset_peak_memory_stats()
+        start_mem = torch.cuda.memory_allocated()
+        m.fit(Batch(), batch_size=RESNET_B, epochs=1, shuffle=False,
+              verbose=0, callbacks=[rec])
+        torch.cuda.synchronize()
+    stats = kernels.all_stats()
+    no_composed("resnet_fit")
+    exact_launches("resnet_fit", stats, RESNET_PER_STEP, RESNET_FIT_STEPS)
+    conv_designs = kernels.design_stats().get("conv1x1_stats", {})
+    conv_shapes = {k: v / RESNET_FIT_STEPS for k, v in
+                   kernels.shape_stats().get("conv1x1_stats", {}).items()}
+    want_shapes = {conv_shape(*k): v for k, v in RESNET_CONV_SHAPES.items()}
+    want_n = RESNET_PER_STEP["conv1x1_stats"] * RESNET_FIT_STEPS
+    if conv_shapes != want_shapes or conv_designs != {"wgmma-3xtf32":
+                                                      want_n}:
+        raise AssertionError(f"resnet_fit: 1x1 convs a step {conv_shapes} "
+                             f"by design {conv_designs}; want {want_shapes},"
+                             f" all wgmma-3xtf32")
+    losses = rec.losses
+    times = rec.ms[RESNET_FIT_WARMUP:]
+    step_ms = float(np.median(times))
+    flops = RESNET_FLOPS_PER_IMAGE * RESNET_B
+    res = dict(batch=RESNET_B, hw=RESNET_HW, steps=RESNET_FIT_STEPS,
+               warmup=RESNET_FIT_WARMUP, dtype="float32", losses=losses,
+               step_ms=step_ms, step_ms_all=times,
+               images_per_s=RESNET_B / (step_ms / 1e3), model_flops=flops,
+               mfu=flops / (step_ms / 1e3) / BF16_PEAK, launches=stats,
+               launches_per_step={k: v["kernel"] / RESNET_FIT_STEPS
+                                  for k, v in stats.items()},
+               conv1x1_shapes=conv_shapes, conv1x1_designs=conv_designs,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               peak_mem_above_start_gb=(torch.cuda.max_memory_allocated()
+                                        - start_mem) / 1e9,
+               conv2d_fp32=conv2d, card=card)
+    log(f"resnet_fit: hapi Model.fit ResNet-50 NHWC fp32 b{RESNET_B} "
+        f"{RESNET_HW}x{RESNET_HW}, default TF32 flags: step "
+        f"{step_ms:.2f} ms (median of {RESNET_FIT_STEPS}), "
+        f"{res['images_per_s']:.1f} images/s, MFU {res['mfu']:.4f} "
+        f"(model FLOPs {flops:.4e} over {BF16_PEAK:.0e}), peak memory "
+        f"{res['peak_mem_gb']:.2f} GB, {res['peak_mem_above_start_gb']:.2f}"
+        f" GB above the phase's start [{card}]")
+    log(f"resnet_fit: loss {' '.join(f'{x:.4f}' for x in losses)}")
+    log(f"resnet_fit: 1x1 conv launches a step by design "
+        f"{json.dumps(conv_designs)}")
+    if not (all(np.isfinite(losses)) and losses[1] < losses[0]
+            and max(losses) < 3 * losses[0]):
+        raise AssertionError(f"resnet_fit: the loss did not fall after the "
+                             f"first step, or left its bound: {losses}")
+    del m, net
+    torch.cuda.empty_cache()
+    return res
+
+
+def fp32_row(kname, rows, paths):
+    """For the 1x1 conv's entry: its fp32 row at the main shape, with its
+    launches on phase 22's fp32 path, as `fp32`."""
+    if kname != "conv1x1_stats":
+        return {}
+    shape = KERNELS[kname]["main"][1]
+    r = next(r for r in rows if r["kernel"] == kname
+             and r["dtype"] == "float32" and r["shape"] == shape)
+    return {"fp32": dict(
+        shape=f"{r['shape']} float32", design=r["design"],
+        launches=paths["resnet_fit"]["launches"][kname]["kernel"],
+        max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+        bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+        bound_cuda_core_ms=r["bound_cuda_core_ms"],
+        library_ms=r["library_ms"])}
+
+
 KERNELS = {
     "layer_norm": dict(source="paddle_tpu_torch/csrc/layer_norm.cu",
                        replaces="paddle_tpu/ops/pallas/layer_norm.py:44",
@@ -3740,7 +4024,7 @@ def split_masked(kname, rows, paths):
         bound_by=r["bound_by"], library_ms=r["library_ms"])}
 
 #: the phases `--phases` may name, in the order they run
-PHASES = ("health", "health_trip", "fit_resume", "transformer")
+PHASES = ("health", "health_trip", "fit_resume", "transformer", "resnet_fit")
 
 
 def only_phases(phases, cfg, smi, name):
@@ -3758,6 +4042,8 @@ def only_phases(phases, cfg, smi, name):
     if "transformer" in phases:
         res["transformer"] = transformer_train(smi)
         res["transformer_cpu_cross_check"] = transformer_cross_check()
+    if "resnet_fit" in phases:
+        res["resnet_fit"] = resnet_fit(smi)
     with open(os.path.join(OUT_DIR, "chip_smoke_phases.json"), "w") as f:
         json.dump(res, f, indent=1)
     print(smi)
@@ -3838,13 +4124,11 @@ def main(argv=None):
             + check_flash_bwd(dev, gen, (TRAIN_L,), 2, 16, 128,
                               dtypes=(torch.bfloat16,))
             + check_ce(dev, gen, TRAIN_B * TRAIN_L, 50304)
+            # the ResNet step's loss (fp32 under Model.fit)
+            + check_ce(dev, gen, RESNET_B, 1000)
             + check_fused_bn(dev, gen, ((128, 112, 112, 64),
                                         (128, 14, 14, 1024)))
-            + check_conv1x1(dev, gen, ((100352, 512, 128),
-                                       (6272, 512, 2048)),
-                            dtypes=(torch.float32,))
-            + check_conv1x1(dev, gen, tuple(RESNET_CONV_SHAPES),
-                            dtypes=(torch.bfloat16,))
+            + check_conv1x1(dev, gen, tuple(RESNET_CONV_SHAPES))
             + check_layer_norm(dev, gen, (LONG_L,), 768)
             + check_ce(dev, gen, LONG_L, 50304, iters=1)
             + check_flash_long(dev, gen)
@@ -3864,9 +4148,16 @@ def main(argv=None):
     # pair at the long path's length
     masked_rows, masked_split = check_flash_masked(dev, gen)
     rows += masked_rows + check_split_masked(dev, gen)
+    # the floor of any launch: a row whose bound lies below it is stated
+    # at the floor too (bound_with_floor_ms), beside its bound
+    floor = launch_floor_ms()
+    log(f"kernels: an empty kernel takes {floor:.4f} ms from a replayed "
+        f"graph [{smi}]")
     for r in rows:
         r.setdefault("tol_ratio", r["max_abs_err"] / r.get("tol", 1.0))
         r.setdefault("design", "cuda-core")
+        if r["bound_ms"] < floor:
+            r["bound_with_floor_ms"] = floor
         lib = ("-" if r["library_ms"] is None
                else f"{r['library_ms']:.4f}")
         extra = ""
@@ -3880,6 +4171,9 @@ def main(argv=None):
             extra += f"; against the {wname} /tol {wr:.3f}"
         if "bound_cuda_core_ms" in r:
             extra += f"; CUDA-core bound_ms {r['bound_cuda_core_ms']:.4f}"
+        if "bound_with_floor_ms" in r:
+            extra += (f"; with the launch floor bound_ms "
+                      f"{r['bound_with_floor_ms']:.4f}")
         log(f"kernel {r['kernel']:<19} {r['dtype']:<8} "
             f"{r['shape']:<30} {r['design']:<9} err "
             f"{r['max_abs_err']:.2e} (/tol {r['tol_ratio']:.3f})  kernel_ms {r['ms']:.4f} plain_ms "
@@ -3952,10 +4246,13 @@ def main(argv=None):
     # its fp32 step against the CPU
     tb = transformer_train(smi)
     tb_cpu = transformer_cross_check()
+    # 22. ResNet-50 in fp32 through hapi Model.fit, the default TF32 flags
+    rfit = resnet_fit(smi)
 
-    # 22. report: launches from each path's own run (counters reset just
+    # 23. report: launches from each path's own run (counters reset just
     # before it); times at the main path's shape
-    result = dict(card=smi, capability=cap, checks=rows, edges=edges,
+    result = dict(card=smi, capability=cap, launch_floor_ms=floor,
+                  checks=rows, edges=edges,
                   serve=served, cpu_cross_check=cpu_res, train=trained,
                   train_cpu_cross_check=train_cpu, resnet=resnet,
                   resnet_cpu_cross_check=resnet_cpu, long=long,
@@ -3963,10 +4260,10 @@ def main(argv=None):
                   composed=composed, bert=bert, bert_cpu_cross_check=bert_cpu,
                   ernie=ernie, amp=amp_res, health=health_res,
                   health_trip=trip, fit_resume=fit_res, transformer=tb,
-                  transformer_cpu_cross_check=tb_cpu)
+                  transformer_cpu_cross_check=tb_cpu, resnet_fit=rfit)
     paths = {"serve": served, "train": trained, "resnet": resnet,
              "long": long, "bert": bert, "health": health_res,
-             "fit": fit_res, "transformer": tb}
+             "fit": fit_res, "transformer": tb, "resnet_fit": rfit}
     kern = []
     for kname, meta in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == kname]
@@ -3986,10 +4283,13 @@ def main(argv=None):
             design=main_row["design"],
             **({"bound_cuda_core_ms": main_row["bound_cuda_core_ms"]}
                if "bound_cuda_core_ms" in main_row else {}),
+            **({"bound_with_floor_ms": main_row["bound_with_floor_ms"]}
+               if "bound_with_floor_ms" in main_row else {}),
             **({"plain_at": main_row["plain_shape"],
                 "one_pass_ms": main_row["one_pass_ms"]}
                if "plain_shape" in main_row else {}),
-            **split_masked(kname, rows, paths)))
+            **split_masked(kname, rows, paths),
+            **fp32_row(kname, rows, paths)))
     result["kernels"] = kern
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)

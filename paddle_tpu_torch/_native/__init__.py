@@ -148,8 +148,10 @@ def _declare(lib: ctypes.CDLL):
         [p] * 7 + [i64, i32, i64, i32, i32, p])
     lib.pt_fused_bn_bwd_dx.restype = i32
     lib.pt_fused_bn_bwd_dx.argtypes = [p] * 8 + [i64] + [i32] * 4 + [p]
+    lib.pt_empty.restype = i32
+    lib.pt_empty.argtypes = [p]
     lib.pt_conv1x1_stats.restype = i32
-    lib.pt_conv1x1_stats.argtypes = [p] * 5 + [i64, i32, i32, i64, i32, p]
+    lib.pt_conv1x1_stats.argtypes = [p] * 6 + [i64, i32, i32, i64, i32, p]
 
 
 def check(err: int, name: str) -> None:

@@ -47,14 +47,45 @@
 // maps are encoded on the host at each call and passed as
 // __grid_constant__ parameters.
 //
-// fp32 (on no main path) runs on CUDA cores: 64 x 64 tiles, 4 x 4 outputs
-// a thread, fp32 FMA, so a card-against-CPU check computes the same
-// function.
+// Design, fp32 ("wgmma-3xtf32"): the same persistent grid, warp roles,
+// Cout stripes and row-tile walk, on the TF32 tensor cores in a 3xTF32
+// split, so the product keeps fp32's accuracy (csrc/mma.cuh: x = hi + lo,
+// hi rounded to the nearest TF32, lo = x - hi truncated, and x w = lo hi
+// + hi lo + hi hi, the dropped lo lo below 2^-22 of |x w|). What bounds it
+// is the split's three products: R = 100,352, 512 -> 128 is 13.2 GFLOP,
+// 0.080 ms at 495 / 3 TFLOP/s, against 257 MB, 0.077 ms at 3.35 TB/s;
+// the layer1 shapes (Cin or Cout 64) are bound by bytes.
+//   - w is split once a call into two global planes, w_hi and w_lo
+//     [Cout, Cin] (the wrapper's scratch; at most 2 x 16 MB at 2048 x
+//     2048), by a small kernel before the product.
+//   - A stage is a 128 x 32 fp32 tile of x (one 128-byte swizzled row a
+//     row, as for bf16) and the BN x 32 tiles of w_hi and w_lo: 48 KB at
+//     BN 128 (4 stages in the 192 KB ring), 32 KB at BN 64 (6 stages).
+//   - x stays unsplit in shared memory: each consumer warp reads its
+//     16 rows of a k8 slice with one ldmatrix (fp32 as pairs of b16, the
+//     TF32 A fragment's own k order, csrc/mma.cuh), splits it in
+//     registers, and issues wgmma m64nBNk8 .tf32 with A from registers
+//     three times on one accumulator: (x_lo, w_hi), (x_hi, w_lo), (x_hi,
+//     w_hi). A slice's fragments are double-buffered in registers, so the
+//     next slice is loaded and split while this one's products run.
+//   - The tensor cores' fp32 accumulation does not round to nearest (the
+//     fp32 flash backward drifted over long chains), so the accumulators
+//     are added into fp32 registers every kFlushTiles stages (256 of
+//     Cin): one chain is at most 96 products long.
+//   - The epilogue stages y 32 fp32 columns (one swizzled 128-byte row) at
+//     a time, stores it by TMA and adds the staged values, each lane one
+//     column over its warp's 16 rows, to its running sums; y as stored is
+//     the fp32 sum, so the statistics are of exactly what is stored.
+//   - Out-of-bounds rows and columns of x and w load as zero (TMA's fill),
+//     so R, Cin and Cout off the tiles add exact zeros to the sums, and
+//     the stores clip at R and Cout. A NaN in x or w reaches y and the
+//     sums: the split keeps it in lo.
 //
 // Edges: Cin and Cout must be multiples of 8 (16-byte rows) and x, w
 // 16-byte aligned, which the wrapper checks; any R >= 1.
 #include "column_sums.cuh"
 #include "common.cuh"
+#include "mma.cuh"
 #include "wgmma.cuh"
 
 // names this file's second pass in its column_sums_kernel symbol, so a
@@ -62,8 +93,6 @@
 struct conv1x1_sums;
 
 namespace {
-
-constexpr int kThreads = 256;
 
 // ---------------------------- bf16, wgmma + TMA ------------------------------
 
@@ -292,130 +321,303 @@ cudaError_t launch_wgmma(const void* x, const void* w, void* y, float* part,
   return cudaGetLastError();
 }
 
-// ------------------------------ fp32, CUDA cores -----------------------------
+// ------------------------- fp32, 3xTF32 on wgmma + TMA ------------------------
 
-constexpr int FBM = 64, FBN = 64, FBK = 16;
+constexpr int kTfBK = 32;  // Cin a stage: one 128-byte swizzled row of fp32
+// the accumulators are added into fp32 registers every kFlushTiles stages
+// (256 of Cin): 8 x 4 slices x 3 products, the longest chain of wgmma adds
+constexpr int kFlushTiles = 8;
 
-__global__ void __launch_bounds__(kThreads)
-    conv1x1_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                       float* __restrict__ y, float* __restrict__ part,
-                       int64_t R, int Cin, int Cout, int tiles_n) {
-  __shared__ float As[FBK][FBM + 4];  // k-major: a thread's rows side by side
-  __shared__ float Bs[FBK][FBN + 4];
-  __shared__ float red[2][16][FBN];
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int64_t tile_m = blockIdx.x / tiles_n;
-  const int n0 = (blockIdx.x % tiles_n) * FBN;
-  const int64_t m0 = tile_m * FBM;
-  // loads: one float4 of x and one of w a thread (64 rows x 16 columns)
-  const int lr = tid >> 2, lk = (tid & 3) * 4;
+template <int BN>
+struct TfCfg {
+  static constexpr int kABytes = kWgBM * kTfBK * 4;  // 16 KB of x
+  static constexpr int kBBytes = BN * kTfBK * 4;     // w_hi, and w_lo
+  static constexpr int kStageBytes = kABytes + 2 * kBBytes;
+  static constexpr int kStages = kRingBytes / kStageBytes;  // 4, 6
+  // two 64 x 32 fp32 y chunks a consumer group (a store in flight while
+  // the next chunk is written); at the end the column sums reuse it
+  static constexpr int kYBytes = 2 * 2 * 64 * 128;
+  static constexpr int kRedFloats = 8 * (BN / 32) * 2 * 32;
+  static constexpr size_t kSmem =
+      1024 + kStages * kStageBytes + kYBytes + 2 * kStages * 8;
+  static_assert(kStages >= 4, "at least 4 stages in flight");
+  static_assert(kRedFloats * 4 <= kYBytes, "the sums fit the staging");
+  static_assert(kSmem <= 232448, "fits one SM's shared memory");
+};
 
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < Cin; k0 += FBK) {
-    const int gk = k0 + lk;
-    const int64_t gr = m0 + lr;
-    float4 av = make_float4(0.f, 0.f, 0.f, 0.f), bv = av;
-    if (gr < R && gk < Cin)
-      av = *reinterpret_cast<const float4*>(x + gr * Cin + gk);
-    const int gn = n0 + lr;
-    if (gn < Cout && gk < Cin)
-      bv = *reinterpret_cast<const float4*>(
-          w + static_cast<int64_t>(gn) * Cin + gk);
-    As[lk + 0][lr] = av.x;
-    As[lk + 1][lr] = av.y;
-    As[lk + 2][lr] = av.z;
-    As[lk + 3][lr] = av.w;
-    Bs[lk + 0][lr] = bv.x;
-    Bs[lk + 1][lr] = bv.y;
-    Bs[lk + 2][lr] = bv.z;
-    Bs[lk + 3][lr] = bv.w;
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < FBK; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+// w [n4 * 4] into its two TF32 planes: wh = w rounded to the nearest TF32,
+// wl = the rest, truncated (csrc/mma.cuh split_tf32)
+__global__ void __launch_bounds__(256)
+    split_w_tf32_kernel(const float4* __restrict__ w, float4* __restrict__ wh,
+                        float4* __restrict__ wl, int64_t n4) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x;
+  if (i >= n4) return;
+  const float4 v = w[i];
+  unsigned h[4], l[4];
+  pt::split4(v.x, v.y, v.z, v.w, h, l);
+  wh[i] = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
+                      __uint_as_float(h[2]), __uint_as_float(h[3]));
+  wl[i] = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
+                      __uint_as_float(l[2]), __uint_as_float(l[3]));
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    conv1x1_tf32_kernel(const __grid_constant__ CUtensorMap tx,
+                        const __grid_constant__ CUtensorMap twh,
+                        const __grid_constant__ CUtensorMap twl,
+                        const __grid_constant__ CUtensorMap ty,
+                        float* __restrict__ part, int Cin, int Cout,
+                        int tiles_m, int tiles_n) {
+  using Cfg = TfCfg<BN>;
+  constexpr int S = Cfg::kStages;
+  constexpr int NC = BN / 32;  // 32-column chunks of a tile
+  extern __shared__ unsigned char smem_raw[];
+  // the swizzled tiles need 1024-byte alignment
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
+  unsigned char* ystage = base + S * Cfg::kStageBytes;  // [2][2][64][128 B]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ystage + Cfg::kYBytes);
+  uint64_t* empty = full + S;
+  auto stage_a = [&](int s) { return base + s * Cfg::kStageBytes; };
+  auto stage_bh = [&](int s) {
+    return base + s * Cfg::kStageBytes + Cfg::kABytes;
+  };
+  auto stage_bl = [&](int s) { return stage_bh(s) + Cfg::kBBytes; };
+
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int ktiles = (Cin + kTfBK - 1) / kTfBK;
+  // this block's stripe and its row tiles (grid = P * tiles_n)
+  const int stripe = blockIdx.x % tiles_n, n0 = stripe * BN;
+  const int m_first = blockIdx.x / tiles_n, m_step = gridDim.x / tiles_n;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      pt::mbar_init(&full[s], 1);   // the producer's arrival + the bytes
+      pt::mbar_init(&empty[s], 8);  // one arrival per consumer warp
     }
-    __syncthreads();
-  }
-  float cs[4] = {}, css[4] = {};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int64_t row = m0 + ty + 16 * i;
-    if (row >= R) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx + 16 * j;
-      if (col >= Cout) continue;
-      y[row * Cout + col] = acc[i][j];
-      cs[j] += acc[i][j];
-      css[j] += acc[i][j] * acc[i][j];
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    red[0][ty][tx + 16 * j] = cs[j];
-    red[1][ty][tx + 16 * j] = css[j];
+    pt::fence_mbar_init();
   }
   __syncthreads();
-  float* out = part + tile_m * 2 * Cout;
-  if (tid < 2 * FBN) {
-    const int which = tid / FBN, c = tid % FBN;
-    if (n0 + c < Cout) {
-      float s = 0.f;
+
+  if (wg == 2) {
+    // ------------------------------ producer ---------------------------------
+    pt::setmaxnreg_dec<40>();
+    if (tid == 256) {
+      int stage = 0, phase = 0;
+      for (int tm = m_first; tm < tiles_m; tm += m_step) {
+        for (int kt = 0; kt < ktiles; ++kt) {
+          pt::mbar_wait(&empty[stage], phase ^ 1);
+          pt::mbar_expect_tx(&full[stage], Cfg::kStageBytes);
+          pt::tma_load_2d(stage_a(stage), &tx, kt * kTfBK, tm * kWgBM,
+                          &full[stage]);
+          pt::tma_load_2d(stage_bh(stage), &twh, kt * kTfBK, n0,
+                          &full[stage]);
+          pt::tma_load_2d(stage_bl(stage), &twl, kt * kTfBK, n0,
+                          &full[stage]);
+          if (++stage == S) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // ------------------------------ consumers --------------------------------
+    pt::setmaxnreg_inc<232>();
+    const int warp = (tid >> 5) & 3, lane = tid & 31;  // warp in the group
+    const int g = lane >> 2, t = lane & 3;
+    unsigned char* ys = ystage + wg * 2 * 64 * 128;  // this group's 2 chunks
+    // the row this lane addresses for ldmatrix in a stage's x tile (tiles
+    // (rows 0-7, k 0-3), (8-15, k 0-3), (0-7, k 4-7), (8-15, k 4-7) of the
+    // warp's 16 rows: a0..a3); its 16-byte chunk of slice s is 2 s +
+    // (lane >> 4), at that chunk ^ (row % 8) = chunk ^ (lane & 7)
+    const int arow = 64 * wg + 16 * warp + (lane & 7) + ((lane >> 3) & 1) * 8;
+    int stage = 0, phase = 0, nstored = 0;
+    float acc[BN / 2], facc[BN / 2];
+    // running column sums over the block's tiles: lane p owns column p of
+    // each 32-column chunk over its warp's 16 rows; (sum, sumsq)
+    float cs[NC][2];
 #pragma unroll
-      for (int q = 0; q < 16; ++q) s += red[which][q][c];
-      out[which * Cout + n0 + c] = s;
+    for (int c = 0; c < NC; ++c) cs[c][0] = cs[c][1] = 0.f;
+    // x's split fragments of a k8 slice, double-buffered: slice j + 1 is
+    // loaded while slice j's products run, into the registers of slice
+    // j - 1, whose products are done
+    unsigned xh[2][4], xl[2][4];
+    for (int tm = m_first; tm < tiles_m; tm += m_step) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) facc[i] = 0.f;
+      int prev = -1;  // the stage whose products may still be running
+      for (int kt = 0; kt < ktiles; ++kt) {
+        pt::mbar_wait(&full[stage], phase);
+        const unsigned char* xa = stage_a(stage) + arow * 128;
+        const uint64_t dh = pt::smem_desc_sw128(stage_bh(stage));
+        const uint64_t dl = pt::smem_desc_sw128(stage_bl(stage));
+        const bool restart = kt % kFlushTiles == 0;
+#pragma unroll
+        for (int s = 0; s < kTfBK / 8; ++s) {
+          unsigned r[4];
+          pt::ldmatrix_x4(r, xa + (((2 * s + (lane >> 4)) ^ (lane & 7)) << 4));
+          pt::split4(r, xh[s & 1], xl[s & 1]);
+          pt::wgmma_fence();
+          // the small products first; a chain restarts from 0
+          pt::wgmma_tf32<BN>(acc, xl[s & 1], dh + 2 * s,
+                             !(restart && s == 0));
+          pt::wgmma_tf32<BN>(acc, xh[s & 1], dl + 2 * s, 1);
+          pt::wgmma_tf32<BN>(acc, xh[s & 1], dh + 2 * s, 1);
+          pt::wgmma_commit();
+          pt::wgmma_wait<1>();
+          // slice s - 1 is done: at s = 0 that is the previous stage's last
+          if (s == 0 && prev >= 0) {
+            __syncwarp();
+            if (lane == 0) pt::mbar_arrive(&empty[prev]);
+            prev = -1;
+          }
+        }
+        if (kt % kFlushTiles == kFlushTiles - 1 || kt == ktiles - 1) {
+          // the chain ends: its sum into the fp32 registers
+          pt::wgmma_wait<0>();
+          __syncwarp();
+          if (lane == 0) pt::mbar_arrive(&empty[stage]);
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i) facc[i] += acc[i];
+        } else {
+          prev = stage;
+        }
+        if (++stage == S) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+
+      // epilogue, 32 columns at a time: stage, store by TMA, and add the
+      // stored values to the column sums
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        unsigned char* buf = ys + (nstored & 1) * 64 * 128;
+        // the store that used this buffer two chunks ago has read it
+        if ((tid & 127) == 0) pt::bulk_wait_read<1>();
+        pt::named_barrier(2 + wg, 128);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int e = 4 * (4 * c + i);  // n8 tile 4c + i
+          // rows r and r + 8 (both r % 8 = g), cols 8i + 2t, 8i + 2t + 1:
+          // 16-byte chunk 2i + t / 2 at that ^ g, 8 bytes in for odd t / 2
+          const int r = 16 * warp + g;
+          const int off = (((2 * i + (t >> 1)) ^ g) << 4) + 8 * (t & 1);
+          *reinterpret_cast<float2*>(buf + r * 128 + off) =
+              make_float2(facc[e], facc[e + 1]);
+          *reinterpret_cast<float2*>(buf + (r + 8) * 128 + off) =
+              make_float2(facc[e + 2], facc[e + 3]);
+        }
+        pt::fence_proxy_async();
+        pt::named_barrier(2 + wg, 128);
+        if ((tid & 127) == 0) {
+          pt::tma_store_2d(&ty, buf, n0 + 32 * c, tm * kWgBM + 64 * wg);
+          pt::bulk_commit();
+        }
+        ++nstored;
+        // a warp reads whole 128-byte rows: lane p's column at chunk
+        // (p / 4) ^ (r % 8), no bank twice
+#pragma unroll 4
+        for (int rr = 0; rr < 16; ++rr) {
+          const int r = 16 * warp + rr;
+          const float v = *reinterpret_cast<const float*>(
+              buf + r * 128 + (((lane >> 2) ^ (r & 7)) << 4) + 4 * (lane & 3));
+          cs[c][0] += v;
+          cs[c][1] += v * v;
+        }
+      }
+    }
+
+    // one row of partials per block: the 8 warps' sums in a fixed order,
+    // in the staging once every store of both groups has completed
+    if ((tid & 127) == 0) pt::bulk_wait();
+    pt::named_barrier(1, 256);
+    float* red = reinterpret_cast<float*>(ystage);  // [8][NC][2][32]
+    const int w8 = wg * 4 + warp;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        red[((w8 * NC + c) * 2 + j) * 32 + lane] = cs[c][j];
+    pt::named_barrier(1, 256);
+    float* out = part + static_cast<int64_t>(m_first) * 2 * Cout;
+    for (int idx = tid; idx < 2 * BN; idx += 256) {
+      const int which = idx / BN, col = idx % BN;  // which: sum, sumsq
+      if (n0 + col >= Cout) continue;
+      const int c = col / 32, p = col % 32;
+      float v = 0.f;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) v += red[((w * NC + c) * 2 + which) * 32 + p];
+      out[which * Cout + n0 + col] = v;
     }
   }
+}
+
+template <int BN>
+cudaError_t launch_tf32(const void* x, const void* w, float* wsplit, void* y,
+                        float* part, int R, int Cin, int Cout, int sms,
+                        cudaStream_t stream) {
+  const int64_t n = static_cast<int64_t>(Cout) * Cin;
+  float* wh = wsplit;
+  float* wl = wsplit + n;
+  CUtensorMap tx, th, tl, ty;
+  CUresult res = pt::tensor_map_f32(&tx, x, R, Cin, kWgBM, kTfBK);
+  if (res == CUDA_SUCCESS)
+    res = pt::tensor_map_f32(&th, wh, Cout, Cin, BN, kTfBK);
+  if (res == CUDA_SUCCESS)
+    res = pt::tensor_map_f32(&tl, wl, Cout, Cin, BN, kTfBK);
+  if (res == CUDA_SUCCESS) res = pt::tensor_map_f32(&ty, y, R, Cout, 64, 32);
+  if (res != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  const int64_t n4 = n / 4;  // Cin % 8 == 0
+  split_w_tf32_kernel<<<static_cast<unsigned>((n4 + 255) / 256), 256, 0,
+                        stream>>>(static_cast<const float4*>(w),
+                                  reinterpret_cast<float4*>(wh),
+                                  reinterpret_cast<float4*>(wl), n4);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int tiles_m = (R + kWgBM - 1) / kWgBM;
+  const int tiles_n = (Cout + BN - 1) / BN;
+  const int grid = wgmma_blocks_per_stripe(R, Cout, sms) * tiles_n;
+  err = pt::allow_smem(conv1x1_tf32_kernel<BN>, TfCfg<BN>::kSmem);
+  if (err != cudaSuccess) return err;
+  conv1x1_tf32_kernel<BN><<<grid, kWgThreads, TfCfg<BN>::kSmem, stream>>>(
+      tx, th, tl, ty, part, Cin, Cout, tiles_m, tiles_n);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // y [R, Cout] in x's type (bf16 != 0: bfloat16, else float32); part: fp32
 // scratch [cap, 2, Cout] of partial sums, of which the kernel writes and
-// adds `tiles` rows: ceil(R / 64) for fp32, and for bf16 the persistent
-// grid's blocks per Cout stripe, from the card's SM count (at most
-// ceil(R / 128)); a cap below that is refused. out: fp32 [2, Cout] =
-// (sum, sumsq).
+// adds one row a block of its persistent grid per Cout stripe (from the
+// card's SM count, at most ceil(R / 128)); a cap below that is refused.
+// wsplit: for float32, fp32 scratch [2, Cout, Cin] for w's TF32 planes
+// (16-byte aligned; ignored for bf16). out: fp32 [2, Cout] = (sum, sumsq).
 extern "C" int pt_conv1x1_stats(const void* x, const void* w, void* y,
-                                float* part, float* out, int64_t R, int Cin,
-                                int Cout, int64_t cap, int bf16,
-                                cudaStream_t stream) {
+                                float* part, float* wsplit, float* out,
+                                int64_t R, int Cin, int Cout, int64_t cap,
+                                int bf16, cudaStream_t stream) {
   if (R <= 0 || R > 0x7fffffff || Cin % 8 || Cout % 8 || Cin <= 0 ||
-      Cout <= 0 || !pt::aligned16(x) || !pt::aligned16(w))
+      Cout <= 0 || !pt::aligned16(x) || !pt::aligned16(w) ||
+      (!bf16 && (wsplit == nullptr || !pt::aligned16(wsplit))))
     return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int r = static_cast<int>(R);
+  const int64_t tiles = wgmma_blocks_per_stripe(r, Cout, sms);
+  if (tiles > cap) return static_cast<int>(cudaErrorInvalidValue);
+  const bool narrow = wgmma_bn(Cout) == 64;
   cudaError_t err;
-  int64_t tiles;
-  if (bf16) {
-    int dev = 0, sms = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    const int r = static_cast<int>(R);
-    tiles = wgmma_blocks_per_stripe(r, Cout, sms);
-    if (tiles > cap) return static_cast<int>(cudaErrorInvalidValue);
-    err = wgmma_bn(Cout) == 64
-              ? launch_wgmma<64>(x, w, y, part, r, Cin, Cout, sms, stream)
-              : launch_wgmma<128>(x, w, y, part, r, Cin, Cout, sms, stream);
-  } else {
-    tiles = (R + FBM - 1) / FBM;
-    if (tiles > cap) return static_cast<int>(cudaErrorInvalidValue);
-    const int tiles_n = (Cout + FBN - 1) / FBN;
-    const int64_t blocks = tiles * tiles_n;
-    if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-    conv1x1_f32_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                         stream>>>(static_cast<const float*>(x),
-                                   static_cast<const float*>(w),
-                                   static_cast<float*>(y), part, R, Cin,
-                                   Cout, tiles_n);
-    err = cudaGetLastError();
-  }
+  if (bf16)
+    err = narrow ? launch_wgmma<64>(x, w, y, part, r, Cin, Cout, sms, stream)
+                 : launch_wgmma<128>(x, w, y, part, r, Cin, Cout, sms, stream);
+  else
+    err = narrow ? launch_tf32<64>(x, w, wsplit, y, part, r, Cin, Cout, sms,
+                                   stream)
+                 : launch_tf32<128>(x, w, wsplit, y, part, r, Cin, Cout, sms,
+                                    stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   pt::launch_column_sums<conv1x1_sums>(
       part, out, tiles, 2 * static_cast<int64_t>(Cout), stream);

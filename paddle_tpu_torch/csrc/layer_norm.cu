@@ -82,3 +82,13 @@ extern "C" int pt_layer_norm_fwd(const void* x, const void* gamma,
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// No kernel of a path: an empty kernel, one block of one warp, for timing
+// the card's floor for any launch (the layer norm at decode and serving
+// shapes sits near it; chip_smoke.py's launch_floor_ms).
+__global__ void empty_kernel() {}
+
+extern "C" int pt_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}

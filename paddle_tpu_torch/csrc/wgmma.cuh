@@ -5,7 +5,8 @@
 // PTX, as csrc/mma.cuh is; sm_90a only (wgmma and setmaxnreg).
 //
 // Tiles in shared memory: K-major (the reduction dimension contiguous),
-// rows of 64 bf16 = 128 bytes, written by TMA with the 128-byte swizzle:
+// rows of 64 bf16 (or 32 fp32) = 128 bytes, written by TMA with the
+// 128-byte swizzle:
 // within each group of 8 rows (1024 bytes, 1024-byte aligned) the 16-byte
 // chunk c of row r sits at chunk c ^ (r % 8), so the 8 rows' chunk c fall
 // on 8 different bank groups. A wgmma descriptor names such a tile by its
@@ -134,6 +135,86 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t da,
   static_assert(N == 64 || N == 128, "the widths the kernels use");
   if constexpr (N == 64) wgmma_m64n64k16(d, da, db, scale_d);
   else wgmma_m64n128k16(d, da, db, scale_d);
+}
+
+// The TF32 products, wgmma.m64nNk8 .tf32 (fp32 accumulators), with A from
+// registers: warp w of the group holds rows 16w..16w+15 of the 64 x 8 A
+// tile as the TF32 A fragment of mma.sync.m16n8k8 (csrc/mma.cuh, in its
+// own k order: a0 (row g, k t), a1 (row g + 8, k t), a2 (row g, k t + 4),
+// a3 (row g + 8, k t + 4)); B is an N x 8 TF32 tile, K-major in shared
+// memory. A k8 slice of an fp32 row is 32 bytes, as a k16 slice of bf16
+// is, so the descriptors step as the bf16 ones do. TF32 takes no
+// transpose flags (both operands K-major).
+__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32],
+                                                    const unsigned (&a)[4],
+                                                    uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64],
+                                                     const unsigned (&a)[4],
+                                                     uint64_t db,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2],
+                                           const unsigned (&a)[4],
+                                           uint64_t db, int scale_d) {
+  static_assert(N == 64 || N == 128, "the widths the kernels use");
+  if constexpr (N == 64) wgmma_m64n64k8_tf32(d, a, db, scale_d);
+  else wgmma_m64n128k8_tf32(d, a, db, scale_d);
 }
 
 // -------------------------------- mbarriers ----------------------------------
@@ -279,23 +360,38 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// a row-major [rows, cols] bf16 array (row pitch `cols` elements, a
-// multiple of 8) cut into boxes of box_rows x box_cols, 128-byte swizzle
-// (box_cols * 2 <= 128), out-of-bounds elements read as zero
-inline CUresult tensor_map_bf16(CUtensorMap* map, const void* base,
-                                uint64_t rows, uint64_t cols,
-                                uint32_t box_rows, uint32_t box_cols) {
+// a row-major [rows, cols] array of `type` (`bytes` an element; row pitch
+// `cols` elements, a multiple of 16 bytes) cut into boxes of box_rows x
+// box_cols, 128-byte swizzle (box_cols * bytes <= 128), out-of-bounds
+// elements read as zero
+inline CUresult tensor_map_2d(CUtensorMap* map, const void* base,
+                              CUtensorMapDataType type, uint32_t bytes,
+                              uint64_t rows, uint64_t cols,
+                              uint32_t box_rows, uint32_t box_cols) {
   EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return CUDA_ERROR_NOT_SUPPORTED;
   const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * 2};
+  const cuuint64_t strides[1] = {cols * bytes};
   const cuuint32_t box[2] = {box_cols, box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-             const_cast<void*>(base), dims, strides, box, elem,
+  return enc(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+inline CUresult tensor_map_bf16(CUtensorMap* map, const void* base,
+                                uint64_t rows, uint64_t cols,
+                                uint32_t box_rows, uint32_t box_cols) {
+  return tensor_map_2d(map, base, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, rows,
+                       cols, box_rows, box_cols);
+}
+
+inline CUresult tensor_map_f32(CUtensorMap* map, const void* base,
+                               uint64_t rows, uint64_t cols,
+                               uint32_t box_rows, uint32_t box_cols) {
+  return tensor_map_2d(map, base, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, rows,
+                       cols, box_rows, box_cols);
 }
 
 }  // namespace pt

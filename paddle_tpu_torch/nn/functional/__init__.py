@@ -13,7 +13,11 @@ hand-written kernels of ``ops/kernels`` (on a CUDA tensor) or their plain
 versions (on a CPU tensor), through autograd Functions. The large matrix
 products stay with ``torch.matmul`` and the other convolutions with
 ``torch.nn.functional.conv2d`` (cuDNN on a card), as the JAX package left
-them to XLA.
+them to XLA. An fp32 convolution runs, forward and backward, with cuDNN's
+TF32 switched off inside the call (``torch.backends.cudnn.allow_tf32`` is
+True by default, which would take one TF32 pass where the reference
+computes in fp32); the flag is restored after, and bf16 and fp16 calls
+leave it alone.
 
 Under ``amp.auto_cast`` the entries that the reference's AMP lists name
 cast their inputs as its dispatch does (``ops/_dispatch.py``): ``linear``
@@ -21,6 +25,8 @@ and ``conv2d`` to the amp type; ``layer_norm``, ``cross_entropy`` and
 ``log_softmax`` to float32. The others follow their inputs.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as _tF
@@ -255,8 +261,56 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
         xin = _tF.pad(xin, [q for lo, hi in reversed(pads) for q in (lo, hi)])
         pad_arg = 0
     b = None if bias is None else bias.to(x.dtype)
-    out = _tF.conv2d(xin, w, b, stride, pad_arg, dilation, groups)
+    if x.dtype == torch.float32:
+        out = _Conv2dFP32.apply(xin, w, b, stride, pad_arg, dilation, groups)
+    else:
+        out = _tF.conv2d(xin, w, b, stride, pad_arg, dilation, groups)
     return out.permute(0, 2, 3, 1) if nhwc else out
+
+
+@contextlib.contextmanager
+def _cudnn_fp32():
+    """cuDNN's fp32 convolutions in full fp32 inside (no TF32), every other
+    cuDNN flag as it is; the caller's TF32 flag comes back after.
+    (``torch.backends.cudnn.flags`` would also reset the flags it is not
+    given to its own defaults.)"""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+class _Conv2dFP32(torch.autograd.Function):
+    """An fp32 conv2d whose forward and backward both run with cuDNN's TF32
+    off: the backward's flag is read when the backward runs, so it is set
+    there too. On the CPU it computes what autograd's own conv backward
+    does."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, stride, padding, dilation, groups):
+        with _cudnn_fp32():
+            out = _tF.conv2d(x, w, b, stride, padding, dilation, groups)
+        ctx.save_for_backward(x, w)
+        nd = x.dim() - 2
+        ctx.conf = (None if b is None else list(b.shape), list(stride),
+                    [padding] * nd if isinstance(padding, int)
+                    else list(padding), list(dilation), groups)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, w = ctx.saved_tensors
+        bias_sizes, stride, padding, dilation, groups = ctx.conf
+        need = ctx.needs_input_grad
+        mask = [need[0], need[1], bias_sizes is not None and need[2]]
+        with _cudnn_fp32():
+            dx, dw, db = torch.ops.aten.convolution_backward(
+                dout, x, w, bias_sizes, stride, padding, dilation, False,
+                [0] * len(stride), groups, mask)
+        return (dx if mask[0] else None, dw if mask[1] else None,
+                db if mask[2] else None, None, None, None, None)
 
 
 # -------------------------------- pooling -----------------------------------

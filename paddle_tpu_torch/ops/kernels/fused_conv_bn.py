@@ -15,13 +15,17 @@ and dx kernels and then forms ``dx = g @ w`` and ``dw = g^T @ x`` with
 The weight is the conv layer's (Cout, Cin, 1, 1), read as [Cout, Cin]
 without a transpose (the reference reshapes it to [Cin, Cout]).
 
-Designs (:func:`kernel_design`): bf16 runs a persistent warp-specialised
-kernel on ``wgmma`` fed by TMA loads (128-row output tiles, a ring of at
-least 4 stages, TMA stores of y), whose blocks each write one row of fp32
-partial sums; fp32 runs on CUDA cores and writes one row per 64 rows. The
-wrapper allocates one row per output tile (:func:`partial_rows`), as many
-as either may write; a second pass adds the rows written in a fixed
-order, so the sums repeat bit for bit.
+Designs (:func:`kernel_design`): a persistent warp-specialised kernel on
+``wgmma`` fed by TMA loads (128-row output tiles, a ring of at least 4
+stages, TMA stores of y), whose blocks each write one row of fp32 partial
+sums: "wgmma-tma" for bf16, and "wgmma-3xtf32" for fp32, on the TF32
+tensor cores with each product split as hi·hi + hi·lo + lo·hi (x split in
+registers, w into two TF32 planes once a call, in scratch the wrapper
+allocates), so fp32 keeps its accuracy. The wrapper allocates one row of
+partials per 128-row tile (:func:`partial_rows`), the most the grid may
+write; a second pass adds the rows written in a fixed order, so the sums
+repeat bit for bit. Every shape :func:`check_args` admits runs its type's
+design; there is no other.
 
 :func:`eligible` is the port's own. The reference's gates (Cin, Cout % 128,
 R >= 256, C <= 2048, on a TPU) were set by VMEM and the lane width; the
@@ -40,23 +44,24 @@ from . import checked, count_design, launch, same_device, use_kernel
 _stats = {"kernel": 0, "plain": 0}
 
 _TYPES = (torch.float32, torch.bfloat16)
-#: rows of y an output tile holds, by type (csrc/fused_conv_bn.cu kWgBM,
-#: FBM)
-TILE_ROWS = {torch.bfloat16: 128, torch.float32: 64}
+#: rows of y an output tile holds, by type (csrc/fused_conv_bn.cu kWgBM)
+TILE_ROWS = {torch.bfloat16: 128, torch.float32: 128}
+#: the design of each type (csrc/fused_conv_bn.cu)
+DESIGNS = {torch.bfloat16: "wgmma-tma", torch.float32: "wgmma-3xtf32"}
 
 
 def kernel_design(x2d) -> str:
-    """The design the launcher picks: "wgmma-tma" for bf16, "cuda-core"
-    for fp32."""
-    return "wgmma-tma" if x2d.dtype == torch.bfloat16 else "cuda-core"
+    """The design the launcher runs: "wgmma-tma" for bf16, "wgmma-3xtf32"
+    (the TF32 tensor cores in a 3xTF32 split) for fp32."""
+    return DESIGNS[x2d.dtype]
 
 
 def partial_rows(R: int, dtype) -> int:
     """Rows of fp32 partial sums [rows, 2, Cout] the wrapper allocates
-    for R rows of x: one per output tile's rows. The fp32 kernel writes
-    one a 64-row tile; the bf16 kernel one a block of its persistent grid,
-    which the launcher sizes from the card's SM count, at most one a
-    128-row tile, and it adds only the rows it wrote."""
+    for R rows of x: one per 128-row output tile. Each block of the
+    persistent grid writes one, and the launcher sizes the grid from the
+    card's SM count, at most one block a tile; it adds only the rows it
+    wrote."""
     return -(-R // TILE_ROWS[dtype])
 
 
@@ -102,9 +107,14 @@ def conv1x1_stats(x2d, w2d):
     tiles = partial_rows(R, x2d.dtype)
     part = torch.empty(tiles, 2, Cout, dtype=torch.float32,
                        device=x2d.device)
+    # fp32: w's two TF32 planes (hi, lo), split by the launcher
+    wsplit = (None if x2d.dtype == torch.bfloat16 else
+              torch.empty(2, *w2d.shape, dtype=torch.float32,
+                          device=x2d.device))
     out = torch.empty(2, Cout, dtype=torch.float32, device=x2d.device)
     launch("conv1x1_stats", "pt_conv1x1_stats", x2d.device, x2d.data_ptr(),
-           w2d.data_ptr(), y.data_ptr(), part.data_ptr(), out.data_ptr(), R,
+           w2d.data_ptr(), y.data_ptr(), part.data_ptr(),
+           None if wsplit is None else wsplit.data_ptr(), out.data_ptr(), R,
            x2d.shape[1], Cout, tiles, int(x2d.dtype == torch.bfloat16))
     _stats["kernel"] += 1
     count_design("conv1x1_stats", kernel_design(x2d),

@@ -22,6 +22,7 @@ from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.ops import kernels
 from paddle_tpu_torch.ops.kernels import flash_attention as fa
 from paddle_tpu_torch.ops.kernels import fused_bn as fbn
+from paddle_tpu_torch.ops.kernels import fused_conv_bn as fcb
 from paddle_tpu_torch.ops.kernels import layer_norm as ln
 from paddle_tpu_torch.ops.kernels import softmax_ce as sce
 
@@ -265,6 +266,35 @@ def test_backward_launches_count_their_design(monkeypatch, masked):
         f"flash_attention_bwd{sfx}": {"mma.sync-3xtf32": 1},
         f"flash_attention_bwd_dq{sfx}": {"mma.sync": 1},
         f"flash_attention_bwd_dkv{sfx}": {"cuda-core": 1}}
+    kernels.reset_stats()
+
+
+@pytest.mark.parametrize("dtype,design", [
+    (torch.float32, "wgmma-3xtf32"), (torch.bfloat16, "wgmma-tma")])
+def test_conv1x1_launch_counts_its_design(monkeypatch, dtype, design):
+    """On the card's route the 1x1 conv + statistics launches its type's
+    design (fp32 on the TF32 tensor cores in a 3xTF32 split, with scratch
+    for w's two TF32 planes; bf16 none) and counts it; a refused launch
+    raises, and no plain version runs in its place."""
+    kernels.reset_stats()
+    calls = []
+    monkeypatch.setattr(fcb, "use_kernel", lambda t: True)
+    monkeypatch.setattr(fcb, "launch", lambda *args: calls.append(args))
+    x = torch.zeros(300, 520, dtype=dtype)
+    w = torch.zeros(72, 520, dtype=dtype)
+    fcb.conv1x1_stats(x, w)
+    assert fcb.kernel_design(x) == design
+    assert kernels.design_stats()["conv1x1_stats"] == {design: 1}
+    wsplit = calls[0][7]
+    assert (wsplit is None) == (dtype == torch.bfloat16)
+
+    def refuse(*args):
+        raise RuntimeError("conv1x1_stats: CUDA launch failed")
+
+    monkeypatch.setattr(fcb, "launch", refuse)
+    with pytest.raises(RuntimeError):
+        fcb.conv1x1_stats(x, w)
+    assert kernels.all_stats()["conv1x1_stats"] == {"kernel": 1, "plain": 0}
     kernels.reset_stats()
 
 

@@ -269,17 +269,17 @@ def test_conv_chain_gate(case):
 
 
 @pytest.mark.parametrize("R,dtype,rows", [
-    # bf16: one per 128-row tile, the most the persistent grid writes
+    # one per 128-row tile, the most the persistent grid writes
     (100352, torch.bfloat16, 784),   # layer2
     (6272, torch.bfloat16, 49),      # layer4
     (100, torch.bfloat16, 1),        # one tile
     (129, torch.bfloat16, 2),        # R off the tile
     (1, torch.bfloat16, 1),
-    (1000, torch.float32, 16),       # fp32: one per 64 rows
-    (64, torch.float32, 1),
-    (65, torch.float32, 2)])
+    (1000, torch.float32, 8),        # fp32: the same tiles
+    (128, torch.float32, 1),
+    (129, torch.float32, 2)])
 def test_conv_partial_rows_follow_the_tiles(R, dtype, rows):
-    assert fcb.TILE_ROWS == {torch.bfloat16: 128, torch.float32: 64}
+    assert fcb.TILE_ROWS == {torch.bfloat16: 128, torch.float32: 128}
     assert fcb.partial_rows(R, dtype) == rows
 
 
@@ -290,13 +290,14 @@ def test_conv_wrapper_sizes_the_partials_it_launches(R, Cin, Cout, dtype,
                                                     monkeypatch):
     """On the card's route the wrapper allocates [partial_rows, 2, Cout]
     fp32 partials, passes that count to the launch as the rows the
-    kernel may write, and counts the launch under its design and
-    shape."""
+    kernel may write (and, for fp32, scratch for w's two TF32 planes),
+    and counts the launch under its design and shape."""
     seen = {}
 
-    def launch(name, entry, device, x, w, y, part, out, r, cin, cout,
-               cap, bf16):
-        seen.update(r=r, cin=cin, cout=cout, cap=cap, bf16=bf16)
+    def launch(name, entry, device, x, w, y, part, wsplit, out, r, cin,
+               cout, cap, bf16):
+        seen.update(r=r, cin=cin, cout=cout, cap=cap, bf16=bf16,
+                    wsplit=wsplit is not None)
 
     monkeypatch.setattr(fcb, "use_kernel", lambda t: True)
     monkeypatch.setattr(fcb, "launch", launch)
@@ -304,8 +305,9 @@ def test_conv_wrapper_sizes_the_partials_it_launches(R, Cin, Cout, dtype,
     fcb.conv1x1_stats(torch.zeros(R, Cin, dtype=dtype),
                       torch.zeros(Cout, Cin, dtype=dtype))
     assert seen == dict(r=R, cin=Cin, cout=Cout, bf16=int(
-        dtype == torch.bfloat16), cap=fcb.partial_rows(R, dtype))
-    design = "wgmma-tma" if dtype == torch.bfloat16 else "cuda-core"
+        dtype == torch.bfloat16), cap=fcb.partial_rows(R, dtype),
+        wsplit=dtype == torch.float32)
+    design = "wgmma-tma" if dtype == torch.bfloat16 else "wgmma-3xtf32"
     assert kernels.design_stats()["conv1x1_stats"] == {design: 1}
     assert kernels.shape_stats()["conv1x1_stats"] == {
         f"R={R} Cin={Cin} Cout={Cout}": 1}

@@ -18,6 +18,15 @@ way and held against ``jax.vjp`` of the same function, within 1e-4 of
 each gradient's scale (``chip_smoke.bwd_tol``). A single TF32 pass (one
 product of the rounded operands) on the same inputs errs by more than
 the split: only that order is asserted.
+
+The fp32 1x1 conv + BN statistics (``csrc/fused_conv_bn.cu``, design
+"wgmma-3xtf32") takes the same split on its product y = x w^T, in its own
+order: for each k8 slice, lo hi, hi lo, then hi hi into one accumulator,
+a chain restarting every 256 of Cin and its sum added into fp32; sum and
+sumsq are of y as stored. The emulation is held against the JAX
+package's ``_conv1x1_stats_pallas(interpret=True)`` within phase 3's
+fp32 gate (``chip_smoke.conv_ratio``): y to 1e-5 of |y| plus 1e-5 of
+|x| |w|^T, the sums to 1e-5 of the sums of |y| and y^2.
 """
 import numpy as np
 import pytest
@@ -27,6 +36,7 @@ import jax
 import jax.numpy as jnp
 
 from paddle_tpu.ops.pallas import flash_attention as jfa
+from paddle_tpu.ops.pallas import fused_conv_bn as jfcb
 from paddle_tpu_torch.models.gpt import GPTConfig
 
 GATE = 1e-4
@@ -201,3 +211,66 @@ def test_3xtf32_backward_within_the_fp32_gate_of_jax(causal, kind):
     split, single = errs(mm_3xtf32), errs(mm_tf32)
     assert max(split) <= 1.0, split
     assert all(b > a for a, b in zip(split, single)), (split, single)
+
+
+#: the conv kernel's chain: its accumulators are added into fp32 every
+#: kFlushTiles (8) stages of 32 of Cin
+CONV_CHAIN = 256
+CONV_RTOL = SUM_RTOL = 1e-5
+
+
+def conv_3xtf32(x, w):
+    """y = x @ w^T [R, Cout] as the fp32 1x1 conv kernel forms it: x and w
+    split, each k8 slice's three products (lo hi, hi lo, hi hi) added in
+    turn into one fp32 accumulator, which restarts every CONV_CHAIN of Cin
+    and is added into the result."""
+    (xh, xl), (wh, wl) = split(x), split(w)
+    y = torch.zeros(x.shape[0], w.shape[0])
+    for c0 in range(0, x.shape[1], CONV_CHAIN):
+        acc = torch.zeros_like(y)
+        for k in range(c0, min(c0 + CONV_CHAIN, x.shape[1]), 8):
+            sl = slice(k, k + 8)
+            acc = acc + xl[:, sl] @ wh[:, sl].t()
+            acc = acc + xh[:, sl] @ wl[:, sl].t()
+            acc = acc + xh[:, sl] @ wh[:, sl].t()
+        y = y + acc
+    return y
+
+
+def conv_ratio(x, w, y, s, ss, want):
+    """Worst error / phase 3's fp32 gate of (y, sum, sumsq) against the
+    reference's (jy, js, jss), the sums being of y as stored."""
+    jy, js, jss = (torch.from_numpy(np.array(a)) for a in want)
+    terms = x.abs() @ w.abs().t()
+    ratio = float(((y - jy).abs()
+                   / (CONV_RTOL * jy.abs() + SUM_RTOL * terms)).max())
+    for got, ref, mag in ((s, js, y.abs().sum(0)),
+                          (ss, jss, (y * y).sum(0))):
+        ratio = max(ratio, float(((got - ref).abs()
+                                  / (SUM_RTOL * mag + 1e-30)).max()))
+    return ratio
+
+
+@pytest.mark.parametrize("Cin,Cout", [
+    (64, 256), (512, 128), (2048, 512),
+    # Cin off the kernel's 32-wide stage and the chain
+    (200, 64)])
+def test_3xtf32_conv1x1_within_the_fp32_gate_of_jax(Cin, Cout):
+    """R 264 (off every row tile): the emulated kernel's y and statistics
+    within phase 3's fp32 gate of the JAX package's Pallas kernel
+    (interpreted); a single TF32 pass on the same inputs errs by more."""
+    R = 264
+    rng = np.random.default_rng(Cin + Cout)
+    x = rng.standard_normal((R, Cin)).astype(np.float32)
+    w = (rng.standard_normal((Cout, Cin)) / np.sqrt(Cin)).astype(np.float32)
+    want = jfcb._conv1x1_stats_pallas(jnp.asarray(x), jnp.asarray(w.T),
+                                      interpret=True)
+    tx, tw = torch.from_numpy(x), torch.from_numpy(w)
+
+    def ratio(y):
+        return conv_ratio(tx, tw, y, y.sum(0), (y * y).sum(0), want)
+
+    split_ratio = ratio(conv_3xtf32(tx, tw))
+    single_ratio = ratio(mm_tf32(tx, tw.t()))
+    assert split_ratio <= 1.0, split_ratio
+    assert single_ratio > split_ratio, (split_ratio, single_ratio)

@@ -14,8 +14,8 @@ B 8 L 1,024 (the one-pass backward also at B 8 L 512 and at B 2 L 1,024
 H 16 D 128), the paged decode attention at the serving path's 32 lanes
 (fp32 and bf16) and the forward, the split dq and dk/dv kernels at B 1
 L 4,096 and 32,768 (the one-pass kernel there too), in fp32 and bf16, all
-H 12 D 64 causal; and the bf16 1x1 conv + statistics at the 12 shapes of
-the ResNet-50 step (``CONV_SHAPES``) and one small one, whose outputs (y,
+H 12 D 64 causal; and the 1x1 conv + statistics, bf16 and fp32, at the
+12 shapes of the ResNet-50 step (``CONV_SHAPES``) and one small one, whose outputs (y,
 sum, sumsq) it hashes. It writes ``chiprun_out/ab_NAME.json`` under the directory it
 is started from. ``--compare`` prints,
 for each timing, the runs side by side, and each run's conv output hash
@@ -120,20 +120,21 @@ def run(tree: str, tag: str) -> dict:
                               generator=gen).to(dt) for _ in range(2))
         ms[f"paged attention {str(dt)[6:]} W32 ctx 32-1024"] = cs.cuda_ms(
             lambda: pa.paged_attention(q, kp, vp, bt, cl))
-    gen = torch.Generator(device=dev).manual_seed(1)
     digests = {}
-    for R, Cin, Cout in (*CONV_SHAPES, (1000, 64, 24)):
-        x = torch.randn(R, Cin, device=dev, generator=gen).to(bf16)
-        w = (torch.randn(Cout, Cin, device=dev, generator=gen)
-             / Cin ** 0.5).to(bf16)
-        h = hashlib.sha256()
-        for t in fcb.conv1x1_stats(x, w):
-            h.update(t.contiguous().view(torch.uint8).cpu().numpy()
-                     .tobytes())
-        shape = f"R{R} {Cin}->{Cout}"
-        digests[shape] = h.hexdigest()
-        ms[f"conv1x1 bfloat16 {shape}"] = cs.cuda_ms(
-            lambda: fcb.conv1x1_stats(x, w), iters=5, reps=3)
+    for dt in (bf16, f32):
+        gen = torch.Generator(device=dev).manual_seed(1)
+        for R, Cin, Cout in (*CONV_SHAPES, (1000, 64, 24)):
+            x = torch.randn(R, Cin, device=dev, generator=gen).to(dt)
+            w = (torch.randn(Cout, Cin, device=dev, generator=gen)
+                 / Cin ** 0.5).to(dt)
+            h = hashlib.sha256()
+            for t in fcb.conv1x1_stats(x, w):
+                h.update(t.contiguous().view(torch.uint8).cpu().numpy()
+                         .tobytes())
+            shape = f"{str(dt)[6:]} R{R} {Cin}->{Cout}"
+            digests[shape] = h.hexdigest()
+            ms[f"conv1x1 {shape}"] = cs.cuda_ms(
+                lambda: fcb.conv1x1_stats(x, w), iters=5, reps=3)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -157,7 +158,7 @@ def compare(tags) -> None:
             for r in runs))
     shapes = dict.fromkeys(s for r in runs for s in r["conv1x1_sha256"])
     for shape in shapes:
-        print(f"conv1x1 bf16 {shape:<22} sha256 " + " ".join(
+        print(f"conv1x1 {shape:<30} sha256 " + " ".join(
             r["conv1x1_sha256"].get(shape, "-")[:12] for r in runs))
 
 

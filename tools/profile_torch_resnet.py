@@ -4,14 +4,22 @@ port.
 
     python3 tools/profile_torch_resnet.py     # from the repository root
     python3 tools/profile_torch_resnet.py --tree DIR --tag NAME
+    python3 tools/profile_torch_resnet.py --fp32 [--cudnn-tf32 off]
 
 Builds ResNet-50 (NHWC, fused BN, fused 1x1 conv + BN, 1000 classes,
 random weights from seed 0) and trains it with
 ``paddle_tpu_torch.jit.TrainStep(model, F.cross_entropy, Momentum(0.1,
 0.9), amp_dtype=torch.bfloat16)`` at batch 128, 224x224 on one card (the
-JAX package's ``bench_resnet50`` configuration, NHWC without remat). After
-two warm-up steps it measures, with ``torch.profiler`` (CPU and CUDA
-activities), a window of steps:
+JAX package's ``bench_resnet50`` configuration, NHWC without remat), or
+with ``--fp32`` in fp32 as ``hapi.Model`` trains it
+(``Model(net).prepare(Momentum(0.1, 0.9), F.cross_entropy)``, one
+``train_batch`` a step: the step ``Model.fit`` takes, as ``chip_smoke.py``'s
+resnet_fit phase drives it) under PyTorch's default TF32 flags (fp32
+matrix products in full fp32; cuDNN's ``allow_tf32`` True, which the
+port's fp32 ``conv2d`` switches off inside its calls), or with
+``--cudnn-tf32 off`` the global cuDNN flag off too (for a checkout whose
+``conv2d`` does not switch it). After two warm-up steps it measures, with
+``torch.profiler`` (CPU and CUDA activities), a window of steps:
 
 * host wall time per step, device busy time (the sum of device-side event
   times on the one stream) and the idle share 1 - busy / wall;
@@ -26,7 +34,8 @@ activities), a window of steps:
 
 and the same window without the profiler, for its overhead. Writes
 ``chiprun_out/profile_torch_resnet.json`` under the directory it is
-started from (``profile_torch_resnet_NAME.json`` with ``--tag``). With
+started from (``profile_torch_resnet_fp32.json`` with ``--fp32``, then
+``_NAME`` with ``--tag``). With
 ``--tree`` it profiles the checkout at DIR (its ``paddle_tpu_torch``), so
 two checkouts can be compared in turns in one call. Needs a card.
 """
@@ -53,7 +62,8 @@ WARMUP, WINDOW = 2, 3
 GROUPS = (
     # each kernel's second pass, column_sums_kernel<tag>, goes with it
     (CONV_GROUP, ("conv1x1_bf16_kernel", "conv1x1_wgmma_kernel",
-                   "conv1x1_f32_kernel", "conv1x1_sums")),
+                   "conv1x1_f32_kernel", "conv1x1_tf32_kernel",
+                   "split_w_tf32_kernel", "conv1x1_sums")),
     ("fused BN forward (kernel)", ("bn_fwd_kernel",)),
     ("fused BN reduce (kernel)", ("bn_reduce_kernel", "bn_reduce_sums")),
     ("fused BN dx (kernel)", ("bn_dx_kernel",)),
@@ -74,6 +84,12 @@ def main():
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), help="the checkout to profile")
     ap.add_argument("--tag", help="suffix of the output file's name")
+    ap.add_argument("--fp32", action="store_true",
+                    help="the fp32 step of hapi.Model (Model.fit's)")
+    ap.add_argument("--cudnn-tf32", choices=("default", "off"),
+                    default="default",
+                    help="cuDNN's global allow_tf32: PyTorch's default "
+                    "(True) or off")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_resnet: no CUDA card", file=sys.stderr)
@@ -88,6 +104,7 @@ def main():
     # after the checkout's package: this helper's module imports it too
     from profile_torch_train import _device_summary
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = args.cudnn_tf32 == "default"
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -96,7 +113,16 @@ def main():
                      generator=torch.Generator().manual_seed(0))
     opt = optimizer.Momentum(learning_rate=0.1, momentum=0.9,
                              parameters=model.parameters())
-    step = TrainStep(model, F.cross_entropy, opt, amp_dtype=torch.bfloat16)
+    if args.fp32:
+        from paddle_tpu_torch.hapi import Model
+        m = Model(model)
+        m.prepare(opt, F.cross_entropy)
+
+        def step(imgs, labels):
+            return m.train_batch([imgs], [labels])[0]
+    else:
+        step = TrainStep(model, F.cross_entropy, opt,
+                         amp_dtype=torch.bfloat16)
     rng = np.random.default_rng(0)
     imgs = torch.from_numpy(rng.normal(size=(B, 3, HW, HW)).astype(
         np.float32)).permute(0, 2, 3, 1).contiguous().cuda()
@@ -120,6 +146,7 @@ def main():
                                 for k, v in kernels.all_stats().items()}
     out["plain_runs"] = {k: v["plain"] for k, v in
                          kernels.all_stats().items()}
+    out["designs"] = kernels.design_stats()
 
     t0 = time.perf_counter()
     for _ in range(WINDOW):
@@ -128,9 +155,12 @@ def main():
     out["wall_ms_unprofiled"] = (time.perf_counter() - t0) * 1e3 / WINDOW
     out["loss"] = float(loss)
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    out.update(card=smi, tree=os.getcwd(), batch=B, hw=HW, window=WINDOW)
+    out.update(card=smi, tree=os.getcwd(), batch=B, hw=HW, window=WINDOW,
+               dtype="float32" if args.fp32 else "O2 bfloat16",
+               cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
     os.makedirs(OUT, exist_ok=True)
-    name = "profile_torch_resnet" + (f"_{args.tag}" if args.tag else "")
+    name = ("profile_torch_resnet" + ("_fp32" if args.fp32 else "")
+            + (f"_{args.tag}" if args.tag else ""))
     with open(os.path.join(OUT, name + ".json"), "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps(out, indent=1))
