@@ -100,8 +100,9 @@ failure:
               bench_bert_base configuration): 2 warm-up steps, then timed
               steps on one batch; the loss must fall over the run (its
               first AdamW update raises it on this model) and every loss
-              be finite; exact launches a step (layer norm 25,
-              flash forward 12 on mma.sync, one-pass backward 12, CE 1 + 1),
+              be finite; exact launches a step (layer norm 25 and its
+              backward 25, flash forward 12 on mma.sync, one-pass backward
+              12, CE 1 + 1),
               no plain run, no composition; step ms, samples/s, MFU and
               peak memory;
 15. bert-cpu - the same model in fp32 at B 2, L 128, one TrainStep on the
@@ -157,7 +158,8 @@ failure:
               tril-and-padding in the decoder), residual dropout 0.1 and
               attention dropout 0: 2 warm-up and 8 timed steps; exact
               launches a step (masked forward 18 on mma.sync, masked
-              one-pass 18, layer norm 30, CE 1 + 1), no plain run or
+              one-pass 18, layer norm 30 and its backward 30, CE 1 + 1),
+              no plain run or
               composition, the loss falls over the run; step ms, tokens/s
               padded and real, MFU and peak memory; then its fp32 step
               with every dropout 0 at B 2 on the card and on the CPU
@@ -192,6 +194,14 @@ with random [B, H, Lq, Lk] masks and whole rows masked, shared
 [1, 1, Lq, Lk] masks, Lq != Lk, tails and the mask with causal: a row
 with no visible key must give exactly 0 in out and dq and lse -inf,
 nothing NaN, the forward and the split pair bit for bit twice.
+
+Phase 3 also holds the layer norm's backward kernel against its plain
+version (the composition it replaced) at the training paths' shapes:
+R 8,192 N 768 bf16 (GPT O2) and fp32 (Model.fit), R 32,768 N 768 bf16 at
+eps 1e-12 (BERT) and 1e-5 (long), R 4,096 N 512 bf16 (Transformer-base),
+run twice, bit for bit, timed beside F.layer_norm's autograd backward;
+every training path's exact launches count it (25 a step for GPT, BERT,
+Model.fit and long, 26 for ERNIE, 30 for Transformer-base).
 
 Phase 3 also holds the ResNet kernels (fused BN forward, reduce and dx;
 1x1 conv + statistics) at the ResNet-50 shapes, fp32 and bf16, and at
@@ -341,8 +351,9 @@ SPLIT = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 
 def check_layer_norm(dev, gen, rows_list, N, eps=1e-5,
                      dtypes=(torch.float32, torch.bfloat16)):
-    """The layer-norm kernel against its plain version at epsilon `eps`
-    (the shape string names it when it is not 1e-5)."""
+    """The layer-norm forward kernel against its plain version at epsilon
+    `eps` (the shape string names it when it is not 1e-5), run twice, bit
+    for bit."""
     from paddle_tpu_torch.ops.kernels import layer_norm as ln
     rows = []
     tag = "" if eps == 1e-5 else f" eps={eps:g}"
@@ -352,7 +363,11 @@ def check_layer_norm(dev, gen, rows_list, N, eps=1e-5,
             g = (1 + 0.1 * torch.randn(N, device=dev, generator=gen)).to(dtype)
             b = (0.1 * torch.randn(N, device=dev, generator=gen)).to(dtype)
             y = ln.layer_norm_fwd(x, g, b, eps)
+            same = torch.equal(y, ln.layer_norm_fwd(x, g, b, eps))
             torch.cuda.synchronize()
+            if not same:
+                raise AssertionError(f"layer norm R={R} N={N} {dtype}: two "
+                                     f"runs differ")
             err = max_err(y, ln.layer_norm_plain(x.float(), g.float(),
                                                  b.float(), eps))
             isz = x.element_size()
@@ -368,6 +383,84 @@ def check_layer_norm(dev, gen, rows_list, N, eps=1e-5,
                     x, (N,), g, b, eps)),
                 bound_ms=bnd, bound_by=by))
     return rows
+
+
+#: a layer-norm backward's dgamma and dbeta against their fp32 plain sums:
+#: SUM_RTOL of the sum of the terms' magnitudes (ln_bwd_ratio; the sums run
+#: in another order), plus, in bfloat16, one unit in the last place (the
+#: fp32 sum rounded once)
+LN_BWD_RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7}
+
+
+def ln_bwd_ratio(ln, x, g, dy, eps, got):
+    """Worst error / tolerance of the backward's (dx, dgamma, dbeta) `got`
+    against the plain version on fp32 copies (its values before any
+    rounding): dx to bwd_tol, dgamma and dbeta to elem_ratio over the
+    magnitudes of their terms, |dy| (|x - mean| + |mean|) rstd and |dy|
+    (LN_BWD_RTOL); and whether NaN stands where the plain version's NaN
+    stands, and nowhere else."""
+    ref = ln.layer_norm_bwd_plain(x.float(), g.float(), dy.float(), eps)
+    xf, dyf = x.float(), dy.float()
+    mean = xf.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((xf * xf).mean(-1, keepdim=True) - mean * mean + eps)
+    # x^'s own error: mean and rstd are fp32 sums taken in another order,
+    # so x - mean carries an error of order |mean| * 2^-24
+    xh_mag = ((xf - mean).abs() + mean.abs()) * rstd
+    terms = ((dyf.abs() * xh_mag).sum(0), dyf.abs().sum(0))
+    nan_ok = all(torch.equal(a.isnan(), r.isnan()) for a, r in zip(got, ref))
+    keep = [~r.isnan() for r in ref]
+    a, r = got[0][keep[0]], ref[0][keep[0]]
+    ratio = (max_err(a, r) / bwd_tol(x.dtype, r)) if r.numel() else 0.0
+    rtol = LN_BWD_RTOL[g.dtype]
+    for a, r, t, k in zip(got[1:], ref[1:], terms, keep[1:]):
+        if k.any():
+            ratio = max(ratio, elem_ratio(a[k], r[k], rtol, t[k]))
+    return ratio, nan_ok
+
+
+def check_layer_norm_bwd(dev, gen, R, N, dtype, eps=1e-5):
+    """The layer-norm backward kernel against its plain version (the
+    composition it replaced) at the paths' shapes, run twice, bit for bit
+    (ln_bwd_ratio's tolerances). Times: the kernel, the plain version and
+    F.layer_norm's autograd backward (summed device-kernel time); bound:
+    x and dy read and dx written once, gamma read and dgamma, dbeta
+    written, some 16 fp32 operations an element on the CUDA cores."""
+    from paddle_tpu_torch.ops.kernels import layer_norm as ln
+    x = (1 + torch.randn(R, N, device=dev, generator=gen)).to(dtype)
+    g = (1 + 0.1 * torch.randn(N, device=dev, generator=gen)).to(dtype)
+    b = (0.1 * torch.randn(N, device=dev, generator=gen)).to(dtype)
+    dy = torch.randn(R, N, device=dev, generator=gen).to(dtype)
+    got = ln.layer_norm_bwd(x, g, dy, eps)
+    again = ln.layer_norm_bwd(x, g, dy, eps)
+    torch.cuda.synchronize()
+    tag = "" if eps == 1e-5 else f" eps={eps:g}"
+    if not all(torch.equal(a, c) for a, c in zip(got, again)):
+        raise AssertionError(f"layer norm backward R={R} N={N}{tag} {dtype}: "
+                             f"two runs differ")
+    del again
+    ratio, nan_ok = ln_bwd_ratio(ln, x, g, dy, eps, got)
+    if not nan_ok:
+        raise AssertionError(f"layer norm backward R={R} N={N}: NaN where "
+                             f"the plain version has none")
+    err = max(max_err(a, r) for a, r in zip(
+        got, ln.layer_norm_bwd_plain(x.float(), g.float(), dy.float(), eps)))
+    del got
+    isz = x.element_size()
+    bnd, by = bound_ms(3 * R * N * isz + 3 * N * g.element_size(),
+                       16 * R * N, torch.float32)
+    leaves = [t.detach().requires_grad_(True) for t in (x, g, b)]
+    out = torch.nn.functional.layer_norm(leaves[0], (N,), leaves[1],
+                                         leaves[2], eps)
+    row = dict(
+        kernel="layer_norm_bwd", dtype=str(dtype)[6:],
+        shape=f"R={R} N={N}{tag}", max_abs_err=err, tol_ratio=ratio,
+        ms=cuda_ms(lambda: ln.layer_norm_bwd(x, g, dy, eps)),
+        plain_ms=cuda_ms(lambda: ln.layer_norm_bwd_plain(x, g, dy, eps)),
+        library_ms=cuda_ms(lambda: torch.autograd.grad(
+            out, leaves, dy, retain_graph=True), graph=False),
+        bound_ms=bnd, bound_by=by)
+    del leaves, out
+    return [row]
 
 
 def mode(causal):
@@ -1284,9 +1377,90 @@ def nan_backward(fa, q, k, v, out, lse, causal, design, do):
     return worst
 
 
+#: the layer-norm edges (R, N): one row, a ragged N (1-element chunks), N
+#: past the rows the kernels hold in registers (the stream instances),
+#: N at the most each holds, many rows a warp, more rows than partial rows
+LN_EDGES = ((1, 768), (3, 100), (3, 102), (5, 4096), (7, 1024), (9, 1536),
+            (2, 2048), (2000, 48), (5000, 7))
+
+
+def check_layer_norm_edges(dev, gen):
+    """The layer-norm forward and backward at LN_EDGES, in fp32 and bf16
+    with gamma in either type, then with x (and dy) one element off the
+    16-byte boundary, R = 0 and a NaN in a row of x or an element of dy:
+    each within tolerance of its plain version, run twice bit for bit,
+    NaN exactly where the plain version has it. Returns {kernel: worst
+    error / tolerance}."""
+    from paddle_tpu_torch.ops.kernels import layer_norm as ln
+
+    def randn(*shape, dtype, off=0):
+        n = math.prod(shape)
+        return torch.randn(n + off, device=dev, generator=gen).to(
+            dtype)[off:].view(*shape)
+
+    worst = {"layer_norm": 0.0, "layer_norm_bwd": 0.0}
+    bad = []
+
+    def same_bits(a, c):  # torch.equal, NaN included
+        ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+        return torch.equal(a.view(ints[a.dtype]), c.view(ints[c.dtype]))
+
+    def one(x, g, dy, what):
+        b = 0.1 * randn(g.shape[0], dtype=g.dtype)
+        y = ln.layer_norm_fwd(x, g, b)
+        grads = ln.layer_norm_bwd(x, g, dy)
+        twice = (same_bits(y, ln.layer_norm_fwd(x, g, b))
+                 and all(same_bits(a, c) for a, c in zip(
+                     grads, ln.layer_norm_bwd(x, g, dy))))
+        ref = ln.layer_norm_plain(x.float(), g.float(), b.float())
+        keep = ~ref.isnan()
+        fwd = max_err(y[keep], ref[keep]) / TOL[x.dtype] if keep.any() else 0
+        bwd, nan_ok = ln_bwd_ratio(ln, x, g, dy, 1e-5, grads)
+        if not (twice and nan_ok and torch.equal(y.isnan(), ref.isnan())):
+            raise AssertionError(f"layer norm {what}: two runs differ "
+                                 f"({not twice}) or NaN misplaced")
+        worst["layer_norm"] = max(worst["layer_norm"], fwd)
+        worst["layer_norm_bwd"] = max(worst["layer_norm_bwd"], bwd)
+        if max(fwd, bwd) > 1.0:
+            bad.append(f"{what}: forward /tol {fwd:.3f}, backward {bwd:.3f}")
+        return grads
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for gdt in (torch.float32, torch.bfloat16):
+            for R, N in LN_EDGES:
+                one(1 + randn(R, N, dtype=dtype),
+                    1 + 0.1 * randn(N, dtype=gdt), randn(R, N, dtype=dtype),
+                    f"R={R} N={N} {dtype}/{gdt}")
+        def gamma(N):
+            return 1 + 0.1 * randn(N, dtype=dtype)
+
+        for R, N in ((6, 768), (6, 4096)):
+            one(1 + randn(R, N, dtype=dtype, off=1), gamma(N),
+                randn(R, N, dtype=dtype), f"x off 16 bytes R={R} N={N}")
+            one(1 + randn(R, N, dtype=dtype), gamma(N),
+                randn(R, N, dtype=dtype, off=1), f"dy off 16 bytes R={R}")
+        dx, dg, db = one(randn(0, 768, dtype=dtype), gamma(768),
+                         randn(0, 768, dtype=dtype), "R=0")
+        if dx.shape != (0, 768) or dg.abs().max() != 0 or db.abs().max() != 0:
+            raise AssertionError("layer norm backward R=0: dgamma and dbeta "
+                                 "must be 0")
+        for N in (768, 100):
+            x, dy = 1 + randn(64, N, dtype=dtype), randn(64, N, dtype=dtype)
+            x[5, 3] = float("nan")
+            dy[9, 7] = float("nan")
+            one(x, gamma(N), dy, f"NaN N={N} {dtype}")
+    if bad:
+        log("layer norm edges past their tolerance: " + "; ".join(bad))
+    return worst
+
+
 def check_edges(dev, gen):
     """Correctness only, at the limits each kernel claims beyond the main
-    path's shapes: any R and N up to 4096 (layer norm); any L >= 1, ragged
+    path's shapes: any R and N (layer norm, forward and backward: ragged N,
+    N up to 4096 past the rows held in registers, many rows a warp,
+    pointers off the 16-byte boundary, gamma in the other type, R = 0, a
+    NaN in x or dy kept where the plain version keeps it, each run twice,
+    bit for bit; `check_layer_norm_edges`); any L >= 1, ragged
     tails, Lk > Lq with the causal offset, D from 8 to 128 (flash, where
     D = 128 needs more than 48 KB of shared memory), rows off the 16-byte
     boundary (the CUDA-core design), each design as `fwd_design` and
@@ -1307,18 +1481,11 @@ def check_edges(dev, gen):
     def randn(*shape, dtype):
         return torch.randn(*shape, device=dev, generator=gen).to(dtype)
 
-    worst = {"layer_norm": 0.0, "flash_attention": 0.0,
+    worst = {**check_layer_norm_edges(dev, gen), "flash_attention": 0.0,
              "flash_attention_bwd": 0.0, "paged_attention": 0.0,
              "softmax_ce_fwd": 0.0, "softmax_ce_bwd": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         tol = TOL[dtype]
-        for R, N in ((1, 768), (3, 100), (5, 4096)):
-            x = randn(R, N, dtype=dtype)
-            g = 1 + 0.1 * randn(N, dtype=torch.float32)
-            b = 0.1 * randn(N, dtype=torch.float32)
-            err = max_err(ln.layer_norm_fwd(x, g, b),
-                          ln.layer_norm_plain(x.float(), g, b))
-            worst["layer_norm"] = max(worst["layer_norm"], err / tol)
         for Lq, Lk, causal, D, off in (
                 (1, 1, True, 64, 0), (16, 16, True, 64, 0),
                 (100, 100, True, 64, 0), (37, 130, True, 64, 0),
@@ -1955,8 +2122,9 @@ TRAIN_WARMUP, TRAIN_STEPS = 2, 6
 BF16_PEAK = 989e12
 #: launches per training step of GPT-2 small (12 layers): two layer norms a
 #: block plus the final one, one attention a block, one loss
-PER_STEP = {"layer_norm": 25, "flash_attention": 12, "flash_attention_bwd": 12,
-            "softmax_ce_fwd": 1, "softmax_ce_bwd": 1}
+PER_STEP = {"layer_norm": 25, "layer_norm_bwd": 25, "flash_attention": 12,
+            "flash_attention_bwd": 12, "softmax_ce_fwd": 1,
+            "softmax_ce_bwd": 1}
 
 
 def model_flops(model, B, L):
@@ -2321,7 +2489,8 @@ LONG_WARMUP, LONG_STEPS = 1, 2
 #: norms and one attention each); the split backward's dq and dk/dv once a
 #: block; one loss. Every other kernel, the one-pass backward included,
 #: launches no time.
-LONG_PER_STEP = {"layer_norm": 25 + 24, "flash_attention": 12 + 12,
+LONG_PER_STEP = {"layer_norm": 25 + 24, "layer_norm_bwd": 25,
+                 "flash_attention": 12 + 12,
                  "flash_attention_bwd_dq": 12, "flash_attention_bwd_dkv": 12,
                  "softmax_ce_fwd": 1, "softmax_ce_bwd": 1}
 
@@ -2576,7 +2745,7 @@ COMPOSED_TOL = {torch.float32: 1e-4, torch.float16: 2.0 ** -9}
 
 #: the kernel counters that each composed entry must leave at 0
 COMPOSED_KERNELS = {
-    "layer_norm": ("layer_norm",),
+    "layer_norm": ("layer_norm", "layer_norm_bwd"),
     "flash_attention": ("flash_attention", "flash_attention_bwd",
                         "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
                         "flash_attention_masked",
@@ -2704,11 +2873,11 @@ BERT_B, BERT_L = 256, 128
 BERT_WARMUP, BERT_STEPS = 2, 6
 #: launches per O2 step of the BERT-Base classifier: the embeddings' layer
 #: norm and two a layer, one attention a layer, one loss
-BERT_PER_STEP = {"layer_norm": 25, "flash_attention": 12,
-                 "flash_attention_bwd": 12, "softmax_ce_fwd": 1,
-                 "softmax_ce_bwd": 1}
+BERT_PER_STEP = {"layer_norm": 25, "layer_norm_bwd": 25,
+                 "flash_attention": 12, "flash_attention_bwd": 12,
+                 "softmax_ce_fwd": 1, "softmax_ce_bwd": 1}
 #: ERNIE's MLM head adds a layer norm; its loss is over V 40,000
-ERNIE_PER_STEP = dict(BERT_PER_STEP, layer_norm=26)
+ERNIE_PER_STEP = dict(BERT_PER_STEP, layer_norm=26, layer_norm_bwd=26)
 ERNIE_B, ERNIE_STEPS = 32, 2
 AMP_B = 32
 #: an O1 step's loss against the fp32 loss of the same weights on the card:
@@ -3508,7 +3677,8 @@ TB_WARMUP, TB_STEPS = 2, 8
 #: the encoder's self-attention, the decoder's self- and cross-attention,
 #: all with bool masks; two layer norms an encoder layer, three a decoder
 #: layer; one loss over the padded targets
-TB_PER_STEP = {"layer_norm": 30, "flash_attention_masked": 18,
+TB_PER_STEP = {"layer_norm": 30, "layer_norm_bwd": 30,
+               "flash_attention_masked": 18,
                "flash_attention_bwd_masked": 18, "softmax_ce_fwd": 1,
                "softmax_ce_bwd": 1}
 
@@ -3947,6 +4117,12 @@ KERNELS = {
     "layer_norm": dict(source="paddle_tpu_torch/csrc/layer_norm.cu",
                        replaces="paddle_tpu/ops/pallas/layer_norm.py:44",
                        main=("float32", "R=1024 N=768")),
+    # the custom vjp's backward, which XLA fuses on the TPU; its main row
+    # is the driving path's, BERT-Base's B 256 x L 128 under O2
+    "layer_norm_bwd": dict(
+        source="paddle_tpu_torch/csrc/layer_norm.cu",
+        replaces="paddle_tpu/ops/pallas/layer_norm.py:193",
+        main=("bfloat16", "R=32768 N=768 eps=1e-12")),
     "flash_attention": dict(
         source="paddle_tpu_torch/csrc/flash_attention.cu",
         replaces="paddle_tpu/ops/pallas/flash_attention.py:804",
@@ -4143,7 +4319,21 @@ def main(argv=None):
             + check_ce(dev, gen, ERNIE_B * BERT_L, 40000,
                        dtypes=(torch.bfloat16,))
             + check_layer_norm(dev, gen, (BERT_B * BERT_L,), 768, eps=1e-12,
-                               dtypes=(torch.bfloat16,)))
+                               dtypes=(torch.bfloat16,))
+            # Transformer-base's encoder rows (B 32 x 128, d_model 512)
+            + check_layer_norm(dev, gen, (TB_B * TB_LS,), 512,
+                               dtypes=(torch.bfloat16,))
+            # the backward at the paths' shapes: GPT O2 and Model.fit,
+            # BERT (eps 1e-12) and the long path, Transformer-base
+            + check_layer_norm_bwd(dev, gen, TRAIN_B * TRAIN_L, 768,
+                                   torch.bfloat16)
+            + check_layer_norm_bwd(dev, gen, TRAIN_B * TRAIN_L, 768,
+                                   torch.float32)
+            + check_layer_norm_bwd(dev, gen, BERT_B * BERT_L, 768,
+                                   torch.bfloat16, eps=1e-12)
+            + check_layer_norm_bwd(dev, gen, LONG_L, 768, torch.bfloat16)
+            + check_layer_norm_bwd(dev, gen, TB_B * TB_LS, 512,
+                                   torch.bfloat16))
     # the bool-mask operand: phase 21's attention shapes, and the split
     # pair at the long path's length
     masked_rows, masked_split = check_flash_masked(dev, gen)

@@ -120,6 +120,9 @@ def _declare(lib: ctypes.CDLL):
     p, i64, i32, f32 = c.c_void_p, c.c_int64, c.c_int, c.c_float
     lib.pt_layer_norm_fwd.restype = i32
     lib.pt_layer_norm_fwd.argtypes = [p, p, p, p, i64, i32, f32, i32, i32, p]
+    lib.pt_layer_norm_bwd.restype = i32
+    lib.pt_layer_norm_bwd.argtypes = (
+        [p] * 6 + [i64, i32, i64, f32, i32, i32, p])
     lib.pt_flash_attention_fwd.restype = i32
     # the flash entries: tensors, the mask (or null), their strides, the
     # mask's four, then sizes

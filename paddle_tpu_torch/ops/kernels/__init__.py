@@ -112,6 +112,7 @@ def _counters() -> dict:
     from . import (flash_attention, fused_bn, fused_conv_bn, layer_norm,
                    paged_attention, softmax_ce)
     return {"layer_norm": layer_norm._stats,
+            "layer_norm_bwd": layer_norm._bwd_stats,
             "flash_attention": flash_attention._stats,
             "flash_attention_bwd": flash_attention._bwd_stats,
             "flash_attention_bwd_dq": flash_attention._bwd_dq_stats,

@@ -1,22 +1,26 @@
-"""Layer norm: the forward's CUDA kernel ``csrc/layer_norm.cu``, its plain
-PyTorch version, and the autograd Function that carries both.
+"""Layer norm: the forward's and the backward's CUDA kernels
+``csrc/layer_norm.cu``, their plain PyTorch versions, and the autograd
+Function that carries them.
 
-Replaces ``paddle_tpu/ops/pallas/layer_norm.py:_ln_fwd_pallas`` (the TPU
-row-block kernel). The kernel is bound by bytes; one warp per row, fp32
-sums, and the TPU's variance formula var = E[x^2] - mean^2 so both match
-the reference. It takes any R >= 1 and any N: the TPU-shaped eligibility
+Replaces ``paddle_tpu/ops/pallas/layer_norm.py:_ln_fwd_pallas`` (the
+TPU row-block kernel) and ``_fused_ln_bwd`` (l.193), the backward that
+XLA fuses into one loop on the TPU. Both kernels are bound by bytes; one
+warp a row, the row held in registers through 16-byte loads, fp32 sums,
+and the TPU's variance formula var = E[x^2] - mean^2 so both match the
+reference. They take any R >= 1 and any N: the TPU-shaped eligibility
 (R >= 256, N % 128 == 0, N <= 4096) does not carry over, so decode rows
 (R <= 32) run the kernel too. See the source for the design.
 
 ``fused_layer_norm`` is one ``torch.autograd.Function`` on both devices
 (counterpart of the ``jax.custom_vjp`` at ``layer_norm.py:178``): its
-forward launches the kernel (plain version on the CPU), and its backward
-is ``layer_norm_bwd``, a torch composition of ``_fused_ln_bwd`` (l.193),
-which is an XLA composition in the reference too. The backward keeps only
-``(x, gamma)`` and recomputes mean and rstd. Types the kernel does not
-take (fp16, fp64, beta in another type than gamma; ``kernel_takes``)
-compose on a card, as XLA composes them in the reference (l.159-173):
-the plain version through autograd, counted in ``composed_stats``.
+forward launches the forward kernel and its backward ``layer_norm_bwd``,
+the backward kernel (on the CPU the plain versions: ``layer_norm_plain``
+and ``layer_norm_bwd_plain``, the torch composition of ``_fused_ln_bwd``).
+The backward keeps only ``(x, gamma)`` and recomputes mean and rstd.
+Types the kernels do not take (fp16, fp64, beta in another type than
+gamma; ``kernel_takes``) compose on a card, as XLA composes them in the
+reference (l.159-173): the plain forward through autograd, counted in
+``composed_stats``.
 
 ``fused_residual_dropout_ln`` is the residual + dropout + layer-norm
 epilogue of the fused transformer layers (reference l.215), composed
@@ -29,8 +33,22 @@ import torch
 from . import checked, count_composed, launch, same_device, use_kernel
 
 _stats = {"kernel": 0, "plain": 0}
+_bwd_stats = {"kernel": 0, "plain": 0}
 
 _TYPES = (torch.float32, torch.bfloat16)
+
+#: most rows of fp32 partial column sums [rows, 2N] the backward's wrapper
+#: allocates, and most fp32 values in them: the kernel's persistent grid
+#: writes one row a block, no more blocks than fit on the card at once
+#: nor than the rows allocated
+BWD_MAX_PARTS = 1024
+BWD_MAX_PART_VALUES = 1 << 22
+
+
+def bwd_parts(R: int, N: int) -> int:
+    """Rows of partial column sums the backward's wrapper allocates for x
+    [R, N]: at most one a row of x, BWD_MAX_PARTS, and 16 MiB in all."""
+    return min(R, BWD_MAX_PARTS, max(1, BWD_MAX_PART_VALUES // (2 * N)))
 
 
 def layer_norm_plain(x2d, gamma, beta, eps: float = 1e-5):
@@ -85,7 +103,7 @@ def layer_norm_fwd(x2d, gamma, beta, eps: float = 1e-5):
     return y
 
 
-def layer_norm_bwd(x2d, gamma, dy2d, eps: float = 1e-5):
+def layer_norm_bwd_plain(x2d, gamma, dy2d, eps: float = 1e-5):
     """(dx, dgamma, dbeta) of the layer norm of ``x2d`` [R, N], computed in
     fp32 from recomputed statistics; dx in x's type, dgamma and dbeta in
     gamma's (as ``_fused_ln_bwd`` returns them, so the O2 rounding
@@ -105,9 +123,54 @@ def layer_norm_bwd(x2d, gamma, dy2d, eps: float = 1e-5):
     return dx, dg, db
 
 
+def check_bwd_args(x2d, gamma, dy2d) -> None:
+    """What the backward kernel takes; raises ValueError on anything
+    else."""
+    same_device("layer_norm_bwd", x2d, gamma, dy2d)
+    if x2d.dim() != 2 or not x2d.is_contiguous():
+        raise ValueError("layer_norm_bwd: x must be a contiguous [R, N] "
+                         "tensor")
+    if (dy2d.shape != x2d.shape or dy2d.dtype != x2d.dtype
+            or not dy2d.is_contiguous()):
+        raise ValueError(f"layer_norm_bwd: dy must be contiguous "
+                         f"{tuple(x2d.shape)} {x2d.dtype}, got "
+                         f"{tuple(dy2d.shape)} {dy2d.dtype}")
+    if x2d.dtype not in _TYPES or gamma.dtype not in _TYPES:
+        raise ValueError(f"layer_norm_bwd: types {x2d.dtype}/{gamma.dtype}; "
+                         f"the kernel takes float32 and bfloat16")
+    n = x2d.shape[1]
+    if gamma.shape != (n,) or not gamma.is_contiguous():
+        raise ValueError(f"layer_norm_bwd: gamma must be contiguous [{n}], "
+                         f"got {tuple(gamma.shape)}")
+
+
+def layer_norm_bwd(x2d, gamma, dy2d, eps: float = 1e-5):
+    """(dx, dgamma, dbeta) of the layer norm of ``x2d`` [R, N] for the
+    output's gradient ``dy2d``, as ``layer_norm_bwd_plain`` computes them:
+    the kernel on a card (R = 0 gives zero dgamma and dbeta), the plain
+    version on the CPU."""
+    if not use_kernel(x2d):
+        _bwd_stats["plain"] += 1
+        return layer_norm_bwd_plain(x2d, gamma, dy2d, eps)
+    check_bwd_args(x2d, gamma, dy2d)
+    R, N = x2d.shape
+    dev = x2d.device
+    dx = torch.empty_like(x2d)
+    dgb = torch.empty(2, N, dtype=gamma.dtype, device=dev)
+    parts = bwd_parts(R, N)
+    part = torch.empty(parts, 2 * N, dtype=torch.float32, device=dev)
+    launch("layer_norm_bwd", "pt_layer_norm_bwd", dev, x2d.data_ptr(),
+           dy2d.data_ptr(), gamma.data_ptr(), dx.data_ptr(), part.data_ptr(),
+           dgb.data_ptr(), R, N, parts, float(eps),
+           int(x2d.dtype == torch.bfloat16),
+           int(gamma.dtype == torch.bfloat16))
+    _bwd_stats["kernel"] += 1
+    return dx, dgb[0], dgb[1]
+
+
 class LayerNormFunction(torch.autograd.Function):
-    """Layer norm over the last dim of x (any leading shape): the kernel
-    forward and the composed backward."""
+    """Layer norm over the last dim of x (any leading shape): the forward
+    and backward kernels (their plain versions on the CPU)."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, eps):
@@ -120,8 +183,8 @@ class LayerNormFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x2d, gamma = ctx.saved_tensors
-        dx, dg, db = layer_norm_bwd(x2d, gamma, dy.reshape(x2d.shape),
-                                    ctx.eps)
+        dx, dg, db = layer_norm_bwd(x2d, gamma,
+                                    dy.contiguous().view(x2d.shape), ctx.eps)
         return dx.reshape(dy.shape), dg, db, None
 
 

@@ -426,7 +426,8 @@ def test_bert_classifier_train_step_o2_bf16_tracks_reference():
                                    atol=2e-2)
     assert losses[1] < losses[0]
     stats = kernels.all_stats()
-    for name, n in {"layer_norm": 5, "flash_attention": 2,
+    for name, n in {"layer_norm": 5, "layer_norm_bwd": 5,
+                    "flash_attention": 2,
                     "flash_attention_bwd": 2, "softmax_ce_fwd": 1,
                     "softmax_ce_bwd": 1}.items():
         assert stats[name] == {"kernel": 0, "plain": 2 * n}, name

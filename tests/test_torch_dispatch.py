@@ -32,7 +32,7 @@ TOL = {torch.float32: 1e-5, torch.float16: 2.0 ** -9}
 
 #: the kernel counters each entry's kernels and plain versions move
 ENTRY_KERNELS = {
-    "layer_norm": ("layer_norm",),
+    "layer_norm": ("layer_norm", "layer_norm_bwd"),
     "flash_attention": ("flash_attention", "flash_attention_bwd",
                         "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
                         "flash_attention_masked",

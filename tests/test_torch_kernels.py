@@ -410,7 +410,7 @@ class TestPagedAttention:
         assert pa._stats["plain"] == before["plain"] + 1
         assert pa._stats["kernel"] == before["kernel"]
         assert set(kernels.all_stats()) == {
-            "layer_norm", "flash_attention", "flash_attention_bwd",
+            "layer_norm", "layer_norm_bwd", "flash_attention", "flash_attention_bwd",
             "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
             "flash_attention_masked", "flash_attention_bwd_masked",
             "flash_attention_bwd_dq_masked",

@@ -431,8 +431,9 @@ def test_train_step_o2_bf16_tracks_reference():
     assert all(p.dtype == torch.float32 for p in tst.params.values())
     _check_state(jst, tst, 6 * lr_, 0.0)
     stats = kernels.all_stats()
-    want = {"layer_norm": 5, "flash_attention": 2, "flash_attention_bwd": 2,
-            "softmax_ce_fwd": 1, "softmax_ce_bwd": 1}
+    want = {"layer_norm": 5, "layer_norm_bwd": 5, "flash_attention": 2,
+            "flash_attention_bwd": 2, "softmax_ce_fwd": 1,
+            "softmax_ce_bwd": 1}
     for name, n in want.items():
         assert stats[name] == {"kernel": 0, "plain": 3 * n}, name
 

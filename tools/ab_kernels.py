@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
-"""Time the attention and 1x1-conv kernels of one checkout, for comparing
-two checkouts on one card.
+"""Time the layer-norm, attention and 1x1-conv kernels of one checkout,
+for comparing two checkouts on one card.
 
     python3 tools/ab_kernels.py --tree DIR --tag NAME   # one checkout
+    python3 tools/ab_kernels.py --tree DIR --tag NAME --only layer_norm
     python3 tools/ab_kernels.py --compare NAME NAME ... # after the runs
 
 Each run imports the kernels of the checkout at DIR (its
 ``paddle_tpu_torch`` and its ``chip_smoke`` helpers, so an older checkout
 works too), builds them there, and times, from replayed CUDA graphs
-(``chip_smoke.cuda_ms``): the flash forward in fp32 at the serving
+(``chip_smoke.cuda_ms``): the layer norm's forward (``layer_norm_fwd``)
+at R 32 and 1,024 N 768 fp32, R 8,192 N 768 fp32 and bf16, R 32,768 N
+768 bf16 and R 4,096 N 512 bf16, and its backward (``layer_norm_bwd``,
+which is a torch composition in a checkout older than its kernel) at the
+training paths' shapes; the flash forward in fp32 at the serving
 buckets (B 1, L 16 to 1,024), the forward and the one-pass backward at
 B 8 L 1,024 (the one-pass backward also at B 8 L 512 and at B 2 L 1,024
 H 16 D 128), the paged decode attention at the serving path's 32 lanes
@@ -17,7 +22,8 @@ L 4,096 and 32,768 (the one-pass kernel there too), in fp32 and bf16, all
 H 12 D 64 causal; and the 1x1 conv + statistics, bf16 and fp32, at the
 12 shapes of the ResNet-50 step (``CONV_SHAPES``) and one small one, whose outputs (y,
 sum, sumsq) it hashes. It writes ``chiprun_out/ab_NAME.json`` under the directory it
-is started from. ``--compare`` prints,
+is started from. ``--only`` names the groups to time (layer_norm,
+attention, paged, conv1x1; all by default). ``--compare`` prints,
 for each timing, the runs side by side, and each run's conv output hash
 (runs of one checkout must agree bit for bit). Run the checkouts in turns in one call
 (parent, change, change, parent): two calls may land on two cards. Needs
@@ -45,7 +51,16 @@ CONV_SHAPES = ((401408, 64, 64), (401408, 256, 64), (401408, 64, 256),
                (25088, 1024, 512), (6272, 2048, 512), (6272, 512, 2048))
 
 
-def run(tree: str, tag: str) -> dict:
+#: the layer norm's forward (R, N, type) and backward rows (R, N, type, eps)
+LN_FWD = ((32, 768, "float32"), (1024, 768, "float32"),
+          (8192, 768, "float32"), (8192, 768, "bfloat16"),
+          (32768, 768, "bfloat16"), (4096, 512, "bfloat16"))
+LN_BWD = ((8192, 768, "bfloat16", 1e-5), (8192, 768, "float32", 1e-5),
+          (32768, 768, "bfloat16", 1e-12), (4096, 512, "bfloat16", 1e-5))
+GROUPS = ("layer_norm", "attention", "paged", "conv1x1")
+
+
+def run(tree: str, tag: str, only=GROUPS) -> dict:
     tree = os.path.abspath(tree)
     os.chdir(tree)
     sys.path.insert(0, tree)
@@ -55,6 +70,7 @@ def run(tree: str, tag: str) -> dict:
     from paddle_tpu_torch import _native
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import fused_conv_bn as fcb
+    from paddle_tpu_torch.ops.kernels import layer_norm as ln
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
     if not torch.cuda.is_available():
         raise SystemExit("ab_kernels: no CUDA card is available")
@@ -64,11 +80,27 @@ def run(tree: str, tag: str) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     f32, bf16 = torch.float32, torch.bfloat16
     ms = {}
-    for L in (16, 32, 64, 128, 256, 512, 1024):
+    if "layer_norm" in only:
+        for R, N, dt in LN_FWD:
+            dt = getattr(torch, dt)
+            x = torch.randn(R, N, device=dev, generator=gen).to(dt)
+            g, b = (torch.randn(N, device=dev, generator=gen).to(dt)
+                    for _ in range(2))
+            ms[f"layer norm {str(dt)[6:]} R{R} N{N}"] = cs.cuda_ms(
+                lambda: ln.layer_norm_fwd(x, g, b))
+        for R, N, dt, eps in LN_BWD:
+            dt = getattr(torch, dt)
+            x, dy = (torch.randn(R, N, device=dev, generator=gen).to(dt)
+                     for _ in range(2))
+            g = torch.randn(N, device=dev, generator=gen).to(dt)
+            ms[f"layer norm backward {str(dt)[6:]} R{R} N{N} eps {eps:g}"] = (
+                cs.cuda_ms(lambda: ln.layer_norm_bwd(x, g, dy, eps)))
+        del x, dy, g, b
+    for L in (16, 32, 64, 128, 256, 512, 1024) if "attention" in only else ():
         q, k, v, _ = cs._attention_inputs(dev, gen, 1, L, L, 12, 64, f32)
         ms[f"forward float32 B1 L{L}"] = cs.cuda_ms(
             lambda: fa.flash_attention_fwd(q, k, v, True))
-    for dt in (f32, bf16):
+    for dt in (f32, bf16) if "attention" in only else ():
         name = str(dt)[6:]
         q, k, v, do = cs._attention_inputs(dev, gen, 8, 1024, 1024, 12, 64,
                                            dt)
@@ -114,14 +146,14 @@ def run(tree: str, tag: str) -> dict:
     bt = torch.from_numpy((1 + rng.permutation(W * pps)).astype(np.int32)
                           .reshape(W, pps)).to(dev)
     cl = torch.from_numpy(ctx).to(dev)
-    for dt in (f32, bf16):
+    for dt in (f32, bf16) if "paged" in only else ():
         q = torch.randn(W, H, D, device=dev, generator=gen).to(dt)
         kp, vp = (torch.randn(1 + W * pps, page, H, D, device=dev,
                               generator=gen).to(dt) for _ in range(2))
         ms[f"paged attention {str(dt)[6:]} W32 ctx 32-1024"] = cs.cuda_ms(
             lambda: pa.paged_attention(q, kp, vp, bt, cl))
     digests = {}
-    for dt in (bf16, f32):
+    for dt in (bf16, f32) if "conv1x1" in only else ():
         gen = torch.Generator(device=dev).manual_seed(1)
         for R, Cin, Cout in (*CONV_SHAPES, (1000, 64, 24)):
             x = torch.randn(R, Cin, device=dev, generator=gen).to(dt)
@@ -156,10 +188,11 @@ def compare(tags) -> None:
         print(f"{key:<40}" + "".join(
             f"{r['ms'][key]:>12.4f}" if key in r["ms"] else f"{'-':>12}"
             for r in runs))
-    shapes = dict.fromkeys(s for r in runs for s in r["conv1x1_sha256"])
+    shapes = dict.fromkeys(s for r in runs
+                           for s in r.get("conv1x1_sha256", {}))
     for shape in shapes:
         print(f"conv1x1 {shape:<30} sha256 " + " ".join(
-            r["conv1x1_sha256"].get(shape, "-")[:12] for r in runs))
+            r.get("conv1x1_sha256", {}).get(shape, "-")[:12] for r in runs))
 
 
 def main():
@@ -168,11 +201,17 @@ def main():
     ap.add_argument("--tag", help="name of this run's output file")
     ap.add_argument("--compare", nargs="+", metavar="TAG",
                     help="print the runs of these tags side by side")
+    ap.add_argument("--only", default=",".join(GROUPS),
+                    help="comma-separated groups to time: "
+                    + ", ".join(GROUPS))
     args = ap.parse_args()
+    only = args.only.split(",")
+    if not set(only) <= set(GROUPS):
+        ap.error(f"--only: names of {GROUPS}")
     if args.compare:
         compare(args.compare)
     elif args.tag:
-        run(args.tree, args.tag)
+        run(args.tree, args.tag, only)
     else:
         ap.error("give --tag (with --tree) or --compare")
 

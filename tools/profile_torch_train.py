@@ -26,9 +26,14 @@ of steps (three; one with ``--long``, a step of seconds):
 
 * host wall time per step, device busy time (the sum of device-side event
   times on the one stream) and the idle share 1 - busy / wall;
-* device time per group: each hand-written kernel, the matrix products
-  (cuBLAS), the multi-tensor optimizer update, other elementwise and
-  reduction kernels, copies and fills;
+* device time per group: each hand-written kernel (``layer_norm``: the
+  layer norm's forward and backward kernels and the backward's column
+  sums), the matrix products (cuBLAS), the multi-tensor optimizer update,
+  other elementwise and reduction kernels, copies and fills;
+* the layer norm's backward, whatever computes it (``layer_norm_backward``:
+  the device time of every kernel launched under the autograd node
+  ``LayerNormFunctionBackward``, the kernel or a parent's torch
+  composition, and its share of the busy time);
 * the matrix products by kernel name, and the top kernels overall;
 * each hand-written kernel's launches per step (its wrapper's counter);
 
@@ -67,7 +72,7 @@ GROUPS = (
     ("flash_attention_bwd", ("flash_bwd_kernel", "flash_bwd_tc_kernel",
                              "flash_bwd_tf32_kernel")),
     ("flash_attention", ("flash_fwd_",)),
-    ("layer_norm", ("layer_norm_fwd_kernel",)),
+    ("layer_norm", ("layer_norm_fwd", "layer_norm_bwd")),
     ("softmax_ce_fwd", ("ce_fwd_kernel",)),
     ("softmax_ce_bwd", ("ce_bwd_kernel",)),
     ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
@@ -119,6 +124,31 @@ def _device_summary(prof, wall_s, n_steps, groups=GROUPS):
                            calls=c / per) for t, k, c in gemms[:10]],
         top=[dict(name=k[:100], device_ms=t / 1e3 / per, calls=c / per)
              for t, k, c in rows[:15]])
+
+
+#: the autograd node of the layer norm's backward (the port's Function)
+LN_BACKWARD_NODE = "LayerNormFunctionBackward"
+
+
+def _node_device_ms(prof, node, n_steps, busy_ms):
+    """Device ms a step of every kernel launched under the outermost CPU
+    events whose name holds `node` (an autograd node and what it calls),
+    with the node's calls a step and its share of the busy time."""
+    total_us, calls = 0.0, 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU or node not in \
+                e.name:
+            continue
+        parent = e.cpu_parent
+        while parent is not None and node not in parent.name:
+            parent = parent.cpu_parent
+        if parent is None:
+            total_us += e.device_time_total
+            calls += 1
+    per = max(1, n_steps)
+    ms = total_us / 1e3 / per
+    return dict(device_ms=ms, calls=calls / per,
+                share=ms / busy_ms if busy_ms else None)
 
 
 def main():
@@ -192,6 +222,8 @@ def main():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     out = _device_summary(prof, wall, window)
+    out["layer_norm_backward"] = _node_device_ms(
+        prof, LN_BACKWARD_NODE, window, out["device_busy_ms"])
     out["launches_per_step"] = {k: v["kernel"] / window
                                 for k, v in kernels.all_stats().items()}
     out["plain_runs"] = {k: v["plain"] for k, v in
