@@ -203,6 +203,18 @@ run twice, bit for bit, timed beside F.layer_norm's autograd backward;
 every training path's exact launches count it (25 a step for GPT, BERT,
 Model.fit and long, 26 for ERNIE, 30 for Transformer-base).
 
+Phase 3 also holds the softmax CE pair (its designs: "ce-warp-rows", a
+row of at most 512 classes (forward) or 256 (backward) held in
+registers, and "ce-stream", a block a row or row segment) at every path's
+shape: GPT b8 and Model.fit N 8,192 V 50,304, ResNet N 128 V 1,000, the
+long path's N 32,768, BERT's N 256 V 2, ERNIE's N 4,096 V 40,000 and
+Transformer-base's N 3,584 V 37,000; each launch's design held to the
+wrapper's prediction (`fwd_design`, `bwd_design`) and each pair run twice,
+bit for bit (`ce_pair`); at its edges (`check_ce_edges`: V 1, 2, 31, 33,
+1,000 and 1,001, N 1, both sides of the crossing, rows off the 16-byte
+boundary, labels out of range, a NaN row); and every path phase's CE
+launches on their predicted designs (`ce_designs`).
+
 Phase 3 also holds the ResNet kernels (fused BN forward, reduce and dx;
 1x1 conv + statistics) at the ResNet-50 shapes, fp32 and bf16, and at
 their edges, and the BERT and ERNIE steps' kernels: the flash forward and
@@ -322,6 +334,12 @@ def launch_floor_ms():
 
 def max_err(got, ref):
     return float((got.float() - ref.float()).abs().max())
+
+
+def same_bits(a, c):
+    """torch.equal on the bits, so NaN equals NaN of the same bits."""
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return torch.equal(a.view(ints[a.dtype]), c.view(ints[c.dtype]))
 
 
 def launched_design(fn, want, names=("flash_attention",)):
@@ -1286,18 +1304,39 @@ def _ce_inputs(dev, gen, N, V, dtype):
     return x, lab, dnll, lib_lab
 
 
+def ce_pair(sce, x, lab, dnll):
+    """The CE kernels on (x, lab, dnll): (nll, lse, dlogits), each
+    launch's design held to the wrapper's prediction (``fwd_design``,
+    ``bwd_design``) and the pair run twice, bit for bit, NaN included."""
+    N, V = x.shape
+    nll, lse = launched_design(lambda: sce.softmax_ce_fwd(x, lab),
+                               sce.fwd_design(V),
+                               ("softmax_ce_fwd",))
+    dl = launched_design(lambda: sce.softmax_ce_bwd(x, lab, lse, dnll),
+                         sce.bwd_design(V), ("softmax_ce_bwd",))
+    nll2, lse2 = sce.softmax_ce_fwd(x, lab)
+    if not (same_bits(nll, nll2) and same_bits(lse, lse2)
+            and same_bits(dl, sce.softmax_ce_bwd(x, lab, lse, dnll))):
+        raise AssertionError(f"softmax_ce N={N} V={V} {x.dtype}: two runs "
+                             f"differ")
+    return nll, lse, dl
+
+
 def check_ce(dev, gen, N, V, iters=5, dtypes=(torch.float32,
                                               torch.bfloat16)):
-    """Both CE kernels against their plain versions; `iters` calls in each
-    timed graph (fewer at the long path's N 32,768, where one fp32 plain
-    call holds some 30 GB)."""
+    """Both CE kernels against their plain versions, each launch's design
+    held to the prediction and run twice, bit for bit (``ce_pair``);
+    `iters` calls in each timed graph (fewer at the long path's N 32,768,
+    where one fp32 plain call holds some 30 GB; at most 10 MB of logits,
+    20 calls in 5 replays, as the launch floor is timed, so the graph's
+    own launch does not weigh on a few-microsecond kernel)."""
+    n = (20, 5) if N * V * 4 <= 1e7 else (iters, 3)
     from paddle_tpu_torch.ops.kernels import softmax_ce as sce
     F = torch.nn.functional
     rows = []
     for dtype in dtypes:
         x, lab, dnll, lib_lab = _ce_inputs(dev, gen, N, V, dtype)
-        nll, lse = sce.softmax_ce_fwd(x, lab)
-        dl = sce.softmax_ce_bwd(x, lab, lse, dnll)
+        nll, lse, dl = ce_pair(sce, x, lab, dnll)
         torch.cuda.synchronize()
         rnll, rlse = sce.softmax_ce_fwd_plain(x.float(), lab)
         fwd_err = max(max_err(nll, rnll), max_err(lse, rlse))
@@ -1308,6 +1347,7 @@ def check_ce(dev, gen, N, V, iters=5, dtypes=(torch.float32,
         bwd_err = max_err(dl, rdl)
         bwd_ratio = rel_ratio(dl, rdl, CE_RTOL[dtype])
         del dl, rdl
+        torch.cuda.empty_cache()
         isz = x.element_size()
         fbnd, fby = bound_ms(N * V * isz + 12 * N, 3 * N * V, torch.float32)
         bbnd, bby = bound_ms(2 * N * V * isz + 12 * N, 4 * N * V,
@@ -1316,28 +1356,95 @@ def check_ce(dev, gen, N, V, iters=5, dtypes=(torch.float32,
         lib_out = F.cross_entropy(xl, lib_lab, reduction="none")
         rows.append(dict(
             kernel="softmax_ce_fwd", dtype=str(dtype)[6:],
-            shape=f"N={N} V={V}", max_abs_err=fwd_err,
-            tol_ratio=fwd_ratio,
-            ms=cuda_ms(lambda: sce.softmax_ce_fwd(x, lab), iters=iters,
-                       reps=3),
+            shape=f"N={N} V={V}", design=sce.fwd_design(V),
+            max_abs_err=fwd_err, tol_ratio=fwd_ratio,
+            ms=cuda_ms(lambda: sce.softmax_ce_fwd(x, lab), iters=n[0],
+                       reps=n[1]),
             plain_ms=cuda_ms(lambda: sce.softmax_ce_fwd_plain(x, lab),
-                             iters=iters, reps=3),
+                             iters=n[0], reps=n[1]),
             library_ms=cuda_ms(lambda: F.cross_entropy(
-                x, lib_lab, reduction="none"), iters=iters, reps=3),
+                x, lib_lab, reduction="none"), iters=n[0], reps=n[1]),
             bound_ms=fbnd, bound_by=fby))
         rows.append(dict(
             kernel="softmax_ce_bwd", dtype=str(dtype)[6:],
-            shape=f"N={N} V={V}", max_abs_err=bwd_err,
-            tol_ratio=bwd_ratio,
+            shape=f"N={N} V={V}", design=sce.bwd_design(V),
+            max_abs_err=bwd_err, tol_ratio=bwd_ratio,
             ms=cuda_ms(lambda: sce.softmax_ce_bwd(x, lab, lse, dnll),
-                       iters=iters, reps=3),
+                       iters=n[0], reps=n[1]),
             plain_ms=cuda_ms(lambda: sce.softmax_ce_bwd_plain(
-                x, lab, lse, dnll), iters=iters, reps=3),
+                x, lab, lse, dnll), iters=n[0], reps=n[1]),
             library_ms=cuda_ms(lambda: torch.autograd.grad(
-                lib_out, xl, dnll, retain_graph=True), iters=iters, reps=3,
+                lib_out, xl, dnll, retain_graph=True), iters=n[0], reps=n[1],
                 graph=False),
             bound_ms=bbnd, bound_by=bby))
+        del x, xl, lib_out
+        torch.cuda.empty_cache()
     return rows
+
+
+def check_ce_edges(dev, gen):
+    """The CE kernels at their edges, fp32 and bf16: V 1, 2, 31, 33, 1,000
+    and 1,001 (off the 16-byte vector), N 1, rows on each side of the
+    crossing of the two designs in each direction (the widest row held,
+    one element and one vector wider, at 1, 257 and 2,048 rows),
+    logits one element off the 16-byte boundary, every label out of range,
+    and a NaN in one row, which must reach that row's lse, nll and
+    dlogits, as the plain versions have it, and no other row. Each
+    launch's design held to the prediction, each pair run twice, bit for
+    bit (``ce_pair``). Returns {kernel: worst error / tolerance} on the
+    finite values."""
+    from paddle_tpu_torch.ops.kernels import softmax_ce as sce
+    worst = {"softmax_ce_fwd": 0.0, "softmax_ce_bwd": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        vec = 16 // dtype.itemsize
+        cases = [(N, V, False, 0) for N, V in (
+            (300, 1), (300, 2), (65, 31), (65, 33), (128, 1000),
+            (128, 1001), (1, 1000), (1, 5000), (3, 1001), (7, 30))]
+        for hold in (sce.FWD_HOLD_MAX, sce.BWD_HOLD_MAX):
+            cases += [(N, V, False, 0) for N in (1, 257, 2048)
+                      for V in (hold, hold + 1, hold + vec)]
+        cases += [(4, 50304, True, 0), (6, 2, True, 0), (6, 1000, True, 0),
+                  (9, 1000, False, 1), (9, 50304, False, 1)]
+        for N, V, out_of_range, off in cases:
+            x = (2 * torch.randn(N * V + off, device=dev, generator=gen)
+                 ).to(dtype)[off:].view(N, V)
+            lab = torch.randint(0, V, (N,), device=dev, generator=gen,
+                                dtype=torch.int32)
+            if out_of_range:
+                lab = torch.tensor([-100, V, -1, V + 7, -100, V][:N],
+                                   dtype=torch.int32, device=dev)
+            dnll = torch.randn(N, device=dev, generator=gen)
+            nan_row = N > 2 and not out_of_range
+            if nan_row:
+                x[1, V // 2] = float("nan")
+            nll, lse, dl = ce_pair(sce, x, lab, dnll)
+            rnll, rlse = sce.softmax_ce_fwd_plain(x.float(), lab)
+            rdl = sce.softmax_ce_bwd_plain(x.float(), lab, lse, dnll)
+            what = f"softmax_ce N={N} V={V} {dtype} off {off}"
+            if out_of_range and not torch.equal(nll, lse):
+                raise AssertionError(f"{what}: out-of-range labels must "
+                                     f"give nll = lse")
+            nan_rows = torch.zeros(N, dtype=torch.bool, device=dev)
+            if nan_row:
+                nan_rows[1] = True
+            for out, got, ref in (("nll", nll, rnll), ("lse", lse, rlse),
+                                  ("dlogits", dl, rdl)):
+                want = (nan_rows if got.dim() == 1
+                        else nan_rows[:, None].expand(N, V))
+                if not (torch.equal(got.isnan(), want)
+                        and torch.equal(ref.isnan(), want)):
+                    raise AssertionError(
+                        f"{what}: NaN misplaced in {out}: kernel "
+                        f"{got.isnan().nonzero()[:4].tolist()}, plain "
+                        f"{ref.isnan().nonzero()[:4].tolist()}")
+            fin = ~nan_rows
+            worst["softmax_ce_fwd"] = max(
+                worst["softmax_ce_fwd"],
+                ce_fwd_ratio(nll[fin], lse[fin], rnll[fin], rlse[fin]))
+            worst["softmax_ce_bwd"] = max(
+                worst["softmax_ce_bwd"],
+                rel_ratio(dl[fin], rdl[fin], CE_RTOL[dtype]))
+    return worst
 
 
 def nan_backward(fa, q, k, v, out, lse, causal, design, do):
@@ -1400,10 +1507,6 @@ def check_layer_norm_edges(dev, gen):
 
     worst = {"layer_norm": 0.0, "layer_norm_bwd": 0.0}
     bad = []
-
-    def same_bits(a, c):  # torch.equal, NaN included
-        ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
-        return torch.equal(a.view(ints[a.dtype]), c.view(ints[c.dtype]))
 
     def one(x, g, dy, what):
         b = 0.1 * randn(g.shape[0], dtype=g.dtype)
@@ -1470,20 +1573,18 @@ def check_edges(dev, gen):
     ctx 0, one token,
     page and partition boundaries, contexts past the block table, one long
     lane among short ones, rows off the 16-byte width, repeated bit for
-    bit (paged); the same flash shapes for the backward; V off
-    the 16-byte vector width, N = 1 and every label out of range (softmax
-    CE). Returns {kernel: worst error / tolerance}."""
+    bit (paged); the same flash shapes for the backward; the softmax CE's
+    (`check_ce_edges`). Returns {kernel: worst error / tolerance}."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import layer_norm as ln
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
-    from paddle_tpu_torch.ops.kernels import softmax_ce as sce
 
     def randn(*shape, dtype):
         return torch.randn(*shape, device=dev, generator=gen).to(dtype)
 
-    worst = {**check_layer_norm_edges(dev, gen), "flash_attention": 0.0,
-             "flash_attention_bwd": 0.0, "paged_attention": 0.0,
-             "softmax_ce_fwd": 0.0, "softmax_ce_bwd": 0.0}
+    worst = {**check_layer_norm_edges(dev, gen), **check_ce_edges(dev, gen),
+             "flash_attention": 0.0, "flash_attention_bwd": 0.0,
+             "paged_attention": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         tol = TOL[dtype]
         for Lq, Lk, causal, D, off in (
@@ -1558,27 +1659,6 @@ def check_edges(dev, gen):
                     worst["flash_attention_bwd"],
                     nan_backward(fa, q, k, v, out, lse, causal, want,
                                  randn(*q.shape, dtype=dtype)))
-        for N, V, out_of_range in ((3, 1001, False), (1, 5000, False),
-                                   (4, 50304, True), (7, 30, False)):
-            x = (2 * randn(N, V, dtype=torch.float32)).to(dtype)
-            lab = torch.randint(0, V, (N,), device=dev, generator=gen,
-                                dtype=torch.int32)
-            if out_of_range:
-                lab = torch.tensor([-100, V, -1, V + 7][:N],
-                                   dtype=torch.int32, device=dev)
-            dnll = randn(N, dtype=torch.float32)
-            nll, lse = sce.softmax_ce_fwd(x, lab)
-            rnll, rlse = sce.softmax_ce_fwd_plain(x.float(), lab)
-            if out_of_range and not torch.equal(nll, lse):
-                raise AssertionError("softmax_ce: out-of-range labels must "
-                                     "give nll = lse")
-            worst["softmax_ce_fwd"] = max(
-                worst["softmax_ce_fwd"],
-                ce_fwd_ratio(nll, lse, rnll, rlse))
-            dl = sce.softmax_ce_bwd(x, lab, lse, dnll)
-            rdl = sce.softmax_ce_bwd_plain(x.float(), lab, lse, dnll)
-            worst["softmax_ce_bwd"] = max(worst["softmax_ce_bwd"],
-                                          rel_ratio(dl, rdl, CE_RTOL[dtype]))
         for D in (40, 64, 128):
             page, pps = 16, 3
             ctx = torch.tensor([0, 1, 15, 16, 17, 48], dtype=torch.int32,
@@ -2165,6 +2245,7 @@ def train(cfg, card):
         losses.append(float(loss))
     stats = kernels.all_stats()
     no_composed("train")
+    ce_designs("train")
     per_step = {k: v["kernel"] / TRAIN_STEPS for k, v in stats.items()}
     for name, want in PER_STEP.items():
         st = stats[name]
@@ -2339,6 +2420,7 @@ def resnet_train(card, dev):
         losses.append(float(loss))
     stats = kernels.all_stats()
     no_composed("resnet")
+    ce_designs("resnet")
     per_step = {k: v["kernel"] / TRAIN_STEPS for k, v in stats.items()}
     # the step's 1x1 convs: the 12 shapes of RESNET_CONV_SHAPES, all on the
     # wgmma design
@@ -2542,6 +2624,7 @@ def long_train(card, dev):
         losses.append(float(loss))
     stats = kernels.all_stats()
     no_composed("long")
+    ce_designs("long")
     per_step = {k: v["kernel"] / LONG_STEPS for k, v in stats.items()}
     step_ms = float(np.median(times)) * 1e3
     flops = model_flops(model, 1, LONG_L)
@@ -2927,12 +3010,37 @@ def bert_batch(cfg, B, L, seed=0):
 
 def exact_launches(path, stats, per_step, steps):
     """Raise unless each kernel of `per_step` launched its count a step,
-    no plain version ran and no other kernel launched."""
+    no plain version ran and no other kernel launched; the CE's launches
+    each on its predicted design (`ce_designs`)."""
     for name, st in stats.items():
         want = per_step.get(name, 0) * steps
         if st["plain"] != 0 or st["kernel"] != want:
             raise AssertionError(f"{path}: {name} counters {st}, want "
                                  f"{want} kernel launches and no plain run")
+    if per_step.get("softmax_ce_fwd"):
+        ce_designs(path)
+
+
+def ce_designs(path):
+    """Raise unless every CE launch since the last reset_stats reported
+    the design the wrapper predicts for its shape (`fwd_design`,
+    `bwd_design` of the V in the launch's `shape_stats` key), and at least one
+    of each kernel ran; returns {kernel: {design: launches}}."""
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.kernels import softmax_ce as sce
+    got = {}
+    for name, twin in (("softmax_ce_fwd", sce.fwd_design),
+                       ("softmax_ce_bwd", sce.bwd_design)):
+        want = {}
+        for shape, n in kernels.shape_stats().get(name, {}).items():
+            d = twin(int(shape.split()[1][2:]))
+            want[d] = want.get(d, 0) + n
+        got[name] = kernels.design_stats().get(name, {})
+        if not want or got[name] != want:
+            raise AssertionError(f"{path}: {name} launched {got[name]} at "
+                                 f"{kernels.shape_stats().get(name)}, the "
+                                 f"wrapper predicts {want}")
+    return got
 
 
 def mma_attention(path, steps, layers=12, name="flash_attention"):
@@ -3672,6 +3780,8 @@ def fit_resume(cfg, card):
 
 #: Vaswani et al. 2017's shared En-De BPE vocabulary (section 5.1)
 TB_VOCAB = 37000
+#: the type of the logits the O2 step hands the CE (held in phase 21)
+TB_CE_DTYPE = torch.bfloat16
 TB_WARMUP, TB_STEPS = 2, 8
 #: launches per O2 step of Transformer-base (6 + 6 layers, post-norm):
 #: the encoder's self-attention, the decoder's self- and cross-attention,
@@ -3797,9 +3907,15 @@ def transformer_train(card):
     step = TrainStep(model, F.cross_entropy, opt, amp_dtype=torch.bfloat16)
     batch = [t.cuda() for t in tb_batch(TB_B, TB_LS, TB_LT)]
     losses = []
-    for _ in range(TB_WARMUP):
-        losses.append(float(step(*batch)))
-        sched.step()
+    with launch_dtypes() as seen:
+        for _ in range(TB_WARMUP):
+            losses.append(float(step(*batch)))
+            sched.step()
+    # phase 3's CE row at this step's shape runs in the type the step
+    # hands the CE
+    if seen.get("softmax_ce_fwd") != {str(TB_CE_DTYPE)[6:]: TB_WARMUP}:
+        raise AssertionError(f"transformer: the CE took {seen}, phase 3 "
+                             f"checks it in {TB_CE_DTYPE}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_stats()
@@ -4318,6 +4434,10 @@ def main(argv=None):
             + check_ce(dev, gen, BERT_B, 2, dtypes=(torch.bfloat16,))
             + check_ce(dev, gen, ERNIE_B * BERT_L, 40000,
                        dtypes=(torch.bfloat16,))
+            # Transformer-base's loss over its B 32 x 112 target tokens, in
+            # the type phase 21's step hands the CE (TB_CE_DTYPE)
+            + check_ce(dev, gen, TB_B * TB_LT, TB_VOCAB,
+                       dtypes=(TB_CE_DTYPE,))
             + check_layer_norm(dev, gen, (BERT_B * BERT_L,), 768, eps=1e-12,
                                dtypes=(torch.bfloat16,))
             # Transformer-base's encoder rows (B 32 x 128, d_model 512)

@@ -138,9 +138,11 @@ def _declare(lib: ctypes.CDLL):
     lib.pt_flash_attention_bwd_dkv.argtypes = (
         [p] * 9 + [i64] * 16 + [i32] * 6 + [f32, i32, c.POINTER(i32), p])
     lib.pt_softmax_ce_fwd.restype = i32
-    lib.pt_softmax_ce_fwd.argtypes = [p, p, p, p, i64, i64, i32, p]
+    lib.pt_softmax_ce_fwd.argtypes = [p, p, p, p, i64, i64, i32,
+                                      c.POINTER(i32), p]
     lib.pt_softmax_ce_bwd.restype = i32
-    lib.pt_softmax_ce_bwd.argtypes = [p, p, p, p, p, i64, i64, i32, p]
+    lib.pt_softmax_ce_bwd.argtypes = [p, p, p, p, p, i64, i64, i32,
+                                      c.POINTER(i32), p]
     lib.pt_paged_attention.restype = i32
     lib.pt_paged_attention.argtypes = (
         [p] * 7 + [i64, i64] + [i32] * 7 + [f32, i32, p])

@@ -177,11 +177,13 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
     li = label.long()
     if li.dim() == logits.dim() and li.shape[ax] == 1:
         li = li.squeeze(ax)
-    safe = li.clamp(0, n_cls - 1)  # out-of-range labels are masked below
     if (use_softmax and weight is None and label_smoothing == 0.0
             and ax == logits.dim() - 1 and li.shape == logits.shape[:-1]):
         nll = _sce.fused_softmax_ce(logits, li)
     else:
+        # out-of-range labels are masked below; a class weight comes
+        # only here, so only this branch reads the clamped labels
+        safe = li.clamp(0, n_cls - 1)
         picked = logits.gather(ax, safe.unsqueeze(ax)).squeeze(ax).float()
         if use_softmax:
             lse = torch.logsumexp(logits.float(), dim=ax)

@@ -80,7 +80,7 @@ def composed_stats() -> dict:
 
 
 #: launches by design and by shape of the kernels with more than one
-#: design (the flash forward and backwards, the 1x1 conv):
+#: design (the flash forward and backwards, the 1x1 conv, the CE pair):
 #: {kernel: {design: n}} and {kernel: {shape: n}}
 _designs: dict = {}
 _shapes: dict = {}

@@ -5,9 +5,18 @@ Function that carries them.
 Replaces ``paddle_tpu/ops/pallas/softmax_ce.py``: ``_ce_fwd_pallas``
 (online logsumexp and label pick, giving nll and lse [N] fp32) and
 ``_ce_bwd_pallas`` (dlogits = (softmax - onehot) * dnll written in the
-logits' type, with no fp32 [N, V] intermediate). Both are bound by bytes;
-one block per row, 16-byte loads where the row allows them, fp32
-arithmetic. See the source for the design.
+logits' type, with no fp32 [N, V] intermediate). Both are bound by bytes
+(at the small heads, by the launch and one round trip to memory); fp32
+arithmetic.
+
+Designs (``fwd_design``, ``bwd_design``, by the row's length): a row
+of at most ``FWD_HOLD_MAX`` classes (forward) or ``BWD_HOLD_MAX``
+(backward) runs "ce-warp-rows", held in the registers of a group of 1-32
+lanes (one round trip to memory a row, shuffle reductions, the label's
+logit picked from registers); longer rows run "ce-stream" (the forward
+one 256-thread block a row with two sweeps of 16-byte loads in flight,
+the backward one block a row segment). Every launch counts the design
+its C entry reports (``design_stats``). See the source for the designs.
 
 ``SoftmaxCEFunction`` is the counterpart of the ``_fused_ce`` custom vjp
 (l.302-329) and ``fused_softmax_ce`` of the entry at l.349. An
@@ -22,9 +31,12 @@ forward through autograd, counted in ``composed_stats``.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from . import checked, count_composed, launch, same_device, use_kernel
+from . import (checked, count_composed, count_design, launch, same_device,
+               use_kernel)
 
 #: forward launches (and runs of its plain version)
 _stats = {"kernel": 0, "plain": 0}
@@ -54,6 +66,40 @@ def softmax_ce_bwd_plain(logits2d, labels, lse, dnll):
     cols = torch.arange(V, device=logits2d.device)
     onehot = (cols[None, :] == labels.long()[:, None]).float()
     return ((p - onehot) * dnll.float()[:, None]).to(logits2d.dtype)
+
+
+#: the designs by the code the C entries report (``csrc/softmax_ce.cu``
+#: ``Design``)
+DESIGNS = ("ce-warp-rows", "ce-stream")
+#: the widest rows (classes) held in registers, forward and backward
+#: (``PT_CE_FWD_HOLD_MAX``, ``PT_CE_BWD_HOLD_MAX``)
+FWD_HOLD_MAX = 512
+BWD_HOLD_MAX = 256
+
+
+def fwd_design(V: int) -> str:
+    """The design the forward launcher (``csrc/softmax_ce.cu`` ``fwd``)
+    picks for rows of V classes: "ce-warp-rows" up to ``FWD_HOLD_MAX``,
+    else "ce-stream". A prediction: the launch counts the design its C
+    entry reports."""
+    return "ce-warp-rows" if V <= FWD_HOLD_MAX else "ce-stream"
+
+
+def bwd_design(V: int) -> str:
+    """The backward launcher's design: the forward's rule with
+    ``BWD_HOLD_MAX``."""
+    return "ce-warp-rows" if V <= BWD_HOLD_MAX else "ce-stream"
+
+
+def shape_key(N: int, V: int, dtype) -> str:
+    """The ``shape_stats`` key of a launch: "N=.. V=.. <type>"."""
+    return f"N={N} V={V} {str(dtype)[6:]}"
+
+
+def _count_design(name, design, N, V, dtype) -> None:
+    """Count a launch under the design its C entry reported and its
+    shape (``shape_key``)."""
+    count_design(name, DESIGNS[design.value], shape_key(N, V, dtype))
 
 
 def kernel_takes(logits) -> bool:
@@ -90,10 +136,13 @@ def softmax_ce_fwd(logits2d, labels):
     lse = torch.empty_like(nll)
     if N == 0:
         return nll, lse
+    design = ctypes.c_int(-1)
     launch("softmax_ce_fwd", "pt_softmax_ce_fwd", logits2d.device,
            logits2d.data_ptr(), labels.data_ptr(), nll.data_ptr(),
-           lse.data_ptr(), N, V, int(logits2d.dtype == torch.bfloat16))
+           lse.data_ptr(), N, V, int(logits2d.dtype == torch.bfloat16),
+           ctypes.byref(design))
     _stats["kernel"] += 1
+    _count_design("softmax_ce_fwd", design, N, V, logits2d.dtype)
     return nll, lse
 
 
@@ -114,11 +163,13 @@ def softmax_ce_bwd(logits2d, labels, lse, dnll):
     dlogits = torch.empty_like(logits2d)
     if N == 0:
         return dlogits
+    design = ctypes.c_int(-1)
     launch("softmax_ce_bwd", "pt_softmax_ce_bwd", logits2d.device,
            logits2d.data_ptr(), labels.data_ptr(), lse.data_ptr(),
            dnll.data_ptr(), dlogits.data_ptr(), N, V,
-           int(logits2d.dtype == torch.bfloat16))
+           int(logits2d.dtype == torch.bfloat16), ctypes.byref(design))
     _bwd_stats["kernel"] += 1
+    _count_design("softmax_ce_bwd", design, N, V, logits2d.dtype)
     return dlogits
 
 

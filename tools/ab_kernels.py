@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the layer-norm, attention and 1x1-conv kernels of one checkout,
-for comparing two checkouts on one card.
+"""Time the layer-norm, attention, 1x1-conv and softmax CE kernels of one
+checkout, for comparing two checkouts on one card.
 
     python3 tools/ab_kernels.py --tree DIR --tag NAME   # one checkout
     python3 tools/ab_kernels.py --tree DIR --tag NAME --only layer_norm
@@ -21,9 +21,12 @@ H 16 D 128), the paged decode attention at the serving path's 32 lanes
 L 4,096 and 32,768 (the one-pass kernel there too), in fp32 and bf16, all
 H 12 D 64 causal; and the 1x1 conv + statistics, bf16 and fp32, at the
 12 shapes of the ResNet-50 step (``CONV_SHAPES``) and one small one, whose outputs (y,
-sum, sumsq) it hashes. It writes ``chiprun_out/ab_NAME.json`` under the directory it
-is started from. ``--only`` names the groups to time (layer_norm,
-attention, paged, conv1x1; all by default). ``--compare`` prints,
+sum, sumsq) it hashes; and the softmax CE's forward, backward and
+forward again at the paths' shapes (``CE_ROWS``, PERF.md rows 8-9). It
+writes
+``chiprun_out/ab_NAME.json`` under the directory it is started from.
+``--only`` names the groups to time (layer_norm, attention, paged,
+conv1x1, softmax_ce; all by default). ``--compare`` prints,
 for each timing, the runs side by side, and each run's conv output hash
 (runs of one checkout must agree bit for bit). Run the checkouts in turns in one call
 (parent, change, change, parent): two calls may land on two cards. Needs
@@ -57,7 +60,14 @@ LN_FWD = ((32, 768, "float32"), (1024, 768, "float32"),
           (32768, 768, "bfloat16"), (4096, 512, "bfloat16"))
 LN_BWD = ((8192, 768, "bfloat16", 1e-5), (8192, 768, "float32", 1e-5),
           (32768, 768, "bfloat16", 1e-12), (4096, 512, "bfloat16", 1e-5))
-GROUPS = ("layer_norm", "attention", "paged", "conv1x1")
+#: the softmax CE rows (N, V, type) of PERF.md rows 8-9: GPT b8 (O2 and
+#: Model.fit), ResNet's head, the long path, BERT's and ERNIE's heads,
+#: Transformer-base's
+CE_ROWS = ((8192, 50304, "bfloat16"), (8192, 50304, "float32"),
+           (128, 1000, "float32"), (128, 1000, "bfloat16"),
+           (32768, 50304, "bfloat16"), (256, 2, "bfloat16"),
+           (4096, 40000, "bfloat16"), (3584, 37000, "bfloat16"))
+GROUPS = ("layer_norm", "attention", "paged", "conv1x1", "softmax_ce")
 
 
 def run(tree: str, tag: str, only=GROUPS) -> dict:
@@ -72,6 +82,7 @@ def run(tree: str, tag: str, only=GROUPS) -> dict:
     from paddle_tpu_torch.ops.kernels import fused_conv_bn as fcb
     from paddle_tpu_torch.ops.kernels import layer_norm as ln
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    from paddle_tpu_torch.ops.kernels import softmax_ce as sce
     if not torch.cuda.is_available():
         raise SystemExit("ab_kernels: no CUDA card is available")
     _native.load()
@@ -167,6 +178,24 @@ def run(tree: str, tag: str, only=GROUPS) -> dict:
             digests[shape] = h.hexdigest()
             ms[f"conv1x1 {shape}"] = cs.cuda_ms(
                 lambda: fcb.conv1x1_stats(x, w), iters=5, reps=3)
+    for N, V, dt in CE_ROWS if "softmax_ce" in only else ():
+        dt = getattr(torch, dt)
+        x, lab, dnll, _ = cs._ce_inputs(dev, gen, N, V, dt)
+        _, lse = sce.softmax_ce_fwd(x, lab)
+        n = (2, 3) if N * V > 1e9 else (10, 3) if N * V > 1e7 else (20, 5)
+        name = f"{str(dt)[6:]} N{N} V{V}"
+        ms[f"softmax_ce forward {name}"] = cs.cuda_ms(
+            lambda: sce.softmax_ce_fwd(x, lab), iters=n[0], reps=n[1])
+        ms[f"softmax_ce backward {name}"] = cs.cuda_ms(
+            lambda: sce.softmax_ce_bwd(x, lab, lse, dnll), iters=n[0],
+            reps=n[1])
+        # the forward again, once the logits have been read some 20 times:
+        # the first timing of a freshly made N 32,768 tensor can read
+        # some 20 % slower than later ones
+        ms[f"softmax_ce forward {name} again"] = cs.cuda_ms(
+            lambda: sce.softmax_ce_fwd(x, lab), iters=n[0], reps=n[1])
+        del x, lse
+        torch.cuda.empty_cache()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

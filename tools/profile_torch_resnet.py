@@ -67,7 +67,7 @@ GROUPS = (
     ("fused BN forward (kernel)", ("bn_fwd_kernel",)),
     ("fused BN reduce (kernel)", ("bn_reduce_kernel", "bn_reduce_sums")),
     ("fused BN dx (kernel)", ("bn_dx_kernel",)),
-    ("softmax CE (kernels)", ("ce_fwd_kernel", "ce_bwd_kernel")),
+    ("softmax CE (kernels)", ("ce_fwd_", "ce_bwd_")),
     ("conv (cuDNN)", ("fprop", "dgrad", "wgrad", "conv", "cudnn",
                       "implicit", "nchwtonhwc", "nhwctonchw")),
     ("pooling", ("pool",)),

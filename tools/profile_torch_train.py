@@ -73,8 +73,10 @@ GROUPS = (
                              "flash_bwd_tf32_kernel")),
     ("flash_attention", ("flash_fwd_",)),
     ("layer_norm", ("layer_norm_fwd", "layer_norm_bwd")),
-    ("softmax_ce_fwd", ("ce_fwd_kernel",)),
-    ("softmax_ce_bwd", ("ce_bwd_kernel",)),
+    # ce_fwd_kernel / ce_bwd_kernel before the CE redesign; since, one
+    # kernel a design (ce_*_rows_kernel, ce_*_stream_kernel)
+    ("softmax_ce_fwd", ("ce_fwd_",)),
+    ("softmax_ce_bwd", ("ce_bwd_",)),
     ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
     ("optimizer (multi-tensor)", ("multi_tensor_apply",)),
     ("reduction", ("reduce",)),
