@@ -38,14 +38,26 @@ failure:
               block table, N up to 4096, V off the vector width, labels
               out of range, a NaN in the 1x1 conv's x or w);
 4. serve    - GPT-2 small at full width (12 layers, hidden 768, 12 heads,
-              vocab 50304, fp32, random weights from a seed) through
-              ServingEngine(max_batch=32, max_len=1024, page_size=16): 64
-              greedy requests of 32-512 prompt tokens plus two longer than
-              512, 32 new tokens each; every serving kernel must have
-              launched and no plain version may have run, every prefill's
-              attention on the 3xTF32 design; TTFT, TPOT and
-              tokens/s; no main path may run a torch composition in place
-              of a kernel;
+              vocab 50304, fp32, random weights from a seed) through two
+              ServingEngine(max_batch=32, max_len=1024, page_size=16)s,
+              decode_mode "eager" and "fused" (one CUDA graph per lane
+              bucket and greedy or sampling variant): 3 paired rounds,
+              eager then fused, of 64 greedy requests of 32-512 prompt
+              tokens plus two longer than 512, 32 new tokens each, every
+              request's tokens bit for bit between the modes; then for
+              each lane bucket W 1-32 exactly W requests, greedy and
+              sampled (temperature 0.8, top_k 40, top_p 0.95, seeds
+              from 0), tokens bit for bit between the modes; every run's
+              launches exact (25 layer norms a forward, 12 paged
+              attentions a decode iteration, counted through replays), no
+              plain version and no composition, every prefill's attention
+              on the 3xTF32 design; one fused iteration launches 25 + 12
+              through one replay; one graph per (W, variant) used, none
+              recaptured, each replayed; one fused run on the engine's
+              loop thread (start()/close()); TPOT p50/p99, TTFT,
+              tokens/s and host ms a decode iteration per mode and
+              round, device operations and ms a decode iteration at W 32
+              (torch.profiler), and the graph pool's bytes;
 5. cpu      - the same weights on the CPU (plain versions) against the card:
               prefill logits and 8 teacher-forced decode steps for 2 requests;
 6. train    - GPT-2 small at full width trained by
@@ -2083,68 +2095,276 @@ def percentile(xs, p):
 
 #: the kernels of the serving path
 SERVE_KERNELS = ("layer_norm", "flash_attention", "paged_attention")
+#: kernel launches of one GPT-2 small forward (prefill or decode
+#: iteration): two layer norms a block and the final one; paged attention
+#: once a block in a decode iteration
+SERVE_LN, SERVE_PAGED = 25, 12
+SERVE_ROUNDS = 3
+SERVE_MAX_NEW = 32
+DRILL_SAMPLING = dict(temperature=0.8, top_k=40, top_p=0.95)
 
 
-def serve(model, cfg, card):
-    from paddle_tpu_torch.inference.serving import ServingEngine
-    from paddle_tpu_torch.ops import kernels
-    eng = ServingEngine(model, max_batch=32, max_len=1024, page_size=16,
-                        name="gpt2_small")
+def serve_prompts(cfg):
+    """The phase's 66 prompts: 64 of 32-512 tokens and two longer than
+    512 (the 1,024 prefill bucket)."""
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab_size,
                             int(rng.integers(32, 513))).tolist()
                for _ in range(64)]
-    prompts += [rng.integers(1, cfg.vocab_size, n).tolist()
-                for n in (700, 960)]  # the 1024 prefill bucket
-    max_new = 32
-    # warm-up request (cuBLAS handles, first allocations); not counted
-    eng.generate(prompts[0][:40], max_new_tokens=4)
+    return prompts + [rng.integers(1, cfg.vocab_size, n).tolist()
+                      for n in (700, 960)]
+
+
+def serve_round(eng, prompts, max_new=SERVE_MAX_NEW, sampling=None):
+    """One run of `prompts` through `eng` from zeroed counters: tokens,
+    latencies, host ms per decode iteration and the run's launches,
+    which must be exact (25 layer norms a forward, 12 paged attentions an
+    iteration), with no plain run and no composition."""
+    from paddle_tpu_torch.ops import kernels
+    it0 = eng.stats["iterations"]
+    pf0 = eng.stats["prefills"]
+    wall0 = eng.stats["decode_wall_s"]
+    replays0 = sum(eng.graph_replays.values())
     kernels.reset_stats()
     t0 = time.perf_counter()
-    reqs = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+    reqs = [eng.submit(p, max_new_tokens=max_new, sampling=(
+        None if sampling is None else sampling(i)))
+        for i, p in enumerate(prompts)]
     eng.run_until_idle()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     stats = kernels.all_stats()
-    no_composed("serve")
+    no_composed(f"serve {eng.decode_mode}")
+    iters = eng.stats["iterations"] - it0
+    prefills = eng.stats["prefills"] - pf0
+    want = {"layer_norm": SERVE_LN * (iters + prefills),
+            "paged_attention": SERVE_PAGED * iters}
+    for name in SERVE_KERNELS:
+        st = stats[name]
+        if st["kernel"] <= 0 or st["plain"] != 0 or (
+                name in want and st["kernel"] != want[name]):
+            raise AssertionError(
+                f"serve {eng.decode_mode}: {name} counters {st}, want "
+                f"{want.get(name, 'some')} kernel launches and no plain run "
+                f"({iters} decode iterations, {prefills} prefills)")
+    tokens = []
     for r in reqs:
         toks = r.result(timeout=0)
         if len(toks) != max_new or r.finish_reason != "length":
             raise AssertionError(f"request {r.rid}: {len(toks)} tokens, "
                                  f"{r.finish_reason}")
-    for name in SERVE_KERNELS:
-        st = stats[name]
-        if st["kernel"] <= 0 or st["plain"] != 0:
-            raise AssertionError(f"{name}: counters {st} — the kernel must "
-                                 f"launch and the plain version must not run")
-    # every fp32 prefill ran the forward on the TF32 tensor cores
-    designs = kernels.design_stats()
-    if designs.get("flash_attention") != {
-            "mma.sync-3xtf32": stats["flash_attention"]["kernel"]}:
-        raise AssertionError(f"serve: flash forward designs {designs}, want "
-                             f"every launch on mma.sync-3xtf32")
+        tokens.append(toks)
     if eng.allocator.outstanding():
         raise AssertionError(f"leaked pages {eng.allocator.outstanding()}")
-    ttft = [r.ttft_s for r in reqs]
     tpot = [r.tpot_s for r in reqs]
-    n_tok = sum(len(r.generated) for r in reqs)
-    res = dict(requests=len(reqs), prompt_tokens=sum(map(len, prompts)),
-               generated_tokens=n_tok, wall_s=wall,
-               tokens_per_s=n_tok / wall,
-               ttft_p50_ms=percentile(ttft, 50) * 1e3,
-               ttft_p99_ms=percentile(ttft, 99) * 1e3,
-               tpot_p50_ms=percentile(tpot, 50) * 1e3,
-               tpot_p99_ms=percentile(tpot, 99) * 1e3,
-               stats=dict(eng.stats), launches=stats, designs=designs,
-               decode_iterations=eng.stats["iterations"],
-               prefills=eng.stats["prefills"], card=card)
-    log(f"serve: {len(reqs)} requests, {n_tok} tokens in {wall:.3f} s "
-        f"({res['tokens_per_s']:.1f} tok/s) TTFT p50 "
-        f"{res['ttft_p50_ms']:.2f} ms p99 {res['ttft_p99_ms']:.2f} ms, TPOT "
-        f"p50 {res['tpot_p50_ms']:.3f} ms p99 {res['tpot_p99_ms']:.3f} ms "
-        f"[{card}]")
-    log(f"serve: launches {json.dumps(stats)}; iterations "
-        f"{eng.stats['iterations']}, prefills {eng.stats['prefills']}")
+    ttft = [r.ttft_s for r in reqs]
+    n_tok = sum(map(len, tokens))
+    return dict(
+        mode=eng.decode_mode, requests=len(reqs), generated_tokens=n_tok,
+        wall_s=wall, tokens_per_s=n_tok / wall,
+        ttft_p50_ms=percentile(ttft, 50) * 1e3,
+        ttft_p99_ms=percentile(ttft, 99) * 1e3,
+        tpot_p50_ms=percentile(tpot, 50) * 1e3,
+        tpot_p99_ms=percentile(tpot, 99) * 1e3,
+        decode_iterations=iters, prefills=prefills,
+        host_ms_per_iteration=(eng.stats["decode_wall_s"] - wall0)
+        / max(1, iters) * 1e3,
+        graph_replays=sum(eng.graph_replays.values()) - replays0,
+        launches=stats, designs=kernels.design_stats()), tokens
+
+
+def decode_window_ops(eng, cfg, W=32, warm=2, window=8):
+    """(device operations, device ms) per decode iteration at W lanes from
+    torch.profiler: W short requests admitted and decoded `warm`
+    iterations, then `window` iterations of pure decode profiled."""
+    rng = np.random.default_rng(1)
+    reqs = [eng.submit(rng.integers(1, cfg.vocab_size, 64).tolist(),
+                       max_new_tokens=warm + window + 2) for _ in range(W)]
+    for _ in range(warm):
+        eng.step()
+
+    def run():
+        for _ in range(window):
+            eng.step()
+    ops, ms = device_ops(run)
+    eng.run_until_idle()
+    for r in reqs:
+        r.result(timeout=0)
+    return (None, None) if ops is None else (ops / window, ms / window)
+
+
+def serve_drill(engines, cfg):
+    """For each lane bucket W of 1-32 and each variant (greedy; sampled at
+    temperature 0.8, top_k 40, top_p 0.95, seeds from 0): exactly W
+    requests in every engine, tokens identical across the engines."""
+    from paddle_tpu_torch.inference.sampling import SamplingParams
+    rng = np.random.default_rng(2)
+    out = {}
+    for W in engines[0].decode_buckets:
+        prompts = [rng.integers(1, cfg.vocab_size,
+                                int(rng.integers(16, 129))).tolist()
+                   for _ in range(W)]
+        for variant in ("greedy", "sampled"):
+            sampling = None if variant == "greedy" else (
+                lambda i: SamplingParams(seed=i, **DRILL_SAMPLING))
+            runs = [serve_round(eng, prompts, sampling=sampling)
+                    for eng in engines]
+            if any(toks != runs[0][1] for _, toks in runs[1:]):
+                raise AssertionError(f"drill W {W} {variant}: tokens differ "
+                                     f"between the decode modes")
+            out[f"W={W} {variant}"] = {
+                r["mode"]: dict(host_ms_per_iteration=r[
+                    "host_ms_per_iteration"], tpot_p50_ms=r["tpot_p50_ms"],
+                    graph_replays=r["graph_replays"]) for r, _ in runs}
+    return out
+
+
+def one_iteration_launches(eng, cfg, W=4):
+    """The launches of ONE fused decode iteration at W lanes, counted
+    through its graph's replay: exactly 25 layer norms and 12 paged
+    attentions, and no other kernel, plain run or composition."""
+    from paddle_tpu_torch.ops import kernels
+    rng = np.random.default_rng(3)
+    reqs = [eng.submit(rng.integers(1, cfg.vocab_size, 40).tolist(),
+                       max_new_tokens=4) for _ in range(W)]
+    eng.step()  # admission, W prefills and the first decode iteration
+    replays = eng.graph_replays[(W, "greedy")]
+    kernels.reset_stats()
+    eng.step()
+    got = {k: v for k, v in kernels.all_stats().items()
+           if v["kernel"] or v["plain"]}
+    want = {"layer_norm": {"kernel": SERVE_LN, "plain": 0},
+            "paged_attention": {"kernel": SERVE_PAGED, "plain": 0}}
+    if got != want or eng.graph_replays[(W, "greedy")] != replays + 1:
+        raise AssertionError(f"one fused iteration launched {got}, want "
+                             f"{want} through one replay")
+    no_composed("serve one iteration")
+    eng.run_until_idle()
+    for r in reqs:
+        r.result(timeout=0)
+    return got
+
+
+def loop_thread_run(model, cfg, eager_eng):
+    """A fresh fused engine driven by its loop thread (start()/close()):
+    its graphs are captured on that thread, and its tokens equal the
+    eager engine's."""
+    from paddle_tpu_torch.inference.serving import ServingEngine
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, cfg.vocab_size, int(rng.integers(16, 200)))
+               .tolist() for _ in range(8)]
+    eng = ServingEngine(model, max_batch=32, max_len=1024, page_size=16,
+                        name="gpt2_small_thread")
+    eng.start(poll_s=0.001)
+    try:
+        reqs = [eng.submit(p, max_new_tokens=16) for p in prompts]
+        got = [r.result(timeout=300) for r in reqs]
+    finally:
+        eng.close()
+    graphs = eng.status()["graphs"]
+    ref_reqs = [eager_eng.submit(p, max_new_tokens=16) for p in prompts]
+    eager_eng.run_until_idle()
+    ref = [r.result(timeout=0) for r in ref_reqs]
+    if got != ref or graphs < 1:
+        raise AssertionError(f"loop thread: tokens equal {got == ref}, "
+                             f"{graphs} graphs captured on the thread")
+    return dict(requests=len(reqs), graphs=graphs)
+
+
+def serve(model, cfg, card):
+    """Phase 4: the eager and the fused decode step on the same weights.
+    Paired rounds of the 66-prompt workload (eager then fused, tokens
+    bit for bit), the lane-bucket drill, one iteration's launches, one
+    fused run on the loop thread, the device operations a decode
+    iteration at W 32, and the captured graphs (one per pair used, none
+    recaptured, each replayed)."""
+    from paddle_tpu_torch.inference.serving import ServingEngine
+    engines = {mode: ServingEngine(model, max_batch=32, max_len=1024,
+                                   page_size=16, name=f"gpt2_small_{mode}",
+                                   decode_mode=mode)
+               for mode in ("eager", "fused")}
+    prompts = serve_prompts(cfg)
+    # warm-up request (cuBLAS handles, first allocations); not counted
+    for eng in engines.values():
+        eng.generate(prompts[0][:40], max_new_tokens=4)
+    rounds = []
+    for rnd in range(SERVE_ROUNDS):
+        pair = {}
+        for mode, eng in engines.items():
+            pair[mode] = serve_round(eng, prompts)
+        if pair["eager"][1] != pair["fused"][1]:
+            raise AssertionError(f"serve round {rnd}: fused tokens differ "
+                                 f"from eager tokens")
+        if rounds and pair["fused"][1] != rounds[0]["fused"][1]:
+            raise AssertionError(f"serve round {rnd}: tokens differ from "
+                                 f"round 0")
+        rounds.append(pair)
+        for mode in engines:
+            r = pair[mode][0]
+            log(f"serve {mode} round {rnd}: {r['requests']} requests, "
+                f"{r['generated_tokens']} tokens in {r['wall_s']:.3f} s "
+                f"({r['tokens_per_s']:.1f} tok/s) TTFT p50 "
+                f"{r['ttft_p50_ms']:.2f} ms p99 {r['ttft_p99_ms']:.2f} ms, "
+                f"TPOT p50 {r['tpot_p50_ms']:.3f} ms p99 "
+                f"{r['tpot_p99_ms']:.3f} ms, host "
+                f"{r['host_ms_per_iteration']:.3f} ms a decode iteration "
+                f"({r['decode_iterations']}), graph replays "
+                f"{r['graph_replays']} [{card}]")
+    main = rounds[-1]["fused"][0]
+    # every fp32 prefill ran the forward on the TF32 tensor cores
+    if main["designs"].get("flash_attention") != {
+            "mma.sync-3xtf32": main["launches"]["flash_attention"]["kernel"]}:
+        raise AssertionError(f"serve: flash forward designs "
+                             f"{main['designs']}, want every launch on "
+                             f"mma.sync-3xtf32")
+    drill = serve_drill([engines["eager"], engines["fused"]], cfg)
+    fused = engines["fused"]
+    pairs = {(W, v) for W in fused.decode_buckets
+             for v in ("greedy", "sampled")}
+    if set(fused.graph_replays) != pairs or len(fused._graphs) != len(
+            pairs) or fused.stats["graph_captures"] != len(pairs) or min(
+            fused.graph_replays.values()) < 1:
+        raise AssertionError(f"serve: graphs {sorted(fused.graph_replays)} "
+                             f"replays {fused.graph_replays}, captures "
+                             f"{fused.stats['graph_captures']}; want one "
+                             f"per pair of {sorted(pairs)}, each replayed")
+    one_iter = one_iteration_launches(fused, cfg)
+    ops = {mode: decode_window_ops(eng, cfg)
+           for mode, eng in engines.items()}
+    thread = loop_thread_run(model, cfg, engines["eager"])
+    summary = {}
+    for mode in engines:
+        rs = [p[mode][0] for p in rounds]
+        summary[mode] = {
+            k: [r[k] for r in rs] for k in (
+                "tpot_p50_ms", "tpot_p99_ms", "tokens_per_s", "ttft_p50_ms",
+                "ttft_p99_ms", "host_ms_per_iteration")}
+        summary[mode]["device_ops_per_iteration"] = ops[mode][0]
+        summary[mode]["device_ms_per_iteration"] = ops[mode][1]
+        log(f"serve {mode}: TPOT p50 "
+            f"{', '.join(f'{x:.3f}' for x in summary[mode]['tpot_p50_ms'])}"
+            f" ms, p99 "
+            f"{', '.join(f'{x:.3f}' for x in summary[mode]['tpot_p99_ms'])}"
+            f" ms, tokens/s "
+            f"{', '.join(f'{x:.1f}' for x in summary[mode]['tokens_per_s'])}"
+            f", host ms a decode iteration "
+            f"{', '.join(f'{x:.3f}' for x in summary[mode]['host_ms_per_iteration'])}"
+            f"; at W 32: {ops[mode][0]} device operations, "
+            f"{ops[mode][1]} device ms an iteration [{card}]")
+    log(f"serve fused: {len(fused._graphs)} graphs, pool "
+        f"{fused.graph_pool_bytes} bytes (reserved during the captures); "
+        f"one iteration's launches {json.dumps(one_iter)}; loop thread "
+        f"{thread} [{card}]")
+    log(f"serve: launches {json.dumps(main['launches'])}")
+    res = dict(main, card=card, rounds=[{m: p[m][0] for m in p}
+                                        for p in rounds],
+               summary=summary, drill=drill, one_iteration=one_iter,
+               graphs=len(fused._graphs),
+               graph_replays={f"W={W} {v}": n for (W, v), n in
+                              sorted(fused.graph_replays.items())},
+               graph_pool_bytes=fused.graph_pool_bytes, loop_thread=thread)
+    for eng in engines.values():
+        eng.close()
     return res, prompts
 
 
@@ -4504,7 +4724,7 @@ def main(argv=None):
     if not all(v <= 1.0 for v in edges.values()):
         raise AssertionError(f"kernels disagree at their edges: {edges}")
 
-    # 4. serve GPT-2 small at full width
+    # 4. serve GPT-2 small at full width, eager and fused in paired rounds
     cfg = GPTConfig.gpt2_small()
     cfg.dropout = cfg.attn_dropout = 0.0
     model = GPT(cfg, device=dev, generator=torch.Generator().manual_seed(0))

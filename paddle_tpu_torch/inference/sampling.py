@@ -7,31 +7,46 @@ preemption relies on):
 * every request carries its own integer ``seed`` (defaulting to its
   request id), passed per lane in ``seeds``; no RNG state is carried
   between iterations;
-* the n-th sampled token of a request draws from a ``torch.Generator``
-  seeded with ``fold_seed(seed, n)``, a fixed function of (seed, n), so a
-  request preempted after k tokens and re-prefilled resumes sampling
-  token k with exactly the generator it would have used uninterrupted;
+* the n-th sampled token of a request draws with the key
+  ``fold_seed(seed, n)``, a fixed function of (seed, n), so a request
+  preempted after k tokens and re-prefilled resumes sampling token k with
+  exactly the key it would have used uninterrupted;
 * ``temperature == 0`` lanes take the exact ``argmax`` (the first maximum,
   as in JAX) and are bit-identical to ``GPT.generate_paged``.
 
-PyTorch's generators do not reproduce JAX's ``fold_in`` bits, so sampled
-(non-greedy) tokens differ from the reference's; greedy tokens match.
-When every lane is greedy the sampling branch is skipped.
+The draw is a pure function of device tensors, so it runs inside a
+captured CUDA graph: the key is computed on the device from ``seeds`` and
+``steps`` (``fold_seed_tensor``, equal bit for bit to :func:`fold_seed`),
+each column gets a uniform from a counter-based hash of (key, column), and
+the token is the Gumbel-max ``argmax(logits' + G)`` over the truncated,
+temperature-scaled logits, which draws exactly from their softmax. These
+are not JAX's ``fold_in`` bits, so sampled (non-greedy) tokens differ from
+the reference's; greedy tokens match.
+
+When every lane is greedy the sampling branch is skipped (the reference's
+``lax.cond``). Temperatures are host data, so that choice is made on the
+host before the step (``sampled=``) and picks one of two step variants.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
-__all__ = ["SamplingParams", "sample_logits", "fold_seed"]
+__all__ = ["SamplingParams", "sample_logits", "fold_seed",
+           "fold_seed_tensor", "any_sampled"]
 
 #: lanes with temperature <= _GREEDY_EPS are greedy (exact argmax);
 #: positive temperatures below it are clamped to it for stable division
 _GREEDY_EPS = 1e-6
 
 _MASK64 = (1 << 64) - 1
+#: splitmix64's Weyl increment and multipliers
+_GOLDEN = 0x9E3779B97F4A7C15
+_MIX1 = 0xBF58476D1CE4E5B9
+_MIX2 = 0x94D049BB133111EB
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,13 +84,49 @@ class SamplingParams:
 
 
 def fold_seed(seed: int, step: int) -> int:
-    """The generator seed of a request's `step`-th token: splitmix64 of
-    (seed, step), a pure function of the two."""
+    """The key of a request's `step`-th token: splitmix64 of (seed, step),
+    a pure function of the two."""
     z = (((int(seed) & 0xFFFFFFFF) << 32) | (int(step) & 0xFFFFFFFF))
-    z = (z + 0x9E3779B97F4A7C15) & _MASK64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    z = (z + _GOLDEN) & _MASK64
+    z = ((z ^ (z >> 30)) * _MIX1) & _MASK64
+    z = ((z ^ (z >> 27)) * _MIX2) & _MASK64
     return (z ^ (z >> 31)) & 0x7FFFFFFFFFFFFFFF
+
+
+def _signed(c: int) -> int:
+    """A 64-bit constant as the int64 with the same bits."""
+    return c - (1 << 64) if c >= 1 << 63 else c
+
+
+def _lshr(z, s: int):
+    """Logical right shift of an int64 tensor: ``>>`` on a signed tensor
+    is arithmetic, so the sign bits it shifts in are masked off."""
+    return (z >> s) & ((1 << (64 - s)) - 1)
+
+
+def _mix(z):
+    """splitmix64's finaliser on int64 tensors (products wrap mod 2**64)."""
+    z = (z ^ _lshr(z, 30)) * _signed(_MIX1)
+    z = (z ^ _lshr(z, 27)) * _signed(_MIX2)
+    return z ^ _lshr(z, 31)
+
+
+def fold_seed_tensor(seeds, steps):
+    """:func:`fold_seed` of int64 tensors of seeds and steps, elementwise,
+    on their device: the same bits as the host function."""
+    z = ((seeds & 0xFFFFFFFF) << 32) | (steps & 0xFFFFFFFF)
+    return _mix(z + _signed(_GOLDEN)) & 0x7FFFFFFFFFFFFFFF
+
+
+def _gumbel(keys, V: int):
+    """[B, V] standard Gumbel noise, column j of lane b a pure function of
+    (keys[b], j): the top 23 bits of splitmix64 of the key's j+1-th
+    Weyl step give u = (bits + 0.5) / 2**23, exactly in (0, 1) in fp32,
+    and G = -log(-log(u)), finite."""
+    col = torch.arange(1, V + 1, dtype=torch.int64, device=keys.device)
+    bits = _lshr(_mix(keys[:, None] + col[None, :] * _signed(_GOLDEN)), 41)
+    u = (bits.to(torch.float32) + 0.5) * (2.0 ** -23)
+    return -torch.log(-torch.log(u))
 
 
 def _truncate(logits, top_k, top_p):
@@ -102,27 +153,39 @@ def _truncate(logits, top_k, top_p):
     return torch.where(keep_k & keep_p, logits, float("-inf"))
 
 
-def sample_logits(logits, temperature, top_k, top_p, seeds, steps):
+def any_sampled(temperature) -> bool:
+    """The host's choice of step variant: True when some lane samples
+    (temperature above the greedy threshold)."""
+    if isinstance(temperature, torch.Tensor):
+        temperature = temperature.cpu().numpy()
+    return bool((np.asarray(temperature, np.float32) > _GREEDY_EPS).any())
+
+
+def sample_logits(logits, temperature, top_k, top_p, seeds, steps,
+                  sampled: Optional[bool] = None):
     """Draw one token per lane from `logits` [B, V]. The policy args are
-    per-lane sequences of length B: `temperature`, `top_k`, `top_p`,
-    `seeds` and `steps` (tokens already sampled by that lane's request).
-    Returns [B] int32 on the logits' device."""
+    per-lane sequences or tensors of length B: `temperature`, `top_k`,
+    `top_p`, `seeds` and `steps` (tokens already sampled by that lane's
+    request). `sampled` False returns the argmax of every lane (the
+    all-greedy variant); None decides it from `temperature` on the host
+    (:func:`any_sampled`). Returns [B] int32 on the logits' device; given
+    device tensors and `sampled`, it reads nothing back to the host."""
     logits = logits.float()
     dev = logits.device
     greedy = logits.argmax(dim=-1).to(torch.int32)
-    temperature = torch.as_tensor(temperature, dtype=torch.float32)
-    is_greedy = temperature <= _GREEDY_EPS
-    if bool(is_greedy.all()):
+    if sampled is None:
+        sampled = any_sampled(temperature)
+    if not sampled:
         return greedy
-    scaled = logits / temperature.clamp_min(_GREEDY_EPS).to(dev)[:, None]
+    temperature = torch.as_tensor(temperature, dtype=torch.float32,
+                                  device=dev)
+    scaled = logits / temperature.clamp_min(_GREEDY_EPS)[:, None]
     masked = _truncate(scaled, torch.as_tensor(top_k, device=dev),
                        torch.as_tensor(top_p, dtype=torch.float32,
                                        device=dev))
-    probs = torch.softmax(masked, dim=-1)
-    out = greedy.clone()
-    for i in torch.nonzero(~is_greedy).flatten().tolist():
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(fold_seed(int(seeds[i]), int(steps[i])))
-        out[i] = torch.multinomial(probs[i], 1, generator=gen)[0].to(
-            torch.int32)
-    return out
+    keys = fold_seed_tensor(
+        torch.as_tensor(seeds, dtype=torch.int64, device=dev),
+        torch.as_tensor(steps, dtype=torch.int64, device=dev))
+    drawn = (masked + _gumbel(keys, logits.shape[-1])).argmax(dim=-1)
+    return torch.where(temperature <= _GREEDY_EPS, greedy,
+                       drawn.to(torch.int32))

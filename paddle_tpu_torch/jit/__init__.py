@@ -40,6 +40,10 @@ class TrainStep:
     """One training step of ``layer`` under ``loss_fn`` and ``optimizer``
     per call: ``loss = step(*inputs, labels)``.
 
+    donate: taken in the reference's slot and not used: the reference
+    donates its state buffers to the compiled step, and no result depends
+    on it.
+
     amp_dtype: e.g. ``torch.bfloat16`` for O2 mixed precision. The step
     holds fp32 master copies of the parameters and the optimizer's fp32
     slots privately; each floating parameter is cast to ``amp_dtype`` ONCE
@@ -76,7 +80,8 @@ class TrainStep:
     """
 
     def __init__(self, layer: torch.nn.Module, loss_fn, optimizer,
-                 amp_dtype=None, health=None, fused_opt=None):
+                 donate: bool = True, amp_dtype=None, health=None,
+                 fused_opt=None):
         self.layer = layer
         self.optimizer = optimizer
         self.amp_dtype = amp_dtype

@@ -12,9 +12,14 @@ attention other than by a 4-D bool mask the flash kernels stream; causal
 attention with Lq > Lk, or a head dim the flash kernels do not take) goes
 to the module's torch composition instead, on the card as on the CPU. Each module's entry decides that with its ``kernel_takes``
 and counts the run in :func:`composed_stats`, apart from ``_stats``.
+
+The counters are Python, so a replayed CUDA graph counts nothing by
+itself: :func:`recorded` sets aside what a capture counted and
+:func:`add_counts` adds it once per replay.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -145,3 +150,59 @@ def reset_stats() -> None:
             st[key] = 0
     _designs.clear()
     _shapes.clear()
+
+
+def _all_counts() -> dict:
+    return {"stats": all_stats(), "designs": design_stats(),
+            "shapes": shape_stats(), "composed": composed_stats()}
+
+
+def _set_counts(counts: dict) -> None:
+    for name, st in _counters().items():
+        st.update(counts["stats"][name])
+    _composed.update(counts["composed"])
+    for live, saved in ((_designs, counts["designs"]),
+                        (_shapes, counts["shapes"])):
+        live.clear()
+        live.update({k: dict(v) for k, v in saved.items()})
+
+
+@contextlib.contextmanager
+def recorded():
+    """Count the block's launches apart, for a CUDA graph captured in it:
+    a capture runs each wrapper's Python (which counts) but launches
+    nothing. On exit every counter is as it was before the block, and the
+    yielded dict holds what the block counted, in the shape
+    :func:`add_counts` adds once per replay of the graph."""
+    before = _all_counts()
+    rec: dict = {}
+    try:
+        yield rec
+        after = _all_counts()
+        rec["stats"] = {
+            name: {k: n - before["stats"][name][k] for k, n in st.items()}
+            for name, st in after["stats"].items()}
+        rec["composed"] = {k: n - before["composed"][k]
+                           for k, n in after["composed"].items()}
+        for part in ("designs", "shapes"):
+            rec[part] = {
+                name: {k: n - before[part].get(name, {}).get(k, 0)
+                       for k, n in by.items()}
+                for name, by in after[part].items()}
+    finally:
+        _set_counts(before)
+
+
+def add_counts(rec: dict) -> None:
+    """Add the launches :func:`recorded` held for a graph: one replay."""
+    for name, st in _counters().items():
+        for k, n in rec["stats"][name].items():
+            st[k] += n
+    for k, n in rec["composed"].items():
+        _composed[k] += n
+    for live, part in ((_designs, rec["designs"]), (_shapes, rec["shapes"])):
+        for name, by in part.items():
+            d = live.setdefault(name, {})
+            for k, n in by.items():
+                if n:
+                    d[k] = d.get(k, 0) + n

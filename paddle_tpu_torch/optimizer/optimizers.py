@@ -6,12 +6,26 @@ AdamW decays EVERY parameter (layer norms and biases included) unless
 ``apply_decay_param_fun`` says otherwise, and its update is
 ``p * (1 - lr * wd) - lr * mhat / (sqrt(vhat) + eps)``, written out here
 rather than taken from ``torch.optim.AdamW``, whose rounding differs.
+
+Adam and AdamW take the reference's arguments in the reference's order.
+``lr_ratio``, ``lazy_mode`` and ``multi_precision`` raise unless left at
+their defaults; ``name`` is taken and not used.
 """
 from __future__ import annotations
 
 import torch
 
 from .optimizer import Optimizer, sqrt
+
+
+def _unported(**options):
+    """Raise for an option the reference takes (in the same slot) and the
+    port does not implement: each given here as True when it was asked
+    for."""
+    asked = [k for k, v in options.items() if v]
+    if asked:
+        raise NotImplementedError(f"{', '.join(asked)}: not ported (only "
+                                  f"the default is taken)")
 
 
 def _zeros32(p):
@@ -53,7 +67,9 @@ class Adam(Optimizer):
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None,
-                 grad_clip=None):
+                 grad_clip=None, lazy_mode=False, multi_precision=False,
+                 name=None):
+        _unported(lazy_mode=lazy_mode, multi_precision=multi_precision)
         super().__init__(learning_rate, parameters, weight_decay, grad_clip)
         self._beta1, self._beta2, self._eps = beta1, beta2, epsilon
 
@@ -77,9 +93,11 @@ class Adam(Optimizer):
 class AdamW(Adam):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=0.01,
-                 apply_decay_param_fun=None, grad_clip=None):
+                 lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
+                 lazy_mode=False, multi_precision=False, name=None):
+        _unported(lr_ratio=lr_ratio is not None)
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
-                         None, grad_clip)
+                         None, grad_clip, lazy_mode, multi_precision, name)
         self._wd = (float(weight_decay)
                     if isinstance(weight_decay, (int, float))
                     else float(getattr(weight_decay, "_coeff", 0.01)))

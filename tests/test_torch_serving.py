@@ -5,9 +5,9 @@ Greedy tokens must be identical request by request, with shared-prefix
 admission (page-aligned chains and exact duplicates, which fork the tail
 page copy-on-write) and with preemption under a small page pool; the
 engines must also agree on how often they preempted, shared and copied,
-and leave no page outstanding. Sampled tokens cannot match (PyTorch's
-generators are not JAX's), so the sampler is held to its own contract:
-pure in (seed, n), and exact argmax for greedy lanes.
+and leave no page outstanding. Sampled tokens cannot match (the port's
+counter-based draw is not JAX's fold_in), so the sampler is held to its
+own contract: pure in (seed, n), and exact argmax for greedy lanes.
 """
 import threading
 

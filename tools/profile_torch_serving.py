@@ -6,8 +6,8 @@
 
 Builds GPT-2 small at full width (fp32, random weights from seed 0) under
 ``paddle_tpu_torch.inference.ServingEngine(max_batch=32, max_len=1024,
-page_size=16)`` on one card and measures, with ``torch.profiler`` (CPU and
-CUDA activities):
+page_size=16)`` on one card (the engine's default ``decode_mode``) and
+measures, with ``torch.profiler`` (CPU and CUDA activities):
 
 * one prefill of a 960-token prompt (the 1024 bucket);
 * a steady window of decode iterations with all 32 lanes active;
@@ -142,8 +142,9 @@ def main():
         / DECODE_WINDOW
     eng.close()
 
-    out = dict(card=smi, tree=os.getcwd(), prefill_960=prefill,
-               decode_w32=decode)
+    out = dict(card=smi, tree=os.getcwd(),
+               decode_mode=getattr(eng, "decode_mode", "eager"),
+               prefill_960=prefill, decode_w32=decode)
     os.makedirs(OUT, exist_ok=True)
     name = "profile_torch_serving" + (f"_{args.tag}" if args.tag else "")
     with open(os.path.join(OUT, name + ".json"), "w") as f:
