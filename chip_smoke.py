@@ -193,6 +193,27 @@ failure:
 23. report  - the `kernels` JSON line, the card's name and power limit, and
               the device JSON line last.
 
+Every TrainStep above runs captured (one CUDA graph per batch signature,
+replayed; launches counted through the replays). After each of phases 6,
+8, 10, 14, 21 and 22 the path's captured step is timed against the same
+step uncaptured (TrainStep._step_uncaptured) in 3 paired rounds, in turns
+(step ms, host ms a step, device operations and busy ms of one profiled
+step of each, the graph pool's bytes, peak memory: `paired_capture`), and
+a capture gate (`capture_gate`) builds the step twice from the same
+seeded weights, batches and generator state and runs it uncaptured, then
+captured, for 10 steps (3 on the long path), under `deterministic_steps`
+(the flash backward on the split pair, whose dq takes no atomics, and
+cuDNN's deterministic algorithms, in both runs): the losses and every
+master, optimizer slot and buffer must agree bit for bit, each run's
+launches be exact a step with no plain run or composition, and each
+(signature, variant) be captured once and replayed the other times; on
+phases 6 and 8 two more uncaptured runs of 2 steps at the path's own
+settings report whether the path repeats bit for bit at all. Phase 6b
+(`capture_edges`): a loss_fn that calls .item() makes TrainStep raise,
+naming the capture; dropout 0.1 inside remat "full" plus a dropout from
+an explicit CUDA generator, captured against uncaptured over 4 steps,
+bit for bit, the generators' states alike after.
+
 Phase 3 also holds the flash kernels with their bool-mask operand (the
 `*_masked` counters): the forward, one-pass backward and split pair
 against their masked plain versions at phase 21's B 32, H 8, D 64
@@ -245,12 +266,14 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import json
 import math
 import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -2436,6 +2459,248 @@ def model_flops(model, B, L):
             + 12 * cfg.num_layers * B * L * L * cfg.hidden_size)
 
 
+# ------------- the captured training step: gate and paired timing -------------
+
+#: steps of each run of a capture gate (the long path's are seconds each)
+GATE_STEPS, GATE_STEPS_LONG = 10, 3
+#: paired rounds of the captured step against the uncaptured one
+CAPTURE_ROUNDS = 3
+_INT_OF = {8: torch.int64, 4: torch.int32, 2: torch.int16, 1: torch.int8}
+
+
+def bits_equal(a, c):
+    """torch.equal on the bits of floating tensors (NaN equals NaN of the
+    same bits), plain torch.equal otherwise."""
+    if a.dtype != c.dtype or a.shape != c.shape:
+        return False
+    if a.is_floating_point():
+        it = _INT_OF[a.element_size()]
+        return torch.equal(a.contiguous().view(it), c.contiguous().view(it))
+    return torch.equal(a, c)
+
+
+@contextlib.contextmanager
+def deterministic_steps():
+    """Inside: no run-to-run variation that capture has nothing to do
+    with. The flash backward takes the split pair (no atomics) where the
+    one-pass kernel adds dq with atomics in a varying order, and PyTorch
+    and cuDNN their deterministic algorithms (an embedding's backward
+    over one repeated index, BERT's token types, varies otherwise);
+    uninitialised memory is left unfilled, as outside."""
+    import torch.utils.deterministic as tud
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    saved = (fa._FUSED_BWD_DQ_BYTES, torch.backends.cudnn.deterministic,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             tud.fill_uninitialized_memory)
+    fa._FUSED_BWD_DQ_BYTES = 0
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    tud.fill_uninitialized_memory = False
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # cuBLAS's workspace setting
+            yield
+    finally:
+        (fa._FUSED_BWD_DQ_BYTES, torch.backends.cudnn.deterministic, det,
+         warn, tud.fill_uninitialized_memory) = saved
+        torch.use_deterministic_algorithms(det, warn_only=warn)
+
+
+def split_per_step(per_step):
+    """A path's launches a step under deterministic_steps: the one-pass
+    backward's moved to the split pair's dq and dk/dv kernels."""
+    out = dict(per_step)
+    for one in ("flash_attention_bwd", "flash_attention_bwd_masked"):
+        n = out.pop(one, 0)
+        for half in ("_dq", "_dkv"):
+            name = one.replace("_bwd", "_bwd" + half)
+            if n:
+                out[name] = out.get(name, 0) + n
+    return out
+
+
+def step_state(step):
+    """{name: clone} of a TrainStep's masters, optimizer slots and
+    buffers."""
+    out = {f"param {k}": v.detach().clone() for k, v in step.params.items()}
+    out.update({f"slot {k}.{s}": v.clone()
+                for k, d in step.opt_state.items() for s, v in d.items()})
+    out.update({f"buffer {k}": v.clone() for k, v in step.buffers.items()})
+    return out
+
+
+def graph_summary(step):
+    """A TrainStep's graph counters, keys as text."""
+    st = step.stats
+    return dict(captures=st["graph_captures"],
+                replays={f"{v} {[list(s[1]) for s in sig if s[0] != 'value']}":
+                         n for (sig, v), n in st["graph_replays"].items()},
+                pool_bytes=st["graph_pool_bytes"])
+
+
+def capture_gate(path, build, batches, steps, per_step, after_step=None,
+                 seed=0, twice=0):
+    """The captured TrainStep against the uncaptured one (phases 6, 8,
+    10, 14, 21, 22): ``build()`` makes the step from the same seeded
+    weights twice, one after the other, and each runs ``steps`` steps
+    over ``batches`` in turn, the default generators seeded alike before
+    each (dropout's masks), ``after_step(step)`` after every step (a
+    scheduler's): first uncaptured (``_step_uncaptured``), then captured.
+    Both run under deterministic_steps. Raises unless the losses and
+    every master, slot and buffer agree bit for bit, each run's launches
+    are exact a step (``per_step``, the split pair's where the path has
+    the one-pass backward) with no plain run and no composition, and the
+    captured run captured each (signature, variant) once and replayed it
+    the other times. With ``twice``, two more uncaptured runs of that
+    many steps outside deterministic_steps report whether the path
+    repeats bit for bit at all (``uncaptured_repeats``)."""
+    from paddle_tpu_torch.ops import kernels
+    want = split_per_step(per_step)
+
+    def run(captured, n, det=True):
+        torch.manual_seed(seed)
+        step = build()
+        fn = step if captured else step._step_uncaptured
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        kernels.reset_stats()
+        losses = []
+        with deterministic_steps() if det else contextlib.nullcontext():
+            for i in range(n):
+                losses.append(fn(*batches[i % len(batches)]))
+                if after_step is not None:
+                    after_step(step)
+            torch.cuda.synchronize()
+        out = dict(losses=torch.stack(losses).cpu(), state=step_state(step),
+                   stats=kernels.all_stats(),
+                   composed=kernels.composed_stats(),
+                   graphs=graph_summary(step),
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   peak_above_gb=(torch.cuda.max_memory_allocated()
+                                  - base) / 1e9)
+        step.release_graphs()
+        del step, fn, losses
+        torch.cuda.empty_cache()
+        return out
+
+    plain = run(False, steps)
+    graphed = run(True, steps)
+    diff = [k for k, v in plain["state"].items()
+            if not bits_equal(v, graphed["state"][k])]
+    same_losses = bits_equal(plain["losses"], graphed["losses"])
+    for name, r in (("uncaptured", plain), ("captured", graphed)):
+        for k, st in r["stats"].items():
+            if st["plain"] or st["kernel"] != want.get(k, 0) * steps:
+                raise AssertionError(f"{path} gate: {name} run's {k} "
+                                     f"counters {st}, want "
+                                     f"{want.get(k, 0)} a step")
+        if any(r["composed"].values()):
+            raise AssertionError(f"{path} gate: {name} run composed "
+                                 f"{r['composed']}")
+    g = graphed["graphs"]
+    if (g["captures"] != len(g["replays"])
+            or sum(g["replays"].values()) != steps - g["captures"]):
+        raise AssertionError(f"{path} gate: graphs {g}")
+    res = dict(steps=steps, losses=graphed["losses"].tolist(),
+               losses_bit_for_bit=same_losses,
+               state_tensors=len(plain["state"]), state_differing=diff,
+               launches_per_step=want, graphs=g,
+               peak_gb_uncaptured=plain["peak_gb"],
+               peak_gb_captured=graphed["peak_gb"],
+               peak_above_start_gb_uncaptured=plain["peak_above_gb"],
+               peak_above_start_gb_captured=graphed["peak_above_gb"])
+    del plain, graphed
+    if twice:
+        a, b = run(False, twice, det=False), run(False, twice, det=False)
+        res["uncaptured_repeats"] = dict(
+            steps=twice, losses=bits_equal(a["losses"], b["losses"]),
+            state_differing=sum(not bits_equal(v, b["state"][k])
+                                for k, v in a["state"].items()))
+        del a, b
+    torch.cuda.empty_cache()
+    log(f"{path} gate: captured against uncaptured over {steps} steps "
+        f"(deterministic_steps): losses bit for bit {same_losses}, "
+        f"{len(diff)} of {res['state_tensors']} masters/slots/buffers "
+        f"differ; graphs {json.dumps(g)}; peak {res['peak_gb_uncaptured']:.2f}"
+        f" -> {res['peak_gb_captured']:.2f} GB"
+        + (f"; two uncaptured runs at the path's own settings: "
+           f"{json.dumps(res['uncaptured_repeats'])}" if twice else ""))
+    if not same_losses or diff:
+        raise AssertionError(f"{path} gate: captured and uncaptured differ:"
+                             f" losses {same_losses}, tensors {diff[:8]}")
+    return res
+
+
+def paired_capture(path, step, batch, n, card, rounds=CAPTURE_ROUNDS,
+                   after_step=None):
+    """The captured step against the uncaptured one on the same TrainStep,
+    in turns (phase 18's form): each round a run of ``n`` captured steps,
+    then ``n`` uncaptured, each waited for once at its end. Step ms: a
+    run's wall over ``n``; host ms: the calls' own time over ``n`` (the
+    host returns before the card finishes a captured step). Then one
+    profiled step of each: device operations and busy ms. With the
+    graph pool's bytes and the peak memory so far."""
+    def timed(fn):
+        torch.cuda.synchronize()
+        host = 0.0
+        t0 = time.perf_counter()
+        for _ in range(n):
+            t1 = time.perf_counter()
+            fn(*batch)
+            host += time.perf_counter() - t1
+            if after_step is not None:
+                after_step(step)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n, host * 1e3 / n
+
+    ms = {"captured": [], "uncaptured": []}
+    host = {"captured": [], "uncaptured": []}
+    for _ in range(rounds):
+        for name, fn in (("captured", step), ("uncaptured",
+                                              step._step_uncaptured)):
+            a, b = timed(fn)
+            ms[name].append(a)
+            host[name].append(b)
+    # a call's own host time with the card idle (a wait before each): in
+    # a run the host blocks in the launch once the card's queue is full
+    idle = {"captured": [], "uncaptured": []}
+    for _ in range(rounds):
+        for name, fn in (("captured", step), ("uncaptured",
+                                              step._step_uncaptured)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(*batch)
+            idle[name].append((time.perf_counter() - t0) * 1e3)
+            if after_step is not None:
+                after_step(step)
+    ops = {}
+    for name, fn in (("captured", step), ("uncaptured",
+                                          step._step_uncaptured)):
+        ops[name] = device_ops(lambda: fn(*batch))
+        if after_step is not None:
+            after_step(step)
+    res = dict(steps=n, rounds=rounds, step_ms=ms, host_ms=host,
+               host_ms_idle=idle,
+               device_ops={k: v[0] for k, v in ops.items()},
+               device_busy_ms={k: v[1] for k, v in ops.items()},
+               graph_pool_bytes=step.stats["graph_pool_bytes"],
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               card=card)
+    log(f"{path} capture: step ms captured {json.dumps(ms['captured'])} "
+        f"uncaptured {json.dumps(ms['uncaptured'])} (runs of {n}, in "
+        f"turns); host ms a step captured {json.dumps(host['captured'])} "
+        f"uncaptured {json.dumps(host['uncaptured'])}; a call's host ms "
+        f"with the card idle captured {json.dumps(idle['captured'])} "
+        f"uncaptured {json.dumps(idle['uncaptured'])}; device ops / busy "
+        f"ms a step captured {ops['captured'][0]} / {ops['captured'][1]} "
+        f"uncaptured {ops['uncaptured'][0]} / {ops['uncaptured'][1]}; "
+        f"graph pool {res['graph_pool_bytes']} bytes, peak "
+        f"{res['peak_mem_gb']:.2f} GB [{card}]")
+    return res
+
+
 def train(cfg, card):
     """TrainStep + AdamW under O2 bf16 at b8 s1024 on the card; returns
     step times, losses and launches per step."""
@@ -2444,10 +2709,16 @@ def train(cfg, card):
     from paddle_tpu_torch.models.gpt import GPT
     from paddle_tpu_torch.nn import functional as F
     from paddle_tpu_torch.ops import kernels
-    model = GPT(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
-    opt = optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters(),
-                          weight_decay=0.01)
-    step = TrainStep(model, F.cross_entropy, opt, amp_dtype=torch.bfloat16)
+    def build():
+        net = GPT(cfg, device="cuda",
+                  generator=torch.Generator().manual_seed(0))
+        return TrainStep(net, F.cross_entropy, optimizer.AdamW(
+            learning_rate=1e-4, parameters=net.parameters(),
+            weight_decay=0.01), amp_dtype=torch.bfloat16)
+
+    torch.cuda.reset_peak_memory_stats()
+    step = build()
+    model = step.layer
     rng = np.random.default_rng(0)
     ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
         TRAIN_B, TRAIN_L))).to("cuda")
@@ -2491,8 +2762,104 @@ def train(cfg, card):
         f"(model FLOPs {flops:.4e} over {BF16_PEAK:.0e}) [{card}]")
     log(f"train: loss {' '.join(f'{x:.4f}' for x in losses)}")
     log(f"train: launches per step {json.dumps(per_step)}")
-    del step, model, opt
+    res["graphs"] = graph_summary(step)
+    res["capture"] = paired_capture("train", step, (ids, labels),
+                                    TRAIN_STEPS, card)
+    step.release_graphs()
+    del step, model
     torch.cuda.empty_cache()
+    other = tuple(torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        TRAIN_B, TRAIN_L))).to("cuda") for _ in range(2))
+    res["gate"] = capture_gate("train", build, [(ids, labels), other],
+                               GATE_STEPS, PER_STEP, twice=2)
+    return res
+
+
+def capture_edges(card):
+    """The captured step's edges on GPTConfig.tiny()'s widths on the card
+    (its kernels included): a ``loss_fn`` that reads a value back
+    (``.item()``) makes TrainStep raise, naming the capture, and return no
+    loss; then dropout 0.1 inside remat "full" (checkpoint's RNG stash
+    runs inside the capture) with a dropout in the loss that draws from an
+    explicit CUDA generator (registered with the graph), captured against
+    uncaptured over 4 steps from the same seeds: losses, masters and slots
+    bit for bit, and the generator's state after the run alike."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.nn import functional as F
+    cfg = GPTConfig.tiny()
+    cfg.dropout, cfg.remat = 0.1, "full"
+    rng = np.random.default_rng(0)
+    ids, labels = (torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        4, 64))).cuda() for _ in range(2))
+
+    def build(loss_fn):
+        net = GPT(cfg, device="cuda",
+                  generator=torch.Generator().manual_seed(0))
+        return TrainStep(net, loss_fn, optimizer.AdamW(
+            1e-3, parameters=net.parameters()))
+
+    def reads_back(out, lab):
+        loss = F.cross_entropy(out, lab)
+        loss.item()
+        return loss
+
+    step, error = build(reads_back), None
+    try:
+        got = step(ids, labels)
+    except RuntimeError as e:
+        error = str(e)
+    else:
+        raise AssertionError(f"capture_edges: a loss_fn that calls .item() "
+                             f"returned {got}")
+    if "capturing" not in error:
+        raise AssertionError(f"capture_edges: the error does not name the "
+                             f"capture: {error}")
+    del step
+    # after the failed capture, freed memory still returns to the card
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    scratch = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
+    del scratch
+    torch.cuda.empty_cache()
+    if torch.cuda.memory_reserved() > before:
+        raise AssertionError(f"capture_edges: after the failed capture "
+                             f"{torch.cuda.memory_reserved()} bytes stay "
+                             f"reserved, {before} before a 1 GiB tensor")
+    gen = torch.Generator(device="cuda")
+
+    def dropped(out, lab):
+        return F.cross_entropy(F.dropout(out, 0.1, generator=gen), lab)
+
+    runs = []
+    for captured in (False, True):
+        torch.manual_seed(0)
+        gen.manual_seed(1)
+        step = build(dropped)
+        fn = step if captured else step._step_uncaptured
+        losses = torch.stack([fn(ids, labels) for _ in range(4)]).cpu()
+        runs.append((losses, step_state(step), graph_summary(step),
+                     gen.get_state(), torch.cuda.get_rng_state()))
+        del step, fn
+    (la, sa, _, ga, da), (lb, sb, gb, gbs, dbs) = runs
+    differ = [k for k, v in sa.items() if not bits_equal(v, sb[k])]
+    res = dict(item_error=error[:300], losses=lb.tolist(),
+               losses_bit_for_bit=bits_equal(la, lb), state_differing=differ,
+               generator_state_alike=torch.equal(ga, gbs),
+               default_generator_state_alike=torch.equal(da, dbs),
+               graphs=gb, card=card)
+    log(f"capture_edges: .item() in loss_fn raised: {error[:160]!r}; remat "
+        f"full + dropout 0.1 + an explicit generator's dropout, captured "
+        f"vs uncaptured over 4 steps: losses bit for bit "
+        f"{res['losses_bit_for_bit']}, {len(differ)} tensors differ, "
+        f"generators' states alike {res['generator_state_alike']} / "
+        f"{res['default_generator_state_alike']}; graphs {json.dumps(gb)}")
+    if not (res["losses_bit_for_bit"] and not differ
+            and res["generator_state_alike"]
+            and res["default_generator_state_alike"]):
+        raise AssertionError(f"capture_edges: {res}")
     return res
 
 
@@ -2617,16 +2984,23 @@ def resnet_train(card, dev):
     from paddle_tpu_torch.models.resnet import resnet50
     from paddle_tpu_torch.nn import functional as F
     from paddle_tpu_torch.ops import kernels
-    model = resnet50(data_format="NHWC", device=dev,
-                     generator=torch.Generator().manual_seed(0))
-    opt = optimizer.Momentum(learning_rate=0.1, momentum=0.9,
-                             parameters=model.parameters())
-    step = TrainStep(model, F.cross_entropy, opt, amp_dtype=torch.bfloat16)
+    def build():
+        net = resnet50(data_format="NHWC", device=dev,
+                       generator=torch.Generator().manual_seed(0))
+        return TrainStep(net, F.cross_entropy, optimizer.Momentum(
+            learning_rate=0.1, momentum=0.9, parameters=net.parameters()),
+            amp_dtype=torch.bfloat16)
+
+    def batch(rng):
+        return (torch.from_numpy(rng.normal(size=(
+            RESNET_B, 3, RESNET_HW, RESNET_HW)).astype(np.float32)).permute(
+                0, 2, 3, 1).contiguous().to(dev),
+            torch.from_numpy(rng.integers(0, 1000, (RESNET_B,))).to(dev))
+
+    step = build()
+    model = step.layer
     rng = np.random.default_rng(0)
-    imgs = torch.from_numpy(rng.normal(size=(
-        RESNET_B, 3, RESNET_HW, RESNET_HW)).astype(np.float32)).permute(
-            0, 2, 3, 1).contiguous().to(dev)
-    labels = torch.from_numpy(rng.integers(0, 1000, (RESNET_B,))).to(dev)
+    imgs, labels = batch(rng)
     torch.cuda.reset_peak_memory_stats()
     losses = [float(step(imgs, labels)) for _ in range(TRAIN_WARMUP)]
     torch.cuda.synchronize()
@@ -2689,8 +3063,14 @@ def resnet_train(card, dev):
             and max(losses) < 3 * losses[0]):
         raise AssertionError(f"resnet: the loss did not fall after the "
                              f"first step, or left its bound: {losses}")
-    del step, model, opt, imgs
+    res["graphs"] = graph_summary(step)
+    res["capture"] = paired_capture("resnet", step, (imgs, labels),
+                                    TRAIN_STEPS, card)
+    step.release_graphs()
+    del step, model
     torch.cuda.empty_cache()
+    res["gate"] = capture_gate("resnet", build, [(imgs, labels), batch(rng)],
+                               GATE_STEPS, RESNET_PER_STEP, twice=2)
     return res
 
 
@@ -2826,10 +3206,15 @@ def long_train(card, dev):
     from paddle_tpu_torch.nn import functional as F
     from paddle_tpu_torch.ops import kernels
     cfg = long_config()
-    model = GPT(cfg, device=dev, generator=torch.Generator().manual_seed(0))
-    opt = optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters(),
-                          weight_decay=0.01)
-    step = TrainStep(model, F.cross_entropy, opt, amp_dtype=torch.bfloat16)
+
+    def build():
+        net = GPT(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+        return TrainStep(net, F.cross_entropy, optimizer.AdamW(
+            learning_rate=1e-4, parameters=net.parameters(),
+            weight_decay=0.01), amp_dtype=torch.bfloat16)
+
+    step = build()
+    model = step.layer
     ids, labels = long_batch(cfg, dev)
     torch.cuda.reset_peak_memory_stats()
     losses = [float(step(ids, labels)) for _ in range(LONG_WARMUP)]
@@ -2872,8 +3257,14 @@ def long_train(card, dev):
     if not (all(np.isfinite(losses)) and losses[1] < losses[0]):
         raise AssertionError(f"long: the first update did not lower the "
                              f"loss, or a loss is not finite: {losses}")
-    del step, model, opt
+    res["graphs"] = graph_summary(step)
+    res["capture"] = paired_capture("long", step, (ids, labels), LONG_STEPS,
+                                    card)
+    step.release_graphs()
+    del step, model
     torch.cuda.empty_cache()
+    res["gate"] = capture_gate("long", build, [(ids, labels)],
+                               GATE_STEPS_LONG, LONG_PER_STEP)
     return res
 
 
@@ -2907,7 +3298,8 @@ def remat_equivalence(dev):
         apply_fn = step.optimizer.apply_fn
 
         def record(p, g, state, **kw):
-            grads.update({k: v.clone() for k, v in g.items()})
+            if not grads:  # the real step; the capture after it runs nothing
+                grads.update({k: v.clone() for k, v in g.items()})
             return apply_fn(p, g, state, **kw)
 
         step.optimizer.apply_fn = record
@@ -2916,6 +3308,8 @@ def remat_equivalence(dev):
         base = torch.cuda.memory_allocated()
         loss = float(step(ids, labels))
         torch.cuda.synchronize()
+        if step.stats["graph_captures"] != 1:
+            raise AssertionError(f"remat {mode!r}: {step.stats}")
         res[mode] = dict(loss=loss, grads=grads, peak_gb=(
             torch.cuda.max_memory_allocated() - base) / 1e9)
         del step
@@ -2986,7 +3380,8 @@ def resnet_recompute_check(dev):
         apply_fn = step.optimizer.apply_fn
 
         def record(p, g, st, **kw):
-            grads.update({k: v.clone() for k, v in g.items()})
+            if not grads:  # the real step; the capture after it runs nothing
+                grads.update({k: v.clone() for k, v in g.items()})
             return apply_fn(p, g, st, **kw)
 
         step.optimizer.apply_fn = record
@@ -2995,6 +3390,8 @@ def resnet_recompute_check(dev):
         kernels.reset_stats()
         loss = float(step(imgs, labels))
         torch.cuda.synchronize()
+        if step.stats["graph_captures"] != 1:
+            raise AssertionError(f"resnet recompute={rc}: {step.stats}")
         res[rc] = dict(loss=loss, grads=grads,
                        buffers={k: v.clone() for k, v in
                                 step.buffers.items()},
@@ -3284,9 +3681,15 @@ def bert_train(card):
     from paddle_tpu_torch.nn import functional as F
     from paddle_tpu_torch.ops import kernels
     cfg = bert_config()
-    model = bert_classifier(cfg, "cuda", seed=0)
-    opt = optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters())
-    step = TrainStep(model, F.cross_entropy, opt, amp_dtype=torch.bfloat16)
+
+    def build():
+        net = bert_classifier(cfg, "cuda", seed=0)
+        return TrainStep(net, F.cross_entropy, optimizer.AdamW(
+            learning_rate=1e-4, parameters=net.parameters()),
+            amp_dtype=torch.bfloat16)
+
+    step = build()
+    model = step.layer
     ids, labels = (t.cuda() for t in bert_batch(cfg, BERT_B, BERT_L))
     losses = [float(step(ids, labels)) for _ in range(BERT_WARMUP)]
     torch.cuda.synchronize()
@@ -3330,8 +3733,15 @@ def bert_train(card):
         f"{BF16_PEAK:.0e}), peak {res['peak_mem_gb']:.2f} GB [{card}]")
     log(f"bert: loss {' '.join(f'{x:.4f}' for x in losses)}")
     log(f"bert: launches per step {json.dumps(res['launches_per_step'])}")
-    del step, model, opt
+    res["graphs"] = graph_summary(step)
+    res["capture"] = paired_capture("bert", step, (ids, labels), BERT_STEPS,
+                                    card)
+    step.release_graphs()
+    del step, model
     torch.cuda.empty_cache()
+    other = tuple(t.cuda() for t in bert_batch(cfg, BERT_B, BERT_L, seed=1))
+    res["gate"] = capture_gate("bert", build, [(ids, labels), other],
+                               GATE_STEPS, BERT_PER_STEP)
     return res
 
 
@@ -3615,6 +4025,14 @@ def device_ops(fn):
     return len(evs), sum(e.time_range.elapsed_us() for e in evs) / 1e3
 
 
+def free_card():
+    """Collect what a phase left in reference cycles (hapi's Model and its
+    callbacks hold each other, and so a TrainStep and its graphs' pool),
+    then return the allocator's cached memory to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def rel(a, b):
     return abs(a - b) / abs(b)
 
@@ -3687,6 +4105,17 @@ def health_train(cfg, card):
                 host[key] += time.perf_counter() - t0
         return call
 
+    # the calls' own host time a step, off and on (interval 1)
+    call_ms = {}
+    for name, st in (("off", off), ("on", on)):
+        torch.cuda.synchronize()
+        t = 0.0
+        for _ in range(HEALTH_STEPS):
+            t0 = time.perf_counter()
+            st(ids, labels)
+            t += time.perf_counter() - t0
+        torch.cuda.synchronize()
+        call_ms[name] = t * 1e3 / HEALTH_STEPS
     probe = on._health_probe
     probe.stats_vec = timed("stats_vec", probe.stats_vec)
     on.flush_health = timed("flush_health", on.flush_health)
@@ -3697,7 +4126,10 @@ def health_train(cfg, card):
         del probe.stats_vec, on.flush_health, on._fetch
     host_ms = {k: v * 1e3 / HEALTH_STEPS for k, v in host.items()}
 
-    # the readings against direct ones on one more step
+    # the readings against direct ones on one more step, uncaptured (the
+    # same step function, whose gradients a spy on the update can read: a
+    # replay calls no Python), then on a captured one (its loss and update
+    # ratio against direct readings around it)
     seen = {}
     apply_fn = on.optimizer.apply_fn
 
@@ -3706,29 +4138,35 @@ def health_train(cfg, card):
             [torch.linalg.vector_norm(g.float()) for g in grads.values()])))
         return apply_fn(params, grads, state, **kw)
 
-    old = {k: p.detach().clone() for k, p in on.params.items()}
+    def around(fn):
+        old = {k: p.detach().clone() for k, p in on.params.items()}
+        loss = float(fn(ids, labels))
+        num = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(on.params[k].detach() - v)
+             for k, v in old.items()]))
+        den = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(v) for v in old.values()]))
+        return loss, float(num / den), on.last_health
+
     on.optimizer.apply_fn = spy
     try:
-        loss = float(on(ids, labels))
+        loss, ratio, h = around(on._step_uncaptured)
     finally:
         del on.optimizer.apply_fn
-    num = torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(on.params[k].detach() - v)
-         for k, v in old.items()]))
-    den = torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(v) for v in old.values()]))
-    h = on.last_health
-    ratio = float(num / den)
+    loss_c, ratio_c, h_c = around(on)
+    captured_ok = (h_c["loss"] == loss_c and not h_c["nonfinite"]
+                   and rel(h_c["update_ratio"], ratio_c) <= 1e-5)
     values = [h["loss"], h["grad_norm"], h["param_norm"], h["update_ratio"],
               *h["group_grad_norms"].values()]
     errs = {"grad_norm": rel(h["grad_norm"], seen["grad_norm"]),
             "update_ratio": rel(h["update_ratio"], ratio)}
     if (h["loss"] != loss or max(errs.values()) > 1e-5 or h["nonfinite"]
-            or not all(np.isfinite(values))):
+            or not all(np.isfinite(values)) or not captured_ok):
         raise AssertionError(f"health: sentinel {h} against loss {loss}, "
                              f"grad norm {seen['grad_norm']}, update ratio "
-                             f"{ratio}: relative errors {errs}")
-    del old
+                             f"{ratio}: relative errors {errs}; captured "
+                             f"step's {h_c} against loss {loss_c}, update "
+                             f"ratio {ratio_c}")
     # the sentinel's device operations: one fetched step against one
     # without it (the same kernels and update otherwise)
     n_on, dev_on = device_ops(lambda: on(ids, labels))
@@ -3746,12 +4184,16 @@ def health_train(cfg, card):
                overhead_frac_10=frac10, overhead_frac_10_rounds=rounds10,
                groups=len(on._health_probe.group_names),
                group_names=on._health_probe.group_names,
-               sentinel_host_ms=host_ms,
+               sentinel_host_ms=host_ms, call_host_ms=call_ms,
+               graphs={"off": graph_summary(off), "on": graph_summary(on),
+                       "on10": graph_summary(on10)},
                sentinel_device_ops=sentinel_ops,
                sentinel_device_ms=sentinel_dev_ms,
                step_device_ops=(n_on, n_off), step_device_ms=(dev_on, dev_off),
                reading=h, direct=dict(loss=loss, update_ratio=ratio,
                                       grad_norm=seen["grad_norm"]),
+               reading_captured=h_c,
+               direct_captured=dict(loss=loss_c, update_ratio=ratio_c),
                rel_err=errs, launches=stats, card=card)
     log(f"health: GPT-2 small O2 b{TRAIN_B} s{TRAIN_L}: step_ms_off "
         f"{res['step_ms_off']:.2f} step_ms_on {res['step_ms_on']:.2f} "
@@ -3762,7 +4204,9 @@ def health_train(cfg, card):
         f"{res['step_ms_off_10']:.2f} / {res['step_ms_on_10']:.2f} "
         f"overhead_frac {frac10:+.4f} "
         f"(rounds {', '.join(f'{x:+.4f}' for x in rounds10)}); host ms a "
-        f"step {json.dumps({k: round(v, 4) for k, v in host_ms.items()})}; groups "
+        f"step {json.dumps({k: round(v, 4) for k, v in host_ms.items()})} "
+        f"(a call's own host ms off / on {call_ms['off']:.4f} / "
+        f"{call_ms['on']:.4f}); groups "
         f"{res['groups']}; sentinel device ops {sentinel_ops} "
         f"({sentinel_dev_ms if sentinel_dev_ms is None else round(sentinel_dev_ms, 4)} "
         f"ms; step {n_on} / {n_off} ops) [{card}]")
@@ -3897,7 +4341,7 @@ def fit_resume(cfg, card):
                                      f"{designs}, want {want} on "
                                      f"mma.sync-3xtf32")
             del m
-            torch.cuda.empty_cache()
+            free_card()
             # run 1: checkpoints, a poisoned weight, one rollback
             rec1 = Record()
             m = model(0)
@@ -3923,7 +4367,7 @@ def fit_resume(cfg, card):
             rollbacks = events.recent(20, kind="health_rollback")
             rolled = reg.get("health_rollback_total").total() - rolled
             del m, ftc, hm
-            torch.cuda.empty_cache()
+            free_card()
             files = ckpt.CheckpointManager(d).steps()
             # truncate the newest file; a fresh job resumes past it
             newest = os.path.join(d, f"ckpt_{files[0]}")
@@ -3958,7 +4402,7 @@ def fit_resume(cfg, card):
             skipped = reg.get("checkpoint_corrupt_skipped_total").total() \
                 - skipped
             del m
-            torch.cuda.empty_cache()
+            free_card()
     finally:
         shutil.rmtree(d, ignore_errors=True)
     l0, l1, l2 = rec0.losses, rec1.losses, rec2.losses
@@ -4118,13 +4562,21 @@ def transformer_train(card):
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.nn import functional as F
     from paddle_tpu_torch.ops import kernels
+    def build():
+        net = transformer_base("cuda", seed=0)
+        return TrainStep(net, F.cross_entropy, optimizer.Adam(
+            learning_rate=optimizer.lr.NoamDecay(d_model=512,
+                                                 warmup_steps=4000),
+            beta1=0.9, beta2=0.98, epsilon=1e-9,
+            parameters=net.parameters()), amp_dtype=torch.bfloat16)
+
+    def sched_step(st):
+        st.optimizer._learning_rate.step()
+
     torch.manual_seed(0)  # dropout's stream
     before = torch.cuda.memory_allocated()
-    model = transformer_base("cuda", seed=0)
-    sched = optimizer.lr.NoamDecay(d_model=512, warmup_steps=4000)
-    opt = optimizer.Adam(learning_rate=sched, beta1=0.9, beta2=0.98,
-                         epsilon=1e-9, parameters=model.parameters())
-    step = TrainStep(model, F.cross_entropy, opt, amp_dtype=torch.bfloat16)
+    step = build()
+    model, sched = step.layer, step.optimizer._learning_rate
     batch = [t.cuda() for t in tb_batch(TB_B, TB_LS, TB_LT)]
     losses = []
     with launch_dtypes() as seen:
@@ -4132,8 +4584,9 @@ def transformer_train(card):
             losses.append(float(step(*batch)))
             sched.step()
     # phase 3's CE row at this step's shape runs in the type the step
-    # hands the CE
-    if seen.get("softmax_ce_fwd") != {str(TB_CE_DTYPE)[6:]: TB_WARMUP}:
+    # hands the CE (the wrapper runs at a signature's first use only: a
+    # replay calls no Python)
+    if set(seen.get("softmax_ce_fwd", ())) != {str(TB_CE_DTYPE)[6:]}:
         raise AssertionError(f"transformer: the CE took {seen}, phase 3 "
                              f"checks it in {TB_CE_DTYPE}")
     torch.cuda.synchronize()
@@ -4183,8 +4636,15 @@ def transformer_train(card):
     log(f"transformer: loss {' '.join(f'{x:.4f}' for x in losses)}")
     log(f"transformer: launches per step "
         f"{json.dumps(res['launches_per_step'])}")
-    del step, model, opt, batch
+    res["graphs"] = graph_summary(step)
+    res["capture"] = paired_capture("transformer", step, batch, TB_STEPS,
+                                    card, after_step=sched_step)
+    step.release_graphs()
+    del step, model, sched
     torch.cuda.empty_cache()
+    other = [t.cuda() for t in tb_batch(TB_B, TB_LS, TB_LT, seed=1)]
+    res["gate"] = capture_gate("transformer", build, [batch, other],
+                               GATE_STEPS, TB_PER_STEP, after_step=sched_step)
     return res
 
 
@@ -4427,8 +4887,29 @@ def resnet_fit(card):
             and max(losses) < 3 * losses[0]):
         raise AssertionError(f"resnet_fit: the loss did not fall after the "
                              f"first step, or left its bound: {losses}")
-    del m, net
-    torch.cuda.empty_cache()
+    x = torch.from_numpy(imgs).cuda()
+    y = torch.from_numpy(labels).cuda()
+    with default_tf32_flags():
+        res["graphs"] = graph_summary(m._train_step)
+        res["capture"] = paired_capture("resnet_fit", m._train_step, (x, y),
+                                        RESNET_FIT_STEPS, card)
+        m._train_step.release_graphs()
+        del m, net
+        torch.cuda.empty_cache()
+
+        def build():
+            from paddle_tpu_torch.hapi.model import _apply_loss
+            from paddle_tpu_torch.jit import TrainStep
+            net = resnet50(data_format="NHWC", device="cuda",
+                           generator=torch.Generator().manual_seed(0))
+            return TrainStep(
+                net, lambda out, lab: _apply_loss(F.cross_entropy, out, lab),
+                optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                   parameters=net.parameters()))
+
+        other = (torch.flip(x, (0,)), torch.flip(y, (0,)))
+        res["gate"] = capture_gate("resnet_fit", build, [(x, y), other],
+                                   GATE_STEPS, RESNET_PER_STEP)
     return res
 
 
@@ -4736,6 +5217,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
     # 6. train GPT-2 small at full width, O2 bf16, b8 s1024
     trained = train(cfg, smi)
+    # 6b. the captured step's edges: a failing capture, remat and dropout
+    cap_edges = capture_edges(smi)
     # 7. training cross-check on the CPU
     train_cpu = train_cross_check(cfg)
     # 8. train ResNet-50 NHWC, O2 bf16, b128 224x224
@@ -4769,7 +5252,7 @@ def main(argv=None):
     # 19. a NaN parameter trips it; the replay names the layer-norm kernel
     trip = health_trip(tripped, batch, smi)
     del tripped, batch
-    torch.cuda.empty_cache()
+    free_card()
     # 20. Model.fit in fp32: checkpoints, rollback, resume past corruption
     fit_res = fit_resume(cfg, smi)
     # 21. Transformer-base on padded batches with bool masks, O2 bf16, and
@@ -4784,6 +5267,7 @@ def main(argv=None):
     result = dict(card=smi, capability=cap, launch_floor_ms=floor,
                   checks=rows, edges=edges,
                   serve=served, cpu_cross_check=cpu_res, train=trained,
+                  capture_edges=cap_edges,
                   train_cpu_cross_check=train_cpu, resnet=resnet,
                   resnet_cpu_cross_check=resnet_cpu, long=long,
                   remat_equivalence=remat, resnet_recompute=resnet_rc,

@@ -14,9 +14,14 @@ array under a magic prefix, so that a checkpoint's ``rng`` leaf stays a
 plain numpy array. A leaf without the prefix comes from the JAX
 package (its PRNG key): it cannot seed these generators, so
 ``set_rng_state`` leaves them as they are, warns, and returns False.
+
+``rand`` draws the port's dropout masks. Inside ``generators_drawn()``
+it notes every explicit generator it was given, so that a step captured
+into a CUDA graph (``jit.graphs``) can register them with the graph.
 """
 from __future__ import annotations
 
+import contextlib
 import pickle
 import warnings
 
@@ -72,4 +77,31 @@ def set_rng_state(state) -> bool:
     return True
 
 
-__all__ = ["seed", "get_rng_state", "set_rng_state"]
+#: the explicit generators ``rand`` was given inside the innermost
+#: ``generators_drawn()`` (None outside one)
+_drawn = None
+
+
+def rand(shape, generator=None, device=None) -> torch.Tensor:
+    """``torch.rand(shape)`` from ``generator`` (None: the device's default
+    generator) on ``device``."""
+    if generator is not None and _drawn is not None and not any(
+            g is generator for g in _drawn):
+        _drawn.append(generator)
+    return torch.rand(shape, generator=generator, device=device)
+
+
+@contextlib.contextmanager
+def generators_drawn():
+    """Yield a list that collects the explicit generators ``rand`` draws
+    from inside the block."""
+    global _drawn
+    prev, _drawn = _drawn, []
+    try:
+        yield _drawn
+    finally:
+        _drawn = prev
+
+
+__all__ = ["seed", "get_rng_state", "set_rng_state", "rand",
+           "generators_drawn"]

@@ -53,7 +53,7 @@ import torch
 
 from .._platform import resolve_device
 from ..fault import site as _fault_site
-from ..ops import kernels as _kernels
+from ..jit.graphs import StepGraphs
 from ..ops.kernels import paged_attention as _pa
 from ..profiler import events as _events
 from ..profiler import health as _health
@@ -446,11 +446,7 @@ class ServingEngine:
         # graph per (W, variant) with the launch counts of its capture,
         # all in one memory pool, and the side stream of the first runs
         self._lanes: Dict[int, _LaneBuffers] = {}
-        self._graphs: Dict[Tuple[int, str], tuple] = {}
-        self.graph_replays: Dict[Tuple[int, str], int] = {}
-        self.graph_pool_bytes = 0
-        self._graph_pool = None
-        self._side_stream = None
+        self._step_graphs = StepGraphs(self.device, f"ServingEngine {name}")
         self.stats = {"iterations": 0, "prefills": 0, "decode_tokens": 0,
                       "completed": 0, "preemptions": 0, "decode_wall_s": 0.0,
                       "prefill_wall_s": 0.0, "cow_copies": 0,
@@ -698,6 +694,19 @@ class ServingEngine:
                 "device": str(self.device),
                 "graphs": len(self._graphs),
             }
+
+    @property
+    def _graphs(self) -> dict:
+        """{(lane bucket, variant): (graph, launch counts, outputs)}."""
+        return self._step_graphs.graphs
+
+    @property
+    def graph_replays(self) -> Dict[Tuple[int, str], int]:
+        return self._step_graphs.replays
+
+    @property
+    def graph_pool_bytes(self) -> int:
+        return self._step_graphs.pool_bytes
 
     # -- internals ------------------------------------------------------------
     def _bucket_for(self, n: int) -> int:
@@ -984,52 +993,12 @@ class ServingEngine:
             self._step_fn(buf, sampled)
             return buf.out.numpy().copy()
         key = (W, "sampled" if sampled else "greedy")
-        graph = self._graphs.get(key)
-        if graph is None:
-            self._capture(key, buf, sampled)
-        else:
-            graph[0].replay()
-            _kernels.add_counts(graph[1])
-            self.graph_replays[key] += 1
+        captures = self._step_graphs.captures
+        self._step_graphs.run(key, lambda: self._step_fn(buf, sampled))
+        self.stats["graph_captures"] += self._step_graphs.captures - captures
         buf.out_host.copy_(buf.out, non_blocking=True)
         torch.cuda.current_stream(self.device).synchronize()
         return buf.out_host.numpy().copy()
-
-    def _capture(self, key, buf: _LaneBuffers, sampled: bool):
-        """First use of a (lane bucket, variant) on a card: the step runs
-        once uncaptured on a side stream (this iteration's tokens; it also
-        loads the kernel library, makes cuBLAS's handle and workspace and
-        grows the allocator), then is captured into a CUDA graph in the
-        engine's one graph pool. Capturing launches nothing, so the
-        launch counts the capture made are set aside and added on each
-        replay. Capture errors are this thread's only
-        (``capture_error_mode="thread_local"``: the engine's loop thread
-        captures while other threads may submit); a failure raises."""
-        cur = torch.cuda.current_stream(self.device)
-        if self._side_stream is None:
-            self._side_stream = torch.cuda.Stream(self.device)
-            self._graph_pool = torch.cuda.graph_pool_handle()
-        side = self._side_stream
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            self._step_fn(buf, sampled)
-        cur.wait_stream(side)
-        side.synchronize()
-        graph = torch.cuda.CUDAGraph()
-        reserved = torch.cuda.memory_stats(self.device).get(
-            "reserved_bytes.all.current", 0)
-        with _kernels.recorded() as counts, torch.cuda.stream(side):
-            graph.capture_begin(pool=self._graph_pool,
-                                capture_error_mode="thread_local")
-            try:
-                self._step_fn(buf, sampled)
-            finally:
-                graph.capture_end()
-        self.graph_pool_bytes += torch.cuda.memory_stats(self.device).get(
-            "reserved_bytes.all.current", 0) - reserved
-        self._graphs[key] = (graph, counts)
-        self.graph_replays[key] = 0
-        self.stats["graph_captures"] += 1
 
     def _record_token(self, req: Request, tok: int):
         req.generated.append(tok)

@@ -2,12 +2,15 @@
 ``functionalize`` l.73 and ``TrainStep`` l.346).
 
 The reference traces forward, backward and optimizer update into one XLA
-executable. PyTorch runs eagerly, so here one step is: cast the fp32
-master parameters to the compute type once, run the layer on those casts
+executable per batch signature. Here one step is: cast the fp32 master
+parameters to the compute type once, run the layer on those casts
 through ``torch.func.functional_call``, take the loss and its gradients
-with autograd, and form new masters with the optimizer's ``apply_fn``
-(the reference's functional update). The kernels of the path are
-launched by the autograd Functions of ``ops/kernels``.
+with autograd, and update the masters and the optimizer's slots in place
+with the optimizer's ``apply_fn`` (the reference's functional update).
+The kernels of the path are launched by the autograd Functions of
+``ops/kernels``. On a card that step is captured into one CUDA graph per
+batch signature (``jit.graphs.StepGraphs``), which every later call with
+that signature replays; on the CPU the same step runs uncaptured.
 """
 from __future__ import annotations
 
@@ -17,6 +20,8 @@ from torch.func import functional_call
 
 from ..framework.io import to_host
 from ..profiler import health as _health
+from ..utils.envparse import env_bool
+from .graphs import StepGraphs
 
 
 def functionalize(layer: torch.nn.Module):
@@ -34,6 +39,24 @@ def functionalize(layer: torch.nn.Module):
         return out, buffers
 
     return apply_fn, params0, buffers0
+
+
+def _signature(batch) -> tuple:
+    """A batch's signature, the key of its graph: the type, shape and
+    device of each tensor, and the value of anything else (its ``repr``
+    when it cannot be hashed)."""
+    sig = []
+    for a in batch:
+        if isinstance(a, torch.Tensor):
+            sig.append((str(a.dtype).replace("torch.", ""), tuple(a.shape),
+                        str(a.device)))
+        else:
+            try:
+                hash(a)
+                sig.append(("value", a))
+            except TypeError:
+                sig.append(("value", repr(a)))
+    return tuple(sig)
 
 
 class TrainStep:
@@ -54,7 +77,8 @@ class TrainStep:
 
     fused_opt: run the update as grouped multi-tensor applies
     (``Optimizer.apply_fn(fused=True)``), equal element for element to the
-    per-parameter loop; on (None or True) unless False, and only for
+    per-parameter loop. None (the default) follows
+    ``PADDLE_TPU_FUSED_OPT`` (on unless it is 0); either way only for
     elementwise optimizers.
 
     health: fold the step sentinel (``profiler/health.py``
@@ -70,13 +94,28 @@ class TrainStep:
     replays its step's batch once with the per-op NaN check armed
     (``last_attribution``), on the parameters that step took in (the
     reference replays after its update, when a NaN has reached every
-    parameter); a pending vector holds those parameters until it is
-    decoded.
+    parameter): a fetched step first copies the incoming masters into a
+    snapshot, one of two used in turn, which the pending vector holds
+    until it is decoded.
 
-    The update is out of place (the reference's functional form): each
-    step binds new master tensors, so the norm of the update is
-    ``||new - old||`` as in the reference. ``sync_to_layer()`` writes the
-    masters back into ``layer``.
+    The update is in place: the masters (``params``), the optimizer's
+    slots (``opt_state``) and the buffers keep their tensors for the
+    step's life, and ``lr`` and the step count reach the update as 0-d
+    fp64 tensors on the device, filled before each step (``lr`` from
+    ``optimizer.get_lr()``, so a scheduler stepped between calls takes
+    effect). The update's norm ``||new - old||`` is taken against the
+    snapshot. Write into the masters in place (``step.params[k].copy_``):
+    a captured step reads the tensors it captured, not one bound in their
+    place. ``sync_to_layer()`` writes the masters back into ``layer``.
+
+    On a card each batch signature (``_signature``) is captured into a
+    CUDA graph on its first use, a fetched step (health) in a variant of
+    its own for each snapshot; every later call copies the batch into the
+    signature's static inputs, replays, and returns a fresh copy of the
+    loss. A step that cannot be captured (a ``loss_fn`` that reads a
+    value back with ``.item()``) raises; nothing falls back to running
+    uncaptured. ``stats`` counts captures, replays and the pool's bytes.
+    On the CPU the same step runs uncaptured.
     """
 
     def __init__(self, layer: torch.nn.Module, loss_fn, optimizer,
@@ -91,14 +130,28 @@ class TrainStep:
                        for k, p in params.items()}
         self.buffers = {k: b.detach().clone() for k, b in buffers.items()}
         self.opt_state = optimizer.init_state_tree(self.params)
+        self._names = list(self.params)
         self._t = 0
-        self.fused_opt = (fused_opt is not False
+        if fused_opt is None:
+            fused_opt = env_bool("PADDLE_TPU_FUSED_OPT", True)
+        self.fused_opt = (bool(fused_opt)
                           and optimizer.fused_update_supported)
+        self.device = (next(iter(self.params.values())).device
+                       if self.params else torch.device("cpu"))
+        # the update's scalars, filled before every step
+        self._lr = torch.zeros((), dtype=torch.float64, device=self.device)
+        self._step_t = torch.zeros((), dtype=torch.float64,
+                                   device=self.device)
+        self._graphs = (StepGraphs(self.device, "TrainStep")
+                        if self.device.type == "cuda" else None)
+        self._static: dict = {}   # signature -> the batch's static tensors
         if health is None:
             health = _health.enabled()
         self._health_probe = _health.HealthProbe(self.params) if health \
             else None
         self._health_interval = _health.interval()
+        self._snapshots = [None, None]  # incoming masters of fetched steps
+        self._fetches = 0
         self._last_batch = None   # kept only while health is on
         self._nan_replayed = False
         self._health_host = None  # pinned buffer the vector is fetched into
@@ -113,23 +166,25 @@ class TrainStep:
             return t.to(self.amp_dtype)
         return t
 
-    def __call__(self, *batch):
-        self._t += 1
-        pending = self._pending
-        if pending is not None and (pending[2] is None or pending[2].query()):
-            self.flush_health()  # landed: decode it and let its params go
-        lr = self.optimizer.get_lr()
+    def _step_fn(self, batch, snapshot):
+        """The step: forward, backward and the in-place update; the
+        sentinel's vector too when ``snapshot`` (a dict of tensors like
+        the masters) is given, into which the incoming masters are first
+        copied. Returns (loss, vector or None). It reads the masters,
+        slots, buffers, ``_lr`` and ``_step_t`` and writes them in place,
+        and waits on nothing, so it can be captured. The per-op NaN check
+        never looks inside it (the reference's compiled step is out of its
+        reach too): the sentinel covers it."""
+        names = self._names
         inputs = tuple(self._cast(a) for a in batch[:-1])
-        names = list(self.params)
-        probe = self._health_probe
-        fetch = probe is not None and self._t % self._health_interval == 0
-        # the per-op NaN check never looks inside a step (the reference's
-        # compiled step is out of its reach too): the sentinel covers it
         with _health.suspended():
+            if snapshot is not None:
+                with torch.no_grad():
+                    torch._foreach_copy_([snapshot[k] for k in names],
+                                         [self.params[k] for k in names])
             with torch.enable_grad():
                 compute = {k: self._cast(p) for k, p in self.params.items()}
-                out, self.buffers = self.apply_fn(compute, self.buffers,
-                                                  *inputs)
+                out, _ = self.apply_fn(compute, self.buffers, *inputs)
                 loss = self._loss_fn(out, batch[-1])
                 grads = torch.autograd.grad(
                     loss, [self.params[k] for k in names], allow_unused=True)
@@ -138,17 +193,81 @@ class TrainStep:
             grads = dict(zip(names, (
                 torch.zeros_like(self.params[k]) if g is None else g
                 for k, g in zip(names, grads))))
-            old = self.params
-            new = self.optimizer.apply_fn(
-                old, grads, self.opt_state, lr=lr, t=self._t,
-                fused=self.fused_opt, inplace=False)[0]
-            self.params = {k: v.requires_grad_(True) for k, v in new.items()}
-            hvec = probe.stats_vec(loss, grads, old, new) if fetch else None
-        if probe is not None:
+            self.optimizer.apply_fn(
+                self.params, grads, self.opt_state, lr=self._lr,
+                t=self._step_t, fused=self.fused_opt, inplace=True)
+            hvec = None
+            if snapshot is not None:
+                hvec = self._health_probe.stats_vec(loss, grads, snapshot,
+                                                    self.params)
+        return loss.detach(), hvec
+
+    def __call__(self, *batch):
+        return self._run(batch, self._graphs is not None)
+
+    def _step_uncaptured(self, *batch):
+        """The same step without a graph, on a card as on the CPU: the
+        captured step's A/B (``chip_smoke.py``'s capture gate and the
+        profiling tools) and nothing else."""
+        return self._run(batch, False)
+
+    def _run(self, batch, captured: bool):
+        self._t += 1
+        pending = self._pending
+        if pending is not None and (pending[2] is None or pending[2].query()):
+            self.flush_health()  # landed: decode it and let its params go
+        fetch = (self._health_probe is not None
+                 and self._t % self._health_interval == 0)
+        slot = snapshot = None
+        if fetch:
+            slot = self._fetches % 2
+            self._fetches += 1
+            if self._snapshots[slot] is None:
+                self._snapshots[slot] = {
+                    k: torch.empty_like(p, requires_grad=False)
+                    for k, p in self.params.items()}
+            snapshot = self._snapshots[slot]
+        self._lr.fill_(self.optimizer.get_lr())
+        self._step_t.fill_(self._t)
+        if captured:
+            sig = _signature(batch)
+            static = self._static.get(sig)
+            if static is None:
+                static = self._static[sig] = tuple(
+                    torch.empty_like(a) if isinstance(a, torch.Tensor)
+                    else a for a in batch)
+            for s, a in zip(static, batch):
+                if isinstance(a, torch.Tensor):
+                    s.copy_(a)
+            key = (sig, "step" if slot is None else f"fetch:{slot}")
+            fresh = key not in self._graphs.graphs
+            loss, hvec = self._graphs.run(
+                key, lambda: self._step_fn(static, snapshot))
+            if not fresh:
+                loss = loss.clone()
+        else:
+            loss, hvec = self._step_fn(batch, snapshot)
+        if self._health_probe is not None:
             self._last_batch = batch
             if fetch:
-                self._fetch(hvec, old)
-        return loss.detach()
+                self._fetch(hvec, snapshot)
+        return loss
+
+    @property
+    def stats(self) -> dict:
+        """{"graph_captures", "graph_replays" ({(signature, variant):
+        replays}), "graph_pool_bytes"}; zeros on the CPU."""
+        g = self._graphs
+        return {"graph_captures": g.captures if g else 0,
+                "graph_replays": dict(g.replays) if g else {},
+                "graph_pool_bytes": g.pool_bytes if g else 0}
+
+    def release_graphs(self) -> None:
+        """Drop the captured graphs and their static inputs; the next call
+        of each signature captures it again."""
+        if self._graphs is not None:
+            self._graphs.clear()
+        self._static.clear()
 
     def _fetch(self, hvec: torch.Tensor, old: dict) -> None:
         """The tier's one device->host transfer: the vector into a pinned
@@ -227,21 +346,26 @@ class TrainStep:
                              for n, s in self._leaves()]}
 
     def set_state_dict(self, sd: dict) -> None:
+        """Load ``state_dict()``'s form: the slots are copied into the
+        step's own tensors, so a captured step reads them."""
         leaves = self._leaves()
         saved = sd["opt_flat"]
         if len(saved) != len(leaves):
             raise ValueError(f"opt state mismatch: checkpoint has "
                              f"{len(saved)} leaves, model needs "
                              f"{len(leaves)}")
+        loaded = []
         for (n, s), v in zip(leaves, saved):
             cur = self.opt_state[n][s]
             v = (v if isinstance(v, torch.Tensor)
-                 else torch.from_numpy(np.array(v))).to(
-                     dtype=cur.dtype, device=cur.device, copy=True)
-            if v.shape != cur.shape:
+                 else torch.from_numpy(np.array(v)))
+            if tuple(v.shape) != tuple(cur.shape):
                 raise ValueError(f"opt state {n}.{s}: checkpoint "
                                  f"{tuple(v.shape)}, model {tuple(cur.shape)}")
-            self.opt_state[n][s] = v
+            loaded.append((cur, v))
+        with torch.no_grad():
+            for cur, v in loaded:
+                cur.copy_(v)
         self._t = int(sd["t"])
 
     @torch.no_grad()
@@ -256,4 +380,4 @@ class TrainStep:
                 named_b[k].copy_(v)
 
 
-__all__ = ["functionalize", "TrainStep"]
+__all__ = ["functionalize", "TrainStep", "StepGraphs"]

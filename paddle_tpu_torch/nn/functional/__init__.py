@@ -31,6 +31,7 @@ import contextlib
 import torch
 import torch.nn.functional as _tF
 
+from ...framework import random as _random
 from ...framework.dtype import convert_dtype
 from ...ops._bn_common import _bn_axes, _bn_stats
 from ...ops._dispatch import maybe_autocast
@@ -108,7 +109,7 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
     if axis is not None:
         axes = [axis] if isinstance(axis, int) else list(axis)
         shape = [s if i in axes else 1 for i, s in enumerate(shape)]
-    keep = torch.rand(shape, generator=generator, device=x.device) >= p
+    keep = _random.rand(shape, generator, x.device) >= p
     if mode == "upscale_in_train":
         return torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)
     return torch.where(keep, x, 0.0).to(x.dtype)

@@ -64,6 +64,7 @@ import math
 
 import torch
 
+from ...framework import random as _random
 from . import (checked, count_composed, count_design, launch, same_device,
                use_kernel)
 
@@ -522,8 +523,8 @@ def attention_composition(q, k, v, mask=None, causal: bool = False,
     if valid is not None:
         probs = torch.where(valid.any(dim=-1, keepdim=True), probs, 0.0)
     if dropout_p > 0.0:
-        keep = torch.rand(probs.shape, generator=generator,
-                          device=probs.device) >= dropout_p
+        keep = _random.rand(probs.shape, generator,
+                            probs.device) >= dropout_p
         probs = torch.where(keep, probs / (1.0 - dropout_p), 0.0)
     return torch.einsum("bhlm,bmhd->blhd", probs, v.float()).to(q.dtype)
 

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from ...framework import random as _random
 from . import checked, count_composed, launch, same_device, use_kernel
 
 _stats = {"kernel": 0, "plain": 0}
@@ -206,7 +207,6 @@ def fused_residual_dropout_ln(x, residual, gamma, beta, *, p: float = 0.0,
     values divided by 1 - p), the residual add, then ``fused_layer_norm``
     (its kernel on a card)."""
     if training and p > 0.0:
-        keep = torch.rand(x.shape, generator=generator,
-                          device=x.device) >= p
+        keep = _random.rand(x.shape, generator, x.device) >= p
         x = torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)
     return fused_layer_norm(residual + x, gamma, beta, eps)

@@ -10,9 +10,16 @@ reference's grouped multi-tensor update (its ``merged_adam`` form).
 Both paths launch the same elementwise functors on every element, so the
 grouped update equals the per-parameter loop element for element.
 
-Updates are in place: parameters are overwritten with ``copy_`` (the
-counterpart of the reference's buffer donation) and the slot dicts are
-rebound to the new slot tensors.
+Updates are in place: parameters and slots are overwritten with
+``copy_`` (the counterpart of the reference's buffer donation), so that
+every tensor that outlives a step keeps its address, as a captured CUDA
+graph needs. ``apply_fn`` (the compiled step's update) takes ``lr`` and
+``t`` as 0-d fp64 tensors on the parameters' device, as the reference's
+jitted step takes them as device values: a captured step reads the
+values filled in before each replay. The scalar arithmetic (bias
+corrections, ``1 - lr * wd``) runs on those in fp64 and each result is
+rounded to fp32 where it meets the tensors, which is what the eager
+``step()`` does with Python floats: both forms write the same bits.
 """
 from __future__ import annotations
 
@@ -33,7 +40,13 @@ class TensorGroup:
 
     @staticmethod
     def _arg(o):
-        return o.ts if isinstance(o, TensorGroup) else o
+        if isinstance(o, TensorGroup):
+            return o.ts
+        if isinstance(o, torch.Tensor) and o.dtype != torch.float32:
+            # a device scalar (fp64) meets the tensors as a Python float
+            # does in a foreach op: rounded to fp32
+            return o.float()
+        return o
 
     def __add__(self, o):
         return TensorGroup(torch._foreach_add(self.ts, self._arg(o)))
@@ -116,22 +129,36 @@ class Optimizer:
     def _apply(self, ps, gs, slots, lr, t, kw, inplace=True):
         """One `_update` over parameters ``ps`` with gradients ``gs`` and
         slot dicts ``slots``; returns (the new parameters, the new slot
-        dicts). ``inplace`` writes the new values into ``ps`` (and returns
-        ``ps``); otherwise ``ps`` are left as they were and the new values
-        come back as new tensors of their types. A gradient in another
-        type than its parameter is taken in fp32, as in the reference."""
+        dicts). ``inplace`` writes the new values into ``ps`` and into the
+        slot tensors (and returns those tensors); otherwise both are left
+        as they were and the new values come back as new tensors of their
+        types. A slot whose new value has another shape or type than the
+        old one (a loaded legacy state) is rebound instead. A gradient in
+        another type than its parameter is taken in fp32, as in the
+        reference."""
         gs = [g.float() if g.dtype != p.dtype else g for p, g in zip(ps, gs)]
         names = list(slots[0]) if slots else []
         s_in = {k: TensorGroup([s[k] for s in slots]) for k in names}
         new_p, new_s = self._update(TensorGroup(ps), TensorGroup(gs), s_in,
                                     lr, t, **kw)
+        new_s = {k: list(v.ts) for k, v in new_s.items()}
         if inplace:
             torch._foreach_copy_(ps, new_p.ts)
             out = ps
+            for k, new in new_s.items():
+                old = s_in[k].ts if k in s_in else []
+                fits = [i for i, q in enumerate(new) if i < len(old)
+                        and old[i] is not q and old[i].shape == q.shape
+                        and old[i].dtype == q.dtype]
+                if fits:
+                    torch._foreach_copy_([old[i] for i in fits],
+                                         [new[i] for i in fits])
+                    for i in fits:
+                        new[i] = old[i]
         else:
             out = [q if q.dtype == p.dtype else q.to(p.dtype)
                    for p, q in zip(ps, new_p.ts)]
-        return out, [{k: new_s[k].ts[i] for k in new_s}
+        return out, [{k: new_s[k][i] for k in new_s}
                      for i in range(len(ps))]
 
     @staticmethod
@@ -179,14 +206,28 @@ class Optimizer:
         """May `apply_fn(fused=True)` group this optimizer's update?"""
         return bool(type(self)._fusable)
 
+    @staticmethod
+    def _device_scalar(v, device) -> torch.Tensor:
+        """``v`` as a 0-d fp64 tensor on ``device`` (a tensor is taken as
+        it is)."""
+        if isinstance(v, torch.Tensor):
+            return v
+        return torch.full((), float(v), dtype=torch.float64, device=device)
+
     @torch.no_grad()
     def apply_fn(self, params: dict, grads: dict, state: dict, lr=None,
                  t=1, fused=False, inplace=True):
-        """Update ``params`` ({name: tensor}) in place from ``grads`` and
-        rebind the slot tensors of ``state`` ({name: slot dict}); returns
-        (params, state). With ``inplace=False`` ``params`` keep their values
-        and the first result is a new dict of new tensors (the reference's
-        functional form), bit for bit what the in-place update writes.
+        """Update ``params`` ({name: tensor}) and the slot tensors of
+        ``state`` ({name: slot dict}) in place from ``grads``; returns
+        (params, state). With ``inplace=False`` both keep their values,
+        the first result is a new dict of new tensors (the reference's
+        functional form) and ``state``'s dicts are rebound to new slot
+        tensors, bit for bit what the in-place update writes.
+
+        ``lr`` (None: ``get_lr()``) and ``t`` are 0-d fp64 tensors on the
+        parameters' device, or numbers made into such tensors; every form
+        of the update, the eager ``step()`` included, writes the same
+        bits (see the module docstring).
 
         Parameters are taken in sorted name order (the reference's pytree
         order). ``fused=True`` (elementwise optimizers only) runs one
@@ -194,7 +235,11 @@ class Optimizer:
         and slot layout; a parameter whose slots do not have its shape (a
         loaded legacy state) runs alone. The result equals the
         per-parameter loop element for element."""
-        lr = self.get_lr() if lr is None else float(lr)
+        if not params:
+            return params, state
+        dev = next(iter(params.values())).device
+        lr = self._device_scalar(self.get_lr() if lr is None else lr, dev)
+        t = self._device_scalar(t, dev)
         if self._grad_clip is not None and hasattr(self._grad_clip,
                                                    "clip_fn"):
             grads = self._grad_clip.clip_fn(grads)
@@ -220,7 +265,10 @@ class Optimizer:
                                        inplace)
             for n, q, s in zip(group, new_p, new_s):
                 out[n] = q
-                state[n] = s
+                if inplace:
+                    state[n].update(s)
+                else:
+                    state[n] = s
         return out, state
 
     # -- checkpointing -------------------------------------------------------

@@ -202,19 +202,22 @@ def test_fetched_steps_train_bit_for_bit_as_unfetched_ones():
 
 
 def test_the_fetch_is_decoded_later_without_a_wait():
-    """A step leaves its vector pending and binds new masters (the ones it
-    took in stay as they were); the next step decodes it at its start,
-    and reading last_health decodes the newest."""
+    """A step leaves its vector pending with a snapshot of the masters it
+    took in (two snapshots, used in turn), and updates the masters
+    themselves in place; the next step decodes it at its start, and
+    reading last_health decodes the newest."""
     _, _, _, ts = _steps()
+    masters = dict(ts.params)
     ts(*_batch(0)[1])
     assert ts._pending is not None and health.last_stats() is None
-    took = ts.params
-    kept = {k: v.detach().clone() for k, v in took.items()}
+    first = ts._pending[3]
+    took = {k: v.detach().clone() for k, v in ts.params.items()}
     ts(*_batch(1)[1])
     assert health.last_stats()["step"] == 1
-    assert ts._pending[0] == 2 and ts._pending[3] is took
-    assert all(torch.equal(took[k], v) for k, v in kept.items())
-    assert ts.params is not took
+    assert ts._pending[0] == 2 and ts._pending[3] is not first
+    assert all(torch.equal(ts._pending[3][k], v) for k, v in took.items())
+    assert all(ts.params[k] is p for k, p in masters.items())
+    assert not all(torch.equal(ts.params[k], v) for k, v in took.items())
     assert ts.last_health["step"] == 2 and ts._pending is None
     assert health.last_stats()["step"] == 2
 

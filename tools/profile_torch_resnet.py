@@ -32,7 +32,10 @@ port's fp32 ``conv2d`` switches off inside its calls), or with
 * the 1x1 conv + statistics group's device time a step, on its own;
 * the top kernels, and each hand-written kernel's launches per step;
 
-and the same window without the profiler, for its overhead. Writes
+and the same window without the profiler, for its overhead; twice, the
+step as a user calls it (``"captured"``, a CUDA graph replay on a card)
+and then uncaptured (``"uncaptured"``, ``TrainStep._step_uncaptured``),
+as ``profile_torch_train.py`` does. Writes
 ``chiprun_out/profile_torch_resnet.json`` under the directory it is
 started from (``profile_torch_resnet_fp32.json`` with ``--fp32``, then
 ``_NAME`` with ``--tag``). With
@@ -46,7 +49,6 @@ import json
 import os
 import subprocess
 import sys
-import time
 
 import numpy as np
 import torch
@@ -100,9 +102,9 @@ def main():
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models.resnet import resnet50
     from paddle_tpu_torch.nn import functional as F
-    from paddle_tpu_torch.ops import kernels
     # after the checkout's package: this helper's module imports it too
-    from profile_torch_train import _device_summary
+    from profile_torch_train import graph_counters, profile_modes, \
+        step_modes
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = args.cudnn_tf32 == "default"
     smi = subprocess.run(
@@ -127,33 +129,16 @@ def main():
     imgs = torch.from_numpy(rng.normal(size=(B, 3, HW, HW)).astype(
         np.float32)).permute(0, 2, 3, 1).contiguous().cuda()
     labels = torch.from_numpy(rng.integers(0, 1000, (B,))).cuda()
-    for _ in range(WARMUP):
-        step(imgs, labels)
-    torch.cuda.synchronize()
-
-    act = torch.profiler.ProfilerActivity
-    kernels.reset_stats()
-    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(WINDOW):
-            loss = step(imgs, labels)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    out = _device_summary(prof, wall, WINDOW, GROUPS)
-    out["conv1x1_ms_per_step"] = out["groups"].get(CONV_GROUP, {}).get(
-        "device_ms", 0.0)
-    out["launches_per_step"] = {k: v["kernel"] / WINDOW
-                                for k, v in kernels.all_stats().items()}
-    out["plain_runs"] = {k: v["plain"] for k, v in
-                         kernels.all_stats().items()}
-    out["designs"] = kernels.design_stats()
-
-    t0 = time.perf_counter()
-    for _ in range(WINDOW):
-        loss = step(imgs, labels)
-    torch.cuda.synchronize()
-    out["wall_ms_unprofiled"] = (time.perf_counter() - t0) * 1e3 / WINDOW
-    out["loss"] = float(loss)
+    if args.fp32:
+        m.train_batch([imgs], [labels])  # builds the step
+    ts = m._train_step if args.fp32 else step
+    out = profile_modes(step_modes(step, ts, args.fp32), (imgs, labels),
+                        WARMUP, WINDOW, GROUPS)
+    for o in out.values():
+        del o["_prof"]
+        o["conv1x1_ms_per_step"] = o["groups"].get(CONV_GROUP, {}).get(
+            "device_ms", 0.0)
+    out["graphs"] = graph_counters(ts)
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     out.update(card=smi, tree=os.getcwd(), batch=B, hw=HW, window=WINDOW,
                dtype="float32" if args.fp32 else "O2 bfloat16",

@@ -37,7 +37,13 @@ of steps (three; one with ``--long``, a step of seconds):
 * the matrix products by kernel name, and the top kernels overall;
 * each hand-written kernel's launches per step (its wrapper's counter);
 
-and the same window without the profiler, for its overhead. Writes
+and the same window without the profiler, for its overhead. It does so
+twice, the step as a user calls it (``"captured"``: on a card one CUDA
+graph replay a step, so the layer norm's backward node shows no host
+events and reads None) and then the same step uncaptured
+(``"uncaptured"``, ``TrainStep._step_uncaptured``: every op dispatched
+from Python); a checkout without the captured step profiles its one step
+as ``"uncaptured"``. Writes
 ``chiprun_out/profile_torch_train.json`` (``profile_torch_train_long.json``
 with ``--long``, ``_bert`` with ``--bert``, ``_fit`` with ``--fit``, then
 ``_NAME`` with ``--tag``) under the directory it is started from. With
@@ -153,6 +159,62 @@ def _node_device_ms(prof, node, n_steps, busy_ms):
                 share=ms / busy_ms if busy_ms else None)
 
 
+def step_modes(step, train_step, fit: bool) -> dict:
+    """{"captured": the step as a user calls it, "uncaptured": the same
+    TrainStep's ``_step_uncaptured`` (as ``hapi.Model.train_batch``
+    takes it with ``fit``)}, or only {"uncaptured": step} for a checkout
+    without the captured step."""
+    if not hasattr(train_step, "_step_uncaptured"):
+        return {"uncaptured": step}
+    if fit:
+        return {"captured": step, "uncaptured": lambda *b: float(
+            train_step._step_uncaptured(*b))}
+    return {"captured": step, "uncaptured": train_step._step_uncaptured}
+
+
+def graph_counters(train_step):
+    """A TrainStep's captures and graph pool bytes (None before capture)."""
+    st = getattr(train_step, "stats", None)
+    return None if st is None else {"captures": st["graph_captures"],
+                                    "pool_bytes": st["graph_pool_bytes"]}
+
+
+def profile_modes(steps: dict, batch, warmup: int, window: int,
+                  groups=GROUPS) -> dict:
+    """{mode: summary} for each of ``steps`` ({mode: fn}) in turn: warm-up
+    calls, a profiled window of ``window`` calls (``_device_summary``,
+    each kernel's launches a step, plain runs, designs; the profile
+    itself under ``"_prof"``) and the same window unprofiled."""
+    from paddle_tpu_torch.ops import kernels
+    act = torch.profiler.ProfilerActivity
+    out = {}
+    for mode, fn in steps.items():
+        for _ in range(warmup):
+            fn(*batch)
+        torch.cuda.synchronize()
+        kernels.reset_stats()
+        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(window):
+                loss = fn(*batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        o = out[mode] = _device_summary(prof, wall, window, groups)
+        o["_prof"] = prof
+        stats = kernels.all_stats()
+        o["launches_per_step"] = {k: v["kernel"] / window
+                                  for k, v in stats.items()}
+        o["plain_runs"] = {k: v["plain"] for k, v in stats.items()}
+        o["designs"] = kernels.design_stats()
+        t0 = time.perf_counter()
+        for _ in range(window):
+            loss = fn(*batch)
+        torch.cuda.synchronize()
+        o["wall_ms_unprofiled"] = (time.perf_counter() - t0) * 1e3 / window
+        o["loss"] = float(loss)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--long", action="store_true",
@@ -173,7 +235,6 @@ def main():
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models.gpt import GPT, GPTConfig
     from paddle_tpu_torch.nn import functional as F
-    from paddle_tpu_torch.ops import kernels
     run = ("long" if args.long else "bert" if args.bert
            else "fit" if args.fit else "b8s1024")
     B, L, remat, warmup, window = RUNS[run]
@@ -211,33 +272,16 @@ def main():
     else:
         step = TrainStep(model, F.cross_entropy, opt,
                          amp_dtype=torch.bfloat16)
-    for _ in range(warmup):
-        step(ids, labels)
-    torch.cuda.synchronize()
-
-    act = torch.profiler.ProfilerActivity
-    kernels.reset_stats()
-    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(window):
-            loss = step(ids, labels)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    out = _device_summary(prof, wall, window)
-    out["layer_norm_backward"] = _node_device_ms(
-        prof, LN_BACKWARD_NODE, window, out["device_busy_ms"])
-    out["launches_per_step"] = {k: v["kernel"] / window
-                                for k, v in kernels.all_stats().items()}
-    out["plain_runs"] = {k: v["plain"] for k, v in
-                         kernels.all_stats().items()}
-    out["designs"] = kernels.design_stats()
-
-    t0 = time.perf_counter()
-    for _ in range(window):
-        loss = step(ids, labels)
-    torch.cuda.synchronize()
-    out["wall_ms_unprofiled"] = (time.perf_counter() - t0) * 1e3 / window
-    out["loss"] = float(loss)
+    if args.fit:
+        m.train_batch([ids], [labels])  # builds the step
+    out = profile_modes(step_modes(step, m._train_step if args.fit else step,
+                                   args.fit), (ids, labels), warmup, window)
+    for mode, o in out.items():
+        o["layer_norm_backward"] = (None if mode == "captured" else
+                                    _node_device_ms(o.pop("_prof"),
+                                                    LN_BACKWARD_NODE, window,
+                                                    o["device_busy_ms"]))
+    out["graphs"] = graph_counters(m._train_step if args.fit else step)
     out.update(card=smi, tree=os.getcwd(), batch=B, seq=L, remat=remat,
                window=window, dtype="float32" if args.fit else "O2 bfloat16",
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
