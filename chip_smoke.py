@@ -4,6 +4,8 @@
     python3 chip_smoke.py            # from the repository root
     python3 chip_smoke.py --phases health,health_trip,fit_resume,transformer
                                      # phases 1-2, then only those named
+    python3 chip_smoke.py --phases serve,serve_control
+                                     # phases 1-2, 4-5 and 23
 
 Phases, each of which raises (exit code != 0, with its traceback) on a
 failure:
@@ -41,23 +43,29 @@ failure:
               vocab 50304, fp32, random weights from a seed) through two
               ServingEngine(max_batch=32, max_len=1024, page_size=16)s,
               decode_mode "eager" and "fused" (one CUDA graph per lane
-              bucket and greedy or sampling variant): 3 paired rounds,
+              bucket and greedy or sampling variant, and per prompt
+              bucket and variant for prefill, in one pool; the eager
+              engine prefills op by op): 3 paired rounds,
               eager then fused, of 64 greedy requests of 32-512 prompt
               tokens plus two longer than 512, 32 new tokens each, every
               request's tokens bit for bit between the modes; then for
               each lane bucket W 1-32 exactly W requests, greedy and
               sampled (temperature 0.8, top_k 40, top_p 0.95, seeds
               from 0), tokens bit for bit between the modes; every run's
-              launches exact (25 layer norms a forward, 12 paged
-              attentions a decode iteration, counted through replays), no
-              plain version and no composition, every prefill's attention
-              on the 3xTF32 design; one fused iteration launches 25 + 12
-              through one replay; one graph per (W, variant) used, none
-              recaptured, each replayed; one fused run on the engine's
-              loop thread (start()/close()); TPOT p50/p99, TTFT,
-              tokens/s and host ms a decode iteration per mode and
-              round, device operations and ms a decode iteration at W 32
-              (torch.profiler), and the graph pool's bytes;
+              launches exact (25 layer norms a forward, 12 flash
+              forwards a prefill, 12 paged attentions a decode iteration,
+              counted through replays), no plain version and no
+              composition, every prefill's attention on the 3xTF32
+              design; one fused iteration launches 25 + 12 through one
+              replay; one graph per (W, variant) and per ("prefill",
+              bucket, variant) used, none recaptured, each replayed as
+              often as it was used again; one fused run on the engine's
+              loop thread (start()/close()); TPOT p50/p99, TTFT p50/p99,
+              tokens/s, host ms a decode iteration and a prefill, the
+              prefill graphs' replays and the 960-token prompt's prefill
+              wall ms per mode and round, device operations and ms a
+              decode iteration at W 32 (torch.profiler), and the graph
+              pool's bytes;
 5. cpu      - the same weights on the CPU (plain versions) against the card:
               prefill logits and 8 teacher-forced decode steps for 2 requests;
 6. train    - GPT-2 small at full width trained by
@@ -190,7 +198,22 @@ failure:
               no plain run or composition, the first update lowers the
               loss and every loss stays finite and below 3 times the
               first; step ms, images/s, MFU and peak memory;
-23. report  - the `kernels` JSON line, the card's name and power limit, and
+23. serve_control - one fused engine at phase 4's widths: a swap to a
+              second seeded weight set while 8 requests are in flight
+              (the swap's pause; later requests' tokens equal a fresh
+              engine's on the new weights bit for bit, every live
+              parameter in its storage, no graph captured again); a
+              rollback (the original tokens again); the canary's
+              perplexity of a B 2 x T 128 probe under the live and the
+              candidate weights (layer norm, flash forward and the CE
+              forward counted, no plain run, the live weights untouched);
+              restart() mid-decode (the requeued requests finish with the
+              original tokens, no capture); suspension (EngineSuspended
+              with its retry_after_s), the queue cap, shrink_pool(0.5) and
+              restore_pool; the MemoryGovernor on torch.cuda.mem_get_info
+              with its limit one byte under the bytes in use (shrink, then
+              suspend) and then raised (resume, then restore);
+24. report  - the `kernels` JSON line, the card's name and power limit, and
               the device JSON line last.
 
 Every TrainStep above runs captured (one CUDA graph per batch signature,
@@ -2119,9 +2142,10 @@ def percentile(xs, p):
 #: the kernels of the serving path
 SERVE_KERNELS = ("layer_norm", "flash_attention", "paged_attention")
 #: kernel launches of one GPT-2 small forward (prefill or decode
-#: iteration): two layer norms a block and the final one; paged attention
-#: once a block in a decode iteration
-SERVE_LN, SERVE_PAGED = 25, 12
+#: iteration): two layer norms a block and the final one; flash attention
+#: once a block in a prefill, paged attention once a block in a decode
+#: iteration
+SERVE_LN, SERVE_FLASH, SERVE_PAGED = 25, 12, 12
 SERVE_ROUNDS = 3
 SERVE_MAX_NEW = 32
 DRILL_SAMPLING = dict(temperature=0.8, top_k=40, top_p=0.95)
@@ -2138,15 +2162,25 @@ def serve_prompts(cfg):
                       for n in (700, 960)]
 
 
+def prefill_key(eng, prompt, sampled):
+    """The fused engine's graph key of a prompt's prefill."""
+    return ("prefill", eng._bucket_for(len(prompt)),
+            "sampled" if sampled else "greedy")
+
+
 def serve_round(eng, prompts, max_new=SERVE_MAX_NEW, sampling=None):
     """One run of `prompts` through `eng` from zeroed counters: tokens,
-    latencies, host ms per decode iteration and the run's launches,
-    which must be exact (25 layer norms a forward, 12 paged attentions an
-    iteration), with no plain run and no composition."""
+    latencies, host ms per decode iteration and per prefill and the run's
+    launches, which must be exact (25 layer norms a forward, 12 flash
+    forwards a prefill, 12 paged attentions an iteration), with no plain
+    run and no composition; `prefill_keys`, the prefill graph key of each
+    request."""
     from paddle_tpu_torch.ops import kernels
     it0 = eng.stats["iterations"]
     pf0 = eng.stats["prefills"]
     wall0 = eng.stats["decode_wall_s"]
+    pwall0 = eng.stats["prefill_wall_s"]
+    preplays0 = eng.stats["prefill_graph_replays"]
     replays0 = sum(eng.graph_replays.values())
     kernels.reset_stats()
     t0 = time.perf_counter()
@@ -2161,6 +2195,7 @@ def serve_round(eng, prompts, max_new=SERVE_MAX_NEW, sampling=None):
     iters = eng.stats["iterations"] - it0
     prefills = eng.stats["prefills"] - pf0
     want = {"layer_norm": SERVE_LN * (iters + prefills),
+            "flash_attention": SERVE_FLASH * prefills,
             "paged_attention": SERVE_PAGED * iters}
     for name in SERVE_KERNELS:
         st = stats[name]
@@ -2192,8 +2227,27 @@ def serve_round(eng, prompts, max_new=SERVE_MAX_NEW, sampling=None):
         decode_iterations=iters, prefills=prefills,
         host_ms_per_iteration=(eng.stats["decode_wall_s"] - wall0)
         / max(1, iters) * 1e3,
+        host_ms_per_prefill=(eng.stats["prefill_wall_s"] - pwall0)
+        / max(1, prefills) * 1e3,
+        prefill_graph_replays=eng.stats["prefill_graph_replays"]
+        - preplays0,
         graph_replays=sum(eng.graph_replays.values()) - replays0,
+        prefill_keys=[prefill_key(eng, p, sampling is not None and not
+                                  sampling(i).greedy)
+                      for i, p in enumerate(prompts)],
         launches=stats, designs=kernels.design_stats()), tokens
+
+
+def prefill_wall_ms(eng, prompt):
+    """Wall ms of one prefill of `prompt` alone (a request of one token,
+    which finishes at its prefill): the host's copies, the forward (a
+    replay in the fused engine) and the token back."""
+    p0 = eng.stats["prefill_wall_s"]
+    r = eng.submit(prompt, max_new_tokens=1)
+    eng.run_until_idle()
+    if len(r.result(timeout=0)) != 1:
+        raise AssertionError("prefill probe: want one token")
+    return (eng.stats["prefill_wall_s"] - p0) * 1e3
 
 
 def decode_window_ops(eng, cfg, W=32, warm=2, window=8):
@@ -2219,10 +2273,11 @@ def decode_window_ops(eng, cfg, W=32, warm=2, window=8):
 def serve_drill(engines, cfg):
     """For each lane bucket W of 1-32 and each variant (greedy; sampled at
     temperature 0.8, top_k 40, top_p 0.95, seeds from 0): exactly W
-    requests in every engine, tokens identical across the engines."""
+    requests in every engine, tokens identical across the engines. Also
+    returns the fused engine's prefill keys, one a request."""
     from paddle_tpu_torch.inference.sampling import SamplingParams
     rng = np.random.default_rng(2)
-    out = {}
+    out, keys = {}, []
     for W in engines[0].decode_buckets:
         prompts = [rng.integers(1, cfg.vocab_size,
                                 int(rng.integers(16, 129))).tolist()
@@ -2239,7 +2294,9 @@ def serve_drill(engines, cfg):
                 r["mode"]: dict(host_ms_per_iteration=r[
                     "host_ms_per_iteration"], tpot_p50_ms=r["tpot_p50_ms"],
                     graph_replays=r["graph_replays"]) for r, _ in runs}
-    return out
+            keys += [k for r, _ in runs if r["mode"] == "fused"
+                     for k in r["prefill_keys"]]
+    return out, keys
 
 
 def one_iteration_launches(eng, cfg, W=4):
@@ -2310,11 +2367,18 @@ def serve(model, cfg, card):
     # warm-up request (cuBLAS handles, first allocations); not counted
     for eng in engines.values():
         eng.generate(prompts[0][:40], max_new_tokens=4)
+    # the fused engine's prefill graph keys, one a prefill
+    uses = [prefill_key(engines["fused"], prompts[0][:40], False)]
     rounds = []
     for rnd in range(SERVE_ROUNDS):
         pair = {}
         for mode, eng in engines.items():
             pair[mode] = serve_round(eng, prompts)
+            # the 960-token prompt's prefill alone, after the round
+            pair[mode][0]["prefill_960_ms"] = prefill_wall_ms(eng,
+                                                              prompts[-1])
+        uses += pair["fused"][0]["prefill_keys"] + [
+            prefill_key(engines["fused"], prompts[-1], False)]
         if pair["eager"][1] != pair["fused"][1]:
             raise AssertionError(f"serve round {rnd}: fused tokens differ "
                                  f"from eager tokens")
@@ -2331,7 +2395,11 @@ def serve(model, cfg, card):
                 f"TPOT p50 {r['tpot_p50_ms']:.3f} ms p99 "
                 f"{r['tpot_p99_ms']:.3f} ms, host "
                 f"{r['host_ms_per_iteration']:.3f} ms a decode iteration "
-                f"({r['decode_iterations']}), graph replays "
+                f"({r['decode_iterations']}), "
+                f"{r['host_ms_per_prefill']:.3f} ms a prefill "
+                f"({r['prefills']}; {r['prefill_graph_replays']} prefill "
+                f"graph replays), the 960-token prefill "
+                f"{r['prefill_960_ms']:.3f} ms wall, graph replays "
                 f"{r['graph_replays']} [{card}]")
     main = rounds[-1]["fused"][0]
     # every fp32 prefill ran the forward on the TF32 tensor cores
@@ -2340,17 +2408,31 @@ def serve(model, cfg, card):
         raise AssertionError(f"serve: flash forward designs "
                              f"{main['designs']}, want every launch on "
                              f"mma.sync-3xtf32")
-    drill = serve_drill([engines["eager"], engines["fused"]], cfg)
+    drill, drill_keys = serve_drill([engines["eager"], engines["fused"]],
+                                    cfg)
+    uses += drill_keys
     fused = engines["fused"]
     pairs = {(W, v) for W in fused.decode_buckets
              for v in ("greedy", "sampled")}
-    if set(fused.graph_replays) != pairs or len(fused._graphs) != len(
-            pairs) or fused.stats["graph_captures"] != len(pairs) or min(
-            fused.graph_replays.values()) < 1:
-        raise AssertionError(f"serve: graphs {sorted(fused.graph_replays)} "
-                             f"replays {fused.graph_replays}, captures "
-                             f"{fused.stats['graph_captures']}; want one "
-                             f"per pair of {sorted(pairs)}, each replayed")
+    decode = {k: n for k, n in fused.graph_replays.items()
+              if k[0] != "prefill"}
+    prefill = {k: n for k, n in fused.graph_replays.items()
+               if k[0] == "prefill"}
+    # each prefill graph captured at its key's first use and replayed at
+    # every later one
+    want_prefill = {k: uses.count(k) - 1 for k in set(uses)}
+    n_graphs = len(pairs) + len(want_prefill)
+    if set(decode) != pairs or min(decode.values()) < 1 or \
+            prefill != want_prefill or len(fused._graphs) != n_graphs or \
+            fused.stats["graph_captures"] != n_graphs or \
+            fused.stats["prefill_graph_replays"] != sum(
+                want_prefill.values()):
+        raise AssertionError(
+            f"serve: graphs {sorted(fused.graph_replays, key=str)} replays "
+            f"{fused.graph_replays}, captures "
+            f"{fused.stats['graph_captures']}; want one per pair of "
+            f"{sorted(pairs)}, each replayed, and prefill replays "
+            f"{want_prefill}")
     one_iter = one_iteration_launches(fused, cfg)
     ops = {mode: decode_window_ops(eng, cfg)
            for mode, eng in engines.items()}
@@ -2361,7 +2443,8 @@ def serve(model, cfg, card):
         summary[mode] = {
             k: [r[k] for r in rs] for k in (
                 "tpot_p50_ms", "tpot_p99_ms", "tokens_per_s", "ttft_p50_ms",
-                "ttft_p99_ms", "host_ms_per_iteration")}
+                "ttft_p99_ms", "host_ms_per_iteration",
+                "host_ms_per_prefill", "prefill_960_ms")}
         summary[mode]["device_ops_per_iteration"] = ops[mode][0]
         summary[mode]["device_ms_per_iteration"] = ops[mode][1]
         log(f"serve {mode}: TPOT p50 "
@@ -2372,9 +2455,19 @@ def serve(model, cfg, card):
             f"{', '.join(f'{x:.1f}' for x in summary[mode]['tokens_per_s'])}"
             f", host ms a decode iteration "
             f"{', '.join(f'{x:.3f}' for x in summary[mode]['host_ms_per_iteration'])}"
-            f"; at W 32: {ops[mode][0]} device operations, "
+            f", TTFT p50 "
+            f"{', '.join(f'{x:.2f}' for x in summary[mode]['ttft_p50_ms'])}"
+            f" ms, p99 "
+            f"{', '.join(f'{x:.2f}' for x in summary[mode]['ttft_p99_ms'])}"
+            f" ms, host ms a prefill "
+            f"{', '.join(f'{x:.3f}' for x in summary[mode]['host_ms_per_prefill'])}"
+            f", the 960-token prefill "
+            f"{', '.join(f'{x:.3f}' for x in summary[mode]['prefill_960_ms'])}"
+            f" ms; at W 32: {ops[mode][0]} device operations, "
             f"{ops[mode][1]} device ms an iteration [{card}]")
-    log(f"serve fused: {len(fused._graphs)} graphs, pool "
+    log(f"serve fused: {len(fused._graphs)} graphs ({len(want_prefill)} "
+        f"prefill: {json.dumps({f'{k[1]} {k[2]}': n for k, n in sorted(prefill.items())})} "
+        f"replays), pool "
         f"{fused.graph_pool_bytes} bytes (reserved during the captures); "
         f"one iteration's launches {json.dumps(one_iter)}; loop thread "
         f"{thread} [{card}]")
@@ -2383,8 +2476,8 @@ def serve(model, cfg, card):
                                         for p in rounds],
                summary=summary, drill=drill, one_iteration=one_iter,
                graphs=len(fused._graphs),
-               graph_replays={f"W={W} {v}": n for (W, v), n in
-                              sorted(fused.graph_replays.items())},
+               graph_replays={" ".join(map(str, k)): n for k, n in
+                              sorted(fused.graph_replays.items(), key=str)},
                graph_pool_bytes=fused.graph_pool_bytes, loop_thread=thread)
     for eng in engines.values():
         eng.close()
@@ -2436,6 +2529,196 @@ def cross_check(model, cfg, prompts):
         raise AssertionError(f"card and CPU logits differ by {worst}")
     return dict(max_abs_err=worst, atol=2e-3, token_agreement=agree,
                 steps=total)
+
+
+# ------------------------ phase 23: serve_control -------------------------
+
+CONTROL_REQUESTS, CONTROL_NEW, CONTROL_PROBE = 8, 16, (2, 128)
+
+
+def counts_since(before):
+    """Kernel launch counters now, less `before` (an `all_stats()`)."""
+    from paddle_tpu_torch.ops import kernels
+    return {k: {c: n - before[k][c] for c, n in st.items()}
+            for k, st in kernels.all_stats().items()}
+
+
+def control_run(eng, prompts, steps_before=0, act=None):
+    """The phase's requests through `eng` (greedy, CONTROL_NEW tokens
+    each), `act()` after `steps_before` iterations; their tokens."""
+    reqs = [eng.submit(p, max_new_tokens=CONTROL_NEW) for p in prompts]
+    for _ in range(steps_before):
+        eng.step()
+    if act is not None:
+        act()
+    eng.run_until_idle()
+    return [r.result(timeout=0) for r in reqs]
+
+
+def serve_control(cfg, card):
+    """Phase 23: the serving control plane on one fused engine at phase
+    4's widths, the captured prefill and decode graphs kept valid through
+    a swap, a rollback and a restart (see the module docstring)."""
+    from paddle_tpu_torch.inference import EngineSuspended, MemoryGovernor
+    from paddle_tpu_torch.inference.serving import ServingEngine
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.ops import kernels
+    kw = dict(max_batch=32, max_len=1024, page_size=16)
+    models = []
+    for seed in (0, 1):
+        m = GPT(cfg, device="cuda",
+                generator=torch.Generator().manual_seed(seed))
+        m.eval()
+        models.append(m)
+    model, other = models
+    candidate = {k: p.detach() for k, p in other.named_parameters()}
+    original_weights = {k: p.detach().clone()
+                        for k, p in model.named_parameters()}
+    ptrs = {k: p.data_ptr() for k, p in model.named_parameters()}
+    rng = np.random.default_rng(23)
+    # prompts of 40-48 tokens: with the tokens generated before a restart
+    # they stay in the 64-token prompt bucket
+    prompts = [rng.integers(1, cfg.vocab_size, int(rng.integers(40, 49)))
+               .tolist() for _ in range(CONTROL_REQUESTS)]
+    eng = ServingEngine(model, name="gpt2_small_control", **kw)
+    kernels.reset_stats()
+    res = {"card": card}
+    original = control_run(eng, prompts)
+    captures = eng.stats["graph_captures"]
+
+    def no_capture(what):
+        if eng.stats["graph_captures"] != captures:
+            raise AssertionError(f"serve_control: {what} captured "
+                                 f"{eng.stats['graph_captures'] - captures}"
+                                 f" graphs")
+
+    def live_is(weights, what):
+        for k, p in model.named_parameters():
+            if p.data_ptr() != ptrs[k] or not torch.equal(p, weights[k]):
+                raise AssertionError(f"serve_control: {what}: parameter {k} "
+                                     f"moved or holds other values")
+
+    # a swap while every request is in flight
+    mid = control_run(eng, prompts, 3, lambda: eng.request_swap(
+        candidate, step=1, source="chip_smoke"))
+    live_is(candidate, "after the swap")
+    res["swap"] = dict(eng.last_swap)
+    swapped = control_run(eng, prompts)
+    fresh = ServingEngine(other, name="gpt2_small_fresh", **kw)
+    want = control_run(fresh, prompts)
+    fresh.close()
+    del fresh
+    if swapped != want or mid == original:
+        raise AssertionError(f"serve_control: tokens after the swap equal "
+                             f"a fresh engine's on the new weights: "
+                             f"{swapped == want}; the swap changed the "
+                             f"in-flight requests: {mid != original}")
+    no_capture("the swap")
+    # the rollback
+    eng.rollback_weights()
+    back = control_run(eng, prompts)
+    live_is(original_weights, "after the rollback")
+    if back != original:
+        raise AssertionError("serve_control: tokens after the rollback "
+                             "differ from the original weights'")
+    res["rollback"] = dict(eng.last_swap)
+    no_capture("the rollback")
+    # the canary: live and candidate weights, its launches counted
+    probe = rng.integers(1, cfg.vocab_size, CONTROL_PROBE)
+    before = kernels.all_stats()
+    ppl = (eng.run_canary(probe), eng.run_canary(probe, candidate))
+    canary = {k: v for k, v in counts_since(before).items()
+              if v["kernel"] or v["plain"]}
+    want_canary = {"layer_norm": {"kernel": 2 * SERVE_LN, "plain": 0},
+                   "flash_attention": {"kernel": 2 * SERVE_FLASH,
+                                       "plain": 0},
+                   "softmax_ce_fwd": {"kernel": 2, "plain": 0}}
+    if canary != want_canary or not all(map(math.isfinite, ppl)):
+        raise AssertionError(f"serve_control: canary launches {canary}, "
+                             f"want {want_canary}; perplexities {ppl}")
+    live_is(original_weights, "after the canary")
+    res["canary"] = dict(perplexity_live=ppl[0], perplexity_candidate=ppl[1],
+                         probe=list(CONTROL_PROBE), launches=canary)
+    # restart mid-decode
+    info = {}
+    restarted = control_run(eng, prompts, 3,
+                            lambda: info.update(eng.restart(
+                                reason="chip_smoke")))
+    if restarted != original or info["requeued"] != CONTROL_REQUESTS:
+        raise AssertionError(f"serve_control: restart {info}; tokens equal "
+                             f"an unrestarted run's: {restarted == original}")
+    no_capture("the restart")
+    res["restart"] = info
+    # the admission gates
+    eng.suspend(retry_after_s=2.5)
+    try:
+        eng.submit(prompts[0], max_new_tokens=2)
+        raise AssertionError("serve_control: a suspended engine admitted")
+    except EngineSuspended as e:
+        if e.retry_after_s != 2.5:
+            raise AssertionError(f"serve_control: retry_after_s "
+                                 f"{e.retry_after_s}")
+    eng.resume_admissions()
+    eng.set_queue_limit(2)
+    capped = [eng.submit(p, max_new_tokens=2) for p in prompts[:2]]
+    try:
+        eng.submit(prompts[2], max_new_tokens=2)
+        raise AssertionError("serve_control: the queue cap let a third in")
+    except RuntimeError as e:
+        if "shed cap" not in str(e):
+            raise
+    eng.set_queue_limit(None)
+    eng.run_until_idle()
+    for r in capped:
+        r.result(timeout=0)
+    free0 = eng.allocator.free_pages
+    parked = eng.shrink_pool(0.5)
+    shrunk = eng.allocator.free_pages
+    restored = eng.restore_pool()
+    if not (parked == (eng.cache.num_pages - 1) // 2 == restored
+            and shrunk == free0 - parked
+            and eng.allocator.free_pages == free0):
+        raise AssertionError(f"serve_control: shrink parked {parked}, "
+                             f"restore returned {restored}; free {free0} "
+                             f"-> {shrunk} -> {eng.allocator.free_pages}")
+    res["pool"] = dict(free_pages=free0, parked=parked, restored=restored)
+    # the governor on the card's own memory reading
+    gov = MemoryGovernor(limit_bytes=1, engines=lambda: [eng],
+                         retry_after_s=2.5)
+    in_use = gov.in_use_bytes([eng])
+    gov.limit_bytes = in_use - 1
+    acts = [gov.tick(), gov.tick()]
+    gov.limit_bytes = 2 * in_use
+    acts += [gov.tick(), gov.tick()]
+    names = [a and a["action"] for a in acts]
+    if names != ["shrink_pool", "suspend", "resume", "restore_pool"] or \
+            eng.allocator.reserved_pages or eng.status()["suspended"]:
+        raise AssertionError(f"serve_control: governor actions {names}")
+    res["governor"] = dict(in_use_bytes=in_use, actions=names,
+                           parked_pages=acts[0]["parked_pages"])
+    stats = kernels.all_stats()
+    no_composed("serve_control")
+    for name in ("layer_norm", "flash_attention", "paged_attention",
+                 "softmax_ce_fwd"):
+        if stats[name]["kernel"] <= 0 or stats[name]["plain"]:
+            raise AssertionError(f"serve_control: {name} {stats[name]}")
+    res.update(launches=stats, graphs=len(eng._graphs),
+               graph_captures=eng.stats["graph_captures"],
+               swaps=eng.stats["swaps"], restarts=eng.stats["restarts"])
+    log(f"serve_control: swap with {res['swap']['in_flight']} requests in "
+        f"flight, pause_s {res['swap']['pause_s']:.6f}, rollback pause_s "
+        f"{res['rollback']['pause_s']:.6f}; later tokens equal a fresh "
+        f"engine's on the new weights, the rollback's the original's; "
+        f"canary perplexity {ppl[0]:.4f} live, {ppl[1]:.4f} candidate "
+        f"(launches {json.dumps(canary)}); restart requeued "
+        f"{info['requeued']}, tokens as unrestarted; {captures} graphs, "
+        f"none captured again; suspension, queue cap, pool {parked} pages "
+        f"parked and restored; governor at {in_use} bytes in use: "
+        f"{', '.join(names)} [{card}]")
+    eng.close()
+    del eng, model, other, models, candidate, original_weights
+    free_card()
+    return res
 
 
 # ------------------------------ phase 6: train ------------------------------
@@ -5017,13 +5300,24 @@ def split_masked(kname, rows, paths):
         bound_by=r["bound_by"], library_ms=r["library_ms"])}
 
 #: the phases `--phases` may name, in the order they run
-PHASES = ("health", "health_trip", "fit_resume", "transformer", "resnet_fit")
+PHASES = ("serve", "health", "health_trip", "fit_resume", "transformer",
+          "resnet_fit", "serve_control")
 
 
 def only_phases(phases, cfg, smi, name):
     """Run the named phases of PHASES alone (after the device and build
-    phases); health_trip needs health's step."""
+    phases; "serve" is phase 4 with its CPU cross-check, phase 5);
+    health_trip needs health's step."""
     res = {}
+    if "serve" in phases:
+        from paddle_tpu_torch.models.gpt import GPT
+        model = GPT(cfg, device="cuda",
+                    generator=torch.Generator().manual_seed(0))
+        model.eval()
+        res["serve"], prompts = serve(model, cfg, smi)
+        res["cpu_cross_check"] = cross_check(model, cfg, prompts)
+        del model
+        free_card()
     if "health" in phases:
         res["health"], tripped, batch = health_train(cfg, smi)
         if "health_trip" in phases:
@@ -5037,6 +5331,8 @@ def only_phases(phases, cfg, smi, name):
         res["transformer_cpu_cross_check"] = transformer_cross_check()
     if "resnet_fit" in phases:
         res["resnet_fit"] = resnet_fit(smi)
+    if "serve_control" in phases:
+        res["serve_control"] = serve_control(cfg, smi)
     with open(os.path.join(OUT_DIR, "chip_smoke_phases.json"), "w") as f:
         json.dump(res, f, indent=1)
     print(smi)
@@ -5119,6 +5415,9 @@ def main(argv=None):
             + check_ce(dev, gen, TRAIN_B * TRAIN_L, 50304)
             # the ResNet step's loss (fp32 under Model.fit)
             + check_ce(dev, gen, RESNET_B, 1000)
+            # the serving canary's (phase 23): B 2 x T 128 probe, fp32
+            + check_ce(dev, gen, CONTROL_PROBE[0] * (CONTROL_PROBE[1] - 1),
+                       50304, dtypes=(torch.float32,))
             + check_fused_bn(dev, gen, ((128, 112, 112, 64),
                                         (128, 14, 14, 1024)))
             + check_conv1x1(dev, gen, tuple(RESNET_CONV_SHAPES))
@@ -5261,8 +5560,11 @@ def main(argv=None):
     tb_cpu = transformer_cross_check()
     # 22. ResNet-50 in fp32 through hapi Model.fit, the default TF32 flags
     rfit = resnet_fit(smi)
+    # 23. the serving control plane: swap, rollback, canary, restart, the
+    # admission gates and the governor, under the captured graphs
+    control = serve_control(cfg, smi)
 
-    # 23. report: launches from each path's own run (counters reset just
+    # 24. report: launches from each path's own run (counters reset just
     # before it); times at the main path's shape
     result = dict(card=smi, capability=cap, launch_floor_ms=floor,
                   checks=rows, edges=edges,
@@ -5274,10 +5576,12 @@ def main(argv=None):
                   composed=composed, bert=bert, bert_cpu_cross_check=bert_cpu,
                   ernie=ernie, amp=amp_res, health=health_res,
                   health_trip=trip, fit_resume=fit_res, transformer=tb,
-                  transformer_cpu_cross_check=tb_cpu, resnet_fit=rfit)
-    paths = {"serve": served, "train": trained, "resnet": resnet,
-             "long": long, "bert": bert, "health": health_res,
-             "fit": fit_res, "transformer": tb, "resnet_fit": rfit}
+                  transformer_cpu_cross_check=tb_cpu, resnet_fit=rfit,
+                  serve_control=control)
+    paths = {"serve": served, "serve_control": control, "train": trained,
+             "resnet": resnet, "long": long, "bert": bert,
+             "health": health_res, "fit": fit_res, "transformer": tb,
+             "resnet_fit": rfit}
     kern = []
     for kname, meta in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == kname]

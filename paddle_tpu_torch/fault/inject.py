@@ -90,6 +90,9 @@ _KINDS = ("error", "timeout", "oserror", "kill", "delay")
 KNOWN_SITES = {
     "serving.decode": "per-iteration serving decode dispatch "
                       "(latency chaos for SLO breach drills)",
+    "serving.wedge": "top of the serving step loop "
+                     "(delay kind wedges the decode loop for "
+                     "watchdog-restart drills)",
     "serving.admit": "request admission into the serving queue "
                      "(shed and admission-failure drills)",
 }

@@ -25,9 +25,21 @@
   fork). When the pool runs dry the youngest request is PREEMPTED (pages
   freed, request requeued with its generated prefix) instead of the
   engine deadlocking;
+* **prefill is captured too**: in ``decode_mode="fused"`` a request's
+  prefill (the block-table row, every layer with its K/V written into the
+  pages, the first token's draw) is one CUDA graph per (prompt bucket,
+  greedy or sampling variant) in the same pool as the decode step's, over
+  static input buffers: one host-to-device copy, one replay and the token
+  back. ``"eager"`` prefills op by op;
+* **the self-healing plane** (the reference's): a weight swap staged off
+  the decode path and applied at an iteration boundary, its rollback and
+  a canary score; a restart that requeues the in-flight requests; and
+  the admission gates a :class:`~.governor.MemoryGovernor` drives
+  (suspension, a queue cap, parked pages);
 * **serving metrics and traces**: the queue depth, batch occupancy, TTFT
-  and TPOT (by decode ``path``) and goodput families of the metrics
-  registry, a ``serving_admission`` / ``serving_eviction`` event per
+  and TPOT (by decode ``path``), goodput, swap, restart and suspension
+  families of the metrics registry, a ``serving_admission`` /
+  ``serving_eviction`` / ``serving_swap`` / ``serving_restart`` event per
   lifecycle edge, a per-request lifecycle trace (``profiler/reqtrace.py``)
   and the sliding-window SLO tracker (``profiler/slo.py``).
 
@@ -36,12 +48,17 @@ update; here the cache's tensors are written in place, so one live set of
 pools, block tables and context lengths exists for the engine's life, and
 a captured step reads and writes them at fixed addresses. The host's
 writes between iterations (page growth, copy-on-write copies, a released
-slot's reset, an admission's block-table row) go to the same stream
-before the next replay.
+slot's reset) go to the same stream before the next replay. For the same
+reason the reference's two rebinds become in-place writes: a swap copies
+the new weights into the live parameters' storage (the reference rebinds
+its parameter dict), and a restart zeroes the pools, block tables and
+context lengths (the reference builds a new cache), so every captured
+graph stays valid and none is captured again.
 """
 from __future__ import annotations
 
 import itertools
+import math
 import threading
 import time
 import weakref
@@ -60,11 +77,11 @@ from ..profiler import health as _health
 from ..profiler import metrics as _metrics
 from ..profiler import reqtrace as _reqtrace
 from ..profiler import slo as _slo
-from ..utils.envparse import env_int
+from ..utils.envparse import env_float, env_int
 from .sampling import SamplingParams, any_sampled, sample_logits
 
-__all__ = ["Request", "PageAllocator", "SamplingParams", "ServingEngine",
-           "current_engine", "live_engines"]
+__all__ = ["EngineSuspended", "Request", "PageAllocator", "SamplingParams",
+           "ServingEngine", "current_engine", "live_engines"]
 
 #: live engines, newest last (weak references)
 _engine_refs: List["weakref.ref[ServingEngine]"] = []
@@ -95,6 +112,30 @@ def live_engines() -> List["ServingEngine"]:
     return out
 
 
+class EngineSuspended(RuntimeError):
+    """Admission refused: the engine is suspended (memory-pressure
+    degradation). Carries ``retry_after_s`` so an endpoint can answer 503
+    with a Retry-After header instead of a bare error."""
+
+    def __init__(self, model: str, reason: str, retry_after_s: float):
+        super().__init__(
+            f"engine {model!r} suspended ({reason}); "
+            f"retry after {retry_after_s:g}s")
+        self.model = model
+        self.reason = reason
+        self.retry_after_s = float(retry_after_s)
+
+
+def _no_fencing(term, policy: str):
+    """The reference checks a controller's fencing token here
+    (``distributed/fleet/leader.py:check_term``); the port has no leader,
+    so only the operator's ``term=None`` passes."""
+    if term is not None:
+        raise NotImplementedError(
+            f"{policy}: term={term!r} needs the fleet leader's fencing "
+            f"(check_term), which is not ported (ROADMAP A12)")
+
+
 _REG = _metrics.default_registry()
 _M_QUEUE = _REG.gauge(
     "serving_queue_depth",
@@ -114,6 +155,25 @@ _M_TPOT = _REG.histogram(
 _M_GOODPUT = _REG.counter(
     "serving_goodput_tokens_total",
     "generated tokens delivered to finished or running requests, by model")
+_M_SWAP_TOTAL = _REG.counter(
+    "serving_swap_total",
+    "weight hot-swap attempts by model and outcome "
+    "(applied|rejected|rolled_back|failed)")
+_M_SWAP_PAUSE = _REG.histogram(
+    "serving_swap_pause_seconds",
+    "decode-loop pause while a staged weight swap lands between "
+    "iterations, by model")
+_M_SWAP_STEP = _REG.gauge(
+    "serving_swap_step",
+    "checkpoint step of the live serving weights, by model "
+    "(-1 until a hot-swap lands)")
+_M_RESTARTS = _REG.counter(
+    "serving_restart_total",
+    "watchdog engine restarts by model and reason; in-flight requests "
+    "requeue through the preemption path")
+_M_SUSPENDED = _REG.gauge(
+    "serving_suspended",
+    "1 while admission is suspended under memory pressure, by model")
 
 
 class PageAllocator:
@@ -131,6 +191,7 @@ class PageAllocator:
         self.num_pages = int(num_pages)
         self._free: List[int] = list(range(self.num_pages - 1, 0, -1))
         self._refs: Dict[int, int] = {}
+        self._reserved: List[int] = []
         self._on_release = on_release
 
     @property
@@ -184,6 +245,27 @@ class PageAllocator:
             self._free.append(p)
             if self._on_release is not None:
                 self._on_release(p)
+
+    @property
+    def reserved_pages(self) -> int:
+        return len(self._reserved)
+
+    def reserve(self, n: int) -> int:
+        """Park up to `n` FREE pages out of circulation (memory-pressure
+        degradation: a reserved page cannot be allocated until released).
+        Live pages are never touched. Returns the count reserved."""
+        take = min(max(0, int(n)), len(self._free))
+        for _ in range(take):
+            self._reserved.append(self._free.pop())
+        return take
+
+    def release_reserved(self, n: Optional[int] = None) -> int:
+        """Return reserved pages to the free list (all by default)."""
+        take = len(self._reserved) if n is None \
+            else min(max(0, int(n)), len(self._reserved))
+        for _ in range(take):
+            self._free.append(self._reserved.pop())
+        return take
 
 
 class _PrefixCache:
@@ -347,6 +429,81 @@ class _LaneBuffers:
         self.out_host = torch.zeros(W, dtype=torch.int32, pin_memory=pin)
 
 
+class _PrefillBuffers:
+    """The captured prefill's static inputs and output for one prompt
+    bucket, the counterpart of :class:`_LaneBuffers`.
+
+    One pinned host block and its device twin hold [bucket + 6] int64
+    (the prompt ids, then slot, length, write_start, top_k, seed and
+    step), [2] float32 (temperature, top_p) and [pages_per_seq] int32
+    (the block-table row), so an admission moves them in one copy. The
+    step writes the first token into ``out`` [1] int32, which comes back
+    into the pinned ``out_host``."""
+
+    def __init__(self, bucket: int, pages_per_seq: int,
+                 device: torch.device):
+        pin = device.type == "cuda"
+        n_int = bucket + 6
+        size = 8 * n_int + 8 + 4 * pages_per_seq
+        self.host = torch.zeros(size, dtype=torch.uint8, pin_memory=pin)
+        self.dev = torch.zeros(size, dtype=torch.uint8, device=device)
+        h = self.host.numpy()
+        self.host_ints = h[:8 * n_int].view(np.int64)
+        self.host_floats = h[8 * n_int:8 * n_int + 8].view(np.float32)
+        self.host_row = h[8 * n_int + 8:].view(np.int32)
+        ints = self.dev[:8 * n_int].view(torch.int64)
+        floats = self.dev[8 * n_int:8 * n_int + 8].view(torch.float32)
+        self.ids = ints[:bucket].view(1, bucket)
+        self.slot, self.length, self.write_start = (
+            ints[bucket], ints[bucket + 1], ints[bucket + 2])
+        self.top_k, self.seed, self.step = (
+            ints[bucket + 3:bucket + 4], ints[bucket + 4:bucket + 5],
+            ints[bucket + 5:bucket + 6])
+        self.temp, self.top_p = floats[0:1], floats[1:2]
+        self.row = self.dev[8 * n_int + 8:].view(torch.int32)
+        self.out = torch.zeros(1, dtype=torch.int32, device=device)
+        self.out_host = torch.zeros(1, dtype=torch.int32, pin_memory=pin)
+
+    def fill(self, tokens: Sequence[int], pages: Sequence[int], slot: int,
+             write_start: int, sp: SamplingParams, seed: int, step: int):
+        bucket = self.ids.shape[1]
+        n = len(tokens)
+        self.host_ints[:n] = tokens
+        self.host_ints[n:bucket] = 0
+        self.host_ints[bucket:] = (slot, n, write_start, sp.top_k, seed,
+                                   step)
+        self.host_floats[:] = (sp.temperature, sp.top_p)
+        self.host_row[:] = 0
+        self.host_row[:len(pages)] = pages
+
+
+class _LossOf(torch.nn.Module):
+    """``model.loss`` as a module's forward, so ``functional_call`` can
+    run it over candidate weights (``model.<name>`` for each name)."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, ids, labels):
+        return self.model.loss(ids, labels)
+
+
+def _torch_dtype(t) -> Optional[torch.dtype]:
+    """A candidate weight's type as a torch dtype (None when torch has
+    none for it)."""
+    if isinstance(t, torch.Tensor):
+        return t.dtype
+    try:
+        return torch.from_numpy(np.empty(0, np.dtype(t.dtype))).dtype
+    except TypeError:
+        return None
+
+
+def _as_tensor(t) -> torch.Tensor:
+    return t if isinstance(t, torch.Tensor) else torch.tensor(np.asarray(t))
+
+
 class ServingEngine:
     """Continuous-batching decode engine over one model's paged KV cache.
 
@@ -363,13 +520,26 @@ class ServingEngine:
     construction (`pool_bytes()`). `eos_id` is the engine-wide stop token
     a request takes unless it names its own.
 
-    `decode_mode`: "fused" (default) runs each decode iteration as one
-    step over static buffers, on a card one CUDA graph per (lane bucket,
-    greedy or sampling variant), captured at its first use; a failed
-    capture or replay raises. The step runs with the per-op NaN check
+    `decode_mode`: "fused" (default) runs each decode iteration and each
+    prefill as one step over static buffers, on a card one CUDA graph per
+    (lane bucket, greedy or sampling variant) and per ("prefill", prompt
+    bucket, variant), all captured at first use into one pool; a failed
+    capture or replay raises. The steps run with the per-op NaN check
     suspended (the reference's check does not look inside its jitted
-    executable either). "eager" dispatches the same math op by op. Both
+    executables either). "eager" dispatches the same math op by op,
+    prefill included (the reference jits prefill in both modes). Both
     modes give the same tokens, bit for bit.
+
+    The self-healing plane: `request_swap` stages new weights (copied to
+    the device at once) and the next iteration boundary copies them into
+    the live parameters in place, keeping the outgoing set for
+    `rollback_weights`; `run_canary` scores weights without touching the
+    live ones; `restart` requeues the in-flight requests and resets the
+    KV plane in place; `suspend`, `set_queue_limit` and `shrink_pool` gate
+    admission (the MemoryGovernor's ladder). The disaggregated pipeline's
+    hooks (`admit_handoff`, `handoff_source`, `on_preempt_requeue`),
+    `audit()` and the fleet leader's `term=` fencing raise, naming the
+    ROADMAP items that port them.
 
     `share_prefix` (default True) admits a request whose prompt prefix is
     already resident by FORKING its pages copy-on-write instead of
@@ -446,12 +616,36 @@ class ServingEngine:
         # graph per (W, variant) with the launch counts of its capture,
         # all in one memory pool, and the side stream of the first runs
         self._lanes: Dict[int, _LaneBuffers] = {}
-        self._step_graphs = StepGraphs(self.device, f"ServingEngine {name}")
+        # the captured prefill: static buffers per prompt bucket, graphs
+        # in the same StepGraphs (and pool) as the decode step's
+        self._prefill_bufs: Dict[int, _PrefillBuffers] = {}
+        self._step_graphs = (StepGraphs(self.device, f"ServingEngine {name}")
+                             if self.device.type == "cuda" else None)
+        # the live weights, written in place by a swap (a captured graph
+        # reads them at their addresses)
+        self._params = dict(model.named_parameters())
+        self._buffers = dict(model.named_buffers())
+        self._loop_poll_s = 0.005
+        # self-healing plane state: the staged swap (applied between
+        # iterations), the outgoing weights kept for rollback, the restart
+        # flag, and the shed/suspend admission gates. The dispatch lock
+        # keeps a canary (which rebinds the model's attributes while it
+        # runs) out of every prefill, decode step and capture.
+        self._swap_lock = threading.Lock()
+        self._dispatch_lock = threading.Lock()
+        self._pending_swap: Optional[dict] = None
+        self._prev_weights: Optional[tuple] = None
+        self.weights_step: Optional[int] = None
+        self.last_swap: Optional[dict] = None
+        self._restarting = False
+        self.queue_limit: Optional[int] = None
+        self._suspended: Optional[dict] = None
         self.stats = {"iterations": 0, "prefills": 0, "decode_tokens": 0,
                       "completed": 0, "preemptions": 0, "decode_wall_s": 0.0,
                       "prefill_wall_s": 0.0, "cow_copies": 0,
                       "prefix_hit_tokens": 0, "shared_admissions": 0,
-                      "graph_captures": 0,
+                      "swaps": 0, "restarts": 0, "graph_captures": 0,
+                      "prefill_graph_replays": 0,
                       "min_free_pages": self.allocator.free_pages}
         # request-scoped observability: lifecycle tracer, sliding-window
         # SLO tracker and a bounded ring of per-iteration snapshots
@@ -465,6 +659,43 @@ class ServingEngine:
             _engine_refs.append(weakref.ref(self))
             del _engine_refs[:-8]  # bound the registry
 
+    # -- the reference's surface the port does not carry ----------------------
+    def tp_degree(self) -> int:
+        """Shards the KV pools split over: 1 (no tensor-parallel mesh)."""
+        return 1
+
+    def audit(self, emit: bool = True):
+        raise NotImplementedError(
+            "ServingEngine.audit: the static program audit (the reference's "
+            "jaxpr auditor) is not ported (ROADMAP A13)")
+
+    def admit_handoff(self, handoff) -> bool:
+        raise NotImplementedError(
+            "ServingEngine.admit_handoff: the disaggregated prefill/decode "
+            "pipeline (inference/disagg.py) is not ported (ROADMAP A11)")
+
+    @property
+    def handoff_source(self):
+        return None
+
+    @handoff_source.setter
+    def handoff_source(self, value):
+        if value is not None:
+            raise NotImplementedError(
+                "ServingEngine.handoff_source: the disaggregated "
+                "pipeline is not ported (ROADMAP A11)")
+
+    @property
+    def on_preempt_requeue(self):
+        return None
+
+    @on_preempt_requeue.setter
+    def on_preempt_requeue(self, value):
+        if value is not None:
+            raise NotImplementedError(
+                "ServingEngine.on_preempt_requeue: the disaggregated "
+                "pipeline is not ported (ROADMAP A11)")
+
     # -- public API -----------------------------------------------------------
     def make_request(self, prompt: Sequence[int], max_new_tokens: int = 16,
                      eos_id: Optional[int] = None,
@@ -476,6 +707,10 @@ class ServingEngine:
         # chaos: an armed `serving.admit` fails admission before the
         # request exists (the reference's shed drill)
         _fault_site("serving.admit")
+        susp = self._suspended
+        if susp is not None:
+            raise EngineSuspended(self.name, susp["reason"],
+                                  susp["retry_after_s"])
         req = Request(prompt, max_new_tokens,
                       self.eos_id if eos_id is None else eos_id,
                       sampling=sampling)
@@ -510,6 +745,12 @@ class ServingEngine:
             # already drained the queue
             if self._closed:
                 raise RuntimeError("engine is closed")
+            if self.queue_limit is not None \
+                    and len(self._queue) >= self.queue_limit:
+                # controller shed: sustained SLO breach capped the queue
+                raise RuntimeError(
+                    f"queue at shed cap ({self.queue_limit}); "
+                    f"engine {self.name!r} is shedding load")
             self._queue.append(req)
             depth = len(self._queue)
         req.trace_id = self.tracer.submit(req.rid)
@@ -533,6 +774,18 @@ class ServingEngine:
         shared page about to be written, preempting the youngest on pool
         exhaustion, then one decode pass. Returns the number of tokens
         generated by the decode pass (0 = engine idle)."""
+        # chaos: an armed `serving.wedge=N:delay` stalls the loop here,
+        # before any progress is made; `wedged()` flips once the stall
+        # outlives the liveness window (the watchdog-restart drill)
+        try:
+            _fault_site("serving.wedge")
+        except Exception:
+            pass  # delay/no-op kinds only; a wedge is slow, not dead
+        # a staged weight swap lands at the iteration boundary: in-flight
+        # requests keep their pages and decode the next token on the new
+        # weights, and no graph is captured again
+        if self._pending_swap is not None:
+            self._apply_pending_swap()
         self._admit()
         active_slots = [i for i, r in enumerate(self._slots)
                         if r is not None]
@@ -585,10 +838,14 @@ class ServingEngine:
         silently dead thread that strands clients in result()."""
         if self._thread is not None:
             return
+        self._loop_poll_s = poll_s
 
         def loop():
-            while not self._closed:
+            while not self._closed and not self._restarting:
                 try:
+                    if self._pending_swap is not None and \
+                            not self.pending():
+                        self._apply_pending_swap()  # idle engines swap too
                     if not self.pending() or self.step() == 0:
                         time.sleep(poll_s)
                 except Exception as e:  # noqa: BLE001 — see docstring
@@ -650,6 +907,276 @@ class ServingEngine:
         return int(sum(k.nbytes + v.nbytes for k, v in
                        zip(self.cache.k_pages, self.cache.v_pages)))
 
+    # -- self-healing plane: swap / restart / degradation ---------------------
+    def request_swap(self, params: Dict, buffers: Optional[Dict] = None, *,
+                     step: Optional[int] = None, source: str = "manual",
+                     rollback: bool = False, on_applied=None) -> dict:
+        """Stage a replacement weight set ({name: tensor or array}); it is
+        copied into the live parameters at the next decode-iteration
+        boundary (`step()` / the idle loop). The arrays are validated
+        against the live weights here: a missing parameter or a shape or
+        type mismatch raises and nothing is staged. The candidate is
+        copied to device tensors now, off the decode path, beside a
+        transient set the apply exchanges through (so while a swap is
+        pending the engine holds two more weight sets, and after it one:
+        the rollback set). Returns the staged record; a second stage
+        before the apply replaces the first."""
+        for k, live in self._params.items():
+            cand = params.get(k)
+            if cand is None:
+                raise ValueError(f"swap rejected: missing parameter {k!r}")
+            if tuple(cand.shape) != tuple(live.shape) \
+                    or _torch_dtype(cand) != live.dtype:
+                raise ValueError(
+                    f"swap rejected: parameter {k!r} is "
+                    f"{tuple(cand.shape)}/{cand.dtype} but the live "
+                    f"weights hold {tuple(live.shape)}/{live.dtype}")
+        if buffers is not None:
+            for k, live in self._buffers.items():
+                cand = buffers.get(k)
+                if cand is not None \
+                        and tuple(cand.shape) != tuple(live.shape):
+                    raise ValueError(
+                        f"swap rejected: buffer {k!r} shape "
+                        f"{tuple(cand.shape)} != {tuple(live.shape)}")
+        with torch.no_grad():
+            staged = {k: torch.empty_like(live).copy_(_as_tensor(params[k]))
+                      for k, live in self._params.items()}
+            staged_b = None if buffers is None else {
+                k: torch.empty_like(live).copy_(_as_tensor(buffers[k]))
+                for k, live in self._buffers.items() if k in buffers}
+        return self._stage(staged, staged_b, step, source, rollback,
+                           on_applied)
+
+    def _stage(self, params, buffers, step, source, rollback, on_applied):
+        # the apply's exchange goes through a transient set, allocated
+        # here, off the decode path, and dropped after the apply
+        held = [[torch.empty_like(t) for t in staged.values()]
+                for staged in (params, buffers or {})]
+        ready = None
+        if self.device.type == "cuda":
+            # the apply, on the loop's stream, waits for these copies
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.device))
+        pend = {"params": params, "buffers": buffers, "held": held,
+                "step": step, "source": source, "rollback": bool(rollback),
+                "on_applied": on_applied, "ready": ready,
+                "staged_ts": time.time()}
+        with self._swap_lock:
+            self._pending_swap = pend
+        _events.emit("serving_swap", severity="info", action="stage",
+                     model=self.name, to_step=step, source=source,
+                     rollback=bool(rollback))
+        return pend
+
+    def _apply_pending_swap(self) -> Optional[dict]:
+        """Copy the staged weights into the live parameters and buffers,
+        in place, on the stream the steps run on, and the outgoing ones
+        into the staged tensors, which become the rollback set. No
+        tensor is rebound: every captured graph sees the new weights."""
+        with self._swap_lock:
+            pend, self._pending_swap = self._pending_swap, None
+        if pend is None:
+            return None
+        from_step = self.weights_step
+        t0 = time.perf_counter()
+        with self._dispatch_lock, torch.no_grad():
+            if pend["ready"] is not None:
+                stream = torch.cuda.current_stream(self.device)
+                stream.wait_event(pend["ready"])
+            for live, staged, held in zip(
+                    (self._params, self._buffers),
+                    (pend["params"], pend["buffers"] or {}), pend["held"]):
+                if not staged:
+                    continue
+                # three multi-tensor copies through the transient set
+                dst = [live[k] for k in staged]
+                src = list(staged.values())
+                torch._foreach_copy_(held, dst)
+                torch._foreach_copy_(dst, src)
+                torch._foreach_copy_(src, held)
+            if pend["ready"] is not None:
+                stream.synchronize()  # before the transient set goes
+            del pend["held"]
+            self._prev_weights = (pend["params"], pend["buffers"],
+                                  from_step)
+            self.weights_step = pend["step"]
+        pause_s = time.perf_counter() - t0
+        self.stats["swaps"] += 1
+        action = "rollback" if pend["rollback"] else "swap"
+        in_flight = sum(r is not None for r in self._slots)
+        self.last_swap = {"action": action, "step": pend["step"],
+                          "from_step": from_step, "pause_s": pause_s,
+                          "ts": time.time(), "source": pend["source"],
+                          "in_flight": in_flight}
+        if _metrics.enabled():
+            outcome = "rolled_back" if pend["rollback"] else "applied"
+            _M_SWAP_TOTAL.inc(1.0, model=self.name, outcome=outcome)
+            _M_SWAP_PAUSE.observe(pause_s, model=self.name)
+            _M_SWAP_STEP.set(-1 if pend["step"] is None else pend["step"],
+                             model=self.name)
+        _events.emit("serving_swap",
+                     severity="warn" if pend["rollback"] else "info",
+                     action=action, model=self.name,
+                     from_step=from_step, to_step=pend["step"],
+                     pause_s=round(pause_s, 6), source=pend["source"],
+                     in_flight=in_flight)
+        cb = pend.get("on_applied")
+        if cb is not None:
+            try:
+                cb(self.last_swap)
+            except Exception:  # noqa: BLE001 — observer must not kill decode
+                pass
+        return self.last_swap
+
+    def rollback_weights(self, *, source: str = "rollback") -> dict:
+        """Stage the previous weight set back in (the set the last swap
+        replaced, held in the tensors it was staged in). Raises when no
+        swap has happened yet."""
+        if self._prev_weights is None:
+            raise RuntimeError("no previous weights to roll back to")
+        params, buffers, step = self._prev_weights
+        return self._stage(params, buffers, step, source, True, None)
+
+    def run_canary(self, probe_ids, params: Optional[Dict] = None,
+                   buffers: Optional[Dict] = None) -> float:
+        """Mean-token perplexity of the probe batch (B, T >= 2) under the
+        given weights (default: the live weights), the swap canary's
+        score: ``exp(model.loss(ids[:, :-1], ids[:, 1:]))``. Candidate
+        weights go in through ``torch.func.functional_call``, so the live
+        storage is never written; it serializes with the steps through
+        the dispatch lock, as the module's attributes are rebound while
+        it runs."""
+        ids = np.asarray(probe_ids, np.int64)
+        if ids.ndim != 2 or ids.shape[1] < 2:
+            raise ValueError("probe batch must be (B, T>=2) token ids")
+        inp = torch.from_numpy(ids[:, :-1].copy()).to(self.device)
+        lbl = torch.from_numpy(ids[:, 1:].copy()).to(self.device)
+        cand = {}
+        for live, given in ((self._params, params), (self._buffers,
+                                                     buffers)):
+            for k, v in (given or {}).items():
+                if k in live:
+                    cand[f"model.{k}"] = _as_tensor(v).to(
+                        device=self.device, dtype=live[k].dtype)
+        with self._dispatch_lock, torch.no_grad():
+            if cand:
+                loss = torch.func.functional_call(_LossOf(self.model), cand,
+                                                  (inp, lbl))
+            else:
+                loss = self.model.loss(inp, lbl)
+        nll = float(loss)
+        try:
+            return math.exp(nll)  # a confidently-wrong push overflows
+        except OverflowError:
+            return float("inf")
+
+    def last_progress_age(self) -> float:
+        """Seconds since the last completed decode iteration (the
+        serving-liveness signal)."""
+        return time.monotonic() - self._last_progress
+
+    def restart(self, reason: str = "wedged", join_timeout: float = 15.0,
+                term: Optional[int] = None) -> dict:
+        """Watchdog restart: stop the decode loop, requeue every in-flight
+        request through the preemption path (trace ids and generated
+        prefixes kept: recompute-style resume), rebuild the allocator and
+        the prefix registry (parked pages stay parked), zero the KV pools,
+        block tables and context lengths in place, and relaunch the loop
+        if one ran. Queued requests are untouched; no graph is captured
+        again. Raises if the loop does not stop within `join_timeout`.
+        `term` other than None raises (the leader's fencing, A12)."""
+        _no_fencing(term, "serving_restart")
+        if self._closed:
+            raise RuntimeError("engine is closed")
+        was_running = self._thread is not None
+        self._restarting = True
+        try:
+            t = self._thread
+            if t is not None:
+                t.join(join_timeout)
+                if t.is_alive():
+                    raise RuntimeError(
+                        f"decode loop did not stop within {join_timeout}s")
+                self._thread = None
+            requeued = 0
+            for req in [r for r in self._slots if r is not None]:
+                self._preempt(req)
+                requeued += 1
+            leaked = self.allocator.outstanding()
+            reserved = self.allocator.reserved_pages
+            self._prefix = _PrefixCache(self.page_size)
+            with self._dispatch_lock:
+                for kv in (*self.cache.k_pages, *self.cache.v_pages,
+                           self.cache.block_tables, self.cache.context_lens):
+                    kv.zero_()
+            self.allocator = PageAllocator(self.cache.num_pages,
+                                           on_release=self._prefix.drop_page)
+            if reserved:
+                self.allocator.reserve(reserved)  # keep the shrink in force
+            self._cur_tokens[:] = 0
+            self.stats["restarts"] += 1
+            self._last_progress = time.monotonic()
+        finally:
+            self._restarting = False
+        if _metrics.enabled():
+            _M_RESTARTS.inc(1.0, model=self.name, reason=reason)
+        _events.emit("serving_restart", model=self.name, reason=reason,
+                     requeued=requeued, leaked_pages=len(leaked),
+                     restarted_thread=was_running)
+        if was_running:
+            self.start(self._loop_poll_s)
+        return {"requeued": requeued, "leaked_pages": len(leaked),
+                "restarted_thread": was_running}
+
+    def set_queue_limit(self, limit: Optional[int],
+                        term: Optional[int] = None):
+        """Controller shed actuation: cap (or uncap) queue admission.
+        `term` other than None raises (the leader's fencing, A12)."""
+        _no_fencing(term, "serving_shed")
+        self.queue_limit = None if limit is None else max(1, int(limit))
+
+    def suspend(self, reason: str = "memory_pressure",
+                retry_after_s: Optional[float] = None):
+        """Refuse new admissions (EngineSuspended carries Retry-After);
+        queued and in-flight work keeps draining."""
+        if retry_after_s is None:
+            retry_after_s = env_float("PADDLE_TPU_SERVING_RETRY_AFTER_SEC",
+                                      5.0)
+        self._suspended = {"reason": reason,
+                           "retry_after_s": float(retry_after_s),
+                           "ts": time.time()}
+        if _metrics.enabled():
+            _M_SUSPENDED.set(1, model=self.name)
+
+    def resume_admissions(self):
+        self._suspended = None
+        if _metrics.enabled():
+            _M_SUSPENDED.set(0, model=self.name)
+
+    def shrink_pool(self, frac: float = 0.5) -> int:
+        """Park up to `frac` of the pool's pages (taken from the free
+        list) out of circulation, the first memory-pressure rung. Returns
+        the pages parked (live pages never move)."""
+        target = max(1, int((self.cache.num_pages - 1) * frac))
+        return self.allocator.reserve(target)
+
+    def restore_pool(self) -> int:
+        """Return every parked page to the free list (pressure cleared)."""
+        return self.allocator.release_reserved()
+
+    def wedged(self, stall_after: Optional[float] = None) -> bool:
+        """True when the engine holds work but has not completed a decode
+        iteration for `stall_after` seconds (default: the stall threshold
+        PADDLE_TPU_HEALTH_STALL_SEC)."""
+        if stall_after is None:
+            stall_after = env_float("PADDLE_TPU_HEALTH_STALL_SEC", 300.0)
+        if not self.pending():
+            return False
+        if self._closed:
+            return True
+        return (time.monotonic() - self._last_progress) > stall_after
+
     def requests_snapshot(self, n: int = 50) -> Dict:
         """Live and recently completed per-request phase breakdowns plus
         the per-iteration introspection ring."""
@@ -661,9 +1188,7 @@ class ServingEngine:
         return snap
 
     def status(self) -> Dict:
-        """The reference's status keys (those of its unported control
-        plane at their idle values: no tensor-parallel mesh, no reserved
-        pages, no queue cap, no suspension, no weight swap), plus the
+        """The reference's status keys (no tensor-parallel mesh), plus the
         device and the number of captured step graphs."""
         with self._lock:
             return {
@@ -685,11 +1210,13 @@ class ServingEngine:
                 "priority": self.priority,
                 "mem_budget_bytes": self.mem_budget_bytes,
                 "budget_capped_pages": self._budget_capped,
-                "reserved_pages": 0,
-                "queue_limit": None,
-                "suspended": None,
-                "weights_step": None,
-                "last_swap": None,
+                "reserved_pages": self.allocator.reserved_pages,
+                "queue_limit": self.queue_limit,
+                "suspended": dict(self._suspended) if self._suspended
+                             else None,
+                "weights_step": self.weights_step,
+                "last_swap": dict(self.last_swap) if self.last_swap
+                             else None,
                 "stats": dict(self.stats),
                 "device": str(self.device),
                 "graphs": len(self._graphs),
@@ -697,16 +1224,20 @@ class ServingEngine:
 
     @property
     def _graphs(self) -> dict:
-        """{(lane bucket, variant): (graph, launch counts, outputs)}."""
-        return self._step_graphs.graphs
+        """{(lane bucket, variant) or ("prefill", prompt bucket, variant):
+        (graph, launch counts, outputs)}; empty on the CPU."""
+        g = self._step_graphs
+        return {} if g is None else g.graphs
 
     @property
-    def graph_replays(self) -> Dict[Tuple[int, str], int]:
-        return self._step_graphs.replays
+    def graph_replays(self) -> Dict[tuple, int]:
+        g = self._step_graphs
+        return {} if g is None else g.replays
 
     @property
     def graph_pool_bytes(self) -> int:
-        return self._step_graphs.pool_bytes
+        g = self._step_graphs
+        return 0 if g is None else g.pool_bytes
 
     # -- internals ------------------------------------------------------------
     def _bucket_for(self, n: int) -> int:
@@ -730,7 +1261,8 @@ class ServingEngine:
         page pool can cover right now. A prompt whose prefix is already
         resident FORKS the matching pages instead of allocating and
         recomputing them; prefill then skips the K/V write below the
-        shared length."""
+        shared length. Each prefill ends with its first token back on the
+        host (the prefill boundary)."""
         while True:
             with self._lock:
                 if not self._queue:
@@ -771,24 +1303,12 @@ class ServingEngine:
                                  prompt_tokens=len(tokens),
                                  shared_tokens=shared_len,
                                  requeue=req.preemptions > 0)
-            row = np.zeros((self.cache.pages_per_seq,), np.int32)
-            row[:len(pages)] = pages
-            self.cache.block_tables[slot] = torch.from_numpy(row).to(
-                self.device)
-            ids = np.zeros((1, bucket), np.int64)
-            ids[0, :len(tokens)] = tokens
-            sp = req.sampling
             t0 = time.perf_counter()
-            with torch.no_grad():
-                logits, _ = self.model.forward_prefill(
-                    torch.from_numpy(ids).to(self.device), self.cache, slot,
-                    len(tokens), write_start=shared_len)
-                # the FIRST generated token is sampled like every other
-                # (step counter 0, or len(generated) after a preemption)
-                nxt = sample_logits(logits, [sp.temperature], [sp.top_k],
-                                    [sp.top_p], [req.seed],
-                                    [len(req.generated)])
-            tok = int(nxt[0])  # device sync: the prefill boundary
+            # the FIRST generated token is sampled like every other (step
+            # counter 0, or len(generated) after a preemption)
+            prefill = (self._fused_prefill if self.decode_mode == "fused"
+                       else self._eager_prefill)
+            tok = prefill(req, tokens, pages, slot, bucket, shared_len)
             self.stats["prefill_wall_s"] += time.perf_counter() - t0
             self.stats["prefills"] += 1
             if self.share_prefix:
@@ -807,6 +1327,77 @@ class ServingEngine:
             if req.state != "running":
                 continue  # single-token request finished at prefill
             self._cur_tokens[slot] = tok
+
+    def _eager_prefill(self, req: Request, tokens, pages, slot: int,
+                       bucket: int, shared_len: int) -> int:
+        """The prefill dispatched op by op: the block-table row, the
+        prompt's forward with host ints, the draw from host lists."""
+        row = np.zeros((self.cache.pages_per_seq,), np.int32)
+        row[:len(pages)] = pages
+        ids = np.zeros((1, bucket), np.int64)
+        ids[0, :len(tokens)] = tokens
+        sp = req.sampling
+        with self._dispatch_lock, torch.no_grad():
+            self.cache.block_tables[slot] = torch.from_numpy(row).to(
+                self.device)
+            logits, _ = self.model.forward_prefill(
+                torch.from_numpy(ids).to(self.device), self.cache, slot,
+                len(tokens), write_start=shared_len)
+            nxt = sample_logits(logits, [sp.temperature], [sp.top_k],
+                                [sp.top_p], [req.seed],
+                                [len(req.generated)])
+            return int(nxt[0])  # device sync: the prefill boundary
+
+    def _prefill_fn(self, buf: _PrefillBuffers, sampled: bool):
+        """The prefill over `buf`'s static tensors (the counterpart of the
+        reference's ``_prefill_fn``): the slot's block-table row, every
+        layer with the K/V written into the pages (positions outside
+        [write_start, length) to the null page), and the first token's
+        draw into ``buf.out``. Nothing in it reads a host value, so a
+        replay serves any length, slot and shared prefix of its bucket.
+        The per-op NaN check is suspended, as in the decode step."""
+        with torch.no_grad(), _health.suspended():
+            self.cache.block_tables.index_copy_(0, buf.slot.view(1),
+                                                buf.row.view(1, -1))
+            logits, _ = self.model.forward_prefill(
+                buf.ids, self.cache, buf.slot, buf.length,
+                write_start=buf.write_start)
+            buf.out.copy_(sample_logits(logits, buf.temp, buf.top_k,
+                                        buf.top_p, buf.seed, buf.step,
+                                        sampled=sampled))
+
+    def _fused_prefill(self, req: Request, tokens, pages, slot: int,
+                       bucket: int, shared_len: int) -> int:
+        """One host-to-device copy of the admission's inputs into the
+        bucket's static buffers, the prefill (a graph replay on a card,
+        captured at the (bucket, variant)'s first use; a plain call on
+        the CPU), and one copy of the token back."""
+        if not 1 <= len(tokens) <= bucket:
+            raise ValueError(f"prefill: {len(tokens)} tokens outside the "
+                             f"bucket [1, {bucket}]")
+        buf = self._prefill_bufs.get(bucket)
+        if buf is None:
+            buf = self._prefill_bufs[bucket] = _PrefillBuffers(
+                bucket, self.cache.pages_per_seq, self.device)
+        sp = req.sampling
+        buf.fill(tokens, pages, slot, shared_len, sp, req.seed,
+                 len(req.generated))
+        sampled = not sp.greedy
+        with self._dispatch_lock:
+            buf.dev.copy_(buf.host, non_blocking=True)
+            graphs = self._step_graphs
+            if graphs is None:
+                self._prefill_fn(buf, sampled)
+                return int(buf.out[0])
+            key = ("prefill", bucket, "sampled" if sampled else "greedy")
+            replay = key in graphs.graphs
+            captures = graphs.captures
+            graphs.run(key, lambda: self._prefill_fn(buf, sampled))
+            self.stats["graph_captures"] += graphs.captures - captures
+            self.stats["prefill_graph_replays"] += int(replay)
+            buf.out_host.copy_(buf.out, non_blocking=True)
+            self._sync()
+            return int(buf.out_host[0])
 
     def _alloc_one_or_preempt(self, req: Request) -> Optional[int]:
         """One fresh page for `req`, preempting the youngest runner on a
@@ -920,10 +1511,11 @@ class ServingEngine:
         # host: temperatures are host data
         sampled = any_sampled(temp)
         t0 = time.perf_counter()
-        if self.decode_mode == "fused":
-            nxt_np = self._fused_iteration(lanes, sampled)
-        else:
-            nxt_np = self._eager_iteration(lanes, sampled)
+        with self._dispatch_lock:
+            if self.decode_mode == "fused":
+                nxt_np = self._fused_iteration(lanes, sampled)
+            else:
+                nxt_np = self._eager_iteration(lanes, sampled)
         self.stats["decode_wall_s"] += time.perf_counter() - t0
         self.stats["iterations"] += 1
         produced = 0
@@ -989,7 +1581,7 @@ class ServingEngine:
         buf.host_floats[:] = (temp, top_p)
         buf.host_active[:] = lane_active
         buf.dev.copy_(buf.host, non_blocking=True)
-        if self.device.type != "cuda":
+        if self._step_graphs is None:
             self._step_fn(buf, sampled)
             return buf.out.numpy().copy()
         key = (W, "sampled" if sampled else "greedy")
@@ -997,8 +1589,14 @@ class ServingEngine:
         self._step_graphs.run(key, lambda: self._step_fn(buf, sampled))
         self.stats["graph_captures"] += self._step_graphs.captures - captures
         buf.out_host.copy_(buf.out, non_blocking=True)
-        torch.cuda.current_stream(self.device).synchronize()
+        self._sync()
         return buf.out_host.numpy().copy()
+
+    def _sync(self):
+        """Wait for the steps' stream (the iteration or prefill
+        boundary)."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
 
     def _record_token(self, req: Request, tok: int):
         req.generated.append(tok)

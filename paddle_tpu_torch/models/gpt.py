@@ -248,8 +248,8 @@ class GPT(nn.Layer):
         return PagedKVCache(k_pages, v_pages, bt, cl, page_size)
 
     @torch.no_grad()
-    def forward_prefill(self, input_ids, cache: PagedKVCache, slot: int,
-                        length: int, write_start: int = 0):
+    def forward_prefill(self, input_ids, cache: PagedKVCache, slot,
+                        length, write_start=0):
         """Prefill ONE sequence: run the prompt through causal flash
         attention while writing every position's K/V into the pages of
         batch slot `slot`. `input_ids` is [1, L_bucket] (padded up to a
@@ -257,18 +257,32 @@ class GPT(nn.Layer):
         `write_start` already live in pages shared with another request
         (copy-on-write prefix) and are not written; attention still runs
         over the whole prompt. Returns (last-position logits [1, V], cache),
-        the cache updated in place."""
+        the cache updated in place.
+
+        `slot`, `length` and `write_start` are Python ints, or 0-d device
+        tensors: then nothing reads a host value (a captured prefill
+        replays with other ones), the last real position is gathered on
+        the device, and the caller checks 1 <= length <= L_bucket."""
         B, L = input_ids.shape
         if B != 1:
             raise ValueError(f"forward_prefill fills ONE slot's pages; got "
                              f"batch {B} (serving prefills per request)")
-        slot, length = int(slot), int(length)
-        if not 1 <= length <= L:
-            raise ValueError(f"forward_prefill: length {length} outside "
-                             f"[1, {L}]")
+        on_device = any(isinstance(a, torch.Tensor)
+                        for a in (slot, length, write_start))
+        if on_device:
+            dev = input_ids.device
+            slot, length, write_start = (
+                torch.as_tensor(a, device=dev).reshape(1)
+                for a in (slot, length, write_start))
+            page_row = cache.block_tables.index_select(0, slot)[0]
+        else:
+            slot, length = int(slot), int(length)
+            if not 1 <= length <= L:
+                raise ValueError(f"forward_prefill: length {length} outside "
+                                 f"[1, {L}]")
+            page_row = cache.block_tables[slot]
         pos = torch.arange(L, device=input_ids.device)
         x = self.embed(input_ids, pos)
-        page_row = cache.block_tables[slot]
         for li, blk in enumerate(self.blocks):
             q, k, v = blk.attn.split_qkv(blk.ln1(x))
             _pa.prefill_append(cache.k_pages[li], cache.v_pages[li], k[0],
@@ -277,10 +291,16 @@ class GPT(nn.Layer):
                                                  training=False)
             x = x + blk.attn.proj(out.reshape(B, L, self.cfg.hidden_size))
             x = x + blk.mlp(blk.ln2(x))
-        cache.context_lens[slot] = length
         # logits of the LAST REAL position only (bucket padding past
         # `length` attends causally to junk and is never read)
-        return self.logits(x[:, length - 1]), cache
+        if on_device:
+            cache.context_lens.index_copy_(
+                0, slot, length.to(cache.context_lens.dtype))
+            last = x.index_select(1, length - 1)[:, 0]
+        else:
+            cache.context_lens[slot] = length
+            last = x[:, length - 1]
+        return self.logits(last), cache
 
     @torch.no_grad()
     def forward_decode(self, tokens, cache: PagedKVCache, active=None,

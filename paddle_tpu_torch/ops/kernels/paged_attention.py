@@ -231,20 +231,40 @@ def cache_append(k_pages, v_pages, k_new, v_new, block_tables, context_lens,
     v_pages.index_put_((page, off), v_new.to(v_pages.dtype))
 
 
-def prefill_append(k_pages, v_pages, k_seq, v_seq, page_ids, length: int,
-                   start: int = 0):
+def prefill_append(k_pages, v_pages, k_seq, v_seq, page_ids, length,
+                   start=0):
     """Write a prompt's K/V [L, H, D] into ONE sequence's pages, in place:
     position i goes to page_ids[i // page_size] at offset i % page_size,
     for start <= i < length only. Positions at or past ``length`` are
     bucket padding, and positions below ``start`` already live in pages
     forked from another request (copy-on-write prefix sharing), which must
-    not be written. The reference scatters those positions to the null
-    page; here they are not written at all.
+    not be written.
+
+    ``length`` and ``start`` are Python ints or 0-d device tensors. With
+    ints, only the live positions are written, and the rest not at all.
+    With a tensor (a captured prefill, which may read no host value), all
+    L positions are written in one fixed-shape scatter and each position
+    outside [start, length) goes to the null page 0 at offset 0, as the
+    reference's does; which of those writes lands there is left open,
+    as no attention reads the null page.
 
     Index rule: ``length`` must fit the block-table row (the reference's
-    gather would clamp and its scatter drop); a longer one raises here,
-    on the host, before any device index is formed."""
+    gather would clamp and its scatter drop). An int that does not raises
+    here, on the host, before any device index is formed; a tensor is
+    checked by its caller, which knows the length on the host (the
+    serving engine)."""
     page_size = k_pages.shape[1]
+    if isinstance(length, torch.Tensor) or isinstance(start, torch.Tensor):
+        L, pps = k_seq.shape[0], page_ids.shape[0]
+        pos = torch.arange(L, device=k_pages.device)
+        live = (pos >= start) & (pos < length)
+        row = page_ids.to(k_pages.device)
+        pages = torch.where(live, row[(pos // page_size).clamp(max=pps - 1)]
+                            .long(), 0)
+        offs = torch.where(live, pos % page_size, 0)
+        k_pages.index_put_((pages, offs), k_seq.to(k_pages.dtype))
+        v_pages.index_put_((pages, offs), v_seq.to(v_pages.dtype))
+        return
     length, start = int(length), int(start)
     if length > page_ids.shape[0] * page_size or length > k_seq.shape[0]:
         raise ValueError(f"prefill_append: length {length} exceeds the "

@@ -346,6 +346,7 @@ def test_malformed_fault_clause_warns_as_in_the_reference():
     with pytest.raises(fault.InjectedFault):
         inj.site("good.site")
     assert set(fault.inject.KNOWN_SITES) == {"serving.decode",
+                                             "serving.wedge",
                                              "serving.admit"}
     assert set(fault.inject.KNOWN_SITES) <= set(jfault.inject.KNOWN_SITES)
 

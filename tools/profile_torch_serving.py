@@ -3,13 +3,16 @@
 
     python3 tools/profile_torch_serving.py     # from the repository root
     python3 tools/profile_torch_serving.py --tree DIR --tag NAME
+    python3 tools/profile_torch_serving.py --mode eager --tag eager
 
 Builds GPT-2 small at full width (fp32, random weights from seed 0) under
 ``paddle_tpu_torch.inference.ServingEngine(max_batch=32, max_len=1024,
-page_size=16)`` on one card (the engine's default ``decode_mode``) and
-measures, with ``torch.profiler`` (CPU and CUDA activities):
+page_size=16)`` on one card (the engine's default ``decode_mode``, or
+``--mode``'s) and measures, with ``torch.profiler`` (CPU and CUDA
+activities):
 
-* one prefill of a 960-token prompt (the 1024 bucket);
+* one prefill of a 960-token prompt (the 1024 bucket), after a warm-up
+  prefill in that bucket (which, in the fused mode, captures its graph);
 * a steady window of decode iterations with all 32 lanes active;
 
 For each: host wall time, device busy time (the sum of kernel times on the
@@ -74,6 +77,8 @@ def main():
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), help="the checkout to profile")
     ap.add_argument("--tag", help="suffix of the output file's name")
+    ap.add_argument("--mode", choices=("fused", "eager"),
+                    help="the engine's decode_mode (default: its default)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_serving: no CUDA card", file=sys.stderr)
@@ -92,12 +97,16 @@ def main():
     cfg.dropout = cfg.attn_dropout = 0.0
     model = GPT(cfg, device="cuda",
                 generator=torch.Generator().manual_seed(0))
-    eng = ServingEngine(model, max_batch=32, max_len=1024, page_size=16)
+    eng = ServingEngine(model, max_batch=32, max_len=1024, page_size=16,
+                        **({} if args.mode is None
+                           else {"decode_mode": args.mode}))
     rng = np.random.default_rng(0)
     act = torch.profiler.ProfilerActivity
 
-    # warm-up: every code path once (cuBLAS handles, allocator)
+    # warm-up: every code path once (cuBLAS handles, allocator, the 1024
+    # bucket's prefill graph in the fused mode)
     eng.generate(rng.integers(1, cfg.vocab_size, 40).tolist(), 4)
+    eng.generate(rng.integers(1, cfg.vocab_size, 900).tolist(), 1)
 
     # one 1024-bucket prefill (a single request, so step() admits it)
     long_prompt = rng.integers(1, cfg.vocab_size, 960).tolist()
