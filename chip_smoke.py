@@ -6,6 +6,8 @@
                                      # phases 1-2, then only those named
     python3 chip_smoke.py --phases serve,serve_control
                                      # phases 1-2, 4-5 and 23
+    python3 chip_smoke.py --phases observe
+                                     # phases 1-2 and 24
 
 Phases, each of which raises (exit code != 0, with its traceback) on a
 failure:
@@ -213,7 +215,32 @@ failure:
               restore_pool; the MemoryGovernor on torch.cuda.mem_get_info
               with its limit one byte under the bytes in use (shrink, then
               suspend) and then raised (resume, then restore);
-24. report  - the `kernels` JSON line, the card's name and power limit, and
+24. observe - the observability plane: GPT-2 small fp32 through hapi
+              Model.fit (b8 s1024, 12 steps) with PADDLE_TPU_METRICS_PORT=0
+              and a ThroughputMonitor(window=4) writing JSONL (every record
+              valid, the card's memory in it); from a client thread, while
+              the fit waits at its sixth step: /healthz 200 "healthy",
+              /metrics with the watchdog, compile and device-memory
+              families, /snapshot with one train_step signature and no
+              retrace, the graph capture and the kernel build in its
+              compile attribution, then /profile?steps=2: after a lead-in
+              step, the capture's Kineto trace holds exactly the launches
+              the counters saw over its two steps, kernel by kernel (layer norm and its backward,
+              flash forward, one-pass backward, CE forward and backward),
+              and the two train_step spans' measured device time equals
+              the trace's kernel, copy and set time within 2 %; the cap's
+              timer finalizing a window from its own thread, the training
+              thread's next step stopping Kineto; the monitor's and the
+              server's cost, fits on and off in 3 paired rounds. Then a
+              fused ServingEngine behind an ObservabilityServer: a
+              Profiler(targets=[CPU, GPU]) window (a READY lead-in step,
+              then 6 RecordEvent-spanned engine steps) whose trace holds
+              every paged-attention launch of those steps (no graph
+              captured in it), 429 at the queue limit, POST
+              /generate's tokens equal to engine.generate's, /requests,
+              /slo, /healthz's serving block, 503 with Retry-After while
+              suspended;
+25. report  - the `kernels` JSON line, the card's name and power limit, and
               the device JSON line last.
 
 Every TrainStep above runs captured (one CUDA graph per batch signature,
@@ -5196,6 +5223,491 @@ def resnet_fit(card):
     return res
 
 
+# ----------------- phase 24: observe (the observability plane) -----------------
+
+#: steps of the observed Model.fit run, and of each paired round's fits
+OBSERVE_STEPS = 12
+#: the observed fit's 0-based step before which /profile?steps=2 is armed:
+#: the capture starts its trace at note_step(ARM + 1) (step ARM + 2,
+#: 1-based, is its lead-in) and spans steps ARM + 3 and ARM + 4, closing
+#: at note_step(ARM + 4)
+OBSERVE_ARM = 5
+#: paired rounds of the fit with the monitor and the server on against off
+OBSERVE_ROUNDS = 3
+#: the kernels of the fit step and of a decode iteration, by the name of the
+#: one CUDA kernel each wrapper launch makes in a Kineto trace (the layer
+#: norm backward's second pass, column_sums_kernel<layer_norm_bwd_sums>,
+#: and paged attention's merge are not the counted launch)
+KINETO_KERNELS = {
+    "layer_norm": r"layer_norm_fwd_(hold|stream)_kernel",
+    "layer_norm_bwd": r"layer_norm_bwd_(hold|stream)_kernel",
+    "flash_attention": r"flash_fwd_(tc_|tf32_)?kernel",
+    "flash_attention_bwd": r"flash_bwd_(tc_|tf32_)?kernel",
+    "softmax_ce_fwd": r"ce_fwd_(rows|stream)_kernel",
+    "softmax_ce_bwd": r"ce_bwd_(rows|stream)_kernel",
+    "paged_attention": r"paged_attn_part_kernel",
+}
+#: the families /metrics must carry during the observed fit
+OBSERVE_FAMILIES = ("jit_cache_hits_total", "jit_cache_misses_total",
+                    "jit_retraces_total", "xla_compiles_total",
+                    "xla_compile_seconds", "xla_compile_cache_events_total",
+                    "device_memory_bytes_in_use", "device_memory_peak_bytes")
+#: serving: prompts of the observed engine and new tokens each; the steps
+#: of its profiled window
+OBSERVE_PROMPTS, OBSERVE_NEW, OBSERVE_SERVE_STEPS = (40, 100, 200, 300), 10, 6
+
+
+def http(port, path, body=None, timeout=120):
+    """(status, parsed JSON or text, headers) of a GET, or of a POST of
+    `body` (JSON), against the local server on `port`."""
+    import urllib.error
+    import urllib.request
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            code, text, hdrs = r.status, r.read().decode(), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        code, text, hdrs = e.code, e.read().decode(), dict(e.headers)
+    try:
+        return code, json.loads(text), hdrs
+    except ValueError:
+        return code, text, hdrs
+
+
+def kineto_counts(path, within):
+    """{kernel: launches} of KINETO_KERNELS in a Kineto chrome trace and
+    the total work time (kernels, copies, sets) in ms, both between the
+    first start and the last end of the card-side projections of the
+    ranges named `within` (a window's lead-in lies before them)."""
+    import re
+    from paddle_tpu_torch.profiler import xplane
+    evs = xplane.load_trace(path).get("traceEvents", [])
+    wins = [(e["ts"], e["ts"] + e["dur"]) for e in evs
+            if e.get("cat") == "gpu_user_annotation"
+            and e.get("name") == within]
+    if not wins:
+        raise AssertionError(f"observe: no card-side {within!r} range in "
+                             f"{path}")
+    lo, hi = min(w[0] for w in wins), max(w[1] for w in wins)
+    works = [e for e in xplane.work_events(evs) if lo <= e["ts"] < hi]
+    counts = {k: sum(1 for e in works if e.get("cat") == "kernel"
+                     and re.search(pat, e.get("name", "")))
+              for k, pat in KINETO_KERNELS.items()}
+    return counts, sum(float(e.get("dur", 0.0)) for e in works) / 1e3
+
+
+def wait_for(pred, what, timeout=120.0):
+    t0 = time.monotonic()
+    while not pred():
+        if time.monotonic() - t0 > timeout:
+            raise AssertionError(f"observe: timed out waiting for {what}")
+        time.sleep(0.01)
+
+
+def observe_fit(cfg, card):
+    """Phase 24, training: GPT-2 small fp32 through hapi Model.fit (b8
+    s1024, 12 steps) with PADDLE_TPU_METRICS_PORT=0 and a
+    ThroughputMonitor(window=4) writing JSONL; from a client thread
+    /healthz, /metrics, /snapshot and /profile?steps=2 in order, the
+    capture's kernels held to the launch counters and its train_step
+    device time to the trace's; the cap's timer path; the monitor's and
+    the server's cost in paired rounds."""
+    import threading
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.hapi import callbacks as cb
+    from paddle_tpu_torch.io import Dataset
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.profiler import monitor, server, watchdog, xplane
+
+    class Batches(Dataset):
+        def __init__(self, n):
+            self.n = n
+
+        def __len__(self):
+            return self.n * TRAIN_B
+
+        def __getitem__(self, i):
+            rng = np.random.default_rng(200 + i)
+            return (rng.integers(0, cfg.vocab_size, TRAIN_L),
+                    rng.integers(0, cfg.vocab_size, TRAIN_L))
+
+    class Hooks(cb.Callback):
+        """Times every step's begin and runs `hooks[step]()` there (the
+        training thread, after note_step(step))."""
+
+        def __init__(self, hooks=None):
+            super().__init__()
+            self.hooks, self.t = hooks or {}, []
+
+        def on_train_batch_begin(self, step, logs=None):
+            if step in self.hooks:
+                self.hooks[step]()
+            self.t.append(time.perf_counter())
+
+    def step_ms(hooks, skip=()):
+        gaps = [(b - a) * 1e3 for a, b in zip(hooks.t, hooks.t[1:])]
+        return [g for i, g in enumerate(gaps) if i + 1 not in skip and i]
+
+    net = GPT(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    m = Model(net)
+    m.prepare(optimizer.AdamW(1e-4, parameters=net.parameters(),
+                              weight_decay=0.01), F.cross_entropy)
+    flops = model_flops(net, TRAIN_B, TRAIN_L)
+    jsonl = os.path.join(OUT_DIR, "observe_steps.jsonl")
+    if os.path.exists(jsonl):
+        os.remove(jsonl)
+    cap = xplane.default_capture()
+    watchdog.get_watchdog().reset()
+    snaps, client, errors = {}, {}, []
+    ready = threading.Event()  # the fit is at step OBSERVE_ARM
+
+    def misses():
+        return (watchdog._M_MISSES.value(site="train_step"),
+                watchdog._M_HITS.value(site="train_step"))
+
+    misses0 = misses()
+
+    def run_client():
+        try:
+            if not ready.wait(600):
+                raise AssertionError("the fit never reached its arm step")
+            srv = server.get_server()
+            if srv is None:
+                raise AssertionError("Model.fit started no server")
+            port = srv.port
+            client["healthz"] = http(port, "/healthz")[:2]
+            client["metrics"] = http(port, "/metrics")[:2]
+            client["snapshot"] = http(port, "/snapshot")[:2]
+            client["profile"] = http(port, "/profile?steps=2&timeout=120",
+                                     timeout=300)[:2]
+        except BaseException as e:  # noqa: B036 - raised on the main thread
+            errors.append(e)
+
+    def at_arm():
+        ready.set()
+        wait_for(lambda: cap.state == "armed" or errors, "/profile's arm")
+
+    hooks = Hooks({OBSERVE_ARM: at_arm,
+                   OBSERVE_ARM + 2: lambda: snaps.__setitem__(
+                       "start", kernels.all_stats()),
+                   OBSERVE_ARM + 4: lambda: snaps.__setitem__(
+                       "end", kernels.all_stats())})
+    mon = cb.ThroughputMonitor(window=4, jsonl_path=jsonl,
+                               samples_per_step=TRAIN_B, flops_per_step=flops)
+    th = threading.Thread(target=run_client, daemon=True)
+    th.start()
+    with env_var("PADDLE_TPU_METRICS_PORT", "0"):
+        m.fit(Batches(OBSERVE_STEPS), batch_size=TRAIN_B, epochs=1,
+              shuffle=False, verbose=0, callbacks=[hooks, mon])
+    th.join(120)
+    if errors:
+        raise AssertionError(f"observe: the client failed: {errors[0]!r}")
+    step = m._train_step
+    code, hz = client["healthz"]
+    code_m, text = client["metrics"]
+    code_s, snap = client["snapshot"]
+    code_p, prof = client["profile"]
+    if not (code == 200 and hz["status"] == "healthy" and code_m == 200
+            and code_s == 200 and code_p == 200):
+        raise AssertionError(f"observe: endpoints {code} {hz} {code_m} "
+                             f"{code_s} {code_p}")
+    missing = [f for f in OBSERVE_FAMILIES
+               if f"# HELP paddle_tpu_{f} " not in text]
+    if missing or 'device_memory_bytes_in_use{device="cuda:0"}' not in text:
+        raise AssertionError(f"observe: /metrics lacks {missing} or the "
+                             f"card's memory gauge")
+    # exactly one train_step signature, no retrace after the first step
+    fam = snap["metrics"]["jit_cache_misses_total"]["values"]
+    snap_misses = sum(v["value"] for v in fam
+                      if v["labels"].get("site") == "train_step")
+    wd = snap["watchdog"]
+    new_misses, new_hits = (a - b for a, b in zip(misses(), misses0))
+    attribution = snap["compile_attribution"]
+    train_entry = attribution.get(f"train_step:{step._wd_name}", {})
+    builds = {e: v["phases"]["kernel_build"] for e, v in attribution.items()
+              if "kernel_build" in v.get("phases", {})}
+    captures = train_entry.get("phases", {}).get("graph_capture", {})
+    if not (snap_misses - misses0[0] == 1 == new_misses
+            and new_hits == OBSERVE_STEPS - 1
+            and wd["total_retraces"] == 0
+            and captures.get("count") == step.stats["graph_captures"] == 1
+            and (builds or 'xla_compile_cache_events_total{event="hit"}'
+                 in text)):
+        raise AssertionError(f"observe: signatures {snap_misses} "
+                             f"{new_misses} {new_hits}, watchdog {wd}, "
+                             f"compile attribution {attribution}")
+    # the capture: train_step spans measured from the Kineto trace
+    rows = {r["op"]: r for r in prof["device_time"]["rows"]}
+    ts_row = rows.get("train_step")
+    if not (prof["status"] == "complete" and prof["steps"] == 2 and ts_row
+            and ts_row["src"] == "xplane" and ts_row["calls"] == 2
+            and "xplane" in prof["summary_table"]):
+        raise AssertionError(f"observe: /profile {json.dumps(prof)[:2000]}")
+    counted, work_ms = kineto_counts(prof["trace_path"], "train_step")
+    window = {k: snaps["end"][k]["kernel"] - snaps["start"][k]["kernel"]
+              for k in PER_STEP}
+    traced = {k: counted[k] for k in PER_STEP}
+    if traced != window or window != {k: 2 * n for k, n in PER_STEP.items()}:
+        raise AssertionError(f"observe: the trace's kernels {traced} against "
+                             f"the launch counters {window}")
+    dev_ms = ts_row["device_ms"]
+    if not work_ms > 0 or abs(dev_ms - work_ms) > 0.02 * work_ms:
+        raise AssertionError(f"observe: train_step device {dev_ms} ms "
+                             f"against the window's work {work_ms} ms")
+    records = [json.loads(line) for line in open(jsonl)]
+    for rec in records:
+        monitor.validate_step_record(rec)
+    if [r["step"] for r in records] != [4, 8, 12] or not all(
+            r["device_mem_bytes"] for r in records):
+        raise AssertionError(f"observe: step records {records}")
+    unprofiled = step_ms(hooks, skip=tuple(range(OBSERVE_ARM,
+                                                 OBSERVE_ARM + 5)))
+    res = dict(
+        steps=OBSERVE_STEPS, window=window, traced=traced,
+        train_step_device_ms=dev_ms, window_work_ms=work_ms,
+        device_vs_work=dev_ms / work_ms - 1.0,
+        profiled_step_host_ms=ts_row["host_ms"] / 2,
+        device_share_of_step=dev_ms / ts_row["host_ms"],
+        unprofiled_step_ms=unprofiled,
+        correlation=prof["correlation"], segments=prof["segments"],
+        diagnosis=prof.get("diagnosis"), records=records,
+        compile_attribution=attribution, kernel_builds=builds,
+        graph_capture_s=captures.get("seconds"), healthz=hz,
+        cache_events=[line for line in text.splitlines()
+                      if line.startswith(
+                          "paddle_tpu_xla_compile_cache_events_total")])
+    log(f"observe: Model.fit GPT-2 small fp32 b{TRAIN_B} s{TRAIN_L}, "
+        f"/profile?steps=2: train_step {dev_ms:.3f} device ms over 2 steps "
+        f"against the trace's {work_ms:.3f} ms of work ("
+        f"{100 * res['device_vs_work']:+.4f} %), "
+        f"{100 * res['device_share_of_step']:.2f} % of the profiled steps' "
+        f"{ts_row['host_ms']:.3f} host ms; kernels traced {traced} = "
+        f"counted; unprofiled steps "
+        f"{min(unprofiled):.3f}-{max(unprofiled):.3f} ms, profiled "
+        f"{res['profiled_step_host_ms']:.3f} ms; graph capture "
+        f"{captures.get('seconds'):.3f} s; kernel builds {builds}; "
+        f"records {[round(r['step_time_ms'], 3) for r in records]} ms, "
+        f"MFU {[round(r['mfu_est'], 4) for r in records]} [{card}]")
+    log(f"observe: segments {json.dumps(prof['segments']['segments'])}")
+
+    # the cap's timer finalizes a window from its own thread; the trace
+    # stops on the training thread at its next step
+    timer = {}
+
+    def run_timer_client():
+        try:
+            timer["profile"] = http(server.get_server().port,
+                                    "/profile?steps=100&timeout=1",
+                                    timeout=120)[:2]
+        except BaseException as e:  # noqa: B036
+            errors.append(e)
+
+    def check_stopped():
+        timer["enabled_after"] = (
+            torch.autograd.profiler._is_profiler_enabled
+            or torch._C._autograd._profiler_enabled())
+
+    th = threading.Thread(target=run_timer_client, daemon=True)
+    hooks_t = Hooks({
+        1: lambda: (th.start(), wait_for(lambda: cap.state == "armed",
+                                         "the timer path's arm")),
+        3: lambda: (wait_for(lambda: cap.state == "idle",
+                             "the timer's finalize", 30),
+                    timer.__setitem__("enabled_before", (
+                        torch.autograd.profiler._is_profiler_enabled))),
+        4: check_stopped})
+    with env_var("PADDLE_TPU_METRICS_PORT", "0"):
+        m.fit(Batches(6), batch_size=TRAIN_B, epochs=1, shuffle=False,
+              verbose=0, callbacks=[hooks_t])
+    th.join(60)
+    last = cap.last_summary or {}
+    if errors or not (timer["profile"][0] == 200
+                      and timer["profile"][1]["status"] == "timeout"
+                      and timer["enabled_before"] is True
+                      and timer["enabled_after"] is False
+                      and last.get("trace_path")
+                      and os.path.exists(last["trace_path"])
+                      and cap.state == "idle"):
+        raise AssertionError(f"observe: the timer path {timer} {last} "
+                             f"{errors}")
+    res["timer_path"] = dict(status=timer["profile"][1]["status"],
+                             trace_stopped_on_next_step=True)
+    log("observe: the cap's timer finalized a window (status timeout); "
+        "the training thread's next step stopped Kineto and wrote the trace")
+
+    # cost of the monitor and the server: paired rounds, on and off in turns
+    server.stop_server()
+    rounds = []
+    for r in range(OBSERVE_ROUNDS):
+        pair = {}
+        for mode in (("off", "on") if r % 2 == 0 else ("on", "off")):
+            h = Hooks()
+            cbs = [h]
+            port = None
+            if mode == "on":
+                cbs.append(cb.ThroughputMonitor(
+                    window=4, jsonl_path=jsonl, samples_per_step=TRAIN_B,
+                    flops_per_step=flops))
+                port = "0"
+            with env_var("PADDLE_TPU_METRICS_PORT", port):
+                m.fit(Batches(OBSERVE_STEPS), batch_size=TRAIN_B, epochs=1,
+                      shuffle=False, verbose=0, callbacks=cbs)
+            if (mode == "on") != (server.get_server() is not None):
+                raise AssertionError(f"observe: round {r} {mode}: server "
+                                     f"{server.get_server()}")
+            server.stop_server()
+            pair[mode] = float(np.median(step_ms(h)))
+        pair["overhead"] = pair["on"] / pair["off"] - 1.0
+        rounds.append(pair)
+        log(f"observe: round {r}: step {pair['off']:.3f} ms off, "
+            f"{pair['on']:.3f} ms with the monitor and the server "
+            f"({100 * pair['overhead']:+.3f} %; the reference's yardstick "
+            f"for its sentinel: 2 %) [{card}]")
+    res["cost_rounds"] = rounds
+    del m, net, step
+    free_card()
+    return res
+
+
+def observe_serving(cfg, card):
+    """Phase 24, serving: a fused ServingEngine at phase 4's widths behind
+    an ObservabilityServer; a Profiler(targets=[CPU, GPU]) window of
+    RecordEvent-spanned steps whose trace holds every paged-attention
+    launch; 429 at the queue limit, /generate's tokens equal to
+    engine.generate's, /requests, /slo, /healthz's serving block, 503 with
+    Retry-After while suspended."""
+    from paddle_tpu_torch.inference.serving import ServingEngine
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.profiler import (Profiler, ProfilerTarget,
+                                           RecordEvent, make_scheduler)
+    from paddle_tpu_torch.profiler.server import ObservabilityServer
+    model = GPT(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    model.eval()
+    eng = ServingEngine(model, max_batch=8, max_len=1024, page_size=16,
+                        name="observe")
+    srv = ObservabilityServer()
+    port = srv.start(0)  # a server that cannot bind fails the phase
+    rng = np.random.default_rng(24)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in OBSERVE_PROMPTS]
+    res = {}
+    try:
+        # warm: the buckets' and the lane width's graphs are captured here,
+        # so the profiled window captures none
+        for p in prompts:
+            eng.submit(p, max_new_tokens=OBSERVE_NEW)
+        eng.run_until_idle()
+        captures = eng.stats["graph_captures"]
+        reqs = [eng.submit(p, max_new_tokens=OBSERVE_NEW) for p in prompts]
+        trace_dir = os.path.join(OUT_DIR, "observe_trace")
+        # one READY step (the trace's lead-in), then the recorded steps
+        prof = Profiler(targets=[ProfilerTarget.CPU, ProfilerTarget.GPU],
+                        scheduler=make_scheduler(
+                            closed=0, ready=1, record=OBSERVE_SERVE_STEPS,
+                            repeat=1), trace_dir=trace_dir)
+        prof.start()
+        for i in range(OBSERVE_SERVE_STEPS + 1):
+            if i == 1:
+                before = kernels.all_stats()["paged_attention"]["kernel"]
+                iterations = eng.stats["iterations"]
+            with RecordEvent("serve_step"):
+                eng.step()
+            prof.step()
+        prof.stop()
+        launched = kernels.all_stats()["paged_attention"]["kernel"] - before
+        iterations = eng.stats["iterations"] - iterations
+        eng.run_until_idle()
+        for r in reqs:
+            r.result(timeout=60)
+        counted, work_ms = kineto_counts(prof.trace_path, "serve_step")
+        stats = prof.xplane_stats or {}
+        if not (launched == counted["paged_attention"]
+                == iterations * SERVE_PAGED > 0
+                and eng.stats["graph_captures"] == captures
+                and stats.get("correlated") == OBSERVE_SERVE_STEPS):
+            raise AssertionError(f"observe: profiled serving window: paged "
+                                 f"attention {launched} launched, "
+                                 f"{counted['paged_attention']} traced; "
+                                 f"correlation {stats}")
+        dev = next(r for r in stats["by_op"] if r["op"] == "serve_step")
+        res["profiled_window"] = dict(
+            steps=OBSERVE_SERVE_STEPS, decode_iterations=iterations,
+            paged_attention=launched,
+            traced=counted, work_ms=work_ms, serve_step_device_ms=dev[
+                "xplane_ms"], host_ms=sum(s.dur_ns for s in prof._spans)
+            / 1e6)
+        log(f"observe: Profiler window of {OBSERVE_SERVE_STEPS} engine "
+            f"steps: {launched} paged-attention launches counted and traced; "
+            f"serve_step device {dev['xplane_ms']:.3f} ms of "
+            f"{res['profiled_window']['host_ms']:.3f} host ms [{card}]")
+        # the admission queue at its limit: 429 (the loop not started yet)
+        with env_var("PADDLE_TPU_SERVING_QUEUE_LIMIT", "2"):
+            queued = [eng.submit(p, max_new_tokens=2) for p in prompts[:2]]
+            code_q, doc_q, _ = http(port, "/generate",
+                                    {"prompt": prompts[0]})
+        eng.run_until_idle()
+        for r in queued:
+            r.result(timeout=60)
+        eng.start()
+        by_http, direct = [], []
+        for p in prompts:
+            code, doc, _ = http(port, "/generate", {
+                "prompt": p, "max_new_tokens": OBSERVE_NEW,
+                "temperature": 0.0})
+            if code != 200:
+                raise AssertionError(f"observe: /generate {code} {doc}")
+            by_http.append(doc["tokens"])
+            direct.append(eng.generate(p, max_new_tokens=OBSERVE_NEW)[
+                "tokens"])
+        code_r, doc_r, _ = http(port, "/requests?n=8")
+        code_s, doc_s, _ = http(port, "/slo")
+        code_h, doc_h, _ = http(port, "/healthz")
+        eng.suspend(reason="memory_pressure", retry_after_s=3.0)
+        code_u, doc_u, hdr_u = http(port, "/generate", {"prompt": [1, 2]})
+        eng.resume_admissions()
+        ok = (code_q == 429 and doc_q["limit"] == 2 and by_http == direct
+              and code_r == 200 and len(doc_r["completed"]) > 0
+              and code_s == 200 and code_h == 200
+              and "observe" in doc_h.get("serving", {})
+              and code_u == 503 and hdr_u.get("Retry-After") == "3"
+              and doc_u.get("retry_after_s") == 3.0)
+        res.update(generate_equal=by_http == direct, status_429=code_q,
+                   status_503=code_u, retry_after=hdr_u.get("Retry-After"),
+                   healthz_serving=doc_h.get("serving"),
+                   slo_signals=sorted(doc_s.get("signals", {})))
+        if not ok:
+            raise AssertionError(f"observe: serving endpoints {res}, "
+                                 f"{code_q} {doc_q} {code_r} {code_s} "
+                                 f"{code_h} {doc_h} {code_u} {doc_u}")
+        log(f"observe: /generate's tokens equal engine.generate's on "
+            f"{len(prompts)} prompts; 429 at the queue limit; 503 with "
+            f"Retry-After {hdr_u.get('Retry-After')} while suspended; "
+            f"/requests, /slo and /healthz's serving block answer")
+    finally:
+        eng.close()
+        srv.stop()
+    del model, eng
+    free_card()
+    return res
+
+
+def observe(cfg, card):
+    """Phase 24: the observability plane on the card (training through
+    Model.fit, then serving); its launches counted from 0."""
+    from paddle_tpu_torch.ops import kernels
+    kernels.reset_stats()
+    res = observe_fit(cfg, card)
+    res["serving"] = observe_serving(cfg, card)
+    res["launches"] = kernels.all_stats()
+    return res
+
+
 def fp32_row(kname, rows, paths):
     """For the 1x1 conv's entry: its fp32 row at the main shape, with its
     launches on phase 22's fp32 path, as `fp32`."""
@@ -5301,7 +5813,7 @@ def split_masked(kname, rows, paths):
 
 #: the phases `--phases` may name, in the order they run
 PHASES = ("serve", "health", "health_trip", "fit_resume", "transformer",
-          "resnet_fit", "serve_control")
+          "resnet_fit", "serve_control", "observe")
 
 
 def only_phases(phases, cfg, smi, name):
@@ -5333,6 +5845,8 @@ def only_phases(phases, cfg, smi, name):
         res["resnet_fit"] = resnet_fit(smi)
     if "serve_control" in phases:
         res["serve_control"] = serve_control(cfg, smi)
+    if "observe" in phases:
+        res["observe"] = observe(cfg, smi)
     with open(os.path.join(OUT_DIR, "chip_smoke_phases.json"), "w") as f:
         json.dump(res, f, indent=1)
     print(smi)
@@ -5563,8 +6077,11 @@ def main(argv=None):
     # 23. the serving control plane: swap, rollback, canary, restart, the
     # admission gates and the governor, under the captured graphs
     control = serve_control(cfg, smi)
+    # 24. the observability plane: Model.fit behind the server, /profile's
+    # capture held to the launch counters, the engine's HTTP face
+    obs = observe(cfg, smi)
 
-    # 24. report: launches from each path's own run (counters reset just
+    # 25. report: launches from each path's own run (counters reset just
     # before it); times at the main path's shape
     result = dict(card=smi, capability=cap, launch_floor_ms=floor,
                   checks=rows, edges=edges,
@@ -5577,11 +6094,11 @@ def main(argv=None):
                   ernie=ernie, amp=amp_res, health=health_res,
                   health_trip=trip, fit_resume=fit_res, transformer=tb,
                   transformer_cpu_cross_check=tb_cpu, resnet_fit=rfit,
-                  serve_control=control)
+                  serve_control=control, observe=obs)
     paths = {"serve": served, "serve_control": control, "train": trained,
              "resnet": resnet, "long": long, "bert": bert,
              "health": health_res, "fit": fit_res, "transformer": tb,
-             "resnet_fit": rfit}
+             "resnet_fit": rfit, "observe": obs}
     kern = []
     for kname, meta in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == kname]

@@ -69,6 +69,7 @@ def build(verbose: bool = False) -> pathlib.Path:
         try:
             if not _stale():
                 last_build_seconds = 0.0
+                _report_build(None)
                 return _LIB
             t0 = time.perf_counter()
             nvcc = nvcc_path()
@@ -98,9 +99,22 @@ def build(verbose: bool = False) -> pathlib.Path:
                            check=True)
             os.replace(tmp, _LIB)
             last_build_seconds = time.perf_counter() - t0
+            _report_build(last_build_seconds)
             return _LIB
         finally:
             fcntl.flock(lk, fcntl.LOCK_UN)
+
+
+def _report_build(seconds) -> None:
+    """Compile attribution: an up-to-date library is a cache hit; a build
+    of `seconds` a miss and one ``kernel_build``, under the entry pushed
+    (the first launch's: ``train_step:<layer>``, a serving step's)."""
+    from ..profiler import compile_watch
+    if seconds is None:
+        compile_watch.record_cache_event("hit")
+    else:
+        compile_watch.record_cache_event("miss")
+        compile_watch.record("kernel_build", seconds)
 
 
 def load() -> ctypes.CDLL:

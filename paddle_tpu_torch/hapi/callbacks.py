@@ -3,10 +3,10 @@
 The reference's hook protocol (``on_{train,eval,predict}_{begin,end}``,
 ``on_epoch_{begin,end}``, ``on_{train,eval,predict}_batch_{begin,end}``)
 and its callbacks: ProgBarLogger, FaultTolerantCheckpoint,
-ModelCheckpoint, LRScheduler, EarlyStopping, and the health plane's
-HealthMonitor (re-exported from ``profiler/health.py``). The reference's
-ThroughputMonitor (the step-window throughput/MFU reporter) waits for
-the rest of ROADMAP A10 and raises.
+ModelCheckpoint, LRScheduler, EarlyStopping, and the observability plane's
+ThroughputMonitor (the step-window throughput/MFU/retrace JSONL reporter,
+``profiler/monitor.py``) and HealthMonitor (``profiler/health.py``),
+re-exported.
 """
 from __future__ import annotations
 
@@ -17,16 +17,7 @@ from typing import List, Optional
 import numpy as np
 
 from ..profiler.health import HealthMonitor  # noqa: F401
-
-
-class ThroughputMonitor:
-    """Not ported yet: the step-window throughput reporter comes with the
-    rest of the observability plane (ROADMAP A10)."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ThroughputMonitor: the throughput/MFU reporter is not ported "
-            "yet (ROADMAP A10, the observability plane)")
+from ..profiler.monitor import ThroughputMonitor  # noqa: F401
 
 
 class Callback:

@@ -11,9 +11,9 @@ loader are moved to the network's device. ``fit(resume=dir)`` restores
 the newest valid ``FaultTolerantCheckpoint`` snapshot and skips the
 consumed steps of the interrupted epoch.
 
-The reference's observability server (``PADDLE_TPU_METRICS_PORT``:
-/metrics, /snapshot, /healthz) waits for the rest of ROADMAP A10:
-``fit`` raises when that variable is set rather than ignore it.
+With ``PADDLE_TPU_METRICS_PORT`` set, ``fit`` starts the observability
+server (``profiler/server.py``: /metrics, /snapshot, /healthz, /events,
+/profile) and notes every step for its liveness and its captures.
 """
 from __future__ import annotations
 
@@ -141,11 +141,10 @@ class Model:
         and the epoch/step cursor from the newest VALID checkpoint, then
         skips the already-consumed steps of the interrupted epoch. With no
         checkpoint found (fresh job), training starts from scratch."""
-        if os.environ.get("PADDLE_TPU_METRICS_PORT"):
-            raise NotImplementedError(
-                "PADDLE_TPU_METRICS_PORT is set, but the observability "
-                "server (/metrics, /snapshot, /healthz) is not ported yet "
-                "(ROADMAP A10)")
+        # observability plane: with PADDLE_TPU_METRICS_PORT set, /metrics,
+        # /snapshot, /healthz, /events and /profile go live for this job
+        from ..profiler import server as _obs_server
+        _obs_server.maybe_start_server()
         train_loader = _as_loader(train_data, batch_size, shuffle, drop_last,
                                   num_workers)
         eval_loader = _as_loader(eval_data, batch_size, False, False,
@@ -208,6 +207,7 @@ class Model:
                 logs = {"loss": loss}
                 cbks.on_train_batch_end(step, logs)
                 it += 1
+                _obs_server.note_step(it)  # /healthz liveness, /profile
                 if num_iters is not None and it >= num_iters:
                     self.stop_training = True
                     break

@@ -72,11 +72,13 @@ from .._platform import resolve_device
 from ..fault import site as _fault_site
 from ..jit.graphs import StepGraphs
 from ..ops.kernels import paged_attention as _pa
+from ..profiler import compile_watch as _compile_watch
 from ..profiler import events as _events
 from ..profiler import health as _health
 from ..profiler import metrics as _metrics
 from ..profiler import reqtrace as _reqtrace
 from ..profiler import slo as _slo
+from ..profiler.watchdog import get_watchdog as _get_watchdog
 from ..utils.envparse import env_float, env_int
 from .sampling import SamplingParams, any_sampled, sample_logits
 
@@ -1308,7 +1310,14 @@ class ServingEngine:
             # counter 0, or len(generated) after a preemption)
             prefill = (self._fused_prefill if self.decode_mode == "fused"
                        else self._eager_prefill)
-            tok = prefill(req, tokens, pages, slot, bucket, shared_len)
+            # the padded ids' signature: one a bucket
+            self._observe_site(f"prefill:{self.name}", (1, bucket))
+            prev = _compile_watch.push_entry(
+                "to_static", f"serving_prefill:{self.name}")
+            try:
+                tok = prefill(req, tokens, pages, slot, bucket, shared_len)
+            finally:
+                _compile_watch.pop_entry(prev)
             self.stats["prefill_wall_s"] += time.perf_counter() - t0
             self.stats["prefills"] += 1
             if self.share_prefix:
@@ -1510,12 +1519,20 @@ class ServingEngine:
         # the reference's lax.cond over "every lane greedy", taken on the
         # host: temperatures are host data
         sampled = any_sampled(temp)
+        # per-bucket watchdog site: ONE signature per lane width is the
+        # zero-retrace steady-state contract
+        self._observe_site(f"decode:{self.name}:w{W}", (W,))
+        prev = _compile_watch.push_entry("to_static",
+                                         f"serving_decode:{self.name}")
         t0 = time.perf_counter()
-        with self._dispatch_lock:
-            if self.decode_mode == "fused":
-                nxt_np = self._fused_iteration(lanes, sampled)
-            else:
-                nxt_np = self._eager_iteration(lanes, sampled)
+        try:
+            with self._dispatch_lock:
+                if self.decode_mode == "fused":
+                    nxt_np = self._fused_iteration(lanes, sampled)
+                else:
+                    nxt_np = self._eager_iteration(lanes, sampled)
+        finally:
+            _compile_watch.pop_entry(prev)
         self.stats["decode_wall_s"] += time.perf_counter() - t0
         self.stats["iterations"] += 1
         produced = 0
@@ -1537,6 +1554,14 @@ class ServingEngine:
             _M_OCC.set(sum(r is not None for r in self._slots),
                        model=self.name)
         return produced
+
+    @staticmethod
+    def _observe_site(site: str, shape) -> None:
+        """One lookup of the retrace watchdog at a graph site: the int64
+        token tensor of `shape` (the reference observes the same tensor,
+        as ``to_static`` ``serving_<site>``)."""
+        _get_watchdog().observe("to_static", f"serving_{site}",
+                                signature=(((tuple(shape), "int64"),), ""))
 
     def _eager_iteration(self, lanes, sampled: bool) -> np.ndarray:
         """The step dispatched op by op from Python, its lane arrays

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..profiler import metrics as _metrics_mod
+from ..profiler.timer import benchmark as _benchmark
 from .dataset import Dataset, IterableDataset
 from .sampler import BatchSampler
 
@@ -32,6 +33,10 @@ _M_DL_WAIT_HIST = _REG.histogram(
 
 
 def _record_fetch_wait(wait_s: float):
+    """Feed one consumer-side batch wait into the global Benchmark reader
+    averager (ThroughputMonitor's data-wait reads it) and the metrics
+    registry."""
+    _benchmark().reader.record(wait_s)
     if _metrics_mod.enabled():
         _M_DL_WAIT.inc(wait_s)
         _M_DL_BATCHES.inc()

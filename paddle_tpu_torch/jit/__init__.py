@@ -19,7 +19,9 @@ import torch
 from torch.func import functional_call
 
 from ..framework.io import to_host
+from ..profiler import compile_watch as _compile_watch
 from ..profiler import health as _health
+from ..profiler.watchdog import get_watchdog as _get_watchdog
 from ..utils.envparse import env_bool
 from .graphs import StepGraphs
 
@@ -118,9 +120,14 @@ class TrainStep:
     On the CPU the same step runs uncaptured.
     """
 
+    _seq = 0
+
     def __init__(self, layer: torch.nn.Module, loss_fn, optimizer,
                  donate: bool = True, amp_dtype=None, health=None,
                  fused_opt=None):
+        TrainStep._seq += 1
+        # the retrace watchdog's and compile attribution's name
+        self._wd_name = f"{type(layer).__name__}#{TrainStep._seq}"
         self.layer = layer
         self.optimizer = optimizer
         self.amp_dtype = amp_dtype
@@ -203,7 +210,14 @@ class TrainStep:
         return loss.detach(), hvec
 
     def __call__(self, *batch):
-        return self._run(batch, self._graphs is not None)
+        # a new batch signature captures the WHOLE step anew — the most
+        # expensive recapture in the system; always worth an event
+        _get_watchdog().observe("train_step", self._wd_name, batch)
+        prev = _compile_watch.push_entry("train_step", self._wd_name)
+        try:
+            return self._run(batch, self._graphs is not None)
+        finally:
+            _compile_watch.pop_entry(prev)
 
     def _step_uncaptured(self, *batch):
         """The same step without a graph, on a card as on the CPU: the

@@ -34,6 +34,7 @@ what an uncaptured run would.
 """
 from __future__ import annotations
 
+import time
 import warnings
 from typing import Callable, Dict, Hashable
 
@@ -41,6 +42,7 @@ import torch
 
 from ..framework import random as _random
 from ..ops import kernels as _kernels
+from ..profiler import compile_watch as _compile_watch
 
 
 class StepGraphs:
@@ -98,6 +100,7 @@ class StepGraphs:
                 graph.register_generator_state(gen)
         reserved = self._reserved()
         err = None
+        t0 = time.perf_counter()
         with _kernels.recorded() as counts, torch.cuda.stream(side):
             graph.capture_begin(pool=self._pool,
                                 capture_error_mode="thread_local")
@@ -114,6 +117,8 @@ class StepGraphs:
             raise RuntimeError(f"{self.owner}: capturing the graph of "
                                f"{key!r} failed: {err}") from err
         cur.wait_stream(side)
+        # the capture is the port's compile: attributed to the entry pushed
+        _compile_watch.record("graph_capture", time.perf_counter() - t0)
         self.pool_bytes += self._reserved() - reserved
         self.graphs[key] = (graph, counts, out)
         self.replays[key] = 0

@@ -30,7 +30,7 @@ Three tiers, as in the reference:
     vanishing, stagnation; on confirmed divergence ``warn``, ``halt`` or
     ``rollback`` (restore the last numerically valid checkpoint through
     ``distributed/checkpoint.py``). The reference's ``fleet`` response
-    waits for the fleet plane (ROADMAP A10's rest and A11) and raises.
+    waits for the fleet plane (ROADMAP A11/A12) and raises.
 
 Opt-in: ``PADDLE_TPU_HEALTH=1`` or ``FLAGS_check_nan_inf`` folds the
 sentinel into every TrainStep built afterwards; the per-op check follows
@@ -681,8 +681,8 @@ class HealthMonitor:
         the EWMA re-converges; after ``max_rollbacks`` the monitor
         degrades to halt;
       * ``fleet``    — the fleet-wide coordinated rollback needs the fleet
-        controller, which the port does not have yet (ROADMAP A10's rest
-        and A11): constructing a monitor with it raises.
+        controller, which the port does not have yet (ROADMAP A11/A12):
+        constructing a monitor with it raises.
     """
 
     def __init__(self, action: Optional[str] = None, window: int = 50,
@@ -699,7 +699,7 @@ class HealthMonitor:
         if self.action == "fleet":
             raise NotImplementedError(
                 "HealthMonitor(action='fleet'): the fleet controller is not "
-                "ported yet (ROADMAP A10's rest and A11)")
+                "ported yet (ROADMAP A11/A12)")
         self.window = max(int(window), 2)
         self.z_threshold = float(z_threshold)
         self.confirm_steps = max(int(confirm_steps), 1)

@@ -1,6 +1,6 @@
 """Labeled metrics registry: Counter / Gauge / Histogram with Prometheus
 text and JSON-snapshot exporters (a copy of ``paddle_tpu/profiler/
-metrics.py`` without its JAX device-memory sampling).
+metrics.py``; its device-memory sampling reads ``torch.cuda.memory_stats``).
 
 The runtime's quantitative observability spine (complementing the span-based
 host tracer in `recorder.py`): op dispatch counts/bytes, jit-cache and
@@ -26,6 +26,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry",
     "default_registry", "enabled", "set_enabled",
+    "update_device_memory_gauges", "sample_device_memory",
 ]
 
 # default histogram buckets: seconds, spanning sub-ms host dispatch to
@@ -248,3 +249,73 @@ def enabled() -> bool:
 def set_enabled(flag: bool):
     global _enabled
     _enabled = bool(flag)
+
+
+def update_device_memory_gauges(registry: Optional[MetricsRegistry] = None
+                                ) -> dict:
+    """Refresh every device-memory gauge from ONE sampling pass and return
+    the sample (see :func:`sample_device_memory` for its shape).
+
+    The legacy families (`device_bytes_in_use` /
+    `device_peak_bytes_in_use`) are kept as mirrors of the
+    allocator-backed series, as in the reference. Honors the
+    PADDLE_TPU_METRICS kill switch like every instrument site."""
+    if not _enabled:
+        return {}
+    reg = registry or _default_registry
+    sample = sample_device_memory(registry=reg)
+    try:
+        for label, st in sample.items():
+            if st["src"] != "memory_stats":
+                continue
+            reg.gauge("device_bytes_in_use",
+                      "device memory currently allocated").set(
+                st["bytes_in_use"], device=label)
+            reg.gauge("device_peak_bytes_in_use",
+                      "device memory allocation high-water mark").set(
+                st["peak_bytes"], device=label)
+    except Exception:
+        pass
+    return sample
+
+
+def sample_device_memory(registry: Optional[MetricsRegistry] = None) -> dict:
+    """Sample per-card memory into ``device_memory_bytes_in_use`` /
+    ``device_memory_peak_bytes`` gauges and return
+    ``{"cuda:N": {"bytes_in_use", "peak_bytes", "src": "memory_stats"}}``.
+
+    The source is the caching allocator's ``torch.cuda.memory_stats(N)``
+    (``allocated_bytes.all.current`` and ``.peak``) of every card of a
+    process whose CUDA context is up. A process without one (the CPU, or a
+    card not yet touched) samples nothing and returns ``{}``: the host's
+    memory is not device memory, and the port has no live-array registry
+    to sum as the reference does on its CPU backend. Sampling never
+    initializes CUDA. Never raises; honors the PADDLE_TPU_METRICS kill
+    switch."""
+    if not _enabled:
+        return {}
+    reg = registry or _default_registry
+    out: Dict[str, dict] = {}
+    try:
+        import torch
+        if not (torch.cuda.is_available() and torch.cuda.is_initialized()):
+            return out
+        g_use = reg.gauge(
+            "device_memory_bytes_in_use",
+            "device memory currently allocated, by device (allocator "
+            "memory_stats)")
+        g_peak = reg.gauge(
+            "device_memory_peak_bytes",
+            "device memory high-water mark, by device (allocator peak)")
+        for i in range(torch.cuda.device_count()):
+            stats = torch.cuda.memory_stats(i)
+            in_use = float(stats.get("allocated_bytes.all.current", 0))
+            peak = float(stats.get("allocated_bytes.all.peak", in_use))
+            label = f"cuda:{i}"
+            g_use.set(in_use, device=label)
+            g_peak.set(peak, device=label)
+            out[label] = {"bytes_in_use": int(in_use),
+                          "peak_bytes": int(peak), "src": "memory_stats"}
+    except Exception:
+        pass
+    return out

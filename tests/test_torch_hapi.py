@@ -295,10 +295,11 @@ def test_health_monitor_detectors_and_fleet_refusal():
     assert [a["signal"] for a in hm.alerts] == \
         [a["signal"] for a in jhm.alerts]
     assert "loss_spike" in [a["signal"] for a in hm.alerts]
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NotImplementedError, match="A11"):
         cb.HealthMonitor(action="fleet")
-    with pytest.raises(NotImplementedError, match="A10"):
-        cb.ThroughputMonitor()
+    from paddle_tpu_torch.profiler.monitor import ThroughputMonitor
+    assert cb.ThroughputMonitor is ThroughputMonitor
+    assert cb.ThroughputMonitor(window=2).window == 2
 
 
 def test_model_evaluate_predict_save_load(tmp_path, monkeypatch):
@@ -327,6 +328,12 @@ def test_model_evaluate_predict_save_load(tmp_path, monkeypatch):
     assert len(DataLoader(ds, batch_size=5, drop_last=True)) == 2
     with pytest.raises(NotImplementedError, match="A12"):
         DataLoader(ds, num_workers=2)
-    monkeypatch.setenv("PADDLE_TPU_METRICS_PORT", "9100")
-    with pytest.raises(NotImplementedError, match="A10"):
-        m.fit(ds, verbose=0)
+    # the observability server starts with the fit and sees its steps
+    from paddle_tpu_torch.profiler import server
+    monkeypatch.setenv("PADDLE_TPU_METRICS_PORT", "0")
+    try:
+        m.fit(ds, batch_size=4, verbose=0)
+        assert server.get_server() is not None
+        assert server.liveness()["last_step"] == 3
+    finally:
+        server.stop_server()
