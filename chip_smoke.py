@@ -8,6 +8,8 @@
                                      # phases 1-2, 4-5 and 23
     python3 chip_smoke.py --phases observe
                                      # phases 1-2 and 24
+    python3 chip_smoke.py --phases ps
+                                     # phases 1-2 and 25
 
 Phases, each of which raises (exit code != 0, with its traceback) on a
 failure:
@@ -240,7 +242,22 @@ failure:
               /generate's tokens equal to engine.generate's, /requests,
               /slo, /healthz's serving block, 503 with Retry-After while
               suspended;
-25. report  - the `kernels` JSON line, the card's name and power limit, and
+25. ps      - Wide&Deep over the parameter server at bench.py's widths
+              (B 512, 8 slots, ids uniform in [0, 1,000,000), dim 16, 13
+              dense features, hidden 64; Adam 1e-3 on the dense tower,
+              server SGD 0.05, BCE with logits, 8 seeded batches reused
+              in turn), each part on a fresh table server: the eager loop
+              (2 warm-up + 20 timed steps), sync HeterPSTrainStep over
+              the same batches (its losses against the eager loop's within
+              PS_LOSS_TOL, its dense step replaying a captured graph), 5
+              sync steps on the CPU against the card's, an async probe
+              (10 steps, flush), the pipelined step with a 32,768-row
+              hot-row cache and prefetch (2 warm-up passes, 30 timed
+              steps, 5 synced; stage times, hit rate, evictions,
+              overflow, graph replays, peak memory; the cache's buffers on
+              the card and every hit served by the gather there), and
+              DeepFM's sync step against its eager loop; no kernel runs;
+26. report  - the `kernels` JSON line, the card's name and power limit, and
               the device JSON line last.
 
 Every TrainStep above runs captured (one CUDA graph per batch signature,
@@ -5708,6 +5725,296 @@ def observe(cfg, card):
     return res
 
 
+# ---------------------- phase 25: the parameter server ----------------------
+
+#: bench.py:1446-1447's widths: B 512, 8 slots, ids uniform in
+#: [0, 1,000,000), dim 16, 13 dense features, hidden 64, and a hot-row
+#: cache of 32,768 rows a table
+PS_B, PS_SLOTS, PS_VOCAB, PS_DIM, PS_DENSE, PS_HIDDEN = (
+    512, 8, 1_000_000, 16, 13, 64)
+PS_CACHE = 1 << 15
+#: |loss difference| allowed between two fp32 runs of one function whose
+#: sums are taken in other orders (the eager loop merges duplicate ids by
+#: index_add_, the step by embedding's backward; the card against the CPU)
+PS_LOSS_TOL = 1e-4
+
+
+def ps_data(seed=0):
+    """bench.py's 8 batches (ids, dense, labels) on the host, drawn as it
+    draws them."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(8):
+        ids = rng.integers(0, PS_VOCAB, (PS_B, PS_SLOTS)).astype(np.int64)
+        dense = rng.normal(size=(PS_B, PS_DENSE)).astype(np.float32)
+        labels = (rng.random((PS_B, 1)) > 0.5).astype(np.float32)
+        out.append(tuple(torch.from_numpy(a) for a in (ids, dense, labels)))
+    return out
+
+
+@contextlib.contextmanager
+def ps_client():
+    """A fresh table server on a free port and a client of it; both
+    stopped after."""
+    from paddle_tpu_torch.distributed.ps import PSClient, PSServer
+    server = PSServer(0)
+    client = PSClient([server.endpoint])
+    try:
+        yield client
+    finally:
+        client.stop_servers()
+        server.stop()
+
+
+def ps_model(client, device, cls="wide_deep"):
+    """bench.py's Wide&Deep (or DeepFM at its widths), dense weights from
+    seed 0, server SGD 0.05."""
+    from paddle_tpu_torch.models import DeepFM, WideDeep
+    gen = torch.Generator().manual_seed(0)
+    if cls == "deepfm":
+        return DeepFM(num_slots=PS_SLOTS, embedding_dim=PS_DIM,
+                      hidden=PS_HIDDEN, client=client, device=device,
+                      generator=gen)
+    return WideDeep(num_slots=PS_SLOTS, embedding_dim=PS_DIM,
+                    dense_dim=PS_DENSE, hidden=PS_HIDDEN, client=client,
+                    device=device, generator=gen)
+
+
+def ps_heter(model, mode="sync", cache_capacity=0):
+    from paddle_tpu_torch import nn, optimizer
+    from paddle_tpu_torch.distributed.ps.heter import HeterPSTrainStep
+    opt = optimizer.Adam(learning_rate=1e-3, parameters=model.parameters())
+    return HeterPSTrainStep(model, nn.BCEWithLogitsLoss(), opt, mode=mode,
+                            cache_capacity=cache_capacity)
+
+
+def ps_eager(data, steps, dev, cls="wide_deep"):
+    """The eager PS loop (bench.py:1316's body) with the dense tower on
+    ``dev``: every step's loss, and the seconds of the steps after the
+    first two."""
+    from paddle_tpu_torch import nn, optimizer
+    with ps_client() as client:
+        model = ps_model(client, dev, cls)
+        opt = optimizer.Adam(learning_rate=1e-3,
+                             parameters=model.parameters())
+        crit = nn.BCEWithLogitsLoss()
+        losses = []
+        for i in range(steps):
+            if i == 2:
+                t0 = time.perf_counter()  # loss.item() waited
+            ids, dense, labels = data[i % len(data)]
+            args = (ids,) if cls == "deepfm" else (ids, dense.to(dev))
+            loss = crit(model(*args), labels.to(dev))
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            losses.append(loss.item())
+        return losses, time.perf_counter() - t0
+
+
+def ps_sync(data, steps, dev, cls="wide_deep"):
+    """Sync HeterPSTrainStep on ``dev``: losses, seconds of the steps after
+    the first two, its graph counters, its stage times a step over those
+    steps, and the first step's routing ms (the process's first pass over
+    ``meta`` tensors loads PyTorch's meta functions)."""
+    with ps_client() as client:
+        step = ps_heter(ps_model(client, dev, cls))
+        try:
+            losses = []
+            for i in range(steps):
+                if i == 1:
+                    first_route_ms = 1000 * step.stage_totals["route_s"]
+                if i == 2:
+                    for k in step.stage_totals:
+                        step.stage_totals[k] = 0 if k == "steps" else 0.0
+                    t0 = time.perf_counter()  # float(loss) waited
+                b = data[i % len(data)]
+                losses.append(float(step(*((b[0], b[2]) if cls == "deepfm"
+                                           else b))))
+            dt = time.perf_counter() - t0
+            n = max(step.stage_totals["steps"], 1)
+            g = step.stats
+            stats = dict(first_route_ms=first_route_ms,
+                         graph_captures=g["graph_captures"],
+                         graph_replays=sum(g["graph_replays"].values()),
+                         graph_pool_bytes=g["graph_pool_bytes"], **{
+                             k[:-2] + "_ms": 1000 * v / n
+                             for k, v in step.stage_totals.items()
+                             if k.endswith("_s")})
+        finally:
+            step.close()
+    return losses, dt, stats
+
+
+def ps_train(card):
+    """Phase 25: Wide&Deep over the parameter server at bench.py's widths
+    (B 512, 8 slots, ids in [0, 1,000,000), dim 16, 13 dense features,
+    hidden 64; Adam 1e-3 on the dense tower, SGD 0.05 on the server, BCE
+    with logits, 8 seeded batches reused in turn): the eager loop, sync
+    HeterPSTrainStep against it, 5 sync steps on the CPU against the
+    card's, an async probe, the pipelined step with the 32,768-row cache
+    and prefetch, and DeepFM's sync step against its eager loop."""
+    dev = "cuda"
+    data = ps_data(0)
+    t_phase = time.perf_counter()
+    res = {"widths": dict(B=PS_B, slots=PS_SLOTS, vocab=PS_VOCAB,
+                          dim=PS_DIM, dense=PS_DENSE, hidden=PS_HIDDEN,
+                          cache_rows=PS_CACHE), "loss_tol": PS_LOSS_TOL}
+
+    # 1. the eager loop: 2 warm-up + 20 timed steps
+    eager, dt = ps_eager(data, 22, dev)
+    res["eager"] = dict(step_ms=1000 * dt / 20, losses=eager)
+    # 2. sync HeterPSTrainStep over the same 22 batches, a fresh server
+    sync, dt, stats = ps_sync(data, 22, dev)
+    diff = max(abs(a - b) for a, b in zip(sync, eager))
+    res["sync"] = dict(step_ms=1000 * dt / 20, losses=sync,
+                       max_loss_diff_vs_eager=diff, **stats)
+    log(f"ps: eager loop {res['eager']['step_ms']:.3f} ms a step, sync "
+        f"heter {res['sync']['step_ms']:.3f} ms (route "
+        f"{stats['route_ms']:.3f}, plan {stats['plan_ms']:.3f}, pull "
+        f"{stats['pull_ms']:.3f}, h2d {stats['put_ms']:.3f}, dispatch "
+        f"{stats['dispatch_ms']:.3f}, push {stats['push_ms']:.3f} ms a "
+        f"step; the first step's route {stats['first_route_ms']:.1f} ms; "
+        f"graph captures {stats['graph_captures']}, replays "
+        f"{stats['graph_replays']}); max |loss diff| {diff:.2e} (tol "
+        f"{PS_LOSS_TOL}) over 22 steps [{card}]")
+    if not all(math.isfinite(x) for x in sync + eager) or diff > PS_LOSS_TOL:
+        raise AssertionError(f"ps: sync heter against the eager loop: "
+                             f"{sync} vs {eager}")
+    if stats["graph_captures"] < 1 or stats["graph_replays"] < 20:
+        raise AssertionError(f"ps: the sync step did not replay a graph: "
+                             f"{stats}")
+    # 3. 5 sync steps on the CPU against the card's first 5
+    cpu, _, _ = ps_sync(data, 5, "cpu")
+    diff = max(abs(a - b) for a, b in zip(cpu, sync[:5]))
+    res["cpu_cross_check"] = dict(losses=cpu, max_loss_diff=diff)
+    log(f"ps: 5 sync steps on the CPU against the card's: max |loss diff| "
+        f"{diff:.2e} (tol {PS_LOSS_TOL})")
+    if diff > PS_LOSS_TOL:
+        raise AssertionError(f"ps: CPU {cpu} vs card {sync[:5]}")
+
+    # 4 and 5 on one server and one model, as bench.py:1468-1520
+    with ps_client() as client:
+        model = ps_model(client, dev)
+        # 4. async probe: 2 warm-up steps, 10 timed, then flush()
+        step = ps_heter(model, "async")
+        try:
+            for b in data[:2]:
+                step(*b)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(10):
+                loss = step(*data[i % len(data)])
+            step.flush()
+            torch.cuda.synchronize()
+            res["async"] = dict(step_ms=1000 * (time.perf_counter() - t0)
+                                / 10, final_loss=float(loss))
+        finally:
+            step.close()
+        # 5. pipelined with the hot-row cache and prefetch; its memory is
+        # the peak above what was allocated when it began
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        step = ps_heter(model, "pipelined", PS_CACHE)
+        try:
+            for b in data + data:  # fills the cache; captures the graphs
+                step(*b)
+            step.flush()
+            for k in step.stage_totals:
+                step.stage_totals[k] = 0 if k == "steps" else 0.0
+            caches = list(step.caches.values())
+            before = {k: sum(c.stats[k] for c in caches)
+                      for k in ("hit", "miss", "device_gather")}
+            replays0 = sum(step.stats["graph_replays"].values())
+            iters = 30
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(iters):
+                loss = step(*data[i % len(data)])
+                if i + 1 < iters:
+                    step.prefetch(*data[(i + 1) % len(data)])
+            step.flush()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            totals = dict(step.stage_totals)
+            timed_replays = sum(step.stats["graph_replays"].values()) \
+                - replays0
+            ts = time.perf_counter()
+            for i in range(iters, iters + 5):
+                last = float(step(*data[i % len(data)]))
+            synced = (time.perf_counter() - ts) / 5
+            stats = step.stats
+            peak = torch.cuda.max_memory_allocated() - mem0
+        finally:
+            step.close()
+    n = max(totals["steps"], 1)
+    hits = sum(c.stats["hit"] for c in caches)
+    misses = sum(c.stats["miss"] for c in caches)
+    gathered = sum(c.stats["device_gather"] for c in caches)
+    timed = {k: sum(c.stats[k] for c in caches) - v
+             for k, v in before.items()}
+    pipe = dict(
+        step_wall_ms=1000 * wall / iters, synced_step_ms=1000 * synced,
+        route_ms=1000 * totals["route_s"] / n,
+        pull_ms=1000 * totals["pull_s"] / n,
+        h2d_ms=1000 * totals["put_s"] / n,
+        push_ms=1000 * totals["push_s"] / n,
+        plan_ms=1000 * totals["plan_s"] / n,
+        dispatch_ms=1000 * totals["dispatch_s"] / n,
+        hits=hits, misses=misses, hit_rate=hits / max(hits + misses, 1),
+        timed_hits=timed["hit"], timed_misses=timed["miss"],
+        evictions=sum(c.stats["eviction"] for c in caches),
+        overflow=sum(c.stats["overflow"] for c in caches),
+        writebacks=sum(c.stats["writeback"] for c in caches),
+        device_gather_rows=gathered,
+        graph_captures=stats["graph_captures"],
+        graph_replays=sum(stats["graph_replays"].values()),
+        timed_replays=timed_replays,
+        graph_pool_bytes=stats["graph_pool_bytes"],
+        peak_memory_bytes=peak, allocated_before_bytes=mem0,
+        final_loss=last,
+        cache_devices=sorted({str(t.device) for c in caches
+                              for t in (c.values, c.gsum)}))
+    pipe["sparse_host_ms"] = pipe["route_ms"] + pipe["pull_ms"] \
+        + pipe["h2d_ms"]
+    res["pipelined"] = pipe
+    log(f"ps: pipelined + cache {pipe['step_wall_ms']:.3f} ms a step "
+        f"(synced {pipe['synced_step_ms']:.3f} ms; route "
+        f"{pipe['route_ms']:.3f}, pull {pipe['pull_ms']:.3f}, h2d "
+        f"{pipe['h2d_ms']:.3f}, plan {pipe['plan_ms']:.3f}, dispatch "
+        f"{pipe['dispatch_ms']:.3f}, push {pipe['push_ms']:.3f} ms a step), "
+        f"async probe {res['async']['step_ms']:.3f} ms; hit rate "
+        f"{pipe['hit_rate']:.4f} (timed {timed['hit']} hits, "
+        f"{timed['miss']} misses), evictions {pipe['evictions']}, overflow "
+        f"{pipe['overflow']}; graphs {pipe['graph_captures']} captured, "
+        f"{pipe['timed_replays']} replays in the timed steps; peak "
+        f"{peak / 2**20:.1f} MiB above the {mem0 / 2**20:.1f} MiB allocated "
+        f"before it [{card}]")
+    if pipe["cache_devices"] != ["cuda:0"]:
+        raise AssertionError(f"ps: cache buffers on {pipe['cache_devices']}")
+    if gathered != hits or timed["hit"] != timed["device_gather"]:
+        raise AssertionError(f"ps: hits {hits} but {gathered} rows served "
+                             f"by the gather on the card")
+    if pipe["timed_replays"] != iters or not math.isfinite(last):
+        raise AssertionError(f"ps: pipelined step: {pipe}")
+
+    # 6. DeepFM: 5 sync steps against its eager loop
+    fm_eager, _ = ps_eager(data, 5, dev, "deepfm")
+    fm, dt, fm_stats = ps_sync(data, 5, dev, "deepfm")
+    diff = max(abs(a - b) for a, b in zip(fm, fm_eager))
+    res["deepfm"] = dict(step_ms=1000 * dt / 3, losses=fm,
+                         eager_losses=fm_eager, max_loss_diff=diff,
+                         **fm_stats)
+    log(f"ps: DeepFM sync {res['deepfm']['step_ms']:.3f} ms a step; max "
+        f"|loss diff| against its eager loop {diff:.2e} [{card}]")
+    if not all(math.isfinite(x) for x in fm) or diff > PS_LOSS_TOL:
+        raise AssertionError(f"ps: DeepFM {fm} vs eager {fm_eager}")
+    res["phase_s"] = time.perf_counter() - t_phase
+    free_card()
+    return res
+
+
 def fp32_row(kname, rows, paths):
     """For the 1x1 conv's entry: its fp32 row at the main shape, with its
     launches on phase 22's fp32 path, as `fp32`."""
@@ -5813,7 +6120,7 @@ def split_masked(kname, rows, paths):
 
 #: the phases `--phases` may name, in the order they run
 PHASES = ("serve", "health", "health_trip", "fit_resume", "transformer",
-          "resnet_fit", "serve_control", "observe")
+          "resnet_fit", "serve_control", "observe", "ps")
 
 
 def only_phases(phases, cfg, smi, name):
@@ -5847,6 +6154,8 @@ def only_phases(phases, cfg, smi, name):
         res["serve_control"] = serve_control(cfg, smi)
     if "observe" in phases:
         res["observe"] = observe(cfg, smi)
+    if "ps" in phases:
+        res["ps"] = ps_train(smi)
     with open(os.path.join(OUT_DIR, "chip_smoke_phases.json"), "w") as f:
         json.dump(res, f, indent=1)
     print(smi)
@@ -6080,8 +6389,11 @@ def main(argv=None):
     # 24. the observability plane: Model.fit behind the server, /profile's
     # capture held to the launch counters, the engine's HTTP face
     obs = observe(cfg, smi)
+    # 25. the parameter server: Wide&Deep and DeepFM at bench.py's widths,
+    # eager, sync, async and pipelined with the hot-row cache
+    ps_res = ps_train(smi)
 
-    # 25. report: launches from each path's own run (counters reset just
+    # 26. report: launches from each path's own run (counters reset just
     # before it); times at the main path's shape
     result = dict(card=smi, capability=cap, launch_floor_ms=floor,
                   checks=rows, edges=edges,
@@ -6094,7 +6406,7 @@ def main(argv=None):
                   ernie=ernie, amp=amp_res, health=health_res,
                   health_trip=trip, fit_resume=fit_res, transformer=tb,
                   transformer_cpu_cross_check=tb_cpu, resnet_fit=rfit,
-                  serve_control=control, observe=obs)
+                  serve_control=control, observe=obs, ps=ps_res)
     paths = {"serve": served, "serve_control": control, "train": trained,
              "resnet": resnet, "long": long, "bert": bert,
              "health": health_res, "fit": fit_res, "transformer": tb,

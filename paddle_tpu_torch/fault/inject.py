@@ -95,11 +95,15 @@ KNOWN_SITES = {
                      "watchdog-restart drills)",
     "serving.admit": "request admission into the serving queue "
                      "(shed and admission-failure drills)",
+    "heter.pull": "heter-PS sparse pull stage",
+    "heter.push": "heter-PS sparse push stage",
 }
 
-#: dynamic site families: none in the port yet (the reference's are the
-#: DataLoader workers and the parameter-server RPCs)
-DYNAMIC_SITES: Dict[str, str] = {}
+#: dynamic site families: call sites build the name from a prefix + a
+#: runtime suffix (the reference's DataLoader workers are not ported yet)
+DYNAMIC_SITES: Dict[str, str] = {
+    "ps.": "PS client RPC, by op (ps.pull_dense, ps.push_sparse, ...)",
+}
 
 
 @dataclass

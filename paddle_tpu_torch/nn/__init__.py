@@ -2,9 +2,10 @@
 from . import functional
 from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
 from .layer import Layer
-from .layers_common import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Dropout,
-                            Embedding, LayerList, LayerNorm, Linear,
-                            MaxPool2D, ReLU, Sequential)
+from .layers_common import (AdaptiveAvgPool2D, BatchNorm2D,
+                            BCEWithLogitsLoss, Conv2D, Dropout, Embedding,
+                            LayerList, LayerNorm, Linear, MaxPool2D, ReLU,
+                            Sequential)
 from .transformer import (MultiHeadAttention, Transformer,
                           TransformerDecoder, TransformerDecoderLayer,
                           TransformerEncoder, TransformerEncoderLayer)
@@ -14,4 +15,5 @@ __all__ = ["functional", "Layer", "Linear", "Embedding", "LayerNorm",
            "MaxPool2D", "AdaptiveAvgPool2D", "ReLU", "ClipGradByValue",
            "ClipGradByNorm", "ClipGradByGlobalNorm", "MultiHeadAttention",
            "TransformerEncoderLayer", "TransformerEncoder",
-           "TransformerDecoderLayer", "TransformerDecoder", "Transformer"]
+           "TransformerDecoderLayer", "TransformerDecoder", "Transformer",
+           "BCEWithLogitsLoss"]

@@ -3,7 +3,8 @@
 ``embedding`` (l.244), ``gelu`` (l.80), ``relu``, ``tanh`` (l.74),
 ``softmax`` (l.188), ``log_softmax`` (l.198), ``dropout`` (l.270),
 ``layer_norm`` (l.534), ``scaled_dot_product_attention`` (l.1285),
-``cross_entropy`` (l.897), ``conv2d`` (l.377), ``max_pool2d`` (l.456),
+``cross_entropy`` (l.897), ``binary_cross_entropy_with_logits``
+(l.1051), ``conv2d`` (l.377), ``max_pool2d`` (l.456),
 ``adaptive_avg_pool2d`` (l.491), ``flatten`` (``ops/manipulation.py:75``),
 ``batch_norm`` (l.709) and ``conv2d_bn`` (l.765).
 
@@ -45,7 +46,7 @@ __all__ = ["linear", "embedding", "gelu", "relu", "tanh", "softmax",
            "log_softmax", "dropout", "layer_norm",
            "scaled_dot_product_attention", "cross_entropy", "conv2d",
            "max_pool2d", "adaptive_avg_pool2d", "flatten", "batch_norm",
-           "conv2d_bn"]
+           "conv2d_bn", "binary_cross_entropy_with_logits"]
 
 
 def linear(x, weight, bias=None):
@@ -130,9 +131,12 @@ def layer_norm(x, normalized_shape, weight, bias, epsilon=1e-5):
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
-                                 training=True, generator=None):
-    """Batched attention in paddle's [B, L, H, D] layout. ``dropout_p``
-    drops attention weights in training mode only."""
+                                 training=True, name=None, *,
+                                 generator=None):
+    """Batched attention in paddle's [B, L, H, D] layout, with the
+    reference's slots (l.1285; ``name`` is taken and not used).
+    ``dropout_p`` drops attention weights in training mode only;
+    ``generator`` (keyword only) is the one the drop draws from."""
     p_eff = dropout_p if training else 0.0
     return _fa.flash_attention(query, key, value, mask=attn_mask,
                                causal=is_causal, dropout_p=p_eff,
@@ -145,6 +149,27 @@ def _reduce_loss(loss, reduction):
     if reduction == "sum":
         return loss.sum()
     return loss
+
+
+def binary_cross_entropy_with_logits(logit, label, weight=None,
+                                     reduction="mean", pos_weight=None,
+                                     name=None):
+    """Sigmoid cross-entropy on logits in the reference's stable form
+    (l.1051): with m = max(-z, 0),
+    loss = (1 - y) z + m + log(exp(-m) + exp(-z - m)), and with
+    ``pos_weight`` the log term scaled by (pos_weight - 1) y + 1;
+    ``weight`` multiplies the elementwise loss before the reduction."""
+    z, y = logit, label
+    max_val = torch.clamp(-z, min=0)
+    log_term = torch.log(torch.exp(-max_val) + torch.exp(-z - max_val))
+    if pos_weight is not None:
+        log_w = (pos_weight - 1) * y + 1
+        loss = (1 - y) * z + log_w * (log_term + max_val)
+    else:
+        loss = (1 - y) * z + max_val + log_term
+    if weight is not None:
+        loss = loss * weight
+    return _reduce_loss(loss, reduction)
 
 
 def cross_entropy(input, label, weight=None, ignore_index=-100,
@@ -447,8 +472,9 @@ def _bn_affine(x, weight, bias, data_format):
 
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                training=False, momentum=0.9, epsilon=1e-5, data_format="NCHW",
-               use_global_stats=None, act=None, residual=None):
-    """Batch norm; in training mode the running statistics are updated in
+               use_global_stats=None, name=None, act=None, residual=None):
+    """Batch norm with the reference's slots (l.709; ``name`` is taken and
+    not used); in training mode the running statistics are updated in
     place. ``act``/``residual`` select the fused BN(+add)+ReLU
     (``ops/kernels/fused_bn``): out = act(BN(x) [+ residual])."""
     if use_global_stats is None:
@@ -479,8 +505,9 @@ def conv2d_bn(x, conv_weight, running_mean, running_var, weight=None,
               bias=None, training=False, momentum=0.9, epsilon=1e-5,
               stride=1, padding=0, dilation=1, groups=1,
               data_format="NCHW", use_global_stats=None, act=None,
-              residual=None):
-    """conv2d + batch_norm(+residual add)(+act). A channels-last 1x1,
+              residual=None, name=None):
+    """conv2d + batch_norm(+residual add)(+act), in the reference's slots
+    (l.765; ``name`` is taken and not used). A channels-last 1x1,
     stride-1 conv in training mode takes the fused chain
     (``ops/kernels/fused_conv_bn``: the product and the BN statistics in
     one pass, then the fused-BN apply); every other case is ``conv2d``

@@ -2,7 +2,8 @@
 ``paddle_tpu/nn/layers_common.py``): ``Linear``, ``Embedding``,
 ``LayerNorm``, ``Dropout``, ``LayerList``, ``Sequential`` (l.25),
 ``Conv2D`` (l.277), ``BatchNorm2D`` (l.404), ``MaxPool2D`` (l.484),
-``AdaptiveAvgPool2D`` (l.525) and ``ReLU``.
+``AdaptiveAvgPool2D`` (l.525), ``ReLU`` and ``BCEWithLogitsLoss``
+(l.678).
 
 Layouts and names stay paddle's so weights map one to one:
 ``Linear.weight`` is [in, out] and the layer computes ``x @ W + b``;
@@ -145,7 +146,8 @@ class Conv2D(Layer):
 
 
 class _BatchNormBase(Layer):
-    """Batch norm over the channel axis. ``act="relu"`` fuses the
+    """Batch norm over the channel axis, in the reference's slots (l.368;
+    ``name`` is taken and not used). ``act="relu"`` fuses the
     activation, and ``forward(x, residual)`` a residual add before it, into
     the fused BN kernels in training mode (``F.batch_norm``). The running
     statistics are fp32 buffers whatever the layer's type, moved in place
@@ -153,8 +155,8 @@ class _BatchNormBase(Layer):
 
     def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
                  weight_attr=None, bias_attr=None, data_format="NCHW",
-                 use_global_stats=None, act=None, *, device=None,
-                 dtype=None):
+                 use_global_stats=None, name=None, act=None, *,
+                 device=None, dtype=None):
         super().__init__(device, dtype)
         self._momentum = momentum
         self._epsilon = epsilon
@@ -202,3 +204,17 @@ class AdaptiveAvgPool2D(torch.nn.Module):
 
     def forward(self, x):
         return F.adaptive_avg_pool2d(x, self._output_size, self._data_format)
+
+
+class BCEWithLogitsLoss(torch.nn.Module):
+    """``F.binary_cross_entropy_with_logits`` with the reference's slots
+    (l.678; ``name`` is taken and not used)."""
+
+    def __init__(self, weight=None, reduction="mean", pos_weight=None,
+                 name=None):
+        super().__init__()
+        self._kw = dict(weight=weight, reduction=reduction,
+                        pos_weight=pos_weight)
+
+    def forward(self, logit, label):
+        return F.binary_cross_entropy_with_logits(logit, label, **self._kw)

@@ -347,8 +347,12 @@ def test_malformed_fault_clause_warns_as_in_the_reference():
         inj.site("good.site")
     assert set(fault.inject.KNOWN_SITES) == {"serving.decode",
                                              "serving.wedge",
-                                             "serving.admit"}
+                                             "serving.admit", "heter.pull",
+                                             "heter.push"}
     assert set(fault.inject.KNOWN_SITES) <= set(jfault.inject.KNOWN_SITES)
+    assert set(fault.inject.DYNAMIC_SITES) == {"ps."}
+    assert set(fault.inject.DYNAMIC_SITES) <= set(
+        jfault.inject.DYNAMIC_SITES)
 
 
 def test_retry_policy_schedule_matches_the_reference():

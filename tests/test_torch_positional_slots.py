@@ -131,3 +131,84 @@ def test_trainstep_takes_donate_in_slot_four():
         0.1, parameters=lin.parameters()), False, torch.bfloat16)
     assert amp.amp_dtype == torch.bfloat16
     assert amp._health_probe is None
+
+
+# ---- C10-C12: the batch norms' and attention's name slots ----------------
+
+def _bn_inputs(seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(2, 3, 4, 4)).astype(np.float32) * 2
+    w = rng.random(3).astype(np.float32) + 0.5
+    b = rng.normal(size=3).astype(np.float32)
+    return x, w, b
+
+
+@pytest.mark.parametrize("args,relu", [
+    ((None, "relu"), False),        # slot 10 is the reference's name
+    ((None, "bn_1"), False),
+    ((None, None, "relu"), True),   # name, then act
+    ((None, None, None, None), False),
+], ids=["name_relu", "name_other", "act_relu", "residual_none"])
+def test_batch_norm_positional_name_slot(args, relu):
+    """C10: F.batch_norm(x, rm, rv, w, b, True, 0.9, 1e-5, "NCHW", *args)
+    means in the port what it means in the reference: slot 10 is `name`."""
+    from paddle_tpu.nn import functional as JF
+    from paddle_tpu_torch.nn import functional as F
+    x, w, b = _bn_inputs()
+    jrm, jrv = paddle.to_tensor(np.zeros(3, np.float32)), \
+        paddle.to_tensor(np.ones(3, np.float32))
+    trm, trv = torch.zeros(3), torch.ones(3)
+    ref = JF.batch_norm(paddle.to_tensor(x), jrm, jrv, paddle.to_tensor(w),
+                        paddle.to_tensor(b), True, 0.9, 1e-5, "NCHW", *args)
+    got = F.batch_norm(torch.from_numpy(x), trm, trv, torch.from_numpy(w),
+                       torch.from_numpy(b), True, 0.9, 1e-5, "NCHW", *args)
+    ref = np.asarray(ref.data)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+    assert (ref.min() >= 0) == relu and (got.min().item() >= 0) == relu
+    np.testing.assert_allclose(trm.numpy(), np.asarray(jrm.data), atol=1e-6)
+    np.testing.assert_allclose(trv.numpy(), np.asarray(jrv.data), atol=1e-6)
+
+
+@pytest.mark.parametrize("args,relu", [
+    (("NCHW", None, "relu"), False),       # slot 7 is the reference's name
+    (("NCHW", None, None, "relu"), True),  # name, then act
+], ids=["name_relu", "act_relu"])
+def test_batch_norm_layer_positional_name_slot(args, relu):
+    """C11: BatchNorm2D(3, 0.9, 1e-5, None, None, *args)."""
+    x, _, _ = _bn_inputs(1)
+    jl = jnn.BatchNorm2D(3, 0.9, 1e-5, None, None, *args)
+    tl = nn.BatchNorm2D(3, 0.9, 1e-5, None, None, *args, device="cpu")
+    ref = np.asarray(jl(paddle.to_tensor(x)).data)
+    got = tl(torch.from_numpy(x)).detach().numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+    assert (ref.min() >= 0) == relu and (got.min() >= 0) == relu
+
+
+def test_attention_positional_name_slot():
+    """C12: F.scaled_dot_product_attention(q, k, v, None, p, False, True,
+    "attn"): slot 7 is `name`; `generator` is keyword-only."""
+    from paddle_tpu.nn import functional as JF
+    from paddle_tpu_torch.nn import functional as F
+    rng = np.random.default_rng(2)
+    q, k, v = (rng.normal(size=(2, 8, 2, 16)).astype(np.float32)
+               for _ in range(3))
+    jq, jk, jv = (paddle.to_tensor(a) for a in (q, k, v))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    ref = np.asarray(JF.scaled_dot_product_attention(
+        jq, jk, jv, None, 0.0, False, True, "attn").data)
+    got = F.scaled_dot_product_attention(tq, tk, tv, None, 0.0, False, True,
+                                         "attn")
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+    ref = JF.scaled_dot_product_attention(jq, jk, jv, None, 0.1, False, True,
+                                          "attn")
+    got = F.scaled_dot_product_attention(tq, tk, tv, None, 0.1, False, True,
+                                         "attn")
+    assert tuple(got.shape) == tuple(ref.shape)
+    assert torch.isfinite(got).all()
+    with pytest.raises(TypeError):
+        F.scaled_dot_product_attention(tq, tk, tv, None, 0.1, False, True,
+                                       "attn", torch.Generator())
+    a, b = (F.scaled_dot_product_attention(
+        tq, tk, tv, dropout_p=0.1, generator=torch.Generator().manual_seed(3))
+        for _ in range(2))
+    assert torch.equal(a, b)
