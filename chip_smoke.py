@@ -10,6 +10,8 @@
                                      # phases 1-2 and 24
     python3 chip_smoke.py --phases ps
                                      # phases 1-2 and 25
+    python3 chip_smoke.py --phases dp
+                                     # phases 1-2 and 26
 
 Phases, each of which raises (exit code != 0, with its traceback) on a
 failure:
@@ -257,7 +259,30 @@ failure:
               overflow, graph replays, peak memory; the cache's buffers on
               the card and every hit served by the gather there), and
               DeepFM's sync step against its eager loop; no kernel runs;
-26. report  - the `kernels` JSON line, the card's name and power limit, and
+26. dp      - collective data parallelism: init_parallel_env() as world 1
+              over NCCL, every collective on the card against the
+              reference's one-rank answer; TrainStep(DataParallel(GPT-2
+              small)) O2 b8 s1024 captured against TrainStep(GPT-2 small),
+              6 steps under deterministic_steps, losses and every master,
+              slot and buffer bit for bit, the bucketed all-reduces (and
+              the label count's and the loss's) counted through every
+              replay and NCCL's kernels seen in one replay under the
+              profiler; a capture that fails after its all-reduces, then
+              an all-reduce and the step captured again; the kernels at
+              GPT-3 1.3B's shapes against their plain versions; GPT-3 1.3B
+              (hidden 2048, 24 layers, 16 heads, L 2048, V 50,304) at full
+              width and depth, remat "full", O2 bf16, AdamW, through
+              TrainStep(DataParallel) captured at B 4 x L 2048 (2 warm-up
+              + 6 timed steps: step ms, device busy, peak memory, tokens/s,
+              MFU, exact launches, the first loss within 0.1 of ln V);
+              then `python -m paddle_tpu_torch.distributed.launch
+              --nproc_per_node 2` with PADDLE_DISTRI_BACKEND=gloo, both
+              ranks on the card, GPT-2 small fp32 through the eager
+              DataParallel loop (global batch 8, 4 a rank, x 1,024,
+              AdamW, 3 steps) against one process over the global batch
+              (DP_LOSS_ATOL, DP_PARAM_*), each rank's kernels counted and
+              its plain counters 0;
+27. report  - the `kernels` JSON line, the card's name and power limit, and
               the device JSON line last.
 
 Every TrainStep above runs captured (one CUDA graph per batch signature,
@@ -332,6 +357,7 @@ TF32 off inside each call. Needs one card and imports no JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import gc
 import json
@@ -6015,6 +6041,514 @@ def ps_train(card):
     return res
 
 
+# ---------------------- phase 26: collective data parallelism ----------------------
+
+#: GPT-3 1.3B under DataParallel: B 4 x L 2048 (8,192 tokens a step)
+GPT3_B, GPT3_L = 4, 2048
+GPT3_WARMUP, GPT3_STEPS = 2, 6
+#: steps of the world-1 comparison and of the two gloo ranks
+DP_STEPS, DP_RANK_STEPS = 6, 3
+#: two ranks against one process (fp32, 3 AdamW steps at lr 1e-4): each
+#: group-mean loss within DP_LOSS_ATOL; each parameter within 2 * lr *
+#: steps (an element whose gradient is rounding noise moves by about lr a
+#: step either way) and at most DP_PARAM_FRAC of its elements beyond
+#: DP_PARAM_ATOL (the reduction order and cuBLAS's choices at M 4,096 and
+#: 8,192 differ)
+DP_LOSS_ATOL, DP_PARAM_ATOL, DP_PARAM_FRAC = 1e-3, 1e-5, 1e-2
+DP_LR = 1e-4
+
+
+def remat_full_per_step(layers):
+    """Launches a step of a GPT under remat "full" at a length that takes
+    the one-pass backward: the forward's layer norms and attention run
+    again in the backward."""
+    return {"layer_norm": 4 * layers + 1, "layer_norm_bwd": 2 * layers + 1,
+            "flash_attention": 2 * layers, "flash_attention_bwd": layers,
+            "softmax_ce_fwd": 1, "softmax_ce_bwd": 1}
+
+
+def dp_step(cfg, dev, dp=True, amp=torch.bfloat16, gen_seed=0,
+            fused_opt=None):
+    """TrainStep of GPT(cfg) (inside DataParallel when ``dp``) under
+    AdamW(1e-4, wd 0.01): the phase's step."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.nn import functional as F
+    net = GPT(cfg, device=dev, generator=torch.Generator().manual_seed(
+        gen_seed))
+    opt = optimizer.AdamW(learning_rate=1e-4, parameters=net.parameters(),
+                          weight_decay=0.01)
+    return TrainStep(dist.DataParallel(net) if dp else net, F.cross_entropy,
+                     opt, amp_dtype=amp, fused_opt=fused_opt)
+
+
+def nccl_kernels(fn):
+    """(kernels whose name holds "nccl", all kernels) in one call of `fn`
+    under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum("nccl" in n.lower() for n in names), len(names)
+
+
+def dp_world1(cfg, card):
+    """World 1 over NCCL: every collective on the card against the
+    reference's answer for one rank; TrainStep(DataParallel(GPT-2 small))
+    captured, bit for bit against TrainStep(GPT-2 small) over 6 steps
+    under deterministic_steps, with the all-reduces in every replay; a
+    capture that fails after its all-reduces, and the group afterwards."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.ops import kernels
+    dev = torch.device("cuda")
+    dist.init_parallel_env()
+    res = dict(backend=dist.get_backend(), rank=dist.get_rank(),
+               world=dist.get_world_size(), card=card)
+    if res["backend"] != "nccl" or res["world"] != 1:
+        raise AssertionError(f"dp: world {res}")
+    # 1. each collective of one rank: the reference's answer on one device
+    x0 = torch.arange(6, dtype=torch.float32, device=dev).reshape(1, 3, 2)
+    want = x0.clone()
+    checks = {}
+    for name, op in (("all_reduce_sum", dist.ReduceOp.SUM),
+                     ("all_reduce_max", dist.ReduceOp.MAX),
+                     ("all_reduce_prod", dist.ReduceOp.PROD),
+                     ("all_reduce_avg", dist.ReduceOp.AVG)):
+        checks[name] = dist.all_reduce(x0.clone(), op=op)
+    checks["broadcast"] = dist.broadcast(x0.clone(), src=0)
+    checks["reduce"] = dist.reduce(x0.clone(), dst=0)
+    checks["all_gather"] = dist.all_gather(None, x0)[0]
+    checks["all_gather_axis1"] = dist.all_gather(None, x0, axis=1)
+    sc = torch.zeros_like(x0)
+    checks["scatter"] = dist.scatter(sc, [x0], src=0)
+    rs = torch.zeros_like(x0)
+    checks["reduce_scatter"] = dist.reduce_scatter(rs, x0)
+    checks["alltoall"] = dist.alltoall(x0)
+    checks["ppermute"] = dist.ppermute(x0)
+    checks["shard_batch"] = dist.shard_batch(x0)
+    objs = dist.all_gather_object([], {"v": 7})
+    dist.barrier()
+    bad = [k for k, v in checks.items() if not torch.equal(v, want)]
+    if bad or objs != [{"v": 7}]:
+        raise AssertionError(f"dp: collectives of one rank differ from the "
+                             f"reference's answer: {bad} {objs}")
+    res["collectives"] = sorted(checks) + ["all_gather_object", "barrier"]
+    log(f"dp: world 1 over {res['backend']}: {len(res['collectives'])} "
+        f"collectives on the card give the reference's one-rank answer")
+    # 2. the grouped step against the plain one, both captured, bit for bit
+    rng = np.random.default_rng(0)
+    batches = [tuple(torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        TRAIN_B, TRAIN_L))).to(dev) for _ in range(2)) for _ in range(2)]
+    runs = {}
+    for name, grouped in (("plain", False), ("dp", True)):
+        torch.manual_seed(0)
+        step = dp_step(cfg, dev, dp=grouped)
+        C.reset_launch_stats()
+        kernels.reset_stats()
+        losses = []
+        with deterministic_steps():
+            for i in range(DP_STEPS):
+                losses.append(step(*batches[i % 2]))
+            torch.cuda.synchronize()
+        runs[name] = dict(losses=torch.stack(losses).cpu(),
+                          state=step_state(step), graphs=graph_summary(step),
+                          stats=kernels.all_stats(),
+                          collectives=C.launch_stats())
+        if grouped:
+            nccl, total = nccl_kernels(lambda: step(*batches[0]))
+            runs[name]["profile"] = dict(nccl_kernels=nccl, kernels=total)
+            runs[name]["buckets"] = len(step._buckets)
+        step.release_graphs()
+        del step
+        free_card()
+    p, d = runs["plain"], runs["dp"]
+    same = bits_equal(p["losses"], d["losses"])
+    diff = [k for k, v in p["state"].items()
+            if not bits_equal(v, d["state"][k])]
+    per_step = d["buckets"] + 2  # the buckets, the label count, the loss
+    want_coll = {"all_reduce": per_step * DP_STEPS}
+    res["gpt2_world1"] = dict(
+        steps=DP_STEPS, losses=d["losses"].tolist(), losses_bit_for_bit=same,
+        state_tensors=len(p["state"]), state_differing=diff,
+        graphs=d["graphs"], buckets=d["buckets"],
+        collectives=d["collectives"], collectives_want=want_coll,
+        replay_profile=d["profile"], launches=d["stats"])
+    log(f"dp: TrainStep(DataParallel(GPT-2 small)) captured, O2 b{TRAIN_B} "
+        f"s{TRAIN_L}, against TrainStep(GPT-2 small), {DP_STEPS} steps "
+        f"under deterministic_steps: losses bit for bit {same}, {len(diff)} "
+        f"of {len(p['state'])} masters/slots/buffers differ; all-reduces "
+        f"{d['collectives']} (want {want_coll}: {d['buckets']} buckets, "
+        f"the label count and the loss a step); one replay under the "
+        f"profiler: {d['profile']['nccl_kernels']} NCCL kernels of "
+        f"{d['profile']['kernels']}; graphs {json.dumps(d['graphs'])}")
+    if not same or diff or d["collectives"] != want_coll:
+        raise AssertionError(f"dp: world-1 step: {res['gpt2_world1']}")
+    if p["graphs"]["captures"] != d["graphs"]["captures"]:
+        raise AssertionError(f"dp: graphs {p['graphs']} {d['graphs']}")
+    # the all-reduces' cost: both steps captured, timed in turns
+    steps = {name: dp_step(cfg, dev, dp=grouped)
+             for name, grouped in (("plain", False), ("dp", True))}
+    ms = {name: [] for name in steps}
+    for name, st in steps.items():
+        for _ in range(2):
+            st(*batches[0])
+    for _ in range(CAPTURE_ROUNDS):
+        for name, st in steps.items():
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(DP_STEPS):
+                st(*batches[0])
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t1) * 1e3 / DP_STEPS)
+    busy = {name: device_ops(lambda: st(*batches[0]))[1]
+            for name, st in steps.items()}
+    res["gpt2_world1"]["step_ms"] = ms
+    res["gpt2_world1"]["device_busy_ms"] = busy
+    log(f"dp: GPT-2 small O2 b{TRAIN_B} s{TRAIN_L} captured, step ms in "
+        f"turns (runs of {DP_STEPS}): plain {json.dumps(ms['plain'])}, "
+        f"DataParallel world 1 {json.dumps(ms['dp'])}; device busy a step "
+        f"{json.dumps(busy)} [{card}]")
+    for st in steps.values():
+        st.release_graphs()
+    del steps, st
+    free_card()
+    # 3. captures that fail after their all-reduces, by a wait the capture
+    # refuses (the capture does not end) and by a Python error (it ends):
+    # the group still answers and the step captures again
+    small = dataclasses.replace(cfg, num_layers=2)
+    res["failed_captures"] = {}
+    for how in ("wait", "python"):
+        step = dp_step(small, dev)
+        apply_fn = step.optimizer.apply_fn
+
+        def failing(*a, **k):
+            if torch.cuda.is_current_stream_capturing():
+                if how == "wait":
+                    float(a[1][next(iter(a[1]))].sum())
+                else:
+                    raise RuntimeError("a Python error inside the capture")
+            return apply_fn(*a, **k)
+
+        step.optimizer.apply_fn = failing
+        try:
+            step(*batches[0])
+            raise AssertionError(f"dp: a capture failing by {how} did not "
+                                 f"fail")
+        except RuntimeError as e:
+            err = str(e)[:160]
+        step.optimizer.apply_fn = apply_fn
+        one = torch.ones(3, device=dev)
+        dist.all_reduce(one)
+        losses = [float(step(*batches[1])) for _ in range(2)]
+        if not (torch.equal(one, torch.ones(3, device=dev))
+                and all(math.isfinite(x) for x in losses)):
+            raise AssertionError(f"dp: after a failed capture ({how}): "
+                                 f"{one} {losses}")
+        res["failed_captures"][how] = dict(error=err, losses=losses,
+                                           graphs=graph_summary(step))
+        log(f"dp: a capture failing by {how} after its all-reduces raised "
+            f"({err[:70]}...); the group answers and the step captures "
+            f"again: losses {losses[0]:.4f} {losses[1]:.4f}")
+        del step
+        free_card()
+    return res
+
+
+def gpt3_rows(dev, gen):
+    """The kernels at GPT-3 1.3B's shapes (B 4 L 2048, hidden 2048, 16
+    heads of D 128, V 50304, bf16 under O2) against their plain versions."""
+    R = GPT3_B * GPT3_L
+    rows = (check_layer_norm(dev, gen, (R,), 2048, dtypes=(torch.bfloat16,))
+            + check_layer_norm_bwd(dev, gen, R, 2048, torch.bfloat16)
+            + check_flash(dev, gen, (GPT3_L,), 16, 128, B=GPT3_B,
+                          dtypes=(torch.bfloat16,))
+            + check_flash_bwd(dev, gen, (GPT3_L,), GPT3_B, 16, 128,
+                              dtypes=(torch.bfloat16,))
+            + check_ce(dev, gen, R, 50304, dtypes=(torch.bfloat16,)))
+    for r in rows:
+        r.setdefault("tol_ratio", r["max_abs_err"] / r.get("tol", 1.0))
+        r.setdefault("design", "cuda-core")
+        lib = ("-" if r["library_ms"] is None else f"{r['library_ms']:.4f}")
+        log(f"kernel {r['kernel']:<19} {r['dtype']:<8} {r['shape']:<30} "
+            f"{r['design']:<9} err {r['max_abs_err']:.2e} (/tol "
+            f"{r['tol_ratio']:.3f})  kernel_ms {r['ms']:.4f} plain_ms "
+            f"{r['plain_ms']:.4f} library_ms {lib} bound_ms "
+            f"{r['bound_ms']:.4f} ({r['bound_by']}) [GPT-3 1.3B]")
+    bad = [r for r in rows if r["tol_ratio"] > 1.0]
+    if bad:
+        raise AssertionError(f"dp: kernels at GPT-3 1.3B's shapes disagree "
+                             f"with their plain versions: {bad}")
+    return rows
+
+
+def gpt3_train(card):
+    """GPT-3 1.3B at full width and depth, remat "full", O2 bf16, AdamW,
+    through TrainStep(DataParallel(...)) captured on the world-1 NCCL
+    group at B 4 x L 2048: step ms (median), device busy, peak memory,
+    tokens/s, MFU and exact launches a step."""
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.models.gpt import GPTConfig
+    from paddle_tpu_torch.ops import kernels
+    dev = torch.device("cuda")
+    cfg = GPTConfig.gpt3_1p3b()
+    cfg.dropout = cfg.attn_dropout = 0.0
+    cfg.remat = "full"
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # the per-parameter update: the grouped one's out-of-place
+    # multi-tensor ops hold several parameter-sized temporaries at once
+    # (5.3 GB each here), which with the capture's own pool overflow 80 GB
+    step = dp_step(cfg, dev, fused_opt=False)
+    model = step.layer._layers
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(0)
+    ids, labels = (torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        GPT3_B, GPT3_L))).to(dev) for _ in range(2))
+    losses = [float(step(ids, labels)) for _ in range(GPT3_WARMUP)]
+    build_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    kernels.reset_stats()
+    C.reset_launch_stats()
+    times = []
+    for _ in range(GPT3_STEPS):
+        t1 = time.perf_counter()
+        loss = step(ids, labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        losses.append(float(loss))
+    stats = kernels.all_stats()
+    coll = C.launch_stats()
+    no_composed("dp_gpt3")
+    want = remat_full_per_step(cfg.num_layers)
+    for name, st in stats.items():
+        if st["plain"] != 0 or st["kernel"] != want.get(name, 0) * GPT3_STEPS:
+            raise AssertionError(f"dp: GPT-3 1.3B: {name} counters {st}, "
+                                 f"want {want.get(name, 0)} kernel launches "
+                                 f"a step and no plain run")
+    ops, busy = device_ops(lambda: step(ids, labels))
+    step_ms = float(np.median(times)) * 1e3
+    flops = model_flops(model, GPT3_B, GPT3_L)
+    ln_v = math.log(cfg.vocab_size)
+    res = dict(config="gpt3_1p3b", hidden=cfg.hidden_size,
+               layers=cfg.num_layers, heads=cfg.num_heads,
+               vocab=cfg.vocab_size, remat=cfg.remat, batch=GPT3_B,
+               seq=GPT3_L, params=n_params, warmup=GPT3_WARMUP,
+               steps=GPT3_STEPS, losses=losses, step_ms=step_ms,
+               step_ms_all=[t * 1e3 for t in times],
+               device_ops=ops, device_busy_ms=busy,
+               tokens_per_s=GPT3_B * GPT3_L / (step_ms / 1e3),
+               model_flops=flops, mfu=flops / (step_ms / 1e3) / BF16_PEAK,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               buckets=len(step._buckets), collectives=coll,
+               fused_opt=step.fused_opt,
+               launches=stats, launches_per_step=want,
+               build_and_warmup_s=build_s, card=card)
+    log(f"dp: GPT-3 1.3B ({n_params / 1e9:.3f} B parameters, remat full) "
+        f"O2 bf16 b{GPT3_B} s{GPT3_L} through TrainStep(DataParallel) "
+        f"captured: step {step_ms:.2f} ms (median of {GPT3_STEPS}: "
+        f"{json.dumps([round(t * 1e3, 3) for t in times])}), device busy "
+        f"{busy} ms of one step ({ops} operations), "
+        f"{res['tokens_per_s']:.1f} tokens/s, MFU {res['mfu']:.4f} (model "
+        f"FLOPs {flops:.4e} over {BF16_PEAK:.0e}), peak memory "
+        f"{res['peak_mem_gb']:.2f} GB, {res['buckets']} gradient buckets, "
+        f"all-reduces {coll} [{card}]")
+    log(f"dp: GPT-3 1.3B loss {' '.join(f'{x:.4f}' for x in losses)} "
+        f"(ln V = {ln_v:.4f}); launches per step {json.dumps(want)}")
+    if not (all(math.isfinite(x) for x in losses)
+            and abs(losses[0] - ln_v) < 0.1):
+        raise AssertionError(f"dp: GPT-3 1.3B losses {losses}: the first "
+                             f"must be finite within 0.1 of ln V {ln_v}")
+    step.release_graphs()
+    del step, model
+    free_card()
+    return res
+
+
+def dp_rank_worker(outdir):
+    """One rank of the two-rank gloo run (started by the launcher): GPT-2
+    small fp32 through the eager DataParallel loop, global batch 8 (its 4
+    rows) x 1024, AdamW, 3 steps; writes its losses, launch counters and
+    (rank 0) its parameters."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import kernels
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_parallel_env()
+    r = dist.get_rank()
+    dev = dist.parallel.rank_device()
+    cfg = GPTConfig.gpt2_small()
+    cfg.dropout = cfg.attn_dropout = 0.0
+    net = GPT(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    dp = dist.DataParallel(net)
+    opt = optimizer.AdamW(learning_rate=DP_LR, parameters=dp.parameters(),
+                          weight_decay=0.01)
+    ids, labels = dp_rank_batch(cfg)
+    ids, labels = (dist.shard_batch(t).to(dev) for t in (ids, labels))
+    kernels.reset_stats()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(DP_RANK_STEPS):
+        loss = F.cross_entropy(dp(ids), labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss))
+    out = dict(rank=r, backend=dist.get_backend(), device=str(dev),
+               losses=losses, stats=kernels.all_stats(),
+               seconds=time.perf_counter() - t0)
+    if r == 0:
+        out["params"] = {k: v.detach().cpu() for k, v in
+                         net.named_parameters()}
+    torch.save(out, os.path.join(outdir, f"rank{r}.pt"))
+    dist.destroy_process_group()
+
+
+def dp_rank_batch(cfg):
+    rng = np.random.default_rng(1)
+    return tuple(torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        TRAIN_B, TRAIN_L))) for _ in range(2))
+
+
+def dp_two_ranks(card):
+    """Two gloo ranks on the one card (the launcher, --nproc_per_node 2)
+    against one process over the global batch: group-mean losses and
+    final parameters within the stated tolerance; each rank's kernel
+    counters above 0 and its plain counters 0."""
+    import signal
+    import tempfile
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.nn import functional as F
+    free_card()
+    out = tempfile.mkdtemp(prefix="dp_ranks_")
+    env = dict(os.environ, PADDLE_DISTRI_BACKEND="gloo")
+    for k in ("PADDLE_TRAINER_ID", "PADDLE_TRAINERS_NUM",
+              "PADDLE_TRAINER_ENDPOINTS", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(k, None)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         "--nproc_per_node", "2", "--log_dir", os.path.join(out, "log"),
+         os.path.abspath(__file__), "--dp-worker", out],
+        env=env, cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, start_new_session=True)
+    try:
+        text, _ = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        text, _ = proc.communicate()
+        raise AssertionError(f"dp: the two ranks did not end within 300 s:"
+                             f"\n{text[-3000:]}")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(30)
+    ranks_s = time.perf_counter() - t0
+    worker_log = ""
+    logf = os.path.join(out, "log", "workerlog.1")
+    if os.path.exists(logf):
+        with open(logf) as f:
+            worker_log = f.read()[-3000:]
+    if proc.returncode != 0:
+        raise AssertionError(f"dp: the launcher exited {proc.returncode}:\n"
+                             f"{text[-3000:]}\nrank 1:\n{worker_log}")
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    # the same model and global batch in one process
+    cfg = GPTConfig.gpt2_small()
+    cfg.dropout = cfg.attn_dropout = 0.0
+    dev = torch.device("cuda")
+    net = GPT(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    opt = optimizer.AdamW(learning_rate=DP_LR, parameters=net.parameters(),
+                          weight_decay=0.01)
+    ids, labels = (t.to(dev) for t in dp_rank_batch(cfg))
+    single = []
+    for _ in range(DP_RANK_STEPS):
+        loss = F.cross_entropy(net(ids), labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        single.append(float(loss))
+    loss_diff = max(abs(a - b) for rk in ranks
+                    for a, b in zip(rk["losses"], single))
+    worst, worst_frac = 0.0, 0.0
+    for k, p in net.named_parameters():
+        d = (ranks[0]["params"][k].to(dev) - p.detach()).abs()
+        worst = max(worst, float(d.max()))
+        worst_frac = max(worst_frac, float((d > DP_PARAM_ATOL).float()
+                                           .mean()))
+    bound = 2 * DP_LR * DP_RANK_STEPS
+    res = dict(ranks=[dict(rank=rk["rank"], backend=rk["backend"],
+                           device=rk["device"], losses=rk["losses"],
+                           seconds=rk["seconds"]) for rk in ranks],
+               single_losses=single, max_loss_diff=loss_diff,
+               max_param_diff=worst, max_frac_beyond_atol=worst_frac,
+               tolerance=dict(loss_atol=DP_LOSS_ATOL, param_max=bound,
+                              param_atol=DP_PARAM_ATOL,
+                              param_frac=DP_PARAM_FRAC),
+               launches_by_rank=[rk["stats"] for rk in ranks],
+               launches={k: {"kernel": sum(rk["stats"][k]["kernel"]
+                                           for rk in ranks),
+                             "plain": sum(rk["stats"][k]["plain"]
+                                          for rk in ranks)}
+                         for k in ranks[0]["stats"]},
+               seconds=ranks_s, card=card)
+    log(f"dp: two gloo ranks on one card (launcher, GPT-2 small fp32, b4 a "
+        f"rank x s{TRAIN_L}, eager DataParallel, AdamW, {DP_RANK_STEPS} "
+        f"steps, {ranks_s:.1f} s with start-up): group-mean losses "
+        f"{ranks[0]['losses']} vs one process b{TRAIN_B} {single}: max "
+        f"|diff| {loss_diff:.2e} (tol {DP_LOSS_ATOL}); parameters max "
+        f"|diff| {worst:.2e} (bound {bound:.1e}), at most "
+        f"{worst_frac:.2e} of a tensor's elements beyond {DP_PARAM_ATOL} "
+        f"(tol {DP_PARAM_FRAC}) [{card}]")
+    for rk in ranks:
+        used = {k: st for k, st in rk["stats"].items() if st["kernel"]}
+        plain = {k: st for k, st in rk["stats"].items() if st["plain"]}
+        if plain or not used:
+            raise AssertionError(f"dp: rank {rk['rank']} counters: "
+                                 f"{rk['stats']}")
+        if rk["losses"] != ranks[0]["losses"]:
+            raise AssertionError(f"dp: the ranks' group losses differ: "
+                                 f"{[x['losses'] for x in ranks]}")
+    if (loss_diff > DP_LOSS_ATOL or worst > bound
+            or worst_frac > DP_PARAM_FRAC):
+        raise AssertionError(f"dp: two ranks against one process: {res}")
+    del net, opt
+    free_card()
+    import shutil
+    shutil.rmtree(out, ignore_errors=True)
+    return res
+
+
+def dp_phase(cfg, card):
+    """Phase 26: world 1 over NCCL (collectives, the grouped GPT-2 step bit
+    for bit, a failed capture), GPT-3 1.3B through DataParallel, then two
+    gloo ranks on the one card."""
+    from paddle_tpu_torch import distributed as dist
+    t0 = time.perf_counter()
+    res = dp_world1(cfg, card)
+    res["gpt3_rows"] = gpt3_rows(torch.device("cuda"),
+                                 torch.Generator(device="cuda").manual_seed(0))
+    res["gpt3"] = gpt3_train(card)
+    dist.destroy_process_group()
+    res["two_ranks"] = dp_two_ranks(card)
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"dp: phase 26 took {res['phase_s']:.1f} s [{card}]")
+    return res
+
+
 def fp32_row(kname, rows, paths):
     """For the 1x1 conv's entry: its fp32 row at the main shape, with its
     launches on phase 22's fp32 path, as `fp32`."""
@@ -6120,7 +6654,7 @@ def split_masked(kname, rows, paths):
 
 #: the phases `--phases` may name, in the order they run
 PHASES = ("serve", "health", "health_trip", "fit_resume", "transformer",
-          "resnet_fit", "serve_control", "observe", "ps")
+          "resnet_fit", "serve_control", "observe", "ps", "dp")
 
 
 def only_phases(phases, cfg, smi, name):
@@ -6156,6 +6690,8 @@ def only_phases(phases, cfg, smi, name):
         res["observe"] = observe(cfg, smi)
     if "ps" in phases:
         res["ps"] = ps_train(smi)
+    if "dp" in phases:
+        res["dp"] = dp_phase(cfg, smi)
     with open(os.path.join(OUT_DIR, "chip_smoke_phases.json"), "w") as f:
         json.dump(res, f, indent=1)
     print(smi)
@@ -6171,7 +6707,13 @@ def main(argv=None):
     ap.add_argument("--phases", default=None,
                     help="comma-separated names of " + ", ".join(PHASES)
                     + ": run only those after the device and build phases")
+    ap.add_argument("--dp-worker", default=None, metavar="DIR",
+                    help="run one rank of phase 26's two-rank run (the "
+                         "phase starts these through the launcher)")
     args = ap.parse_args(argv)
+    if args.dp_worker is not None:
+        dp_rank_worker(args.dp_worker)
+        return 0
     phases = None
     if args.phases is not None:
         phases = set(args.phases.split(","))
@@ -6392,8 +6934,12 @@ def main(argv=None):
     # 25. the parameter server: Wide&Deep and DeepFM at bench.py's widths,
     # eager, sync, async and pipelined with the hot-row cache
     ps_res = ps_train(smi)
+    # 26. collective data parallelism: world 1 over NCCL, GPT-3 1.3B
+    # through DataParallel, two gloo ranks on the card
+    dp_res = dp_phase(cfg, smi)
+    rows += dp_res["gpt3_rows"]
 
-    # 26. report: launches from each path's own run (counters reset just
+    # 27. report: launches from each path's own run (counters reset just
     # before it); times at the main path's shape
     result = dict(card=smi, capability=cap, launch_floor_ms=floor,
                   checks=rows, edges=edges,
@@ -6406,11 +6952,13 @@ def main(argv=None):
                   ernie=ernie, amp=amp_res, health=health_res,
                   health_trip=trip, fit_resume=fit_res, transformer=tb,
                   transformer_cpu_cross_check=tb_cpu, resnet_fit=rfit,
-                  serve_control=control, observe=obs, ps=ps_res)
+                  serve_control=control, observe=obs, ps=ps_res, dp=dp_res)
     paths = {"serve": served, "serve_control": control, "train": trained,
              "resnet": resnet, "long": long, "bert": bert,
              "health": health_res, "fit": fit_res, "transformer": tb,
-             "resnet_fit": rfit, "observe": obs}
+             "resnet_fit": rfit, "observe": obs,
+             "dp": dp_res["gpt2_world1"], "dp_gpt3": dp_res["gpt3"],
+             "dp_ranks": dp_res["two_ranks"]}
     kern = []
     for kname, meta in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == kname]

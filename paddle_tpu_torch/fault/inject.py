@@ -97,6 +97,13 @@ KNOWN_SITES = {
                      "(shed and admission-failure drills)",
     "heter.pull": "heter-PS sparse pull stage",
     "heter.push": "heter-PS sparse push stage",
+    "store.get": "TCPStore get (retry-wrapped)",
+    "store.set": "TCPStore set (retry-wrapped)",
+    "store.add": "TCPStore atomic add (retry-wrapped)",
+    "store.check": "TCPStore key-presence check (retry-wrapped)",
+    "parallel.init": "store rendezvous in init_parallel_env",
+    "collective.timeout": "eager collective launch (guarded deadline)",
+    "ckpt.commit": "coordinated-checkpoint commit phase",
 }
 
 #: dynamic site families: call sites build the name from a prefix + a

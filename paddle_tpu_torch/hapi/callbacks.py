@@ -144,9 +144,18 @@ class FaultTolerantCheckpoint(Callback):
     already include the in-flight update with a cursor one step behind —
     that batch replays once on resume (at-least-once step semantics).
 
-    Single host: ``coordinator="auto"`` resolves to None on one host; a
-    multi-host environment, an explicit coordinator and
-    ``layout="sharded"`` raise until ROADMAP A11.
+    Across ranks (``PADDLE_TRAINERS_NUM`` >= 2): ``coordinator="auto"``
+    builds a ``CheckpointCoordinator`` from the env contract, so every
+    rank publishes step N or none does, and resume negotiates the newest
+    step committed on EVERY rank. Pass an explicit coordinator, or
+    ``coordinator=None`` / ``PADDLE_TPU_CKPT_BARRIER=0``, to override; one
+    host saves plainly. ``layout="sharded"`` raises (ZeRO/sharding, ROADMAP
+    A11).
+
+    Generation-resync contract: one aborted coordinated save is tolerated
+    (a transiently slow peer), but ``PADDLE_TPU_CKPT_ABORT_EXIT`` (default
+    2) CONSECUTIVE aborts raise ``SystemExit(ELASTIC_EXIT_CODE)`` (101),
+    which the launcher honors by relaunching the pod. 0 disables it.
     """
 
     def __init__(self, dirname: str, save_freq_steps: Optional[int] = None,
@@ -169,6 +178,12 @@ class FaultTolerantCheckpoint(Callback):
         self._epoch = 0
         self._step = -1
         self._global_step = 0
+        self._aborted_saves = 0
+        # strict: fail at construction with the real cause, not
+        # mid-training with an anonymous int() error on the first abort
+        from ..utils.envparse import env_int
+        self._abort_exit_limit = env_int("PADDLE_TPU_CKPT_ABORT_EXIT", 2,
+                                         strict=True)
         self._epoch_done = False
         self._resume_epoch = -1
         self._resume_skip = 0
@@ -207,7 +222,22 @@ class FaultTolerantCheckpoint(Callback):
                              signal="checkpoint_skipped",
                              step=int(self._global_step))
             return
-        self.manager.save(self._capture(), step=self._global_step)
+        committed = self.manager.save(self._capture(),
+                                      step=self._global_step)
+        if committed or self.manager.coordinator is None:
+            self._aborted_saves = 0
+            return
+        self._aborted_saves += 1
+        limit = self._abort_exit_limit
+        if limit > 0 and self._aborted_saves >= limit:
+            # persistent barrier aborts mean a rank or a generation is out
+            # of step: exit ELASTIC_EXIT_CODE so the launcher relaunches
+            # every rank together, instead of training on while no
+            # checkpoint is ever published. Uninstall the SIGTERM hook
+            # first, so a relaunch in this process does not chain it.
+            self.manager.uninstall_preemption_handler()
+            from ..distributed.launch import ELASTIC_EXIT_CODE
+            raise SystemExit(ELASTIC_EXIT_CODE)
 
     # -- hooks ---------------------------------------------------------------
     def on_train_begin(self, logs=None):

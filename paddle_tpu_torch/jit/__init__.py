@@ -11,13 +11,24 @@ The kernels of the path are launched by the autograd Functions of
 ``ops/kernels``. On a card that step is captured into one CUDA graph per
 batch signature (``jit.graphs.StepGraphs``), which every later call with
 that signature replays; on the CPU the same step runs uncaptured.
+
+Over a ``distributed.DataParallel`` the step is the reference's step on
+a ``dp`` mesh: each rank feeds its rows of the global batch, and between
+the gradients and the update the step copies the gradients into flat
+static buckets, all-reduces them over the group and divides by its size
+(inside the captured graph on a card, over nccl), and returns the
+group's mean loss: the loss of the global batch.
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
 from torch.func import functional_call
 
+from ..distributed import collective as _collective
+from ..distributed import parallel as _parallel
 from ..framework.io import to_host
 from ..profiler import compile_watch as _compile_watch
 from ..profiler import health as _health
@@ -59,6 +70,17 @@ def _signature(batch) -> tuple:
             except TypeError:
                 sig.append(("value", repr(a)))
     return tuple(sig)
+
+
+def _require_capturable(group, device) -> None:
+    """A step on a card is captured, and a capture can hold only an nccl
+    collective: raise for any other backend there."""
+    if device.type == "cuda" and group.backend != "nccl":
+        raise RuntimeError(
+            f"TrainStep over DataParallel on {device}: the group's backend "
+            f"is {group.backend!r}, and a captured step cannot hold a "
+            f"{group.backend} collective; use nccl (one card a rank), or "
+            f"the eager DataParallel loop (loss.backward(); opt.step())")
 
 
 class TrainStep:
@@ -118,6 +140,15 @@ class TrainStep:
     value back with ``.item()``) raises; nothing falls back to running
     uncaptured. ``stats`` counts captures, replays and the pool's bytes.
     On the CPU the same step runs uncaptured.
+
+    ``layer`` a ``DataParallel``: the step runs its inner layer (the
+    parameters under their own names) and reduces the gradients over its
+    group, in buckets of its ``comm_buffer_size`` MB, while
+    ``F.cross_entropy`` divides by the group's label count; the returned
+    loss is the group's mean. On a card the group must be nccl's (a
+    captured step cannot hold a gloo collective: it raises); its
+    communicator is used once before the first capture, and checked after
+    a capture that failed.
     """
 
     _seq = 0
@@ -132,7 +163,10 @@ class TrainStep:
         self.optimizer = optimizer
         self.amp_dtype = amp_dtype
         self._loss_fn = loss_fn
-        self.apply_fn, params, buffers = functionalize(layer)
+        dp = layer if isinstance(layer, _parallel.DataParallel) else None
+        self._group = dp._group if dp is not None else None
+        self.apply_fn, params, buffers = functionalize(
+            dp._layers if dp is not None else layer)
         self.params = {k: p.detach().clone().requires_grad_(True)
                        for k, p in params.items()}
         self.buffers = {k: b.detach().clone() for k, b in buffers.items()}
@@ -149,8 +183,16 @@ class TrainStep:
         self._lr = torch.zeros((), dtype=torch.float64, device=self.device)
         self._step_t = torch.zeros((), dtype=torch.float64,
                                    device=self.device)
-        self._graphs = (StepGraphs(self.device, "TrainStep")
-                        if self.device.type == "cuda" else None)
+        self._buckets = []
+        if self._group is not None:
+            _require_capturable(self._group, self.device)
+            self._buckets = self._make_buckets(dp.comm_buffer_size)
+            if self.device.type == "cuda":
+                self._check_group()  # the communicator exists before capture
+        self._graphs = (StepGraphs(
+            self.device, "TrainStep",
+            on_recover=self._check_group if self._group else None)
+            if self.device.type == "cuda" else None)
         self._static: dict = {}   # signature -> the batch's static tensors
         if health is None:
             health = _health.enabled()
@@ -167,6 +209,57 @@ class TrainStep:
         self._pending = None
         self._last_health = None  # newest decoded sentinel stats
         self._last_attribution = None
+
+    def _make_buckets(self, mb):
+        """[(flat, names, views)]: static fp32 buffers (one type a
+        bucket) of at most ``mb`` MB, a view in each for every master."""
+        cap = float(mb) * 2 ** 20
+        groups, cur, size = [], [], 0
+        for k in self._names:
+            p = self.params[k]
+            nb = p.numel() * p.element_size()
+            if cur and (size + nb > cap
+                        or p.dtype != self.params[cur[0]].dtype):
+                groups.append(cur)
+                cur, size = [], 0
+            cur.append(k)
+            size += nb
+        if cur:
+            groups.append(cur)
+        out = []
+        for names in groups:
+            ps = [self.params[k] for k in names]
+            flat = torch.empty(sum(p.numel() for p in ps),
+                               dtype=ps[0].dtype, device=self.device)
+            views, off = [], 0
+            for p in ps:
+                views.append(flat[off:off + p.numel()].view(p.shape))
+                off += p.numel()
+            out.append((flat, names, views))
+        return out
+
+    def _check_group(self) -> None:
+        """One all-reduce over the group, waited for: before the first
+        capture it brings the communicator up; after a failed capture it
+        shows the group still answers."""
+        one = torch.ones(1, device=self.device)
+        _collective.raw_all_reduce(one, self._group)
+        if float(one) != self._group.nranks:
+            raise RuntimeError(f"TrainStep: an all-reduce over "
+                               f"{self._group!r} gave {float(one)}")
+
+    def _reduce(self, grads: dict, loss: torch.Tensor):
+        """The group's mean of the gradients (through the buckets, whose
+        views become the gradients) and of the loss."""
+        g = self._group
+        for flat, names, views in self._buckets:
+            torch._foreach_copy_(views, [grads[k] for k in names])
+            _collective.raw_all_reduce(flat, g)
+            flat.div_(g.nranks)
+            grads.update(zip(names, views))
+        loss = loss.detach().clone()
+        _collective.raw_all_reduce(loss, g)
+        return grads, loss.div_(g.nranks)
 
     def _cast(self, t):
         if self.amp_dtype is not None and t.is_floating_point():
@@ -189,7 +282,9 @@ class TrainStep:
                 with torch.no_grad():
                     torch._foreach_copy_([snapshot[k] for k in names],
                                          [self.params[k] for k in names])
-            with torch.enable_grad():
+            scope = (_parallel.loss_scope(self._group, False)
+                     if self._group is not None else contextlib.nullcontext())
+            with torch.enable_grad(), scope:
                 compute = {k: self._cast(p) for k, p in self.params.items()}
                 out, _ = self.apply_fn(compute, self.buffers, *inputs)
                 loss = self._loss_fn(out, batch[-1])
@@ -200,6 +295,8 @@ class TrainStep:
             grads = dict(zip(names, (
                 torch.zeros_like(self.params[k]) if g is None else g
                 for k, g in zip(names, grads))))
+            if self._group is not None:
+                grads, loss = self._reduce(grads, loss)
             self.optimizer.apply_fn(
                 self.params, grads, self.opt_state, lr=self._lr,
                 t=self._step_t, fused=self.fused_opt, inplace=True)

@@ -10,10 +10,11 @@ cuDNN's handles and workspaces, builds cached index tensors and grows
 the allocator, none of which a capture may do), then captures the same
 ``fn`` into a CUDA graph in the object's one pool. Capturing launches
 nothing, so ``fn`` never runs twice for one call. The launch counts the
-capture made are set aside (``ops.kernels.recorded``) and added once per
-replay. Later uses of the key replay the graph and return the tensors
-``fn`` returned while it was captured: the graph writes them anew on
-every replay.
+capture made (the kernels', ``ops.kernels.recorded``, and the
+collectives', ``distributed.collective.recorded``) are set aside and
+added once per replay. Later uses of the key replay the graph and return
+the tensors ``fn`` returned while it was captured: the graph writes them
+anew on every replay.
 
 A capture or a replay that fails raises, naming the key and the CUDA
 error; nothing falls back to running ``fn`` uncaptured (what a failed
@@ -40,6 +41,7 @@ from typing import Callable, Dict, Hashable
 
 import torch
 
+from ..distributed import collective as _collective
 from ..framework import random as _random
 from ..ops import kernels as _kernels
 from ..profiler import compile_watch as _compile_watch
@@ -53,9 +55,12 @@ class StepGraphs:
     ``pool_bytes``: the growth of the allocator's reserved memory over
     the captures (the pool's activations and outputs)."""
 
-    def __init__(self, device, owner: str = "step"):
+    def __init__(self, device, owner: str = "step", on_recover=None):
         self.device = torch.device(device)
         self.owner = owner
+        # called after a failed capture is put right (the grouped
+        # TrainStep checks its process group there)
+        self._on_recover = on_recover
         self.graphs: Dict[Hashable, tuple] = {}  # key -> (graph, counts, out)
         self.replays: Dict[Hashable, int] = {}
         self.captures = 0
@@ -75,7 +80,8 @@ class StepGraphs:
         except Exception as e:
             raise RuntimeError(f"{self.owner}: replaying the graph of "
                                f"{key!r} failed: {e}") from e
-        _kernels.add_counts(counts)
+        _kernels.add_counts(counts[0])
+        _collective.add_counts(counts[1])
         self.replays[key] += 1
         return out
 
@@ -100,8 +106,10 @@ class StepGraphs:
                 graph.register_generator_state(gen)
         reserved = self._reserved()
         err = None
+        ended = False
         t0 = time.perf_counter()
-        with _kernels.recorded() as counts, torch.cuda.stream(side):
+        with _kernels.recorded() as counts, \
+                _collective.recorded() as coll, torch.cuda.stream(side):
             graph.capture_begin(pool=self._pool,
                                 capture_error_mode="thread_local")
             try:
@@ -110,23 +118,34 @@ class StepGraphs:
                 err = e
             try:
                 graph.capture_end()
+                ended = True
             except Exception as e:
                 err = err or e
         if err is not None:
-            self._recover(drawn, side)
+            if ended:
+                # fn raised in Python (an allocation that failed, say) and
+                # the capture still ended: the graph owns its pool and its
+                # reset releases it; later captures take a new pool
+                graph.reset()
+                self._pool = torch.cuda.graph_pool_handle()
+            else:
+                self._recover(drawn, side)
+            if self._on_recover is not None:
+                self._on_recover()
             raise RuntimeError(f"{self.owner}: capturing the graph of "
                                f"{key!r} failed: {err}") from err
         cur.wait_stream(side)
         # the capture is the port's compile: attributed to the entry pushed
         _compile_watch.record("graph_capture", time.perf_counter() - t0)
         self.pool_bytes += self._reserved() - reserved
-        self.graphs[key] = (graph, counts, out)
+        self.graphs[key] = (graph, (counts, coll), out)
         self.replays[key] = 0
         self.captures += 1
         return result
 
     def _recover(self, drawn, side) -> None:
-        """After a failed capture, which did not end: the allocator still
+        """After a failed capture that did not end (a CUDA call refused
+        inside it): the allocator still
         sends the pool its allocations and defers every free in the
         process (no memory would return), and the default generator (and
         each registered one) stays in capture mode, so every later draw

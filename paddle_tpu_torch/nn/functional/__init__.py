@@ -185,7 +185,11 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
     ``ignore_index``) contributes zero loss and zero gradient, and
     ``reduction="mean"`` divides by the number of in-range labels (or by
     their summed class weights). Soft labels: -sum(soft * log_softmax),
-    weighted by the class of each row's largest soft label."""
+    weighted by the class of each row's largest soft label.
+
+    Under data parallelism (a ``DataParallel`` forward, a grouped
+    ``TrainStep``) the mean and the sum are those of the global batch:
+    the count is all-reduced over the group (``parallel.group_loss``)."""
     logits, label, weight = maybe_autocast("cross_entropy", input, label,
                                            weight)
     ax = axis if axis >= 0 else logits.dim() + axis
@@ -199,6 +203,11 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
         nll = -(soft * logp).sum(dim=ax)
         if weight is not None:
             nll = nll * weight[soft.argmax(dim=ax)]
+        scope = _dp_scope(reduction)
+        if scope is not None:
+            count = (torch.tensor(nll.numel(), device=nll.device)
+                     if reduction == "mean" else None)
+            return _dp_loss(nll.sum(), count, scope)
         return _reduce_loss(nll, reduction)
     li = label.long()
     if li.dim() == logits.dim() and li.shape[ax] == 1:
@@ -233,11 +242,29 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
         nll = nll * ww
     mask = (li != ignore_index) & (li >= 0) & (li < n_cls)
     nll = torch.where(mask, nll, 0.0)
+    scope = _dp_scope(reduction)
     if reduction == "mean":
-        denom = (torch.where(mask, ww, 0.0).sum() if ww is not None
-                 else mask.sum().clamp_min(1))
-        return nll.sum() / denom
+        count = (torch.where(mask, ww, 0.0).sum() if ww is not None
+                 else mask.sum())
+        if scope is not None:
+            return _dp_loss(nll.sum(), count, scope, clamp=ww is None)
+        return nll.sum() / (count if ww is not None else count.clamp_min(1))
+    if scope is not None:
+        return _dp_loss(nll.sum(), None, scope)
     return _reduce_loss(nll, reduction)
+
+
+def _dp_scope(reduction):
+    """The data-parallel loss scope in force for a "mean"/"sum" loss."""
+    if reduction not in ("mean", "sum"):
+        return None
+    from ...distributed import parallel
+    return parallel.loss_group()
+
+
+def _dp_loss(local_sum, count, scope, clamp=False):
+    from ...distributed import parallel
+    return parallel.group_loss(local_sum, count, scope, clamp=clamp)
 
 
 # ------------------------------ convolution ---------------------------------

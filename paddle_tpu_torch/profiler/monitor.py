@@ -17,12 +17,14 @@ against. The MFU denominator defaults to the card's peak
 (`device_time.GPU_PEAK_FLOPS`, 989e12 bf16 dense on an H100;
 `BENCH_PEAK_FLOPS` overrides it).
 
-`diagnose_window` reads the reference's families. Those the port does not
-feed read 0: `op_time_seconds` and `op_device_seconds` (the port has no
-per-op dispatch layer), `collective_seconds` (the collectives are ROADMAP
-A11), `ckpt_barrier_wait_seconds` (the coordinated checkpoint is A11's);
-`compile` reads the graph captures and kernel builds of
-`compile_watch`.
+`diagnose_window` reads the reference's families. `op_time_seconds` and
+`op_device_seconds` read 0 (the port has no per-op dispatch layer).
+`collective_seconds` is fed by the eager collectives of
+`distributed.collective` and by `DataParallel`'s wait for its gradient
+buckets (a collective inside a captured TrainStep runs on the device's
+clock and is not in it); `ckpt_barrier_wait_seconds` by the coordinated
+checkpoint's commit wait; `compile` reads the graph captures and kernel
+builds of `compile_watch`.
 """
 from __future__ import annotations
 

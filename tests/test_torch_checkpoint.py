@@ -233,18 +233,24 @@ def test_valid_only_resume_walks_past_nonfinite(tmp_path, monkeypatch):
 
 
 def test_multi_host_pieces_wait_for_a11(tmp_path, monkeypatch):
+    # the coordinated commit is ported (tests/test_torch_coord_checkpoint.py
+    # holds it against the reference); the sharded layout still waits
+    from paddle_tpu_torch.distributed.store import TCPStore
     assert ckpt.coordinator_from_env() is None
+    master = TCPStore("127.0.0.1", 0, is_master=True)
     monkeypatch.setenv("PADDLE_TRAINERS_NUM", "2")
-    monkeypatch.setenv("MASTER_ADDR", "localhost")
-    monkeypatch.setenv("MASTER_PORT", "29500")
-    with pytest.raises(NotImplementedError, match="A11"):
-        ckpt.coordinator_from_env()
+    monkeypatch.setenv("PADDLE_TRAINER_ID", "1")
+    monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
+    monkeypatch.setenv("MASTER_PORT", str(master.port))
+    co = ckpt.coordinator_from_env()
+    assert (co.rank, co.world_size) == (1, 2)
     (tmp_path / "ckpt_4").mkdir()
     assert ckpt.detect_layout(str(tmp_path)) == "sharded"
     with pytest.raises(NotImplementedError, match="A11"):
         ckpt.open_manager(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="A11"):
-        ckpt.CheckpointCoordinator(None, 0, 2)
+    with pytest.raises(ValueError, match="world_size"):
+        ckpt.CheckpointCoordinator(None, 0, 1)
+    master.stop()
 
 
 # ------------------------------- preemption ----------------------------------
@@ -345,10 +351,10 @@ def test_malformed_fault_clause_warns_as_in_the_reference():
         inj = fault.FaultInjector(spec="good.site=1;bad_clause;also=bad!x")
     with pytest.raises(fault.InjectedFault):
         inj.site("good.site")
-    assert set(fault.inject.KNOWN_SITES) == {"serving.decode",
-                                             "serving.wedge",
-                                             "serving.admit", "heter.pull",
-                                             "heter.push"}
+    assert set(fault.inject.KNOWN_SITES) == {
+        "serving.decode", "serving.wedge", "serving.admit", "heter.pull",
+        "heter.push", "store.get", "store.set", "store.add", "store.check",
+        "parallel.init", "collective.timeout", "ckpt.commit"}
     assert set(fault.inject.KNOWN_SITES) <= set(jfault.inject.KNOWN_SITES)
     assert set(fault.inject.DYNAMIC_SITES) == {"ps."}
     assert set(fault.inject.DYNAMIC_SITES) <= set(

@@ -159,8 +159,11 @@ def test_diag_signals_read_the_compile_family():
     compile_watch.record("graph_capture", 0.25)
     after = monitor.diag_signals()
     assert after["compile"] == pytest.approx(before["compile"] + 0.25)
-    # families the port does not feed read 0
-    assert after["collective"] == 0.0 and after["straggler_wait"] == 0.0
+    # the collective and barrier families move only with collectives and
+    # coordinated saves, none of which ran here (another test of this
+    # process may have fed them before)
+    assert after["collective"] == before["collective"]
+    assert after["straggler_wait"] == before["straggler_wait"]
 
 
 def test_device_memory_samples_nothing_on_the_cpu():

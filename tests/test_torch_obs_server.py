@@ -74,6 +74,16 @@ def both(monkeypatch):
     for mod in (slo, jslo):
         monkeypatch.setattr(mod, "_current", None)
     monkeypatch.delenv("PADDLE_TPU_SERVING_QUEUE_LIMIT", raising=False)
+    # tests/test_obs_server.py patches the reference's `_engine`
+    # staticmethod and undoes it, which leaves a plain function on the
+    # class: put the staticmethod back when this file shares its process
+    for cls in (server.ObservabilityServer, jserver.ObservabilityServer):
+        fn = cls.__dict__["_engine"]
+        if not isinstance(fn, staticmethod):
+            monkeypatch.setattr(cls, "_engine", staticmethod(fn))
+    # and a capture summary another test of this process left behind
+    for mod in (xplane, jxplane):
+        monkeypatch.setattr(mod._default_capture, "last_summary", None)
     _fresh_liveness()
     srvs = (server.ObservabilityServer(), jserver.ObservabilityServer())
     for s in srvs:

@@ -212,3 +212,31 @@ def test_attention_positional_name_slot():
         tq, tk, tv, dropout_p=0.1, generator=torch.Generator().manual_seed(3))
         for _ in range(2))
     assert torch.equal(a, b)
+
+
+def test_data_parallel_and_new_group_take_the_reference_slots():
+    """``DataParallel(layers, strategy, comm_buffer_size,
+    last_comm_buffer_size, find_unused_parameters, group)`` and
+    ``new_group(ranks, backend, timeout, axis_name)`` in the reference's
+    order, positionally; a world of one rank over gloo."""
+    import inspect
+    import paddle_tpu.distributed as jdist
+    from paddle_tpu_torch import distributed as tdist
+    for name in ("DataParallel", "new_group", "all_reduce", "broadcast",
+                 "all_gather", "reduce_scatter", "scatter", "alltoall",
+                 "shard_batch", "replicate", "get_rank", "get_world_size"):
+        want = list(inspect.signature(getattr(jdist, name)).parameters)
+        got = list(inspect.signature(getattr(tdist, name)).parameters)
+        assert got == want, name
+    tdist.init_parallel_env(device="cpu")
+    try:
+        g = tdist.new_group([0], "gloo", 30)
+        assert (g.ranks, g.backend, g.rank) == ([0], "gloo", 0)
+        dp = tdist.DataParallel(nn.Linear(4, 3, device="cpu"), None, 5, 2,
+                                True, g)
+        assert (dp.comm_buffer_size, dp.last_comm_buffer_size,
+                dp.find_unused_parameters, dp._group) == (5, 2, True, g)
+        assert tdist.get_backend() == "gloo"
+    finally:
+        tdist.destroy_process_group()
+    assert not tdist.is_initialized()
