@@ -12,6 +12,8 @@
                                      # phases 1-2 and 25
     python3 chip_smoke.py --phases dp
                                      # phases 1-2 and 26
+    python3 chip_smoke.py --phases resnet_dp
+                                     # phases 1-2 and 27
 
 Phases, each of which raises (exit code != 0, with its traceback) on a
 failure:
@@ -282,7 +284,26 @@ failure:
               AdamW, 3 steps) against one process over the global batch
               (DP_LOSS_ATOL, DP_PARAM_*), each rank's kernels counted and
               its plain counters 0;
-27. report  - the `kernels` JSON line, the card's name and power limit, and
+27. resnet_dp - ResNet-50 data parallelism, every batch norm synchronized
+              over the group: TrainStep(DataParallel(ResNet-50 NHWC)) O2
+              bf16 b128 224x224 captured on a world-1 NCCL group against
+              TrainStep(ResNet-50), 3 steps under deterministic_steps,
+              losses and every master, slot and buffer bit for bit, exact
+              launches (rows 10-13: 49 / 49 / 49 / 32 a step, no plain
+              run), the collectives a step by kind through the replays
+              (2 x 53 "bn_sync", the buckets, the label count and the
+              loss); both captured steps timed in turns (step ms,
+              images/s, device busy, NCCL kernels in a replay); then two
+              gloo ranks on the card through the launcher, ResNet-50 fp32
+              over a global batch of 32 (16 a rank; bench.py's 128 cut
+              for time), 3 Momentum(0.1, 0.9) steps through the eager
+              DataParallel loop against one process over the global
+              batch, after the first step and the third, within
+              RN_NOISE_MULT times the one process's distance with its
+              batch reversed; and an fp16 BatchNorm2D(64, act="relu")
+              over the two ranks (the composed route: counted in
+              composed_stats, 2 "bn_sync") against one process;
+28. report  - the `kernels` JSON line, the card's name and power limit, and
               the device JSON line last.
 
 Every TrainStep above runs captured (one CUDA graph per batch signature,
@@ -6549,6 +6570,467 @@ def dp_phase(cfg, card):
     return res
 
 
+# -------------- phase 27: ResNet-50 data parallelism (synchronized BN) --------------
+
+#: batch norms of a ResNet-50 step: the 49 fused ones and the 4 downsample
+#: BNs (the unfused route); under a group each all-reduces its moments in
+#: the forward and its column sums in the backward ("bn_sync")
+RESNET_BNS = 53
+#: steps of the world-1 comparison (grouped against plain) and of a timed run
+RN_DP_STEPS, RN_DP_TIMED = 3, 6
+#: the two gloo ranks on the card: ResNet-50 fp32 over a global batch of 32
+#: at 224x224 (bench.py's 128 cut for time: two processes share the card),
+#: 3 Momentum(0.1, 0.9) steps through the eager DataParallel loop
+RN_RANK_B, RN_RANK_STEPS = 32, 3
+#: the ranks against one process after the first step: the loss, the
+#: parameters and the running statistics each at most RN_NOISE_MULT times
+#: the one process's own distance with the global batch reversed (its
+#: rounding noise from a reordering: the ranks also regroup every
+#: reduction and run cuDNN at another batch) plus a floor: the loss
+#: RN_LOSS_FLOOR of itself, the state RN_STATE_FLOOR in relative L2. The
+#: later steps are printed and not held: at lr 0.1 on one batch the loss
+#: goes 7.2, 5.9, then ~14.7, and that path amplifies the noise of a
+#: reordering to ~10 % of the parameters by the third step, differently
+#: on every call
+RN_NOISE_MULT, RN_LOSS_FLOOR, RN_STATE_FLOOR = 4.0, 1e-5, 1e-5
+#: one fp16 BatchNorm2D(64, act="relu") over the two ranks (the composed
+#: route): a global [8, 28, 28, 64] batch whose halves' means are 3 apart;
+#: against one process, the output within 2^-10 and dx within 2^-8 of
+#: their largest magnitude (fp16 results of fp32 arithmetic), the running
+#: statistics within 1e-5
+RN_FP16_SHAPE = (8, 28, 28, 64)
+RN_FP16_OUT_TOL, RN_FP16_DX_TOL, RN_FP16_STAT_TOL = 2.0 ** -10, 2.0 ** -8, 1e-5
+
+
+def rn_dp_step(dev, grouped):
+    """bench.py's ResNet-50 step (NHWC, Momentum(0.1, 0.9), O2 bf16) as a
+    TrainStep, over DataParallel when `grouped`; weights from seed 0."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.resnet import resnet50
+    from paddle_tpu_torch.nn import functional as F
+    net = resnet50(data_format="NHWC", device=dev,
+                   generator=torch.Generator().manual_seed(0))
+    opt = optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                             parameters=net.parameters())
+    return TrainStep(dist.DataParallel(net) if grouped else net,
+                     F.cross_entropy, opt, amp_dtype=torch.bfloat16)
+
+
+def rn_dp_batch(B, seed=0):
+    """NHWC normal images at 224x224 and labels in [0, 1000) on the CPU."""
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.normal(size=(
+        B, RESNET_HW, RESNET_HW, 3)).astype(np.float32)),
+        torch.from_numpy(rng.integers(0, 1000, (B,))))
+
+
+def rn_dp_world1(card):
+    """World 1 over NCCL: TrainStep(DataParallel(ResNet-50)) captured, O2
+    bf16 b128 224x224, against TrainStep(ResNet-50): 3 steps of each under
+    deterministic_steps, bit for bit, each with the kernels' exact
+    launches and no plain run, the grouped one with its collectives a
+    step by kind carried through the replays (2 x 53 "bn_sync", the
+    buckets, the label count and the loss); then both captured steps
+    timed in turns (step ms, images/s, device busy)."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.ops import kernels
+    dev = torch.device("cuda")
+    dist.init_parallel_env()
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        raise AssertionError(f"resnet_dp: world {dist.get_backend()} "
+                             f"{dist.get_world_size()}")
+    batch = tuple(t.to(dev) for t in rn_dp_batch(RESNET_B))
+    runs = {}
+    for name, grouped in (("plain", False), ("dp", True)):
+        torch.manual_seed(0)
+        step = rn_dp_step(dev, grouped)
+        C.reset_launch_stats()
+        kernels.reset_stats()
+        losses = []
+        with deterministic_steps():
+            for _ in range(RN_DP_STEPS):
+                losses.append(step(*batch))
+            torch.cuda.synchronize()
+        exact_launches(f"resnet_dp {name}", kernels.all_stats(),
+                       RESNET_PER_STEP, RN_DP_STEPS)
+        no_composed(f"resnet_dp {name}")
+        runs[name] = dict(losses=torch.stack(losses).float().cpu(),
+                          state=step_state(step), graphs=graph_summary(step),
+                          launches=kernels.all_stats(),
+                          collectives=C.launch_stats(),
+                          buckets=len(step._buckets))
+        step.release_graphs()
+        del step
+        free_card()
+    p, d = runs["plain"], runs["dp"]
+    same = bits_equal(p["losses"], d["losses"])
+    diff = [k for k, v in p["state"].items()
+            if not bits_equal(v, d["state"][k])]
+    loss_diff = float((p["losses"] - d["losses"]).abs().max())
+    param_diff = max(float((v.float() - d["state"][k].float()).abs().max())
+                     for k, v in p["state"].items()
+                     if k.startswith("param "))
+    want_coll = {"bn_sync": 2 * RESNET_BNS * RN_DP_STEPS,
+                 "all_reduce": (d["buckets"] + 2) * RN_DP_STEPS}
+    res = dict(steps=RN_DP_STEPS, batch=RESNET_B, hw=RESNET_HW,
+               losses=d["losses"].tolist(),
+               plain_losses=p["losses"].tolist(), losses_bit_for_bit=same,
+               max_loss_diff=loss_diff, max_param_diff=param_diff,
+               state_tensors=len(p["state"]), state_differing=diff,
+               graphs=d["graphs"], buckets=d["buckets"],
+               collectives=d["collectives"], collectives_want=want_coll,
+               collectives_per_step={k: v / RN_DP_STEPS for k, v in
+                                     d["collectives"].items()},
+               launches=d["launches"],
+               launches_per_step={k: v["kernel"] / RN_DP_STEPS
+                                  for k, v in d["launches"].items()},
+               card=card)
+    log(f"resnet_dp: TrainStep(DataParallel(ResNet-50)) captured on the "
+        f"world-1 nccl group, O2 bf16 b{RESNET_B} {RESNET_HW}x{RESNET_HW}, "
+        f"against TrainStep(ResNet-50), {RN_DP_STEPS} steps under "
+        f"deterministic_steps: losses bit for bit {same} (max |diff| "
+        f"{loss_diff:.3e}), parameters max |diff| {param_diff:.3e}, "
+        f"{len(diff)} of {len(p['state'])} masters/slots/buffers differ; "
+        f"collectives {json.dumps(d['collectives'])} (want "
+        f"{json.dumps(want_coll)}: 2 x {RESNET_BNS} bn_sync, "
+        f"{d['buckets']} buckets, the label count and the loss a step); "
+        f"launches a step {json.dumps(res['launches_per_step'])}; graphs "
+        f"{json.dumps(d['graphs'])} [{card}]")
+    if not same or diff or d["collectives"] != want_coll:
+        raise AssertionError(f"resnet_dp: the world-1 step: {res}")
+    if p["collectives"] or p["graphs"]["captures"] != d["graphs"]["captures"]:
+        raise AssertionError(f"resnet_dp: plain {p['collectives']} "
+                             f"{p['graphs']} {d['graphs']}")
+    del runs, p, d
+    free_card()
+    # both captured steps timed in turns
+    steps = {name: rn_dp_step(dev, grouped)
+             for name, grouped in (("plain", False), ("dp", True))}
+    for st in steps.values():
+        for _ in range(2):
+            st(*batch)
+    ms = {name: [] for name in steps}
+    for _ in range(CAPTURE_ROUNDS):
+        for name, st in steps.items():
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(RN_DP_TIMED):
+                st(*batch)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t1) * 1e3 / RN_DP_TIMED)
+    busy = {name: device_ops(lambda: st(*batch))
+            for name, st in steps.items()}
+    nccl, total = nccl_kernels(lambda: steps["dp"](*batch))
+    med = {name: float(np.median(v)) for name, v in ms.items()}
+    res.update(
+        step_ms=ms, step_ms_median=med,
+        images_per_s={k: RESNET_B / (v / 1e3) for k, v in med.items()},
+        device_ops={k: v[0] for k, v in busy.items()},
+        device_busy_ms={k: v[1] for k, v in busy.items()},
+        replay_profile=dict(nccl_kernels=nccl, kernels=total),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"resnet_dp: ResNet-50 O2 b{RESNET_B} captured, step ms in turns "
+        f"(runs of {RN_DP_TIMED}): plain {json.dumps(ms['plain'])}, "
+        f"DataParallel world 1 {json.dumps(ms['dp'])}; images/s "
+        f"{json.dumps(res['images_per_s'])}; device ops / busy ms a step "
+        f"{json.dumps(busy)}; one grouped replay under the profiler: "
+        f"{nccl} NCCL kernels of {total} [{card}]")
+    for st in steps.values():
+        st.release_graphs()
+    del steps, st
+    free_card()
+    dist.destroy_process_group()
+    return res
+
+
+def rn_fp16_input():
+    """The fp16 batch norm's global input (fp32 on the CPU; the halves'
+    means 3 apart) and the weights of its sum loss."""
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=RN_FP16_SHAPE).astype(np.float32)
+    x[RN_FP16_SHAPE[0] // 2:] += 3.0
+    w = rng.normal(size=RN_FP16_SHAPE).astype(np.float32)
+    return torch.from_numpy(x), torch.from_numpy(w)
+
+
+def rn_fp16_bn(bn, x, w):
+    """(output, dx, running mean, running var) of the fp16 fused layer
+    `bn` on x (cast to fp16) under the loss sum(out * w)."""
+    x16 = x.half().requires_grad_(True)
+    out = bn(x16)
+    (out.float() * w).sum().backward()
+    layer = getattr(bn, "_layers", bn)
+    return (out.detach().float().cpu(), x16.grad.float().cpu(),
+            layer._mean.detach().cpu(), layer._variance.detach().cpu())
+
+
+def rn_rank_worker(outdir):
+    """One rank of phase 27's two-rank gloo run (started by the launcher):
+    ResNet-50 fp32 through the eager DataParallel loop on its 16 rows of
+    the global batch, 3 Momentum steps; then one fp16 BatchNorm2D(64,
+    act="relu") over the two ranks (the card's composed route). Writes its
+    losses, launch and collective counters and (rank 0) its parameters
+    and buffers, and its share of the fp16 layer's results."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import nn, optimizer
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.models.resnet import resnet50
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import kernels
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_parallel_env()
+    r = dist.get_rank()
+    dev = dist.parallel.rank_device()
+    net = resnet50(data_format="NHWC", device=dev,
+                   generator=torch.Generator().manual_seed(0))
+    dp = dist.DataParallel(net)
+    opt = optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                             parameters=dp.parameters())
+    xs, ys = (dist.shard_batch(t).to(dev) for t in rn_dp_batch(RN_RANK_B))
+    kernels.reset_stats()
+    C.reset_launch_stats()
+    losses, first = [], None
+    t0 = time.perf_counter()
+    for i in range(RN_RANK_STEPS):
+        loss = F.cross_entropy(dp(xs), ys)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss.detach()))
+        if i == 0 and r == 0:
+            first = rn_state(net)
+    out = dict(rank=r, backend=dist.get_backend(), device=str(dev),
+               losses=losses, stats=kernels.all_stats(),
+               composed=kernels.composed_stats(),
+               collectives=C.launch_stats(),
+               seconds=time.perf_counter() - t0)
+    if r == 0:
+        out["first"], out["last"] = first, rn_state(net)
+    del dp, net, opt
+    x, w = rn_fp16_input()
+    dpb = dist.DataParallel(nn.BatchNorm2D(
+        RN_FP16_SHAPE[-1], act="relu", data_format="NHWC", device=dev))
+    kernels.reset_stats()
+    C.reset_launch_stats()
+    fp16 = rn_fp16_bn(dpb, dist.shard_batch(x).to(dev),
+                      dist.shard_batch(w).to(dev))
+    out["fp16"] = dict(out=fp16[0], dx=fp16[1], mean=fp16[2], var=fp16[3],
+                       stats=kernels.all_stats(),
+                       composed=kernels.composed_stats(),
+                       collectives=C.launch_stats())
+    torch.save(out, os.path.join(outdir, f"rank{r}.pt"))
+    dist.destroy_process_group()
+
+
+def rn_state(net):
+    """(parameters, buffers) of `net`, copied to the CPU."""
+    return ({k: v.detach().to("cpu", copy=True)
+             for k, v in net.named_parameters()},
+            {k: v.detach().to("cpu", copy=True)
+             for k, v in net.named_buffers()})
+
+
+def rn_single(dev, x, y):
+    """3 eager Momentum(0.1, 0.9) steps of the same fp32 ResNet-50 in one
+    process over the global batch: (losses, rn_state after the first step,
+    after the last)."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.models.resnet import resnet50
+    from paddle_tpu_torch.nn import functional as F
+    net = resnet50(data_format="NHWC", device=dev,
+                   generator=torch.Generator().manual_seed(0))
+    opt = optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                             parameters=net.parameters())
+    x, y = x.to(dev), y.to(dev)
+    losses, first = [], None
+    for i in range(RN_RANK_STEPS):
+        loss = F.cross_entropy(net(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss.detach()))
+        if i == 0:
+            first = rn_state(net)
+    return losses, first, rn_state(net)
+
+
+def rel_l2_all(a, b):
+    """Relative L2 of {name: tensor} a against b, over all tensors."""
+    num = sum(float(((a[k].double() - v.double()) ** 2).sum())
+              for k, v in b.items())
+    den = sum(float((v.double() ** 2).sum()) for v in b.values())
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def rn_dp_two_ranks(card):
+    """Two gloo ranks on the one card (the launcher, --nproc_per_node 2)
+    against one process over the global batch: the loss, running
+    statistics and parameters after the first step within RN_NOISE_MULT
+    times the one process's distance from itself with the batch reversed
+    (plus a floor), those after the third printed; each rank's kernels
+    launched, no plain run, 2 x 53 bn_sync a step; the fp16 layer through
+    the composed route, synchronized, against one process."""
+    import shutil
+    import signal
+    import tempfile
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.ops import kernels
+    free_card()
+    out = tempfile.mkdtemp(prefix="rn_ranks_")
+    env = dict(os.environ, PADDLE_DISTRI_BACKEND="gloo")
+    for k in ("PADDLE_TRAINER_ID", "PADDLE_TRAINERS_NUM",
+              "PADDLE_TRAINER_ENDPOINTS", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(k, None)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         "--nproc_per_node", "2", "--log_dir", os.path.join(out, "log"),
+         os.path.abspath(__file__), "--rn-worker", out],
+        env=env, cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, start_new_session=True)
+    try:
+        text, _ = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        text, _ = proc.communicate()
+        raise AssertionError(f"resnet_dp: the two ranks did not end within "
+                             f"300 s:\n{text[-3000:]}")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(30)
+    ranks_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        logf = os.path.join(out, "log", "workerlog.1")
+        worker_log = open(logf).read()[-3000:] if os.path.exists(logf) \
+            else ""
+        raise AssertionError(f"resnet_dp: the launcher exited "
+                             f"{proc.returncode}:\n{text[-3000:]}\nrank 1:"
+                             f"\n{worker_log}")
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    shutil.rmtree(out, ignore_errors=True)
+    dev = torch.device("cuda")
+    x, y = rn_dp_batch(RN_RANK_B)
+    single = rn_single(dev, x, y)
+    free_card()
+    flipped = rn_single(dev, x.flip(0), y.flip(0))
+    free_card()
+    got = (ranks[0]["losses"], ranks[0]["first"], ranks[0]["last"])
+    dist_of = {}
+    for name, other in (("ranks", got), ("reversed", flipped)):
+        dist_of[name] = {}
+        for at, i in ((1, 1), (RN_RANK_STEPS, 2)):
+            dist_of[name][f"loss_{at}"] = (abs(other[0][at - 1]
+                                               - single[0][at - 1])
+                                           / abs(single[0][at - 1]))
+            dist_of[name][f"params_{at}"] = rel_l2_all(other[i][0],
+                                                   single[i][0])
+            dist_of[name][f"buffers_{at}"] = rel_l2_all(other[i][1],
+                                                    single[i][1])
+    # held after the first step only (see RN_NOISE_MULT)
+    bound = {k: RN_NOISE_MULT * dist_of["reversed"][k]
+             + (RN_LOSS_FLOOR if k.startswith("loss") else RN_STATE_FLOOR)
+             for k in ("loss_1", "params_1", "buffers_1")}
+    # the fp16 layer in one process
+    xh, wh = rn_fp16_input()
+    bn = nn.BatchNorm2D(RN_FP16_SHAPE[-1], act="relu", data_format="NHWC",
+                        device=dev)
+    kernels.reset_stats()
+    one = rn_fp16_bn(bn, xh.to(dev), wh.to(dev))
+    f16 = [rk["fp16"] for rk in ranks]
+    fp16_err = dict(
+        out=float((torch.cat([f["out"] for f in f16]) - one[0]).abs().max()
+                  / one[0].abs().max()),
+        dx=float((torch.cat([f["dx"] for f in f16]) - one[1]).abs().max()
+                 / one[1].abs().max()),
+        stats=max(float((f[k] - ref).abs().max() / ref.abs().max())
+                  for f in f16 for k, ref in (("mean", one[2]),
+                                              ("var", one[3]))))
+    per_step = {k: v * RN_RANK_STEPS for k, v in RESNET_PER_STEP.items()}
+    res = dict(ranks=[dict(rank=rk["rank"], backend=rk["backend"],
+                           device=rk["device"], losses=rk["losses"],
+                           collectives=rk["collectives"],
+                           seconds=rk["seconds"]) for rk in ranks],
+               global_batch=RN_RANK_B, steps=RN_RANK_STEPS,
+               single_losses=single[0], reversed_losses=flipped[0],
+               distance=dist_of, bound=bound,
+               launches_by_rank=[rk["stats"] for rk in ranks],
+               launches={k: {"kernel": sum(rk["stats"][k]["kernel"]
+                                           for rk in ranks),
+                             "plain": sum(rk["stats"][k]["plain"]
+                                          for rk in ranks)}
+                         for k in ranks[0]["stats"]},
+               fp16=dict(shape=list(RN_FP16_SHAPE), errors=fp16_err,
+                         tolerance=dict(out=RN_FP16_OUT_TOL,
+                                        dx=RN_FP16_DX_TOL,
+                                        stats=RN_FP16_STAT_TOL),
+                         composed=[f["composed"] for f in f16],
+                         collectives=[f["collectives"] for f in f16]),
+               seconds=ranks_s, card=card)
+    log(f"resnet_dp: two gloo ranks on one card (launcher, ResNet-50 fp32, "
+        f"global batch {RN_RANK_B} at {RESNET_HW}x{RESNET_HW}, "
+        f"{RN_RANK_B // 2} a rank, "
+        f"eager DataParallel, Momentum(0.1, 0.9), {RN_RANK_STEPS} steps, "
+        f"{ranks_s:.1f} s with start-up): losses {ranks[0]['losses']} vs "
+        f"one process {single[0]} (batch reversed {flipped[0]}); distances "
+        f"from one process {json.dumps(dist_of)}, bounds after step 1 "
+        f"{json.dumps(bound)} (step {RN_RANK_STEPS} not held); collectives of rank 0 {json.dumps(ranks[0]['collectives'])} "
+        f"[{card}]")
+    log(f"resnet_dp: fp16 BatchNorm2D(64, act=relu) over the two ranks "
+        f"(composed): error / max against one process {json.dumps(fp16_err)}"
+        f", composed {[f['composed'] for f in f16]}, collectives "
+        f"{[f['collectives'] for f in f16]} [{card}]")
+    for rk in ranks:
+        for k, st in rk["stats"].items():
+            if st["plain"] or st["kernel"] != per_step.get(k, 0):
+                raise AssertionError(f"resnet_dp: rank {rk['rank']} {k} "
+                                     f"counters {st}, want "
+                                     f"{per_step.get(k, 0)}")
+        if any(rk["composed"].values()) or rk["collectives"].get(
+                "bn_sync") != 2 * RESNET_BNS * RN_RANK_STEPS:
+            raise AssertionError(f"resnet_dp: rank {rk['rank']}: composed "
+                                 f"{rk['composed']}, collectives "
+                                 f"{rk['collectives']}")
+        if rk["losses"] != ranks[0]["losses"]:
+            raise AssertionError(f"resnet_dp: the ranks' losses differ: "
+                                 f"{[x['losses'] for x in ranks]}")
+        f = rk["fp16"]
+        if (f["composed"].get("fused_bn") != 1
+                or f["collectives"].get("bn_sync") != 2
+                or any(st["kernel"] or st["plain"] for name, st in
+                       f["stats"].items() if name.startswith("fused_bn"))):
+            raise AssertionError(f"resnet_dp: rank {rk['rank']}'s fp16 "
+                                 f"layer: {f['composed']} "
+                                 f"{f['collectives']} {f['stats']}")
+    if any(dist_of["ranks"][k] > bound[k] for k in bound):
+        raise AssertionError(f"resnet_dp: two ranks against one process: "
+                             f"{dist_of} over {bound}")
+    if (fp16_err["out"] > RN_FP16_OUT_TOL or fp16_err["dx"] > RN_FP16_DX_TOL
+            or fp16_err["stats"] > RN_FP16_STAT_TOL):
+        raise AssertionError(f"resnet_dp: the fp16 layer: {fp16_err}")
+    free_card()
+    return res
+
+
+def rn_dp_phase(card):
+    """Phase 27: ResNet-50 through DataParallel with synchronized batch
+    norm: the world-1 nccl step captured against the plain one, then two
+    gloo ranks on the card against one process."""
+    t0 = time.perf_counter()
+    res = dict(world1=rn_dp_world1(card))
+    res["two_ranks"] = rn_dp_two_ranks(card)
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"resnet_dp: phase 27 took {res['phase_s']:.1f} s [{card}]")
+    return res
+
+
 def fp32_row(kname, rows, paths):
     """For the 1x1 conv's entry: its fp32 row at the main shape, with its
     launches on phase 22's fp32 path, as `fp32`."""
@@ -6654,7 +7136,7 @@ def split_masked(kname, rows, paths):
 
 #: the phases `--phases` may name, in the order they run
 PHASES = ("serve", "health", "health_trip", "fit_resume", "transformer",
-          "resnet_fit", "serve_control", "observe", "ps", "dp")
+          "resnet_fit", "serve_control", "observe", "ps", "dp", "resnet_dp")
 
 
 def only_phases(phases, cfg, smi, name):
@@ -6692,6 +7174,8 @@ def only_phases(phases, cfg, smi, name):
         res["ps"] = ps_train(smi)
     if "dp" in phases:
         res["dp"] = dp_phase(cfg, smi)
+    if "resnet_dp" in phases:
+        res["resnet_dp"] = rn_dp_phase(smi)
     with open(os.path.join(OUT_DIR, "chip_smoke_phases.json"), "w") as f:
         json.dump(res, f, indent=1)
     print(smi)
@@ -6710,9 +7194,14 @@ def main(argv=None):
     ap.add_argument("--dp-worker", default=None, metavar="DIR",
                     help="run one rank of phase 26's two-rank run (the "
                          "phase starts these through the launcher)")
+    ap.add_argument("--rn-worker", default=None, metavar="DIR",
+                    help="run one rank of phase 27's two-rank run")
     args = ap.parse_args(argv)
     if args.dp_worker is not None:
         dp_rank_worker(args.dp_worker)
+        return 0
+    if args.rn_worker is not None:
+        rn_rank_worker(args.rn_worker)
         return 0
     phases = None
     if args.phases is not None:
@@ -6938,8 +7427,11 @@ def main(argv=None):
     # through DataParallel, two gloo ranks on the card
     dp_res = dp_phase(cfg, smi)
     rows += dp_res["gpt3_rows"]
+    # 27. ResNet-50 data parallelism: synchronized batch norm, world 1 over
+    # NCCL captured against the plain step, two gloo ranks on the card
+    rn_dp = rn_dp_phase(smi)
 
-    # 27. report: launches from each path's own run (counters reset just
+    # 28. report: launches from each path's own run (counters reset just
     # before it); times at the main path's shape
     result = dict(card=smi, capability=cap, launch_floor_ms=floor,
                   checks=rows, edges=edges,
@@ -6952,13 +7444,16 @@ def main(argv=None):
                   ernie=ernie, amp=amp_res, health=health_res,
                   health_trip=trip, fit_resume=fit_res, transformer=tb,
                   transformer_cpu_cross_check=tb_cpu, resnet_fit=rfit,
-                  serve_control=control, observe=obs, ps=ps_res, dp=dp_res)
+                  serve_control=control, observe=obs, ps=ps_res, dp=dp_res,
+                  resnet_dp=rn_dp)
     paths = {"serve": served, "serve_control": control, "train": trained,
              "resnet": resnet, "long": long, "bert": bert,
              "health": health_res, "fit": fit_res, "transformer": tb,
              "resnet_fit": rfit, "observe": obs,
              "dp": dp_res["gpt2_world1"], "dp_gpt3": dp_res["gpt3"],
-             "dp_ranks": dp_res["two_ranks"]}
+             "dp_ranks": dp_res["two_ranks"],
+             "resnet_dp": rn_dp["world1"],
+             "resnet_dp_ranks": rn_dp["two_ranks"]}
     kern = []
     for kname, meta in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == kname]

@@ -501,11 +501,14 @@ def _global(g: Group, group_rank: int) -> int:
     return g.ranks[group_rank]
 
 
-def raw_all_reduce(t: torch.Tensor, g: Group, op=ReduceOp.SUM) -> None:
+def raw_all_reduce(t: torch.Tensor, g: Group, op=ReduceOp.SUM,
+                   kind: str = "all_reduce") -> None:
     """In place, unguarded and untimed: the form a CUDA graph may hold
-    (the grouped TrainStep's buckets, the grouped cross-entropy).
-    Counted in ``launch_stats()``."""
-    _count("all_reduce")
+    (the grouped TrainStep's buckets, the grouped cross-entropy, the
+    group's batch-norm statistics). Counted in ``launch_stats()`` under
+    ``kind`` (the batch norms' under "bn_sync", apart from the
+    gradients')."""
+    _count(kind)
     dist.all_reduce(t, op=_TORCH_OP[op], group=g.pg)
 
 

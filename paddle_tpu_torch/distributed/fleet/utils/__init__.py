@@ -17,7 +17,10 @@ tensors in use at call time keeps the replay on the casts.
 
 Batch-norm running statistics move once, in the forward: the replay swaps
 in throwaway copies of the buffers, so what it moves is discarded (the
-reference carries them out of its region for the same reason).
+reference carries them out of its region for the same reason). The replay
+runs under the data-parallel batch-norm group of the call
+(``distributed.parallel.bn_scope``), so it recomputes the statistics the
+forward took.
 
 ``policy``: None recomputes the whole region; ``recompute_policies.dots``
 (the counterpart of ``jax.checkpoint_policies.
@@ -38,6 +41,8 @@ from typing import List
 
 import torch
 from torch.utils import checkpoint as _ckpt
+
+from ... import parallel as _parallel
 
 __all__ = ["recompute", "recompute_policies"]
 
@@ -148,9 +153,11 @@ def recompute(function, *args, preserve_rng_state: bool = True,
     buffers = [store[k] for store, k in b_slots]
     live = {"buffers": buffers}
     n = len(params)
+    bn_group = _parallel.bn_group()
 
     def region(*flat, **kw):
-        with _swapped(p_slots + b_slots, list(flat[:n]) + live["buffers"]):
+        with _swapped(p_slots + b_slots, list(flat[:n]) + live["buffers"]), \
+                _parallel.bn_scope(bn_group):
             return function(*flat[n:], **kw)
 
     return _ckpt.checkpoint(region, *params, *args, use_reentrant=False,

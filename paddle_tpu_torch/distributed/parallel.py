@@ -31,6 +31,18 @@ step runs, ``F.cross_entropy`` with ``reduction="mean"`` divides by the
 label count all-reduced over the group (and ``"sum"`` scales to the
 group's sum): the gradients the group averages are then the reference's,
 and the loss value each rank gets is the reference's global loss.
+
+The global-batch batch norm. The reference's batch statistics over a
+dp-sharded batch are the global batch's (its mean runs over the sharded
+array), and ``SyncBatchNorm`` is an alias there. So while a
+``DataParallel``'s forward or a grouped ``TrainStep``'s step runs
+(``bn_scope``, whose stack ``ops/_bn_common`` keeps), every
+training-mode batch norm of the port takes the group's statistics: its
+per-channel moments all-reduced with the row count between the kernel
+launches, and in its backward the column sums that form dx (the Function
+keeps the group from its forward; the gradients of gamma and beta stay
+this rank's, for the reducer to average). The running statistics then
+move alike on every rank.
 """
 from __future__ import annotations
 
@@ -44,6 +56,7 @@ import torch
 import torch.distributed as dist
 
 from .._platform import resolve_device
+from ..ops._bn_common import _bn_scope, bn_group, bn_scope  # noqa: F401
 from ..profiler import metrics as _metrics_mod
 from . import collective as C
 from .env import ParallelEnv
@@ -53,8 +66,6 @@ _parallel_env_initialized = False
 _world_store = None  # the rendezvous store; the process group holds it too
 _device: Optional[torch.device] = None
 
-_RESNET_DP = "ROADMAP A11 (ResNet data parallelism: synchronized batch norm)"
-
 
 def _reset():
     global _parallel_env_initialized, _world_store, _device
@@ -62,6 +73,7 @@ def _reset():
     _world_store = None
     _device = None
     _loss_scope.clear()
+    _bn_scope.clear()
 
 
 def _backend_for(backend: Optional[str], device) -> str:
@@ -306,38 +318,41 @@ def group_loss(local_sum: torch.Tensor, count: Optional[torch.Tensor],
         return share
     value = share.detach().clone()
     C.raw_all_reduce(value, g)
-    value = value / n
-    return share + (value - share.detach())
+    return _GroupValue.apply(share, value / n)
+
+
+class _GroupValue(torch.autograd.Function):
+    """The group's loss value exactly (the same bits on every rank), with
+    the gradient of this rank's share (``share + (value - share)`` would
+    round differently on each rank)."""
+
+    @staticmethod
+    def forward(ctx, share, value):
+        return value.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
 
 
 # ---------------------------------------------------------------------------
 # DataParallel
 # ---------------------------------------------------------------------------
-def _training_batch_norms(layer: torch.nn.Module):
-    from ..nn.layers_common import _BatchNormBase
-    out = []
-    for name, m in layer.named_modules():
-        if not m.training:
-            continue
-        if isinstance(m, torch.nn.modules.batchnorm._BatchNorm) or (
-                isinstance(m, _BatchNormBase)
-                and not m._use_global_stats):
-            out.append(name or type(m).__name__)
-    return out
-
-
-def _check_batch_norm(layer: torch.nn.Module):
-    """The reference's batch statistics over a dp-sharded batch are those
-    of the global batch (its mean runs over the sharded array); the port's
-    would be this rank's rows, so it refuses until synchronized batch
-    norm is ported."""
-    bns = _training_batch_norms(layer)
+def _check_torch_batch_norm(layer: torch.nn.Module):
+    """torch.nn's own batch norms run PyTorch's kernels on this rank's rows
+    alone, outside the group, so a layer holding one in training mode
+    raises: the reference normalizes by the global batch. The port's batch
+    norms take the group's statistics."""
+    bns = [name or type(m).__name__ for name, m in layer.named_modules()
+           if m.training
+           and isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
     if bns:
         raise NotImplementedError(
-            f"DataParallel over batch norm in training mode ({bns[:3]}"
-            f"{' ...' if len(bns) > 3 else ''}): the reference normalizes "
-            f"by the global batch's statistics, and the port's per-rank "
-            f"statistics would differ; it waits for {_RESNET_DP}")
+            f"DataParallel over torch.nn batch norm in training mode "
+            f"({bns[:3]}{' ...' if len(bns) > 3 else ''}): its statistics "
+            f"would be this rank's, where the reference's are the global "
+            f"batch's; use paddle_tpu_torch.nn.BatchNorm2D or "
+            f"SyncBatchNorm, which take the group's")
 
 
 class _Reducer:
@@ -444,8 +459,10 @@ class DataParallel(torch.nn.Module):
     ``comm_buffer_size`` / ``last_comm_buffer_size`` are the buckets' MB
     (``_Reducer``); ``strategy`` is taken and not used. ``state_dict``,
     ``set_state_dict``, ``parameters`` and ``named_parameters`` are the
-    inner layer's, under its own names. A layer holding batch norm in
-    training mode raises (see ``_check_batch_norm``)."""
+    inner layer's, under its own names. A batch norm in training mode
+    inside the layer normalizes by the group's statistics (``bn_scope``),
+    as the reference's does by the global batch's; torch.nn's own batch
+    norms cannot, and raise (``_check_torch_batch_norm``)."""
 
     def __init__(self, layers: torch.nn.Module, strategy=None,
                  comm_buffer_size=25, last_comm_buffer_size=1,
@@ -456,7 +473,7 @@ class DataParallel(torch.nn.Module):
         self.find_unused_parameters = find_unused_parameters
         self.comm_buffer_size = comm_buffer_size
         self.last_comm_buffer_size = last_comm_buffer_size
-        _check_batch_norm(layers)
+        _check_torch_batch_norm(layers)
         g = C._resolve(group)
         self._group = g
         with torch.no_grad():
@@ -467,13 +484,15 @@ class DataParallel(torch.nn.Module):
                                  find_unused_parameters)
 
     def forward(self, *inputs, **kwargs):
-        _check_batch_norm(self._layers)
+        _check_torch_batch_norm(self._layers)
         if torch.is_grad_enabled():
             self._reducer.prepare()
         # the global-batch loss applies from here to the end of the
-        # backward (or, with no backward, to the next forward)
+        # backward (or, with no backward, to the next forward); the
+        # global-batch batch norm for the forward alone
         _loss_scope[:] = [(self._group, True)]
-        return self._layers(*inputs, **kwargs)
+        with bn_scope(self._group):
+            return self._layers(*inputs, **kwargs)
 
     def scale_loss(self, loss):
         return loss  # the reducer averages the gradients

@@ -17,7 +17,9 @@ a ``dp`` mesh: each rank feeds its rows of the global batch, and between
 the gradients and the update the step copies the gradients into flat
 static buckets, all-reduces them over the group and divides by its size
 (inside the captured graph on a card, over nccl), and returns the
-group's mean loss: the loss of the global batch.
+group's mean loss: the loss of the global batch. Its batch norms take the
+group's statistics (``distributed.parallel.bn_scope``), their all-reduces
+in the same graph.
 """
 from __future__ import annotations
 
@@ -282,8 +284,11 @@ class TrainStep:
                 with torch.no_grad():
                     torch._foreach_copy_([snapshot[k] for k in names],
                                          [self.params[k] for k in names])
-            scope = (_parallel.loss_scope(self._group, False)
-                     if self._group is not None else contextlib.nullcontext())
+            scope = contextlib.ExitStack()
+            if self._group is not None:
+                # the global batch's loss and batch statistics
+                scope.enter_context(_parallel.loss_scope(self._group, False))
+                scope.enter_context(_parallel.bn_scope(self._group))
             with torch.enable_grad(), scope:
                 compute = {k: self._cast(p) for k, p in self.params.items()}
                 out, _ = self.apply_fn(compute, self.buffers, *inputs)

@@ -5,7 +5,7 @@ from .layer import Layer
 from .layers_common import (AdaptiveAvgPool2D, BatchNorm2D,
                             BCEWithLogitsLoss, Conv2D, Dropout, Embedding,
                             LayerList, LayerNorm, Linear, MaxPool2D, ReLU,
-                            Sequential)
+                            Sequential, SyncBatchNorm)
 from .transformer import (MultiHeadAttention, Transformer,
                           TransformerDecoder, TransformerDecoderLayer,
                           TransformerEncoder, TransformerEncoderLayer)
@@ -16,4 +16,4 @@ __all__ = ["functional", "Layer", "Linear", "Embedding", "LayerNorm",
            "ClipGradByNorm", "ClipGradByGlobalNorm", "MultiHeadAttention",
            "TransformerEncoderLayer", "TransformerEncoder",
            "TransformerDecoderLayer", "TransformerDecoder", "Transformer",
-           "BCEWithLogitsLoss"]
+           "BCEWithLogitsLoss", "SyncBatchNorm"]

@@ -34,7 +34,8 @@ import torch.nn.functional as _tF
 
 from ...framework import random as _random
 from ...framework.dtype import convert_dtype
-from ...ops._bn_common import _bn_axes, _bn_stats
+from ...ops import _bn_common as _bnc
+from ...ops._bn_common import _bn_axes
 from ...ops._dispatch import maybe_autocast
 from ...ops.kernels import flash_attention as _fa
 from ...ops.kernels import fused_bn as _fbn
@@ -414,12 +415,14 @@ class _BNTrainFunction(torch.autograd.Function):
     l.593-667): out = (x - mean) * inv * w + b in fp32, written in x's
     type; the backward is the classic fused formula
     dx = inv * (g - mean(g) - xhat * mean(g * xhat)). Returns (out, mean,
-    var); the statistics carry no gradient."""
+    var); the statistics carry no gradient. With a data-parallel
+    ``group`` the statistics and the backward's two column sums are the
+    group's (the gradients of w and b stay this rank's sums)."""
 
     @staticmethod
-    def forward(ctx, x, w, b, epsilon, data_format):
+    def forward(ctx, x, w, b, epsilon, data_format, group=None):
         axes, shape = _bn_axes(x, data_format)
-        mean, var = _bn_stats(x, axes)
+        mean, var, ctx.sync = _bnc.group_stats(x, axes, group)
         inv = torch.rsqrt(var + epsilon)
         out = (x.float() - mean.reshape(shape)) * inv.reshape(shape)
         if w is not None:
@@ -436,20 +439,20 @@ class _BNTrainFunction(torch.autograd.Function):
     def backward(ctx, dy, _dmean, _dvar):
         x, w, mean, inv = ctx.saved_tensors
         axes, shape = _bn_axes(x, ctx.data_format)
-        n = 1
-        for a in axes:
-            n *= x.shape[a]
+        n = _bnc._rows(x, axes)
         dyf = dy.float()
         xhat = (x.float() - mean.reshape(shape)) * inv.reshape(shape)
         dbeta = dyf.sum(dim=axes)
         g = dyf if w is None else dyf * w.reshape(shape).float()
-        gm = g.sum(dim=axes) / n
-        gxm = (g * xhat).sum(dim=axes) / n
+        gs, gxs = _bnc.group_sums(ctx.sync, g.sum(dim=axes),
+                                  (g * xhat).sum(dim=axes))
+        gm = gs / n
+        gxm = gxs / n
         dx = inv.reshape(shape) * (g - gm.reshape(shape)
                                    - xhat * gxm.reshape(shape))
         dw = None if w is None else (dyf * xhat).sum(dim=axes).to(w.dtype)
         db = dbeta.to(ctx.b_dtype) if ctx.has_b else None
-        return dx.to(x.dtype), dw, db, None, None
+        return dx.to(x.dtype), dw, db, None, None, None
 
 
 def _bn_infer(x, rm, rv, w, b, epsilon, data_format):
@@ -503,7 +506,10 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
     """Batch norm with the reference's slots (l.709; ``name`` is taken and
     not used); in training mode the running statistics are updated in
     place. ``act``/``residual`` select the fused BN(+add)+ReLU
-    (``ops/kernels/fused_bn``): out = act(BN(x) [+ residual])."""
+    (``ops/kernels/fused_bn``): out = act(BN(x) [+ residual]). Under a
+    data-parallel group (``ops._bn_common.bn_scope``) the batch
+    statistics, and so the running statistics, are the group's; with
+    ``use_global_stats`` (eval mode's default) nothing is synchronized."""
     if use_global_stats is None:
         use_global_stats = not training
     if act is None and residual is None:
@@ -511,7 +517,7 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
             return _bn_infer(x, running_mean, running_var, weight, bias,
                              epsilon, data_format)
         out, mean, var = _BNTrainFunction.apply(x, weight, bias, epsilon,
-                                                data_format)
+                                                data_format, _bnc.bn_group())
     else:
         if use_global_stats:
             return _bn_infer_act(x, running_mean, running_var, weight, bias,
@@ -539,7 +545,7 @@ def conv2d_bn(x, conv_weight, running_mean, running_var, weight=None,
     (``ops/kernels/fused_conv_bn``: the product and the BN statistics in
     one pass, then the fused-BN apply); every other case is ``conv2d``
     then ``batch_norm(act=, residual=)``. The running statistics move as
-    in ``batch_norm``."""
+    in ``batch_norm`` (the group's under a data-parallel group)."""
     if use_global_stats is None:
         use_global_stats = not training
     if not use_global_stats and _fcb.eligible(

@@ -1,9 +1,9 @@
 """The layers of the ported slices (counterpart of
 ``paddle_tpu/nn/layers_common.py``): ``Linear``, ``Embedding``,
 ``LayerNorm``, ``Dropout``, ``LayerList``, ``Sequential`` (l.25),
-``Conv2D`` (l.277), ``BatchNorm2D`` (l.404), ``MaxPool2D`` (l.484),
-``AdaptiveAvgPool2D`` (l.525), ``ReLU`` and ``BCEWithLogitsLoss``
-(l.678).
+``Conv2D`` (l.277), ``BatchNorm2D`` (l.404), ``SyncBatchNorm`` (l.415),
+``MaxPool2D`` (l.484), ``AdaptiveAvgPool2D`` (l.525), ``ReLU`` and
+``BCEWithLogitsLoss`` (l.678).
 
 Layouts and names stay paddle's so weights map one to one:
 ``Linear.weight`` is [in, out] and the layer computes ``x @ W + b``;
@@ -183,6 +183,21 @@ class _BatchNormBase(Layer):
 
 class BatchNorm2D(_BatchNormBase):
     pass
+
+
+class SyncBatchNorm(_BatchNormBase):
+    """Cross-replica batch norm, in the reference's slots (l.415). Under a
+    data-parallel group (a ``DataParallel``'s forward, a grouped
+    ``TrainStep``) its training statistics are the group's, as every
+    batch norm's of the port is (the reference's batch axis is global, so
+    its plain batch norm is synchronized already); outside one it
+    normalizes by the local batch, as the reference's eager use does.
+    Its kernels are the port's own, not ``torch.nn.SyncBatchNorm``'s."""
+
+    @classmethod
+    def convert_sync_batchnorm(cls, layer):
+        """The layer unchanged: its batch norms synchronize already."""
+        return layer
 
 
 class MaxPool2D(torch.nn.Module):

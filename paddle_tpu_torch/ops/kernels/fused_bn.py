@@ -19,6 +19,12 @@ they are XLA in the reference; the per-channel ``A, B, C0`` of the
 backward, with the mean/var cotangent terms, are a few fp32 vector ops
 (``_bwd_common`` l.361-417).
 
+Under a data-parallel group (``_bn_common.bn_scope``) the statistics are
+the group's: between the launches, the forward all-reduces its moments
+with the row count, and the backward the reduce kernel's column sums
+(with the mean/var cotangents), so ``A, B, C0`` are the global batch's.
+The kernels do not change.
+
 The TPU's eligibility gates (R >= 256, R % 8, C % 128, C <= 2048, l.313-331)
 were set by VMEM and the (8, 128) tiling; the H100 kernels take any R >= 1
 and C >= 1, float32 or bfloat16, so every fused BN in those types takes
@@ -30,7 +36,7 @@ from __future__ import annotations
 
 import torch
 
-from .._bn_common import _bn_stats
+from .. import _bn_common as _bnc
 from . import checked, count_composed, launch, same_device, use_kernel
 
 #: forward launches (and runs of its plain version)
@@ -202,19 +208,26 @@ def fold_affine(gamma, beta, mean, inv):
 
 
 def bwd_common(x2d, y2d, dy2d, gamma, beta, mean, inv, dmean, dvar, act,
-               has_add):
+               has_add, sync=None):
     """(dx, dz or None, dgamma, dbeta) of y = act(BN(x) (+ z)) over the
     [R, C] rows, the reference's ``_bwd_common``: the reduce kernel, the
     per-channel dx = A * g + B * x + C0 coefficients in fp32 (with the
-    exact mean/var cotangent terms), then the dx kernel."""
+    exact mean/var cotangent terms), then the dx kernel.
+
+    With the forward's ``sync`` (``_bn_common.Sync``), the column sums and
+    cotangents that form A, B and C0 are the group's
+    (``_bn_common.group_sums``, one all-reduce). The returned dgamma and
+    dbeta stay this rank's sums: the reducer (or TrainStep's buckets)
+    averages them over the group."""
     n = x2d.shape[0]
     if dy2d is None:
         dy2d = torch.zeros_like(y2d)
     dy2d = dy2d.contiguous()
     db, dg = bn_bwd_reduce(x2d, y2d, dy2d, mean, inv, act)
+    sdb, sdg, dmean, dvar = _bnc.group_sums(sync, db, dg, dmean, dvar)
     A = inv * gamma.float()
-    B = -(A * inv * dg) / n
-    C0 = -(A * db) / n - B * mean
+    B = -(A * inv * sdg) / n
+    C0 = -(A * sdb) / n - B * mean
     if dvar is not None:
         dv = dvar.float()
         B = B + 2.0 * dv / n
@@ -229,11 +242,13 @@ def bwd_common(x2d, y2d, dy2d, gamma, beta, mean, inv, dmean, dvar, act,
 class FusedBNFunction(torch.autograd.Function):
     """(y, batch mean, batch var) of act(BN_train(x) (+ z)) over
     channels-last rows x [R, C] (z [R, C] or None); gradients flow to x,
-    z, gamma and beta, and the mean/var cotangents fold into dx."""
+    z, gamma and beta, and the mean/var cotangents fold into dx. With a
+    data-parallel ``group`` the statistics and the backward's sums are
+    the group's (kept from the forward: the backward looks up no scope)."""
 
     @staticmethod
-    def forward(ctx, x2d, z2d, gamma, beta, epsilon, act):
-        mean, var = _bn_stats(x2d, (0,))
+    def forward(ctx, x2d, z2d, gamma, beta, epsilon, act, group=None):
+        mean, var, ctx.sync = _bnc.group_stats(x2d, (0,), group)
         inv = torch.rsqrt(var + epsilon)
         k, c = fold_affine(gamma, beta, mean, inv)
         y = bn_act_fwd(x2d, z2d, k, c, act)
@@ -247,8 +262,8 @@ class FusedBNFunction(torch.autograd.Function):
         x2d, gamma, beta, mean, inv, y = ctx.saved_tensors
         dx, dz, dgamma, dbeta = bwd_common(x2d, y, dy, gamma, beta, mean,
                                            inv, dmean, dvar, ctx.act,
-                                           ctx.has_add)
-        return dx, dz, dgamma, dbeta, None, None
+                                           ctx.has_add, ctx.sync)
+        return dx, dz, dgamma, dbeta, None, None, None
 
 
 def _rows(t, channels_last):
@@ -259,12 +274,13 @@ def _rows(t, channels_last):
     return t.reshape(-1, t.shape[-1]).contiguous()
 
 
-def bn_act_composition(x2d, z2d, gamma, beta, epsilon, act):
+def bn_act_composition(x2d, z2d, gamma, beta, epsilon, act, group=None):
     """(y, batch mean, batch var) of act(BN_train(x) (+ z)) as torch ops,
     differentiated by autograd: the arithmetic of FusedBNFunction's
-    forward with the plain apply."""
+    forward with the plain apply; with a ``group``, its statistics through
+    the group's differentiable all-reduce."""
     _is_relu(act)
-    mean, var = _bn_stats(x2d, (0,))
+    mean, var = _bnc.group_stats_differentiable(x2d, (0,), group)
     k, c = fold_affine(gamma, beta, mean, torch.rsqrt(var + epsilon))
     return bn_act_fwd_plain(x2d, z2d, k, c, act), mean, var
 
@@ -273,13 +289,14 @@ def _fused(x, z, gamma, beta, epsilon, data_format, act):
     channels_last = not data_format.startswith("NC")
     z2d = None if z is None else _rows(z, channels_last)
     x2d = _rows(x, channels_last)
+    group = _bnc.bn_group()
     if use_kernel(x2d) and not kernel_takes(x2d, z2d):
         count_composed("fused_bn")
         y2d, mean, var = bn_act_composition(x2d, z2d, gamma, beta, epsilon,
-                                            act)
+                                            act, group)
     else:
         y2d, mean, var = FusedBNFunction.apply(x2d, z2d, gamma, beta,
-                                               epsilon, act)
+                                               epsilon, act, group)
     if channels_last:
         return y2d.reshape(x.shape), mean, var
     cl_shape = (x.shape[0], *x.shape[2:], x.shape[1])
@@ -290,8 +307,9 @@ def _fused(x, z, gamma, beta, epsilon, data_format, act):
 def fused_bn_relu(x, gamma, beta, *, epsilon=1e-5, data_format="NCHW",
                   act="relu"):
     """Training-mode BN + activation in one fused op: (y, batch_mean,
-    batch_var), the statistics for the caller's running-stat update.
-    ``act`` is "relu" or None."""
+    batch_var), the statistics for the caller's running-stat update (the
+    data-parallel group's under ``bn_group``). ``act`` is "relu" or
+    None."""
     return _fused(x, None, gamma, beta, epsilon, data_format, act)
 
 

@@ -32,11 +32,16 @@ R >= 256, C <= 2048, on a TPU) were set by VMEM and the lane width; the
 H100 kernel needs Cin and Cout to be multiples of 8 (16-byte rows of bf16)
 and takes any R >= 1, so every stride-1 1x1 conv of ResNet-50's
 bottlenecks takes it (32 a step, where the TPU's gate admits 26).
+
+Under a data-parallel group (``_bn_common.bn_scope``) the epilogue's
+moments are all-reduced with the row count before the fold, and the
+backward is the fused BN's grouped one (``fused_bn.bwd_common``).
 """
 from __future__ import annotations
 
 import torch
 
+from .. import _bn_common as _bnc
 from . import fused_bn as _fbn
 from . import checked, count_design, launch, same_device, use_kernel
 
@@ -122,22 +127,27 @@ def conv1x1_stats(x2d, w2d):
     return y, out[0], out[1]
 
 
-def stats_from_sums(s, ss, R: int):
-    """mean/var from the epilogue sums: E[y], E[y^2] - E[y]^2 clamped at 0,
-    the formula of ``ops/_bn_common._bn_stats``."""
-    mean = s / R
-    var = torch.clamp(ss / R - mean * mean, min=0.0)
-    return mean, var
+def stats_from_sums(s, ss, R: int, group=None):
+    """(mean, var, sync) from the epilogue sums: E[y], E[y^2] - E[y]^2
+    clamped at 0, the formula of ``ops/_bn_common._bn_stats``; with a
+    ``group``, of the group's batch (``_bn_common.group_moments``; sync
+    as there, else None)."""
+    mean, mean2, sync = s / R, ss / R, None
+    if group is not None:
+        mean, mean2, sync = _bnc.group_moments(mean, mean2, R, group)
+    return mean, _bnc._var(mean, mean2), sync
 
 
 class Conv1x1BNFunction(torch.autograd.Function):
     """(y, batch mean, batch var) of act(BN_train(x @ w^T) (+ z)) over
-    channels-last rows x [R, Cin], w [Cout, Cin], z [R, Cout] or None."""
+    channels-last rows x [R, Cin], w [Cout, Cin], z [R, Cout] or None;
+    with a data-parallel ``group``, the group's statistics and backward
+    sums (the group kept from the forward)."""
 
     @staticmethod
-    def forward(ctx, x2d, z2d, w2d, gamma, beta, epsilon, act):
+    def forward(ctx, x2d, z2d, w2d, gamma, beta, epsilon, act, group=None):
         y_conv, s, ss = conv1x1_stats(x2d, w2d)
-        mean, var = stats_from_sums(s, ss, x2d.shape[0])
+        mean, var, ctx.sync = stats_from_sums(s, ss, x2d.shape[0], group)
         inv = torch.rsqrt(var + epsilon)
         k, c = _fbn.fold_affine(gamma, beta, mean, inv)
         y = _fbn.bn_act_fwd(y_conv, z2d, k, c, act)
@@ -151,10 +161,10 @@ class Conv1x1BNFunction(torch.autograd.Function):
         x2d, w2d, gamma, beta, mean, inv, y_conv, y = ctx.saved_tensors
         g, dz, dgamma, dbeta = _fbn.bwd_common(
             y_conv, y, dy, gamma, beta, mean, inv, dmean, dvar, ctx.act,
-            ctx.has_add)
+            ctx.has_add, ctx.sync)
         dx = torch.matmul(g, w2d)
         dw = torch.matmul(g.t(), x2d)
-        return dx, dz, dw, dgamma, dbeta, None, None
+        return dx, dz, dw, dgamma, dbeta, None, None, None
 
 
 def _all_ones(v):
@@ -194,12 +204,13 @@ def fused_conv1x1_bn_act(x, w, gamma, beta, *, residual=None, epsilon=1e-5,
                          act="relu"):
     """Training-mode ``act(BN(conv1x1(x)) [+ residual])`` over channels-last
     ``x [N, H, W, Cin]`` and the (Cout, Cin, 1, 1) weight ``w``: (y [N, H,
-    W, Cout], batch_mean, batch_var). Callers check :func:`eligible`."""
+    W, Cout], batch_mean, batch_var), the statistics the data-parallel
+    group's under ``bn_group``. Callers check :func:`eligible`."""
     N, H, W, Cin = x.shape
     Cout = w.shape[0]
     w2d = w.reshape(Cout, Cin).to(x.dtype).contiguous()
     x2d = x.reshape(-1, Cin).contiguous()
     z2d = None if residual is None else residual.reshape(-1, Cout).contiguous()
     y, mean, var = Conv1x1BNFunction.apply(x2d, z2d, w2d, gamma, beta,
-                                           epsilon, act)
+                                           epsilon, act, _bnc.bn_group())
     return y.reshape(N, H, W, Cout), mean, var

@@ -210,7 +210,8 @@ def test_train_step_over_data_parallel_matches_reference(
 
 
 def test_reference_batch_norm_under_data_parallel_is_global(mesh2):
-    """The finding that makes the port refuse: the reference's
+    """The finding the port's synchronized batch norm follows
+    (``tests/test_torch_sync_bn.py``): the reference's
     DataParallel(BatchNorm2D) on a dp-sharded batch normalizes by the
     statistics of the global batch, not of each shard."""
     rng = np.random.default_rng(3)
@@ -224,12 +225,6 @@ def test_reference_batch_norm_under_data_parallel_is_global(mesh2):
         x[i:i + 2])).numpy() for i in (0, 2)])
     np.testing.assert_allclose(got, whole, rtol=1e-5, atol=1e-5)
     assert np.abs(got - per_shard).max() > 0.5
-
-
-def test_port_refuses_training_batch_norm(world):
-    for out in world:
-        assert "A11" in out["batch_norm"] and "ResNet" in out["batch_norm"]
-        assert out["batch_norm_eval"] == "DataParallel"
 
 
 def test_train_step_refuses_gloo_on_a_card():
@@ -246,3 +241,23 @@ def test_train_step_refuses_gloo_on_a_card():
                 jit._require_capturable(g, torch.device("cuda"))
         else:
             jit._require_capturable(g, torch.device("cuda"))
+
+
+def test_group_loss_value_is_the_same_bits_on_every_rank(monkeypatch):
+    """The eager loss each rank reports is the group's value itself, not
+    this rank's share plus (value - share), which rounds differently on
+    each rank; its gradient is still the share's. The other rank's share
+    stands in as what the all-reduce adds."""
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import parallel
+    g = C.Group(None, ("world",), ranks=[0, 1], pg=object(),
+                backend="gloo")
+    other = torch.tensor(-0.8)
+    monkeypatch.setattr(C, "raw_all_reduce",
+                        lambda t, grp, op=None, kind=None: t.add_(other))
+    local = torch.tensor(0.5, requires_grad=True)  # share 2 * 0.5 = 1.0
+    out = parallel.group_loss(local, None, (g, True))
+    want = (torch.tensor(1.0) + other) / 2
+    assert torch.equal(out.detach(), want)
+    out.backward()
+    assert float(local.grad) == 2.0

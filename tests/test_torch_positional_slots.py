@@ -184,6 +184,24 @@ def test_batch_norm_layer_positional_name_slot(args, relu):
     assert (ref.min() >= 0) == relu and (got.min() >= 0) == relu
 
 
+@pytest.mark.parametrize("args,relu", [
+    (("NCHW", None, "relu"), False),       # slot 7 is the reference's name
+    (("NCHW", None, None, "relu"), True),  # name, then act
+], ids=["name_relu", "act_relu"])
+def test_sync_batch_norm_layer_positional_name_slot(args, relu):
+    """SyncBatchNorm(3, 0.9, 1e-5, None, None, *args), outside a group
+    (the local batch's statistics, as the reference's eager use)."""
+    x, _, _ = _bn_inputs(2)
+    jl = jnn.SyncBatchNorm(3, 0.9, 1e-5, None, None, *args)
+    tl = nn.SyncBatchNorm(3, 0.9, 1e-5, None, None, *args, device="cpu")
+    ref = np.asarray(jl(paddle.to_tensor(x)).data)
+    got = tl(torch.from_numpy(x)).detach().numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+    assert (ref.min() >= 0) == relu and (got.min() >= 0) == relu
+    np.testing.assert_allclose(tl._mean.numpy(), np.asarray(jl._mean.data),
+                               atol=1e-6)
+
+
 def test_attention_positional_name_slot():
     """C12: F.scaled_dot_product_attention(q, k, v, None, p, False, True,
     "attn"): slot 7 is `name`; `generator` is keyword-only."""

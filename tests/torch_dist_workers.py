@@ -234,15 +234,6 @@ def data_parallel(outdir):
         out["unused"] = "no error"
     except RuntimeError as e:
         out["unused"] = str(e)
-    # batch norm in training mode refuses; in eval it is accepted
-    bn = nn.BatchNorm2D(3, device="cpu")
-    try:
-        dist.DataParallel(bn)
-        out["batch_norm"] = "no error"
-    except NotImplementedError as e:
-        out["batch_norm"] = str(e)
-    bn.eval()
-    out["batch_norm_eval"] = type(dist.DataParallel(bn)).__name__
     # TrainStep over DataParallel(GPT tiny): this rank's rows of the batch
     params = {k[len("gpt."):]: v for k, v in inp.items()
               if k.startswith("gpt.")}
@@ -268,7 +259,211 @@ def data_parallel(outdir):
     dist.destroy_process_group()
 
 
-SCENARIOS = {"collective": collective, "dp": data_parallel}
+#: the batch-norm routes of the synchronized-BN world, and the rows of the
+#: global batch of 4 each rank takes
+BN_ROUTES = ("unfused", "fused", "fused_add", "conv1x1", "sync", "composed")
+BN_SPLITS = {"even": ((0, 2), (2, 4)), "uneven": ((0, 3), (3, 4))}
+BN_C = 8  # channels (and classes of the per-pixel loss)
+
+
+def bn_layer(route):
+    """The port's layer of one batch-norm route (NHWC, 8 channels): the
+    unfused BatchNorm2D, the fused BN+ReLU (with the residual add for
+    "fused_add"; fp64 inputs on the card's composed route for
+    "composed"), the 1x1 conv + BN chain, SyncBatchNorm."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.models import resnet
+    df = dict(data_format="NHWC", device="cpu")
+    if route in ("unfused", "sync"):
+        cls = nn.SyncBatchNorm if route == "sync" else nn.BatchNorm2D
+        return cls(BN_C, **df)
+    if route != "conv1x1":
+        return nn.BatchNorm2D(BN_C, act="relu", **df)
+
+    class Chain(nn.Layer):
+        def __init__(self):
+            super().__init__("cpu")
+            self.conv = nn.Conv2D(2 * BN_C, BN_C, 1, bias_attr=False, **df)
+            self.bn = nn.BatchNorm2D(BN_C, act="relu", **df)
+
+        def forward(self, x):
+            return resnet._conv_bn(self.conv, self.bn, x)
+
+    return Chain()
+
+
+def tiny_resnet(fused=True):
+    """A small NHWC bottleneck ResNet on the CPU: a 3x3 stem to 32
+    channels with its BN+ReLU, bottlenecks (32, 8), (32, 16, stride 2, a
+    downsample) and (64, 16), pooling and a Linear(64, 10); its 1x1 convs
+    take the fused chain. 11 batch norms."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.models.resnet import BottleneckBlock
+    from paddle_tpu_torch.nn import functional as F
+    df = dict(data_format="NHWC", device="cpu")
+    norm = None if fused else nn.BatchNorm2D
+
+    class Tiny(nn.Layer):
+        def __init__(self):
+            super().__init__("cpu")
+            self.conv1 = nn.Conv2D(3, 32, 3, padding=1, bias_attr=False,
+                                   **df)
+            self.bn1 = nn.BatchNorm2D(32, act="relu", **df)
+            self.block1 = BottleneckBlock(32, 8, norm_layer=norm, **df)
+            self.block2 = BottleneckBlock(32, 16, 2, nn.Sequential(
+                nn.Conv2D(32, 64, 1, stride=2, bias_attr=False, **df),
+                nn.BatchNorm2D(64, **df)), norm_layer=norm, **df)
+            self.block3 = BottleneckBlock(64, 16, norm_layer=norm, **df)
+            self.pool = nn.AdaptiveAvgPool2D(1, data_format="NHWC")
+            self.fc = nn.Linear(64, 10, device="cpu")
+
+        def forward(self, x):
+            x = self.bn1(self.conv1(x))
+            x = self.block3(self.block2(self.block1(x)))
+            return self.fc(F.flatten(self.pool(x), 1))
+
+    return Tiny()
+
+
+def _prefixed(inp, pre):
+    return {k[len(pre):]: v for k, v in inp.items() if k.startswith(pre)}
+
+
+def _bn_case(inp, route, rows):
+    """One DataParallel forward and backward of a route's layer on this
+    rank's rows: the per-pixel cross-entropy's global loss, the output,
+    the input's (and residual's) gradient, the parameters' reduced
+    gradients, the running statistics, and the collectives and
+    compositions counted."""
+    import torch
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.kernels import fused_bn
+    from paddle_tpu_torch.utils.convert import load_numpy_params
+    layer = bn_layer(route)
+    load_numpy_params(layer, _prefixed(inp, f"{route}.p."))
+    dp = dist.DataParallel(layer)
+    dt = torch.float64 if route == "composed" else torch.float32
+    lo, hi = rows
+    x = _t(inp[f"{route}.x"][lo:hi]).to(dt).requires_grad_(True)
+    args = [x]
+    if route == "fused_add":
+        args.append(_t(inp[f"{route}.z"][lo:hi]).requires_grad_(True))
+    lab = _t(inp[f"{route}.lab"][lo:hi]).long().reshape(-1)
+    C.reset_launch_stats()
+    kernels.reset_stats()
+    use_kernel = fused_bn.use_kernel
+    if route == "composed":  # the card's route for a type the kernel refuses
+        fused_bn.use_kernel = lambda *a: True
+    try:
+        out = dp(*args)
+        loss = F.cross_entropy(out.reshape(-1, BN_C), lab)
+        loss.backward()
+    finally:
+        fused_bn.use_kernel = use_kernel
+    return dict(loss=float(loss), out=_np(out), dx=_np(x.grad),
+                dz=_np(args[1].grad) if len(args) > 1 else None,
+                grads={k: _np(p.grad) for k, p in layer.named_parameters()},
+                buffers={k: _np(b) for k, b in layer.named_buffers()},
+                launches=C.launch_stats(), stats=kernels.all_stats(),
+                composed=kernels.composed_stats())
+
+
+def resnet_dp(outdir):
+    """Synchronized batch norm over a 2-rank gloo world: each route's
+    layer on even and uneven shards of a global batch of 4; one Momentum
+    step of the tiny ResNet (2 images a rank) through the eager
+    DataParallel loop and through TrainStep(DataParallel); ResNet-50's
+    launches and collectives under the group, fused and unfused."""
+    import torch
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch import jit, optimizer
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.models.resnet import resnet50
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.utils.convert import load_numpy_params
+
+    dist.init_parallel_env(device="cpu")
+    r = dist.get_rank()
+    inp = dict(np.load(os.path.join(outdir, "inputs.npz")))
+    out = {}
+    for route in BN_ROUTES:
+        for split, rows in BN_SPLITS.items():
+            out[f"{route}.{split}"] = _bn_case(inp, route, rows[r])
+    # the tiny ResNet: one Momentum(0.1, 0.9) step each way
+    xs = dist.shard_batch(_t(inp["tiny.x"]))
+    ys = dist.shard_batch(_t(inp["tiny.y"]).long())
+    weights = _prefixed(inp, "tiny.p.")
+    model = tiny_resnet()
+    load_numpy_params(model, weights)
+    dp = dist.DataParallel(model)
+    opt = optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                             parameters=dp.parameters())
+    C.reset_launch_stats()
+    loss = F.cross_entropy(dp(xs), ys)
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    out["tiny.eager"] = dict(
+        loss=float(loss), launches=C.launch_stats(),
+        buckets=len(dp._reducer.buckets),
+        params={k: _np(p) for k, p in model.named_parameters()},
+        buffers={k: _np(b) for k, b in model.named_buffers()})
+    # the same step with a parameter the loss never reaches: its bucket
+    # goes out at the backward's end, after every batch norm's all-reduce
+    model = tiny_resnet()
+    load_numpy_params(model, weights)
+    model.extra = torch.nn.Parameter(torch.zeros(3))
+    dp = dist.DataParallel(model, find_unused_parameters=True)
+    opt = optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                             parameters=dp.parameters())
+    loss = F.cross_entropy(dp(xs), ys)
+    loss.backward()
+    opt.step()
+    out["tiny.unused"] = dict(
+        loss=float(loss),
+        params={k: _np(p) for k, p in model.named_parameters()
+                if k != "extra"},
+        buffers={k: _np(b) for k, b in model.named_buffers()})
+    model = tiny_resnet()
+    load_numpy_params(model, weights)
+    step = jit.TrainStep(dist.DataParallel(model), F.cross_entropy,
+                         optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                            parameters=model.parameters()))
+    C.reset_launch_stats()
+    kernels.reset_stats()
+    loss = step(xs, ys)
+    out["tiny.step"] = dict(
+        loss=float(loss), launches=C.launch_stats(),
+        stats=kernels.all_stats(), buckets=len(step._buckets),
+        params={k: _np(v) for k, v in step.params.items()},
+        buffers={k: _np(v) for k, v in step.buffers.items()})
+    # ResNet-50 NHWC under the group, its defaults and fused_bn=False
+    imgs = dist.shard_batch(_t(inp["rn50.x"]))
+    labels = dist.shard_batch(_t(inp["rn50.y"]).long())
+    for tag, fused in (("rn50.fused", True), ("rn50.unfused", False)):
+        net = resnet50(num_classes=10, data_format="NHWC", fused_bn=fused,
+                       device="cpu",
+                       generator=torch.Generator().manual_seed(0))
+        dpn = dist.DataParallel(net)
+        C.reset_launch_stats()
+        kernels.reset_stats()
+        loss = F.cross_entropy(dpn(imgs), labels)
+        loss.backward()
+        out[tag] = dict(
+            loss=float(loss), launches=C.launch_stats(),
+            stats=kernels.all_stats(),
+            buffers={k: _np(b) for k, b in net.named_buffers()},
+            grads={k: _np(p.grad) for k, p in net.named_parameters()})
+    torch.save(out, os.path.join(outdir, f"resnet_dp.{r}.pt"))
+    dist.destroy_process_group()
+
+
+SCENARIOS = {"collective": collective, "dp": data_parallel,
+             "resnet_dp": resnet_dp}
 
 
 def run_world(scenario, nprocs, outdir, timeout=120):
