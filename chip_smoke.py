@@ -7031,6 +7031,634 @@ def rn_dp_phase(card):
     return res
 
 
+# ------------- phase 28: ZeRO sharding and the sharded checkpoint -------------
+
+ZERO_LEVELS = ("os", "os_g", "p_g_os")
+ZERO_STEPS = 3
+#: the two gloo ranks' fp32 step held against one process: a multiple of
+#: the one process's distance from itself with the batch reversed, plus a
+#: floor (as phase 27)
+ZERO_NOISE_MULT, ZERO_LOSS_FLOOR, ZERO_STATE_FLOOR = 4.0, 1e-5, 1e-5
+
+
+def zero_model(cfg, dev, level, o2_eager=False):
+    """GPT(cfg) and AdamW(1e-4, wd 0.01), through group_sharded_parallel at
+    ``level`` (None: plain); ``o2_eager`` casts the parameters to bf16
+    (amp.decorate O2) for the eager loop."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.distributed import topology
+    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
+    from paddle_tpu_torch.models.gpt import GPT
+    net = GPT(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    if o2_eager:
+        net = amp.decorate(net, level="O2", dtype="bfloat16")
+    opt = optimizer.AdamW(learning_rate=DP_LR, parameters=net.parameters(),
+                          weight_decay=0.01)
+    if level is not None:
+        topology.set_hybrid_communicate_group(None)
+        net, opt, _ = group_sharded_parallel(net, opt, level)
+    return net, opt
+
+
+def zero_train_step(cfg, dev, level):
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import functional as F
+    net, opt = zero_model(cfg, dev, level)
+    return TrainStep(net, F.cross_entropy, opt, amp_dtype=torch.bfloat16)
+
+
+def zero_eager_run(cfg, dev, level, batches):
+    """ZERO_STEPS eager O2 steps: (losses, {name: state tensor},
+    collectives of the steps)."""
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.nn import functional as F
+    net, opt = zero_model(cfg, dev, level, o2_eager=True)
+    losses = []
+    C.reset_launch_stats()
+    for i in range(ZERO_STEPS):
+        loss = F.cross_entropy(net(batches[i % 2][0]), batches[i % 2][1])
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.detach().float())
+    coll = C.launch_stats()
+    state = {f"param {k}": v.detach().clone()
+             for k, v in net.state_dict().items()}
+    state.update({f"opt {k}": v.clone() for k, v in opt.state_dict().items()
+                  if isinstance(v, torch.Tensor)})
+    return torch.stack(losses).cpu(), state, coll
+
+
+def zero_world1(cfg, card):
+    """World 1 over NCCL: GPT-2 small O2 bf16 b8 s1024 through
+    group_sharded_parallel at each level, captured in TrainStep and in the
+    eager loop, each bit for bit with its plain counterpart over
+    ZERO_STEPS steps under deterministic_steps (losses, masters, slots,
+    buffers), with the plain step's kernel launches; the captured steps
+    timed in turns with their exact launches and collectives a step; then
+    the stage-1 step saved asynchronously while it trains, and restored."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.ops import kernels
+    dev = torch.device("cuda")
+    dist.init_parallel_env()
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        raise AssertionError(f"zero: world {dist.get_backend()} "
+                             f"{dist.get_world_size()}")
+    rng = np.random.default_rng(0)
+    batches = [tuple(torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        TRAIN_B, TRAIN_L))).to(dev) for _ in range(2)) for _ in range(2)]
+    res = dict(card=card, steps=ZERO_STEPS)
+    # 1. captured, bit for bit against the plain captured step
+    runs = {}
+    for level in (None,) + ZERO_LEVELS:
+        torch.manual_seed(0)
+        step = zero_train_step(cfg, dev, level)
+        C.reset_launch_stats()
+        kernels.reset_stats()
+        losses = []
+        with deterministic_steps():
+            for i in range(ZERO_STEPS):
+                losses.append(step(*batches[i % 2]))
+            torch.cuda.synchronize()
+        runs[level] = dict(losses=torch.stack(losses).cpu(),
+                           state=step_state(step), stats=kernels.all_stats(),
+                           collectives=C.launch_stats(),
+                           graphs=graph_summary(step))
+        step.release_graphs()
+        del step
+        free_card()
+    plain = runs[None]
+    want_launches = {k: v * ZERO_STEPS
+                     for k, v in split_per_step(PER_STEP).items()}
+    res["captured"] = {}
+    for level in ZERO_LEVELS:
+        r = runs[level]
+        diff = [k for k, v in plain["state"].items()
+                if not bits_equal(v, r["state"][k])]
+        same = bits_equal(plain["losses"], r["losses"])
+        launches = {k: v["kernel"] for k, v in r["stats"].items()
+                    if v["kernel"]}
+        plain_runs = {k: v["plain"] for k, v in r["stats"].items()
+                      if v["plain"]}
+        res["captured"][level] = dict(
+            losses=r["losses"].tolist(), losses_bit_for_bit=same,
+            state_tensors=len(plain["state"]), state_differing=diff,
+            launches=launches, collectives=r["collectives"],
+            graphs=r["graphs"])
+        log(f"zero: TrainStep(group_sharded {level}) captured, GPT-2 small "
+            f"O2 b{TRAIN_B} s{TRAIN_L}, world 1 over nccl, against the plain "
+            f"captured step, {ZERO_STEPS} steps under deterministic_steps: "
+            f"losses bit for bit {same}, {len(diff)} of "
+            f"{len(plain['state'])} masters/slots/buffers differ; launches "
+            f"{json.dumps(launches)}; collectives {json.dumps(r['collectives'])}"
+            f" [{card}]")
+        if (not same or diff or plain_runs or launches != want_launches
+                or r["stats"] != plain["stats"]):
+            raise AssertionError(f"zero: captured {level}: "
+                                 f"{res['captured'][level]} {plain_runs}")
+    del runs
+    free_card()
+    # 2. the eager O2 loop, bit for bit against the plain eager loop
+    res["eager"] = {}
+    with deterministic_steps():
+        kernels.reset_stats()
+        want_l, want_s, _ = zero_eager_run(cfg, dev, None, batches)
+        want_stats = kernels.all_stats()
+        for level in ZERO_LEVELS:
+            kernels.reset_stats()
+            got_l, got_s, coll = zero_eager_run(cfg, dev, level, batches)
+            stats = kernels.all_stats()
+            diff = [k for k, v in want_s.items()
+                    if k not in got_s or not bits_equal(v, got_s[k])]
+            same = bits_equal(want_l, got_l)
+            res["eager"][level] = dict(losses=got_l.tolist(),
+                                       losses_bit_for_bit=same,
+                                       state_differing=diff,
+                                       collectives=coll)
+            log(f"zero: eager O2 loop (group_sharded {level}) against the "
+                f"plain eager loop, {ZERO_STEPS} steps: losses bit for bit "
+                f"{same}, {len(diff)} of {len(want_s)} parameters/slots "
+                f"differ; collectives {json.dumps(coll)} [{card}]")
+            if not same or diff or stats != want_stats or any(
+                    v["plain"] for v in stats.values()):
+                worst = {k: float((got_s[k].double() - want_s[k].double())
+                                  .abs().max()) for k in diff[:4]
+                         if k in got_s}
+                raise AssertionError(
+                    f"zero: eager {level}: losses {got_l.tolist()} against "
+                    f"the plain loop's {want_l.tolist()}; {len(diff)} "
+                    f"tensors differ, e.g. {worst}; launches {stats} "
+                    f"against {want_stats}")
+            free_card()
+    # 3. the captured steps timed in turns, with their exact launches
+    steps = {str(level): zero_train_step(cfg, dev, level)
+             for level in (None,) + ZERO_LEVELS}
+    for st in steps.values():
+        for _ in range(2):
+            st(*batches[0])
+    ms = {name: [] for name in steps}
+    for _ in range(CAPTURE_ROUNDS):
+        for name, st in steps.items():
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(ZERO_STEPS):
+                st(*batches[0])
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t1) * 1e3 / ZERO_STEPS)
+    per_step, exact, launches = {}, {}, {}
+    for name, st in steps.items():
+        kernels.reset_stats()
+        C.reset_launch_stats()
+        for _ in range(ZERO_STEPS):
+            st(*batches[0])
+        torch.cuda.synchronize()
+        stats = kernels.all_stats()
+        exact_launches(f"zero {name}", stats, PER_STEP, ZERO_STEPS)
+        if name != "None":  # the ZeRO path's launches, its three levels
+            for k, v in stats.items():
+                acc = launches.setdefault(k, {"kernel": 0, "plain": 0})
+                acc["kernel"] += v["kernel"]
+                acc["plain"] += v["plain"]
+        per_step[name] = {k: v / ZERO_STEPS
+                          for k, v in C.launch_stats().items()}
+        exact[name] = {k: v["kernel"] // ZERO_STEPS
+                       for k, v in kernels.all_stats().items()
+                       if v["kernel"]}
+    busy = {name: device_ops(lambda: st(*batches[0]))[1]
+            for name, st in steps.items()}
+    tokens = TRAIN_B * TRAIN_L
+    res["launches"] = launches
+    res["timed"] = dict(step_ms=ms, device_busy_ms=busy,
+                        launches_per_step=exact,
+                        collectives_per_step=per_step,
+                        tokens_per_s={n: tokens / (min(v) / 1e3)
+                                      for n, v in ms.items()})
+    log(f"zero: GPT-2 small O2 b{TRAIN_B} s{TRAIN_L} captured, step ms in "
+        f"turns (runs of {ZERO_STEPS}): {json.dumps(ms)}; device busy a "
+        f"step {json.dumps(busy)}; tokens/s (best run) "
+        f"{json.dumps(res['timed']['tokens_per_s'])}; launches a step "
+        f"{json.dumps(exact)}; collectives a step {json.dumps(per_step)} "
+        f"[{card}]")
+    for level in ZERO_LEVELS:
+        c = per_step[level]
+        if not (c.get("reduce_scatter", 0) >= 1 and c.get("all_gather", 0)
+                == c.get("reduce_scatter") and c.get("all_reduce") == 2):
+            raise AssertionError(f"zero: collectives a step {per_step}")
+    res["checkpoint"] = zero_async_ckpt(steps["os"], batches, card)
+    for st in steps.values():
+        st.release_graphs()
+    del steps, st
+    free_card()
+    res["health"] = zero_health(cfg, dev, batches, card)
+    return res
+
+
+def zero_health(cfg, dev, batches, card):
+    """The sentinel on the captured stage-3 step at interval 1 against the
+    plain step's, under deterministic_steps: the same readings at world 1
+    (the shards' squared sums all-reduced in fp64 inside the graph)."""
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import functional as F
+    got = {}
+    with env_var("PADDLE_TPU_HEALTH_INTERVAL", "1"), deterministic_steps():
+        for level in (None, "p_g_os"):
+            net, opt = zero_model(cfg, dev, level)
+            step = TrainStep(net, F.cross_entropy, opt,
+                             amp_dtype=torch.bfloat16, health=True)
+            C.reset_launch_stats()
+            for i in range(ZERO_STEPS):
+                step(*batches[i % 2])
+            h = step.last_health
+            got[str(level)] = dict(
+                stats={k: h[k] for k in ("loss", "grad_norm", "param_norm",
+                                         "update_ratio", "nonfinite")},
+                collectives=C.launch_stats(), graphs=graph_summary(step))
+            step.release_graphs()
+            del step, net, opt
+            free_card()
+    same = got["None"]["stats"] == got["p_g_os"]["stats"]
+    log(f"zero: the sentinel at interval 1 on the captured p_g_os step "
+        f"against the plain step's, {ZERO_STEPS} steps: the same readings "
+        f"{same} ({json.dumps(got['p_g_os']['stats'])}); collectives "
+        f"{json.dumps(got['p_g_os']['collectives'])} [{card}]")
+    if not same or got["p_g_os"]["collectives"].get("health") != \
+            2 * ZERO_STEPS:
+        raise AssertionError(f"zero: health: {got}")
+    return got
+
+
+def _tree_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def zero_async_ckpt(step, batches, card):
+    """The captured stage-1 step saved asynchronously while it trains:
+    the synchronous snapshot's ms (the step's critical path), the
+    background write's seconds and bytes, the step ms while the writer
+    runs against without it; then the step restored from the directory,
+    bit for bit with the state at the save, and the restore's seconds."""
+    import shutil
+    import tempfile
+    from paddle_tpu_torch.distributed import sharded_checkpoint as sc
+    from paddle_tpu_torch.profiler import metrics
+    d = tempfile.mkdtemp(prefix="zero_ckpt_", dir=os.path.abspath(OUT_DIR))
+    hist = metrics.default_registry().get("checkpoint_async_seconds")
+
+    def hist_sum():
+        return sum(v["sum"] for v in hist.snapshot()["values"]) \
+            if hist is not None else float("nan")
+
+    mgr = sc.ShardedCheckpointManager(d, async_save=True, keep_last_n=2)
+    n = 2 * ZERO_STEPS
+
+    def run_ms():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(n):
+            step(*batches[0])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t1) * 1e3 / n
+
+    quiet = [run_ms()]
+    torch.cuda.synchronize()
+    before = step_state(step)
+    saved_at = step._t
+    w0 = hist_sum()
+    t1 = time.perf_counter()
+    mgr.save(step.sharded_state(), saved_at)
+    snap_ms = (time.perf_counter() - t1) * 1e3
+    busy_at_start = mgr._writer.busy()
+    during = [run_ms()]
+    busy_after = mgr._writer.busy()
+    mgr.drain()
+    write_s = hist_sum() - w0
+    quiet.append(run_ms())
+    # a second save: the host's pinned blocks of the first are reused
+    t1 = time.perf_counter()
+    mgr.save(step.sharded_state(), step._t)
+    snap2_ms = (time.perf_counter() - t1) * 1e3
+    mgr.drain()
+    path = mgr.path_for(saved_at)
+    status = sc.verify_step(path, deep=True)[0]
+    nbytes = _tree_bytes(path)
+    t1 = time.perf_counter()
+    state = sc.load_step(path, mesh=step._group)
+    step.set_sharded_state(state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t1
+    after = step_state(step)
+    diff = [k for k, v in before.items() if not bits_equal(v, after[k])]
+    del after
+    step(*batches[0])  # the restored step replays its graph
+    res = dict(snapshot_ms=snap_ms, second_snapshot_ms=snap2_ms,
+               write_s=write_s, bytes=nbytes,
+               step_ms_quiet=quiet, step_ms_writing=during,
+               writer_busy=[busy_at_start, busy_after], status=status,
+               restore_s=restore_s, restored_differing=diff)
+    log(f"zero: async sharded save of the captured stage-1 step: snapshot "
+        f"{snap_ms:.1f} ms on the step's path (a second save's "
+        f"{snap2_ms:.1f} ms), background write "
+        f"{write_s:.2f} s, {nbytes / 2 ** 20:.1f} MiB, {status}; step ms "
+        f"while writing {during} (writer busy at start/end "
+        f"{[busy_at_start, busy_after]}) vs quiet {quiet}; restore "
+        f"{restore_s:.2f} s, {len(diff)} of {len(before)} tensors differ "
+        f"from the state at the save [{card}]")
+    shutil.rmtree(d, ignore_errors=True)
+    if diff or status != "complete":
+        raise AssertionError(f"zero: async checkpoint: {res}")
+    return res
+
+
+def _hashes(tensors: dict) -> dict:
+    """{name: sha256 of the tensor's bytes}."""
+    import hashlib
+    out = {}
+    for k, v in tensors.items():
+        if isinstance(v, torch.Tensor):
+            b = v.detach().cpu().contiguous().view(torch.uint8).numpy()
+            out[k] = hashlib.sha256(b.tobytes()).hexdigest()
+    return out
+
+
+def zero_gathered_hashes(net, opt):
+    """Hashes of the whole state every rank gathers: parameters and the
+    optimizer's slots."""
+    sd = {f"param {k}": v for k, v in net.state_dict().items()}
+    sd.update({f"opt {k}": v for k, v in opt.state_dict().items()})
+    return _hashes(sd)
+
+
+def zero_ckpt_state(net, opt):
+    return {"model": {k: v.detach() for k, v in net.state_dict().items()},
+            "opt": opt.sharded_state_dict()}
+
+
+def zero_fp32_step(net, opt, ids, labels):
+    from paddle_tpu_torch.nn import functional as F
+    loss = F.cross_entropy(net(ids), labels)
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    return float(loss.detach())
+
+
+def zero_rank_worker(outdir):
+    """One rank of phase 28's two-rank gloo run (started by the launcher):
+    GPT-2 small fp32 at each level, one eager step on its rows of the
+    global batch 8 x 1024; its slot and parameter bytes; its distance from
+    the one-process step; then the world-1 checkpoint ``ck1`` restored
+    onto the two ranks, and a stage-1 step saved into ``ck2`` through the
+    coordinator."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.models.gpt import GPTConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_parallel_env()
+    r = dist.get_rank()
+    dev = dist.parallel.rank_device()
+    cfg = GPTConfig.gpt2_small()
+    cfg.dropout = cfg.attn_dropout = 0.0
+    ids, labels = (dist.shard_batch(t).to(dev) for t in dp_rank_batch(cfg))
+    single = torch.load(os.path.join(outdir, "single.pt"),
+                        weights_only=False)
+    out = dict(rank=r, backend=dist.get_backend(), device=str(dev),
+               levels={})
+    for level in ZERO_LEVELS:
+        kernels.reset_stats()
+        net, opt = zero_model(cfg, dev, level)
+        t0 = time.perf_counter()
+        loss = zero_fp32_step(net, opt, ids, labels)
+        secs = time.perf_counter() - t0
+        whole = sum(p.numel() for p in single["params"].values())
+        slot_elems = sum(v.numel() for d in opt._opt._slots.values()
+                         for v in d.values())
+        rest = sum(p.numel() for p in net.parameters())
+        free_card()
+        allocated = torch.cuda.memory_allocated(dev)
+        params = {k: v.detach() for k, v in net.state_dict().items()}
+        out["levels"][level] = dict(
+            loss=loss, seconds=secs, params_dist=rel_l2_all(
+                {k: v.cpu() for k, v in params.items()}, single["params"]),
+            slot_elems=slot_elems, whole_slot_elems=2 * whole,
+            param_elems_at_rest=rest, whole_param_elems=whole,
+            memory_allocated=allocated, stats=kernels.all_stats())
+        del net, opt, params
+        free_card()
+    # the world-1 step's checkpoint restored onto the two ranks
+    net, opt = zero_model(cfg, dev, "os")
+    mgr = ckpt.open_manager(os.path.join(outdir, "ck1"), layout="sharded",
+                            mesh=opt.group)
+    t0 = time.perf_counter()
+    state, step = mgr.load_latest()
+    net.load_state_dict(state["model"])
+    opt.set_state_dict(state["opt"])
+    out["restore_s"] = time.perf_counter() - t0
+    with open(os.path.join(outdir, "ck1.json")) as f:
+        want = json.load(f)
+    got = zero_gathered_hashes(net, opt)
+    out["restored_differing"] = sorted(k for k in want
+                                       if got.get(k) != want[k])
+    del net, opt, state
+    free_card()
+    # a stage-1 step of the two ranks, saved through the coordinator
+    net, opt = zero_model(cfg, dev, "os")
+    zero_fp32_step(net, opt, ids, labels)
+    hashes = zero_gathered_hashes(net, opt)
+    mgr = ckpt.open_manager(os.path.join(outdir, "ck2"), layout="sharded",
+                            coordinator=ckpt.coordinator_from_env(
+                                timeout=120))
+    t0 = time.perf_counter()
+    out["committed"] = mgr.save(zero_ckpt_state(net, opt), 1)
+    out["save_s"] = time.perf_counter() - t0
+    if r == 0:
+        with open(os.path.join(outdir, "ck2.json"), "w") as f:
+            json.dump(hashes, f)
+    torch.save(out, os.path.join(outdir, f"rank{r}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def zero_two_ranks(card):
+    """Two gloo ranks on the one card (the launcher) at each level: the
+    loss and parameters after one fp32 step within ZERO_NOISE_MULT times
+    one process's distance from itself with the batch reversed (plus a
+    floor); each rank's slots half the whole and at stage 3 its
+    parameters too; the checkpoints of one world restored onto the other,
+    bit for bit with the state gathered before the save."""
+    import shutil
+    import signal
+    import tempfile
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+    from paddle_tpu_torch.models.gpt import GPTConfig
+    cfg = GPTConfig.gpt2_small()
+    cfg.dropout = cfg.attn_dropout = 0.0
+    dev = torch.device("cuda")
+    out = tempfile.mkdtemp(prefix="zero_ranks_", dir=os.path.abspath(OUT_DIR))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # one process: the global batch and the batch reversed; a stage-1 step
+    # of world 1 saved into ck1
+    dist.init_parallel_env()
+    ids, labels = (t.to(dev) for t in dp_rank_batch(cfg))
+    single = {}
+    for name, (x, y) in (("single", (ids, labels)),
+                         ("reversed", (ids.flip(0), labels.flip(0)))):
+        net, opt = zero_model(cfg, dev, None)
+        loss = zero_fp32_step(net, opt, x, y)
+        single[name] = dict(loss=loss, params={
+            k: v.detach().cpu() for k, v in net.state_dict().items()})
+        del net, opt
+        free_card()
+    torch.save(single["single"], os.path.join(out, "single.pt"))
+    noise = dict(loss=rel(single["reversed"]["loss"],
+                          single["single"]["loss"]),
+                 params=rel_l2_all(single["reversed"]["params"],
+                                   single["single"]["params"]))
+    bound = dict(loss=ZERO_NOISE_MULT * noise["loss"] + ZERO_LOSS_FLOOR,
+                 params=ZERO_NOISE_MULT * noise["params"]
+                 + ZERO_STATE_FLOOR)
+    net, opt = zero_model(cfg, dev, "os")
+    zero_fp32_step(net, opt, ids, labels)
+    with open(os.path.join(out, "ck1.json"), "w") as f:
+        json.dump(zero_gathered_hashes(net, opt), f)
+    t0 = time.perf_counter()
+    ckpt.open_manager(os.path.join(out, "ck1"), layout="sharded").save(
+        zero_ckpt_state(net, opt), 1)
+    save1_s = time.perf_counter() - t0
+    del net, opt
+    free_card()
+    dist.destroy_process_group()
+    env = dict(os.environ, PADDLE_DISTRI_BACKEND="gloo")
+    for k in ("PADDLE_TRAINER_ID", "PADDLE_TRAINERS_NUM",
+              "PADDLE_TRAINER_ENDPOINTS", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(k, None)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         "--nproc_per_node", "2", "--log_dir", os.path.join(out, "log"),
+         os.path.abspath(__file__), "--zero-worker", out],
+        env=env, cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, start_new_session=True)
+    try:
+        text, _ = proc.communicate(timeout=400)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        text, _ = proc.communicate()
+        raise AssertionError(f"zero: the two ranks did not end within 400 s:"
+                             f"\n{text[-3000:]}")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(30)
+    ranks_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"zero: the launcher exited {proc.returncode}:"
+                             f"\n{text[-4000:]}")
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    # the two ranks' checkpoint restored onto one process
+    dist.init_parallel_env()
+    net, opt = zero_model(cfg, dev, "os")
+    t0 = time.perf_counter()
+    state, _ = ckpt.open_manager(os.path.join(out, "ck2"), layout="sharded",
+                                 mesh=opt.group).load_latest()
+    net.load_state_dict(state["model"])
+    opt.set_state_dict(state["opt"])
+    restore2_s = time.perf_counter() - t0
+    with open(os.path.join(out, "ck2.json")) as f:
+        want = json.load(f)
+    got = zero_gathered_hashes(net, opt)
+    ck2_diff = sorted(k for k in want if got.get(k) != want[k])
+    ck2_files = sorted(os.listdir(os.path.join(out, "ck2", "ckpt_1")))
+    del net, opt, state
+    free_card()
+    dist.destroy_process_group()
+    shutil.rmtree(out, ignore_errors=True)
+    lv = {level: dict(
+        losses=[rk["levels"][level]["loss"] for rk in ranks],
+        loss_dist=rel(ranks[0]["levels"][level]["loss"],
+                      single["single"]["loss"]),
+        params_dist=ranks[0]["levels"][level]["params_dist"],
+        slot_fraction=[rk["levels"][level]["slot_elems"]
+                       / rk["levels"][level]["whole_slot_elems"]
+                       for rk in ranks],
+        param_fraction_at_rest=[rk["levels"][level]["param_elems_at_rest"]
+                                / rk["levels"][level]["whole_param_elems"]
+                                for rk in ranks],
+        memory_allocated_mib=[rk["levels"][level]["memory_allocated"]
+                              / 2 ** 20 for rk in ranks],
+        seconds=[rk["levels"][level]["seconds"] for rk in ranks])
+        for level in ZERO_LEVELS}
+    res = dict(levels=lv, noise=noise, bound=bound,
+               single_loss=single["single"]["loss"],
+               ck1=dict(save_s=save1_s,
+                        restore_s=[rk["restore_s"] for rk in ranks],
+                        differing=[rk["restored_differing"]
+                                   for rk in ranks]),
+               ck2=dict(committed=[rk["committed"] for rk in ranks],
+                        save_s=[rk["save_s"] for rk in ranks],
+                        restore_s=restore2_s, differing=ck2_diff,
+                        manifests=[f for f in ck2_files
+                                   if f.startswith("manifest")]),
+               launches_by_rank={level: [rk["levels"][level]["stats"]
+                                         for rk in ranks]
+                                 for level in ZERO_LEVELS},
+               launches={k: {"kernel": sum(rk["levels"][lv_]["stats"][k][
+                   "kernel"] for rk in ranks for lv_ in ZERO_LEVELS),
+                   "plain": sum(rk["levels"][lv_]["stats"][k]["plain"]
+                                for rk in ranks for lv_ in ZERO_LEVELS)}
+                   for k in ranks[0]["levels"]["os"]["stats"]},
+               seconds=ranks_s, card=card)
+    log(f"zero: two gloo ranks on one card (launcher, GPT-2 small fp32, b4 a "
+        f"rank x s{TRAIN_L}, one eager AdamW step a level, "
+        f"{ranks_s:.1f} s with start-up): {json.dumps(lv)}; one process "
+        f"loss {single['single']['loss']}, its distance from itself with "
+        f"the batch reversed {json.dumps(noise)}, bounds {json.dumps(bound)}"
+        f" [{card}]")
+    log(f"zero: sharded checkpoint across worlds: world 1 -> 2 ranks "
+        f"{json.dumps(res['ck1'])}; 2 ranks (coordinated) -> world 1 "
+        f"{json.dumps(res['ck2'])} [{card}]")
+    for level, d in lv.items():
+        stats = res["launches_by_rank"][level]
+        if (d["loss_dist"] > bound["loss"] or d["params_dist"] > bound["params"]
+                or d["losses"][0] != d["losses"][1]
+                or d["slot_fraction"] != [0.5, 0.5]
+                or d["param_fraction_at_rest"] != (
+                    [0.5, 0.5] if level == "p_g_os" else [1.0, 1.0])
+                or any(st["plain"] for s in stats for st in s.values())
+                or not all(any(st["kernel"] for st in s.values())
+                           for s in stats)):
+            raise AssertionError(f"zero: two ranks at {level}: {d} {stats}")
+    if (any(res["ck1"]["differing"]) or ck2_diff
+            or res["ck2"]["committed"] != [True, True]):
+        raise AssertionError(f"zero: checkpoints across worlds: {res}")
+    return res
+
+
+def zero_phase(cfg, card):
+    """Phase 28: ZeRO at its three levels on a world-1 nccl group
+    (captured and eager, bit for bit with the plain steps, timed; the
+    asynchronous sharded save), then two gloo ranks on the card with the
+    checkpoint restored across world sizes."""
+    t0 = time.perf_counter()
+    res = dict(world1=zero_world1(cfg, card))
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import topology
+    topology.set_hybrid_communicate_group(None)
+    dist.destroy_process_group()
+    res["two_ranks"] = zero_two_ranks(card)
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"zero: phase 28 took {res['phase_s']:.1f} s [{card}]")
+    return res
+
+
 def fp32_row(kname, rows, paths):
     """For the 1x1 conv's entry: its fp32 row at the main shape, with its
     launches on phase 22's fp32 path, as `fp32`."""
@@ -7136,7 +7764,8 @@ def split_masked(kname, rows, paths):
 
 #: the phases `--phases` may name, in the order they run
 PHASES = ("serve", "health", "health_trip", "fit_resume", "transformer",
-          "resnet_fit", "serve_control", "observe", "ps", "dp", "resnet_dp")
+          "resnet_fit", "serve_control", "observe", "ps", "dp", "resnet_dp",
+          "zero")
 
 
 def only_phases(phases, cfg, smi, name):
@@ -7176,6 +7805,8 @@ def only_phases(phases, cfg, smi, name):
         res["dp"] = dp_phase(cfg, smi)
     if "resnet_dp" in phases:
         res["resnet_dp"] = rn_dp_phase(smi)
+    if "zero" in phases:
+        res["zero"] = zero_phase(cfg, smi)
     with open(os.path.join(OUT_DIR, "chip_smoke_phases.json"), "w") as f:
         json.dump(res, f, indent=1)
     print(smi)
@@ -7196,12 +7827,17 @@ def main(argv=None):
                          "phase starts these through the launcher)")
     ap.add_argument("--rn-worker", default=None, metavar="DIR",
                     help="run one rank of phase 27's two-rank run")
+    ap.add_argument("--zero-worker", default=None, metavar="DIR",
+                    help="run one rank of phase 28's two-rank run")
     args = ap.parse_args(argv)
     if args.dp_worker is not None:
         dp_rank_worker(args.dp_worker)
         return 0
     if args.rn_worker is not None:
         rn_rank_worker(args.rn_worker)
+        return 0
+    if args.zero_worker is not None:
+        zero_rank_worker(args.zero_worker)
         return 0
     phases = None
     if args.phases is not None:
@@ -7430,8 +8066,12 @@ def main(argv=None):
     # 27. ResNet-50 data parallelism: synchronized batch norm, world 1 over
     # NCCL captured against the plain step, two gloo ranks on the card
     rn_dp = rn_dp_phase(smi)
+    # 28. ZeRO sharding at its three levels (world 1 over NCCL, captured
+    # and eager, bit for bit with the plain steps), the sharded checkpoint,
+    # two gloo ranks on the card
+    zero = zero_phase(cfg, smi)
 
-    # 28. report: launches from each path's own run (counters reset just
+    # 29. report: launches from each path's own run (counters reset just
     # before it); times at the main path's shape
     result = dict(card=smi, capability=cap, launch_floor_ms=floor,
                   checks=rows, edges=edges,
@@ -7445,7 +8085,7 @@ def main(argv=None):
                   health_trip=trip, fit_resume=fit_res, transformer=tb,
                   transformer_cpu_cross_check=tb_cpu, resnet_fit=rfit,
                   serve_control=control, observe=obs, ps=ps_res, dp=dp_res,
-                  resnet_dp=rn_dp)
+                  resnet_dp=rn_dp, zero=zero)
     paths = {"serve": served, "serve_control": control, "train": trained,
              "resnet": resnet, "long": long, "bert": bert,
              "health": health_res, "fit": fit_res, "transformer": tb,
@@ -7453,7 +8093,8 @@ def main(argv=None):
              "dp": dp_res["gpt2_world1"], "dp_gpt3": dp_res["gpt3"],
              "dp_ranks": dp_res["two_ranks"],
              "resnet_dp": rn_dp["world1"],
-             "resnet_dp_ranks": rn_dp["two_ranks"]}
+             "resnet_dp_ranks": rn_dp["two_ranks"],
+             "zero": zero["world1"], "zero_ranks": zero["two_ranks"]}
     kern = []
     for kname, meta in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == kname]

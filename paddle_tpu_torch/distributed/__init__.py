@@ -15,10 +15,12 @@ package. The backend is ``nccl`` with one card a rank, ``gloo`` under
 Ported: process groups and the collectives (``collective``), the
 rendezvous store (``store.TCPStore``), ``init_parallel_env``,
 ``DataParallel``, ``spawn``, ``launch``, the topology, the checkpoint
-(single host and the coordinated multi-host commit), ``fleet.utils``
-and the parameter server (``ps``). Tensor, pipeline, sharded and
-sequence parallelism (``fleet``'s collective facade, ``meta_parallel``,
-``sharding``, ``auto_parallel``, ``sharded_checkpoint``) are later
+(single host and the coordinated multi-host commit), ZeRO sharding
+(``sharding.group_sharded_parallel`` at its three levels, eager and in
+``jit.TrainStep``), the chunked sharded checkpoint with its re-sharding
+restore (``sharded_checkpoint``), ``fleet.utils`` and the parameter
+server (``ps``). Tensor, pipeline and sequence parallelism (``fleet``'s
+collective facade, ``meta_parallel``, ``auto_parallel``) are later
 slices of ROADMAP A11; ``split`` raises naming it.
 """
 from __future__ import annotations
@@ -43,3 +45,5 @@ from .store import TCPStore  # noqa: F401
 from .spawn import spawn  # noqa: F401
 from . import checkpoint  # noqa: F401
 from . import launch  # noqa: F401
+from . import sharded_checkpoint  # noqa: F401
+from . import sharding  # noqa: F401

@@ -28,9 +28,13 @@ reference's two-phase commit over the port's ``TCPStore`` (the store
 ``init_parallel_env`` rendezvoused on): every rank publishes step N or
 none does, and ``load_latest`` resumes from the step every rank
 committed. ``coordinator_from_env`` builds one from the trainer env
-contract when ``PADDLE_TRAINERS_NUM`` >= 2. The sharded layout
-(``layout="sharded"``, PTSHARD01) and restore onto a mesh belong with
-ZeRO and tensor parallelism and raise, naming that item.
+contract when ``PADDLE_TRAINERS_NUM`` >= 2. ``layout="sharded"``
+(``open_manager``) is the chunked shared-directory layout of
+``sharded_checkpoint.py`` (PTSHARD01). ``mesh=`` takes a group (the
+port's counterpart of the reference's mesh): an array whose saved spec
+names the group's axis comes back as this rank's
+``sharding.ShardedTensor``, and an axis the group lacks warns and
+replicates.
 """
 from __future__ import annotations
 
@@ -76,6 +80,10 @@ _M_BARRIER_ABORTS = _REG.counter(
     "ckpt_barrier_aborts_total",
     "coordinated checkpoint rounds aborted (no host published a final "
     "file), labeled by reason: timeout / peer_abort / error")
+_M_RESHARD_FALLBACK = _REG.counter(
+    "checkpoint_reshard_fallback_total",
+    "restored arrays whose saved sharding could not be applied to the "
+    "target group (kept replicated), labeled by tree path")
 _M_BARRIER_COMMITS = _REG.counter(
     "ckpt_barrier_commits_total",
     "coordinated checkpoint commits (this host renamed tmp -> final after "
@@ -87,9 +95,6 @@ _save_errors: list = []
 # header: magic(8) | crc32(payload)(4, LE) | payload_len(8, LE)
 _MAGIC = b"PTCKPT01"
 _HEADER_FMT = struct.Struct("<8sIQ")
-
-_SHARDED = "ROADMAP A11 (ZeRO/sharding with the sharded checkpoint)"
-
 
 class CheckpointCorruptError(RuntimeError):
     """A checkpoint file failed verification (truncated/bit-flipped/torn)."""
@@ -204,23 +209,52 @@ def wait_all():
         raise err
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            f"checkpoint restore onto a mesh: re-sharding waits for {_SHARDED}")
+def _warn_reshard_fallback(path: str, spec, group, exc: BaseException):
+    """A saved sharding the target group cannot take: the array stays
+    replicated, loudly."""
+    warnings.warn(
+        f"checkpoint restore: could not apply saved sharding to "
+        f"{path or '<root>'} (spec={tuple(spec)}, group axes="
+        f"{dict.fromkeys(group.axis_names, group.nranks)}): "
+        f"{type(exc).__name__}: {exc}; keeping the array replicated")
+    if _metrics_mod.enabled():
+        _M_RESHARD_FALLBACK.inc(path=path or "<root>")
+
+
+def _placed(state, specs: Dict[str, tuple], mesh, prefix: str = ""):
+    """``state`` (arrays as CPU tensors) laid out for this rank of the
+    group ``mesh`` by the saved ``specs`` ({tree path: spec})."""
+    if mesh is None:
+        return state
+    if isinstance(state, torch.Tensor) and prefix in specs:
+        from .sharded_checkpoint import _target_box
+        from .sharding import ShardedTensor
+        box, kept = _target_box(prefix, tuple(state.shape),
+                                tuple(specs[prefix]), mesh)
+        if kept is None:
+            return state
+        return ShardedTensor(state.shape, box, state[tuple(
+            slice(a, b) for a, b in box)].clone(), kept)
+    if isinstance(state, dict):
+        return {k: _placed(v, specs, mesh, f"{prefix}/{k}")
+                for k, v in state.items()}
+    if isinstance(state, (list, tuple)):
+        return type(state)(_placed(v, specs, mesh, f"{prefix}/{i}")
+                           for i, v in enumerate(state))
+    return state
 
 
 def load(path: str, mesh=None) -> Any:
-    """Restore a checkpoint's state tree (arrays as CPU torch tensors).
-    Raises CheckpointCorruptError (never a bare pickle traceback) when the
-    file fails header/CRC verification."""
-    _no_mesh(mesh)
+    """Restore a checkpoint's state tree (arrays as CPU torch tensors;
+    onto the group ``mesh`` by the file's saved specs). Raises
+    CheckpointCorruptError (never a bare pickle traceback) when the file
+    fails header/CRC verification."""
     with open(path, "rb") as f:
         data = f.read()
     blob = _decode(path, data)
     if _metrics_mod.enabled():
         _M_LOADS.inc()
-    return to_torch(blob["state"])
+    return _placed(to_torch(blob["state"]), blob.get("specs") or {}, mesh)
 
 
 def verify(path: str) -> Tuple[bool, Optional[str]]:
@@ -295,6 +329,8 @@ def tree_finite(obj) -> bool:
                 torch.isfinite(obj).all())
         if isinstance(obj, np.ndarray) and obj.dtype.kind == "f":
             return bool(np.all(np.isfinite(obj)))
+        if hasattr(obj, "local") and hasattr(obj, "box"):  # a ShardedTensor
+            return tree_finite(obj.local)
         return True
     except Exception:
         return True  # unjudgeable: accept rather than wedge a resume
@@ -333,7 +369,6 @@ def load_latest_valid(dirname: str, prefix: str = "ckpt",
     the next-newest. With `valid_only` (default: the
     PADDLE_TPU_RESUME_VALID_ONLY knob), candidates whose weights hold
     NaN/Inf are skipped the same way."""
-    _no_mesh(mesh)
     if valid_only is None:
         valid_only = resume_valid_only()
     for step, path in _step_files(dirname, prefix):
@@ -344,7 +379,8 @@ def load_latest_valid(dirname: str, prefix: str = "ckpt",
         except (OSError, CheckpointCorruptError) as e:
             _note_corrupt(path, e)
             continue
-        state = to_torch(blob["state"])
+        state = _placed(to_torch(blob["state"]), blob.get("specs") or {},
+                        mesh)
         if valid_only and not tree_finite(state):
             _note_nonfinite_skip(path)
             continue
@@ -707,13 +743,13 @@ def open_manager(dirname: str, layout: str = "auto", prefix: str = "ckpt",
                  **kw) -> "CheckpointManager":
     """Build the CheckpointManager for `dirname`: "file" (monolithic
     per-host pickles), "sharded" (the chunked shared-directory layout,
-    not ported yet: raises), or "auto" (detect from disk, "file" for a
-    fresh directory)."""
+    ``sharded_checkpoint.ShardedCheckpointManager``), or "auto" (detect
+    from disk, "file" for a fresh directory)."""
     if layout == "auto":
         layout = detect_layout(dirname, prefix) or "file"
     if layout == "sharded":
-        raise NotImplementedError(
-            f"{dirname}: the sharded checkpoint layout waits for {_SHARDED}")
+        from .sharded_checkpoint import ShardedCheckpointManager
+        return ShardedCheckpointManager(dirname, prefix=prefix, **kw)
     if layout != "file":
         raise ValueError(f"unknown checkpoint layout {layout!r} "
                          f"(expected 'file', 'sharded' or 'auto')")
@@ -741,12 +777,11 @@ class CheckpointManager:
                  mesh=None, coordinator: Optional[CheckpointCoordinator] = None,
                  store=None, rank: int = 0, world_size: int = 1,
                  barrier_timeout: Optional[float] = None):
-        _no_mesh(mesh)
         self.dirname = str(dirname)
         self.prefix = prefix
         self.keep_last_n = max(1, int(keep_last_n))
         self.async_save = async_save
-        self.mesh = None
+        self.mesh = mesh  # a group to restore onto, or None
         if coordinator is None and store is not None and int(world_size) > 1:
             coordinator = CheckpointCoordinator(store, rank, world_size,
                                                 timeout=barrier_timeout)
@@ -908,8 +943,9 @@ class CheckpointManager:
                     else self._read_agreed(agreed))
             if _metrics_mod.enabled():
                 _M_LOADS.inc()
-            return to_torch(blob["state"]), agreed
-        found = load_latest_valid(self.dirname, self.prefix)
+            return _placed(to_torch(blob["state"]), blob.get("specs") or {},
+                           self.mesh), agreed
+        found = load_latest_valid(self.dirname, self.prefix, mesh=self.mesh)
         if found is None:
             return None
         state, step, _ = found

@@ -311,7 +311,9 @@ def is_initialized() -> bool:
 
 def destroy_process_group(group=None):
     """Tear down ``group``'s process group, or with no argument every
-    group and the world (``init_parallel_env`` may then run again)."""
+    group and the world (``init_parallel_env`` may then run again; the
+    world's teardown first waits for every rank, so rank 0, which hosts
+    the rendezvous store, outlives the peers' use of it)."""
     global _default_group
     if group is not None:
         g = _resolve(group)
@@ -323,6 +325,14 @@ def destroy_process_group(group=None):
     from . import parallel, topology
     topology.set_hybrid_communicate_group(None)
     if dist.is_available() and dist.is_initialized():
+        if dist.get_world_size() > 1:
+            # rank 0 hosts the rendezvous store that peers may still be
+            # reading (a checkpoint coordinator's last poll): the world
+            # ends only when every rank has reached its end
+            try:
+                dist.barrier()
+            except Exception:
+                pass  # a peer is gone: nothing left to wait for
         dist.destroy_process_group()
     _default_group = None
     _groups_by_id.clear()

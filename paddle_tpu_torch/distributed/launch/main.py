@@ -142,6 +142,26 @@ class Pod:
             return 0
         return None
 
+    def report_failures(self, tail_bytes: int = 4000) -> None:
+        """For each worker that exited non-zero, its exit code and the end
+        of its log on the launcher's stderr (rank 0 writes to the
+        launcher's own streams), so the failing rank's error reaches
+        whoever reads the launcher's output."""
+        for p, rank in zip(self.procs, self.local_ranks):
+            code = p.poll()
+            if code in (None, 0):
+                continue
+            msg = f"[launch] rank {rank} exited {code}"
+            path = os.path.join(self.args.log_dir, f"workerlog.{rank}")
+            if os.path.exists(path):
+                with open(path, "rb") as log:
+                    log.seek(0, os.SEEK_END)
+                    log.seek(max(0, log.tell() - tail_bytes))
+                    tail = log.read().decode(errors="replace")
+                if tail:
+                    msg += f"; the end of {path}:\n{tail}"
+            print(msg, file=sys.stderr, flush=True)
+
     def stop(self, sig=signal.SIGTERM):
         for p in self.procs:
             if p.poll() is None:
@@ -176,6 +196,8 @@ def launch(argv: Optional[List[str]] = None) -> int:
         except KeyboardInterrupt:
             pod.stop(signal.SIGINT)
             return 130
+        if code != 0:
+            pod.report_failures()
         pod.stop()
         if code == 0:
             return 0

@@ -104,6 +104,8 @@ KNOWN_SITES = {
     "parallel.init": "store rendezvous in init_parallel_env",
     "collective.timeout": "eager collective launch (guarded deadline)",
     "ckpt.commit": "coordinated-checkpoint commit phase",
+    "ckpt.chunk_write": "sharded-checkpoint chunk write",
+    "ckpt.reshard": "sharded-checkpoint re-sharding restore",
 }
 
 #: dynamic site families: call sites build the name from a prefix + a

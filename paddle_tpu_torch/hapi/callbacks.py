@@ -149,8 +149,10 @@ class FaultTolerantCheckpoint(Callback):
     rank publishes step N or none does, and resume negotiates the newest
     step committed on EVERY rank. Pass an explicit coordinator, or
     ``coordinator=None`` / ``PADDLE_TPU_CKPT_BARRIER=0``, to override; one
-    host saves plainly. ``layout="sharded"`` raises (ZeRO/sharding, ROADMAP
-    A11).
+    host saves plainly. ``layout="sharded"`` writes the chunked shared-
+    directory layout (``distributed/sharded_checkpoint.py``), with
+    ``async_save`` off the step's path; ``"auto"`` follows what the
+    directory holds.
 
     Generation-resync contract: one aborted coordinated save is tolerated
     (a transiently slow peer), but ``PADDLE_TPU_CKPT_ABORT_EXIT`` (default

@@ -143,6 +143,13 @@ class TrainStep:
     uncaptured. ``stats`` counts captures, replays and the pool's bytes.
     On the CPU the same step runs uncaptured.
 
+    ``optimizer`` from ``group_sharded_parallel`` (ZeRO): ``params`` hold
+    the masters as the level places them (shard r of each shardable one at
+    stage 3), ``opt_state`` shard r of each slot; ``state_dict`` gathers
+    the slots whole and ``set_state_dict`` keeps this rank's shard. A
+    world of one is bit for bit with the plain step. ``health`` reads the
+    whole arrays' norms: the shards' squared sums all-reduced in fp64.
+
     ``layer`` a ``DataParallel``: the step runs its inner layer (the
     parameters under their own names) and reduces the gradients over its
     group, in buckets of its ``comm_buffer_size`` MB, while
@@ -167,13 +174,26 @@ class TrainStep:
         self._loss_fn = loss_fn
         dp = layer if isinstance(layer, _parallel.DataParallel) else None
         self._group = dp._group if dp is not None else None
+        self._zero = getattr(optimizer, "_zero", None)  # ZeRO's model handle
+        if self._zero is not None:
+            if dp is not None:
+                raise ValueError("TrainStep: a group-sharded optimizer over "
+                                 "a DataParallel layer; pass the model")
+            self._group = self._zero.group
         self.apply_fn, params, buffers = functionalize(
             dp._layers if dp is not None else layer)
         self.params = {k: p.detach().clone().requires_grad_(True)
                        for k, p in params.items()}
         self.buffers = {k: b.detach().clone() for k, b in buffers.items()}
-        self.opt_state = optimizer.init_state_tree(self.params)
         self._names = list(self.params)
+        self._zl = None
+        self._own_masks = {}  # the sentinel's shard-owner masks, by names
+        if self._zero is not None:
+            from ..distributed.sharding import ZeroLayout
+            self._zl = ZeroLayout(
+                [(k, self._zero.whole_shapes[id(params[k])], p.dtype,
+                  p.device) for k, p in self.params.items()], self._group)
+        self.opt_state = optimizer.init_state_tree(self._update_views())
         self._t = 0
         if fused_opt is None:
             fused_opt = env_bool("PADDLE_TPU_FUSED_OPT", True)
@@ -188,7 +208,8 @@ class TrainStep:
         self._buckets = []
         if self._group is not None:
             _require_capturable(self._group, self.device)
-            self._buckets = self._make_buckets(dp.comm_buffer_size)
+            if dp is not None:
+                self._buckets = self._make_buckets(dp.comm_buffer_size)
             if self.device.type == "cuda":
                 self._check_group()  # the communicator exists before capture
         self._graphs = (StepGraphs(
@@ -259,9 +280,20 @@ class TrainStep:
             _collective.raw_all_reduce(flat, g)
             flat.div_(g.nranks)
             grads.update(zip(names, views))
+        return grads, self._group_mean(loss)
+
+    def _group_mean(self, loss):
+        g = self._group
         loss = loss.detach().clone()
         _collective.raw_all_reduce(loss, g)
-        return grads, loss.div_(g.nranks)
+        return loss.div_(g.nranks)
+
+    def _update_views(self) -> dict:
+        """The tensors the update writes: the masters, or under ZeRO this
+        rank's shard of each (a view of a whole master below stage 3)."""
+        if self._zl is None or self._zero.stage >= 3:
+            return self.params
+        return {k: self._zl.shard_of(p, k) for k, p in self.params.items()}
 
     def _cast(self, t):
         if self.amp_dtype is not None and t.is_floating_point():
@@ -280,36 +312,73 @@ class TrainStep:
         names = self._names
         inputs = tuple(self._cast(a) for a in batch[:-1])
         with _health.suspended():
-            if snapshot is not None:
-                with torch.no_grad():
-                    torch._foreach_copy_([snapshot[k] for k in names],
-                                         [self.params[k] for k in names])
             scope = contextlib.ExitStack()
             if self._group is not None:
                 # the global batch's loss and batch statistics
                 scope.enter_context(_parallel.loss_scope(self._group, False))
                 scope.enter_context(_parallel.bn_scope(self._group))
+            if self._zero is not None:
+                scope.enter_context(self._zero.suspended())
+            src = self.params
+            if self._zl is not None and self._zero.stage >= 3:
+                # stage 3: the whole parameters, from every rank's shards
+                src = {k: w.requires_grad_(True) for k, w in
+                       self._zl.gather(self.params).items()}
+            if snapshot is not None:  # the whole incoming parameters
+                with torch.no_grad():
+                    torch._foreach_copy_([snapshot[k] for k in names],
+                                         [src[k] for k in names])
             with torch.enable_grad(), scope:
-                compute = {k: self._cast(p) for k, p in self.params.items()}
+                compute = {k: self._cast(p) for k, p in src.items()}
                 out, _ = self.apply_fn(compute, self.buffers, *inputs)
                 loss = self._loss_fn(out, batch[-1])
                 grads = torch.autograd.grad(
-                    loss, [self.params[k] for k in names], allow_unused=True)
+                    loss, [src[k] for k in names], allow_unused=True)
             # a parameter the loss does not reach (ERNIE's pooler under the
             # MLM loss) gets a zero gradient, as jax.grad gives it
             grads = dict(zip(names, (
-                torch.zeros_like(self.params[k]) if g is None else g
+                torch.zeros_like(src[k]) if g is None else g
                 for k, g in zip(names, grads))))
-            if self._group is not None:
+            del src
+            if self._zl is not None:
+                grads = self._zl.reduce_grads(
+                    grads, release=self._zero.stage >= 2)
+                loss = self._group_mean(loss)
+            elif self._group is not None:
                 grads, loss = self._reduce(grads, loss)
             self.optimizer.apply_fn(
-                self.params, grads, self.opt_state, lr=self._lr,
+                self._update_views(), grads, self.opt_state, lr=self._lr,
                 t=self._step_t, fused=self.fused_opt, inplace=True)
+            if self._zl is not None and self._zero.stage < 3:
+                self._zl.gather_into(self.params)
             hvec = None
-            if snapshot is not None:
+            if snapshot is not None and self._zl is None:
                 hvec = self._health_probe.stats_vec(loss, grads, snapshot,
                                                     self.params)
+            elif snapshot is not None:  # over this rank's shards
+                hvec = self._health_probe.stats_vec(
+                    loss, grads, {k: self._zl.shard_of(v, k)
+                                  for k, v in snapshot.items()},
+                    self._update_views(), reduce=self._group_norms)
         return loss.detach(), hvec
+
+    def _group_norms(self, names, sq, bad):
+        """The whole arrays' squared norms and flags from this rank's
+        (``HealthProbe.stats_vec``'s ``reduce``): the shards' squared sums
+        all-reduced in fp64, an array every rank holds whole counted on
+        group rank 0 alone."""
+        zl = self._zl
+        key = tuple(names)
+        own = self._own_masks.get(key)
+        if own is None:  # made by the uncaptured first run, before capture
+            own = self._own_masks[key] = torch.tensor(
+                [zl.entries[n].dim is not None or zl.r == 0 for n in names],
+                dtype=sq.dtype, device=sq.device)
+        sq = sq * own
+        flags = bad.to(sq.dtype)
+        _collective.raw_all_reduce(sq, self._group, kind="health")
+        _collective.raw_all_reduce(flags, self._group, kind="health")
+        return sq, flags > 0
 
     def __call__(self, *batch):
         # a new batch signature captures the WHOLE step anew — the most
@@ -338,9 +407,11 @@ class TrainStep:
         if fetch:
             slot = self._fetches % 2
             self._fetches += 1
-            if self._snapshots[slot] is None:
+            if self._snapshots[slot] is None:  # whole, under ZeRO too
                 self._snapshots[slot] = {
-                    k: torch.empty_like(p, requires_grad=False)
+                    k: torch.empty(self._zl.entries[k].shape if self._zl
+                                   else p.shape, dtype=p.dtype,
+                                   device=p.device)
                     for k, p in self.params.items()}
             snapshot = self._snapshots[slot]
         self._lr.fill_(self.optimizer.get_lr())
@@ -427,9 +498,12 @@ class TrainStep:
             return
         self._nan_replayed = True  # one replay per trip, not per step
         try:
-            self._last_attribution = _health.eager_replay(
-                self.layer, self._loss_fn, batch,
-                state={**old, **self.buffers})
+            # on this rank alone: the snapshot holds whole parameters
+            with (self._zero.suspended() if self._zero is not None
+                  else contextlib.nullcontext()):
+                self._last_attribution = _health.eager_replay(
+                    self.layer, self._loss_fn, batch,
+                    state={**old, **self.buffers})
         except Exception:
             pass
 
@@ -458,8 +532,12 @@ class TrainStep:
         reference's leaf order, so that a checkpoint of either package
         loads in the other."""
         return {"t": self._t,
-                "opt_flat": [to_host(self.opt_state[n][s])
+                "opt_flat": [to_host(self._whole_slot(n, s))
                              for n, s in self._leaves()]}
+
+    def _whole_slot(self, n, s):
+        v = self.opt_state[n][s]
+        return v if self._zl is None else self._zl.gather_one(v, n)
 
     def set_state_dict(self, sd: dict) -> None:
         """Load ``state_dict()``'s form: the slots are copied into the
@@ -475,6 +553,8 @@ class TrainStep:
             cur = self.opt_state[n][s]
             v = (v if isinstance(v, torch.Tensor)
                  else torch.from_numpy(np.array(v)))
+            if self._zl is not None and v.dim() == cur.dim():
+                v = self._zl.local_of(v, n)  # this rank's shard
             if tuple(v.shape) != tuple(cur.shape):
                 raise ValueError(f"opt state {n}.{s}: checkpoint "
                                  f"{tuple(v.shape)}, model {tuple(cur.shape)}")
@@ -483,6 +563,43 @@ class TrainStep:
             for cur, v in loaded:
                 cur.copy_(v)
         self._t = int(sd["t"])
+
+    def sharded_state(self) -> dict:
+        """{"t", "params", "opt_state"} as the sharded checkpoint writes
+        them (no collective): under ZeRO each shard as this rank's
+        ``ShardedTensor``, a whole master as itself."""
+        def piece(v, k):
+            if self._zl is None or (self._zero.stage < 3
+                                    and v is self.params.get(k)):
+                return v.detach()
+            return self._zl.sharded_tensor(v.detach(), k)
+        return {"t": self._t,
+                "params": {k: piece(v, k) for k, v in self.params.items()},
+                "opt_state": {k: {s: piece(v, k) for s, v in d.items()}
+                              for k, d in self.opt_state.items()}}
+
+    @torch.no_grad()
+    def set_sharded_state(self, state: dict) -> None:
+        """Load ``sharded_state()``'s form, from any world size (whole
+        arrays, or this rank's ShardedTensors as ``load_step(...,
+        mesh=group)`` gives them): copied into the step's own tensors."""
+        def held(v, k, whole):
+            if not whole:
+                return self._zl.local_of(v, k)
+            if hasattr(v, "box"):  # a ShardedTensor: the whole is needed
+                if not v.whole:
+                    raise ValueError(f"{k}: a piece {v.box} of {v.shape} "
+                                     f"where the step holds the whole")
+                v = v.local
+            return v if isinstance(v, torch.Tensor) \
+                else torch.from_numpy(np.array(v))
+        stage = self._zero.stage if self._zl is not None else 0
+        for k, v in state["params"].items():
+            self.params[k].copy_(held(v, k, self._zl is None or stage < 3))
+        for k, d in state["opt_state"].items():
+            for sname, v in d.items():
+                self.opt_state[k][sname].copy_(held(v, k, self._zl is None))
+        self._t = int(state["t"])
 
     @torch.no_grad()
     def sync_to_layer(self) -> None:

@@ -194,11 +194,15 @@ class HealthProbe:
         return idx
 
     @torch.no_grad()
-    def stats_vec(self, loss, grads, params, new_params) -> torch.Tensor:
+    def stats_vec(self, loss, grads, params, new_params,
+                  reduce=None) -> torch.Tensor:
         """The packed float32 stats vector (see the class docstring), on
         the loss's device. ``params`` are the step's incoming parameters
         and ``new_params`` the updated ones ({name: tensor} each); the
-        number of ops is the same for any number of parameters."""
+        number of ops is the same for any number of parameters.
+        ``reduce(names, sq, bad)``, when given, turns this process's
+        squared norms [3, N] (fp64) and nonfinite flags [2, N] into the
+        whole arrays' (a group's shards, ZeRO)."""
         f64 = torch.float64
         names = [n for n in self._names if n in grads
                  and grads[n].is_floating_point()]
@@ -215,6 +219,8 @@ class HealthProbe:
         del delta
         sq = norms * norms
         bad = (norms[:2] * 0).isnan()     # [grad, param] not finite
+        if reduce is not None:
+            sq, bad = reduce(names, sq, bad)
         per = torch.stack([sq[0], bad[1].to(f64)], 1)
         group = torch.zeros(len(self.group_names), 2, dtype=f64,
                             device=dev).index_add_(0, idx, per)
@@ -953,7 +959,13 @@ class HealthMonitor:
         for s in sorted((s for s in mgr.steps() if s < ckpt_step),
                         reverse=True):
             try:
-                blob2 = _load_ckpt(mgr.path_for(s))
+                path = mgr.path_for(s)
+                if os.path.isdir(path):
+                    # the sharded layout: a step is a directory of chunks
+                    from ..distributed.sharded_checkpoint import load_step
+                    blob2 = load_step(path, mesh=getattr(mgr, "mesh", None))
+                else:
+                    blob2 = _load_ckpt(path)
             except Exception:
                 continue
             if tree_finite(blob2.get("network")):

@@ -234,7 +234,8 @@ def test_valid_only_resume_walks_past_nonfinite(tmp_path, monkeypatch):
 
 def test_multi_host_pieces_wait_for_a11(tmp_path, monkeypatch):
     # the coordinated commit is ported (tests/test_torch_coord_checkpoint.py
-    # holds it against the reference); the sharded layout still waits
+    # holds it against the reference); the sharded layout opens its manager
+    # (tests/test_torch_sharded_ckpt.py holds it against the reference)
     from paddle_tpu_torch.distributed.store import TCPStore
     assert ckpt.coordinator_from_env() is None
     master = TCPStore("127.0.0.1", 0, is_master=True)
@@ -246,8 +247,7 @@ def test_multi_host_pieces_wait_for_a11(tmp_path, monkeypatch):
     assert (co.rank, co.world_size) == (1, 2)
     (tmp_path / "ckpt_4").mkdir()
     assert ckpt.detect_layout(str(tmp_path)) == "sharded"
-    with pytest.raises(NotImplementedError, match="A11"):
-        ckpt.open_manager(str(tmp_path))
+    assert ckpt.open_manager(str(tmp_path)).layout == "sharded"
     with pytest.raises(ValueError, match="world_size"):
         ckpt.CheckpointCoordinator(None, 0, 1)
     master.stop()
@@ -354,7 +354,8 @@ def test_malformed_fault_clause_warns_as_in_the_reference():
     assert set(fault.inject.KNOWN_SITES) == {
         "serving.decode", "serving.wedge", "serving.admit", "heter.pull",
         "heter.push", "store.get", "store.set", "store.add", "store.check",
-        "parallel.init", "collective.timeout", "ckpt.commit"}
+        "parallel.init", "collective.timeout", "ckpt.commit",
+        "ckpt.chunk_write", "ckpt.reshard"}
     assert set(fault.inject.KNOWN_SITES) <= set(jfault.inject.KNOWN_SITES)
     assert set(fault.inject.DYNAMIC_SITES) == {"ps."}
     assert set(fault.inject.DYNAMIC_SITES) <= set(

@@ -119,6 +119,20 @@ def test_worker_logs_written(tmp_path):
     assert "hello from 1" in log
 
 
+def test_failing_rank_log_reaches_the_launcher_stderr(tmp_path):
+    """A rank other than 0 writes to its workerlog only: when it exits
+    non-zero, the launcher puts its exit code and its log's end on its
+    own stderr, so the rank's error reaches whoever reads the launch."""
+    r = _run_launch(tmp_path, """
+        import os, sys
+        if os.environ["PADDLE_TRAINER_ID"] == "1":
+            sys.exit("rank one stops here: marker-7f3")
+    """)
+    assert r.returncode != 0
+    assert "rank 1 exited 1" in r.stderr, r.stderr
+    assert "marker-7f3" in r.stderr, r.stderr
+
+
 def test_launched_ranks_rendezvous_and_reduce(tmp_path):
     """The contract reaches init_parallel_env: two launched ranks meet on
     rank 0's store (the first endpoint) and all-reduce over gloo, and the

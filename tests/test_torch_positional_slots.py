@@ -258,3 +258,55 @@ def test_data_parallel_and_new_group_take_the_reference_slots():
     finally:
         tdist.destroy_process_group()
     assert not tdist.is_initialized()
+
+
+def test_group_sharded_parallel_takes_the_reference_slots():
+    """``group_sharded_parallel(model, optimizer, level, scaler, group,
+    offload, sync_buffers, buffer_max_size, segment_size, sync_comm,
+    dp_group)`` and ``save_group_sharded_model(model, output, optimizer)``
+    in the reference's order, positionally; each option the reference
+    takes and ignores raises unless left at its default, and the
+    reference's own raises (a level it does not know, offload) are the
+    port's; a world of one rank over gloo."""
+    import inspect
+    from paddle_tpu.distributed import sharding as jsharding
+    from paddle_tpu_torch import distributed as tdist
+    from paddle_tpu_torch.distributed import sharding as tsharding
+    from paddle_tpu_torch.distributed import topology
+    for name in ("group_sharded_parallel", "save_group_sharded_model"):
+        want = list(inspect.signature(getattr(jsharding, name)).parameters)
+        got = list(inspect.signature(getattr(tsharding, name)).parameters)
+        assert got == want, name
+    assert tsharding.__all__ == jsharding.__all__
+    tdist.init_parallel_env(device="cpu")
+    try:
+        g = tdist.new_group([0])
+
+        def wrap(*args, **kw):
+            topology.set_hybrid_communicate_group(None)
+            _, tl, _, _ = _pair()
+            return tsharding.group_sharded_parallel(
+                tl, optimizer.Adam(0.1, parameters=tl.parameters()), *args,
+                **kw)
+
+        model, opt, scaler = wrap("os_g", None, g, False, False, 2 ** 23,
+                                  2 ** 20, False, None)
+        assert (opt.stage, opt.group, scaler) == (2, g, None)
+        for args in (("zero",),):
+            with pytest.raises(ValueError):
+                wrap(*args)
+        for args in (("os", None, None, True),
+                     ("os", None, None, False, True),
+                     ("os", None, None, False, False, 2 ** 22),
+                     ("os", None, None, False, False, 2 ** 23, 2 ** 19),
+                     ("os", None, None, False, False, 2 ** 23, 2 ** 20,
+                      True),
+                     ("os", None, None, False, False, 2 ** 23, 2 ** 20,
+                      False, g)):
+            with pytest.raises(NotImplementedError):
+                wrap(*args)
+        with pytest.raises(AssertionError):
+            tsharding.save_group_sharded_model(model, "x.pdparams", opt)
+    finally:
+        topology.set_hybrid_communicate_group(None)
+        tdist.destroy_process_group()

@@ -462,8 +462,262 @@ def resnet_dp(outdir):
     dist.destroy_process_group()
 
 
+ZERO_LEVELS = ("os", "os_g", "p_g_os")
+
+
+def zero_net(inp):
+    """The reference test's Net (d 16): three Linears, ReLU between."""
+    import torch
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import functional as F
+
+    class Net(nn.Layer):
+        def __init__(self):
+            super().__init__(device="cpu")
+            self.fc1 = nn.Linear(16, 32, device="cpu")
+            self.fc2 = nn.Linear(32, 32, device="cpu")
+            self.fc3 = nn.Linear(32, 16, device="cpu")
+            self.name_parameters()
+
+        def forward(self, x):
+            return self.fc3(F.relu(self.fc2(F.relu(self.fc1(x)))))
+
+    net = Net()
+    with torch.no_grad():
+        for k, p in net.named_parameters():
+            p.copy_(_t(inp["net." + k]))
+    return net
+
+
+def zero_gpt(inp):
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.utils.convert import load_numpy_params
+    model = GPT(GPTConfig.tiny(), device="cpu")
+    load_numpy_params(model, {k[len("gpt."):]: v for k, v in inp.items()
+                              if k.startswith("gpt.")})
+    return model
+
+
+def _zero_record(model, opt, losses):
+    """What a rank holds after a run: the losses, the whole parameters
+    (``state_dict`` gathers them at stage 3), each slot's shard and the
+    dimension it was cut along, and at stage 3 each parameter's shard."""
+    lay = opt.layout
+    names = {id(p): k for k, p in model.named_parameters()}
+    slots, dims, shards = {}, {}, {}
+    for p in opt._opt._parameter_list:
+        k = names[id(p)]
+        dims[k] = lay.entries[opt._names[id(p)]].dim
+        slots[k] = {s: _np(v) for s, v in
+                    (opt._opt._slots.get(id(p)) or {}).items()}
+        shards[k] = _np(p)
+    return dict(losses=losses, slots=slots, dims=dims, shards=shards,
+                params={k: _np(v) for k, v in model.state_dict().items()},
+                launches=None)
+
+
+def zero(outdir):
+    """ZeRO over this gloo world at every level: the reference test's Net
+    with Adam on the same batch everywhere, GPT tiny with AdamW on this
+    rank's rows, eagerly (and at world 2 inside jit.TrainStep with the
+    health sentinel), 4 steps; at world 2 also save_group_sharded_model
+    and the raises."""
+    import torch
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch import jit, optimizer
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import topology
+    from paddle_tpu_torch.distributed.sharding import (
+        group_sharded_parallel, save_group_sharded_model)
+    from paddle_tpu_torch.nn import functional as F
+
+    dist.init_parallel_env(device="cpu")
+    r, n = dist.get_rank(), dist.get_world_size()
+    inp = dict(np.load(os.path.join(outdir, "inputs.npz")))
+    out = {"rank": r, "world": n}
+    X, Y = _t(inp["X"]), _t(inp["Y"])
+    ids = [dist.shard_batch(_t(inp[f"ids{s}"]).long()) for s in range(4)]
+    lab = [dist.shard_batch(_t(inp[f"labels{s}"]).long()) for s in range(4)]
+    for level in ZERO_LEVELS:
+        topology.set_hybrid_communicate_group(None)
+        net = zero_net(inp)
+        net, opt, _ = group_sharded_parallel(
+            net, optimizer.Adam(learning_rate=1e-2,
+                                parameters=net.parameters()), level)
+        C.reset_launch_stats()
+        losses = []
+        for _ in range(4):
+            loss = torch.nn.functional.mse_loss(net(X), Y)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            losses.append(float(loss))
+        launches = C.launch_stats()
+        out[("net", level)] = _zero_record(net, opt, losses)
+        out[("net", level)]["launches"] = launches
+        if n == 2 and level == "p_g_os":
+            save_group_sharded_model(net, os.path.join(outdir, "saved"),
+                                     opt)
+        topology.set_hybrid_communicate_group(None)
+        gpt = zero_gpt(inp)
+        gpt, opt, _ = group_sharded_parallel(
+            gpt, optimizer.AdamW(learning_rate=1e-3, weight_decay=0.01,
+                                 parameters=gpt.parameters()), level)
+        losses = []
+        for s in range(4):
+            loss = F.cross_entropy(gpt(ids[s]), lab[s])
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            losses.append(float(loss))
+        out[("gpt", level)] = _zero_record(gpt, opt, losses)
+        if n == 2:
+            topology.set_hybrid_communicate_group(None)
+            gpt = zero_gpt(inp)
+            gpt, opt, _ = group_sharded_parallel(
+                gpt, optimizer.AdamW(learning_rate=1e-3, weight_decay=0.01,
+                                     parameters=gpt.parameters()), level)
+            os.environ["PADDLE_TPU_HEALTH_INTERVAL"] = "1"
+            step = jit.TrainStep(gpt, F.cross_entropy, opt, health=True)
+            C.reset_launch_stats()
+            losses = [float(step(ids[s], lab[s])) for s in range(4)]
+            launches = C.launch_stats()
+            health = dict(step.last_health)
+            step.sync_to_layer()
+            rec = _zero_record(gpt, opt, losses)
+            rec["slots"] = {k: {s: _np(v) for s, v in d.items()}
+                            for k, d in step.opt_state.items()}
+            rec["launches"] = launches
+            rec["health"] = health
+            rec["state_dict_slots"] = [
+                a.shape for a in step.state_dict()["opt_flat"]]
+            out[("step", level)] = rec
+    topology.set_hybrid_communicate_group(None)
+    errors = {}
+    for name, kw in (("level", dict(level="zero")),
+                     ("offload", dict(level="os", offload=True)),
+                     ("buffer", dict(level="os", buffer_max_size=4)),
+                     ("kwargs", dict(level="os", foo=1))):
+        net = zero_net(inp)
+        try:
+            group_sharded_parallel(net, optimizer.Adam(
+                parameters=net.parameters()), **kw)
+            errors[name] = None
+        except (ValueError, NotImplementedError) as e:
+            errors[name] = type(e).__name__
+    topology.set_hybrid_communicate_group(
+        topology.HybridCommunicateGroup(dims={"dp": n}))
+    net = zero_net(inp)
+    try:
+        group_sharded_parallel(net, optimizer.Adam(
+            parameters=net.parameters()), "os")
+        errors["no_axis"] = None
+    except ValueError as e:
+        errors["no_axis"] = str(e)
+    out["errors"] = errors
+    torch.save(out, os.path.join(outdir, f"zero.{r}.pt"))
+    dist.destroy_process_group()
+
+
+def _zero_stage1(inp):
+    """GPT tiny with AdamW through group_sharded_parallel at "os"."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import topology
+    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
+    topology.set_hybrid_communicate_group(None)
+    gpt = zero_gpt(inp)
+    gpt, opt, _ = group_sharded_parallel(
+        gpt, optimizer.AdamW(learning_rate=1e-3, weight_decay=0.01,
+                             parameters=gpt.parameters()), "os")
+    return gpt, opt
+
+
+def _zero_train(gpt, opt, inp, steps):
+    """Eager steps on the same global batch on every rank (each rank's
+    gradient is then the group's mean bit for bit, at any world size)."""
+    from paddle_tpu_torch.nn import functional as F
+    losses = []
+    for s in steps:
+        loss = F.cross_entropy(gpt(_t(inp[f"ids{s}"]).long()),
+                               _t(inp[f"labels{s}"]).long())
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss))
+    return losses
+
+
+def _zero_gathered(gpt, opt):
+    """The whole state: parameters and the optimizer's state dict (every
+    rank gathers its slots)."""
+    return dict(params={k: _np(v) for k, v in gpt.state_dict().items()},
+                opt={k: (_np(v) if hasattr(v, "shape") else v)
+                     for k, v in opt.state_dict().items()})
+
+
+def _zero_ckpt_state(gpt, opt):
+    """What the sharded checkpoint holds: the parameters (whole on every
+    rank at stage 1: written once) and each rank's slot shards."""
+    return {"model": {k: v.detach() for k, v in gpt.state_dict().items()},
+            "opt": opt.sharded_state_dict()}
+
+
+def _zero_restore(outdir, ckdir, inp, coordinated):
+    """Restore a sharded step onto this world, then one more step."""
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+    gpt, opt = _zero_stage1(inp)
+    coord = ckpt.coordinator_from_env(timeout=60) if coordinated else None
+    mgr = ckpt.open_manager(ckdir, layout="sharded", mesh=opt.group,
+                            coordinator=coord)
+    state, step = mgr.load_latest()
+    gpt.load_state_dict(state["model"])
+    opt.set_state_dict(state["opt"])
+    return dict(step=step, restored=_zero_gathered(gpt, opt),
+                next_loss=_zero_train(gpt, opt, inp, [2]),
+                after=_zero_gathered(gpt, opt))
+
+
+def _zero_save(outdir, ckdir, inp, coordinated):
+    """Two steps, the state gathered, a sharded save, one more step."""
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+    gpt, opt = _zero_stage1(inp)
+    losses = _zero_train(gpt, opt, inp, [0, 1])
+    coord = ckpt.coordinator_from_env(timeout=60) if coordinated else None
+    mgr = ckpt.open_manager(ckdir, layout="sharded", coordinator=coord)
+    saved = _zero_gathered(gpt, opt)
+    committed = mgr.save(_zero_ckpt_state(gpt, opt), 2)
+    files = sorted(os.listdir(mgr.path_for(2)))
+    return dict(losses=losses, committed=committed, saved=saved,
+                files=files, next_loss=_zero_train(gpt, opt, inp, [2]),
+                after=_zero_gathered(gpt, opt))
+
+
+def zero_ckpt(outdir):
+    """A stage-1 world saved through the sharded checkpoint and restored
+    onto another world size: a world of 2 saves into ``ck2`` (through
+    the coordinator) and restores ``ck1``; a world of 1 restores ``ck2``
+    and saves ``ck1`` (the test runs 2, 1, 2 in turn)."""
+    import torch
+    import paddle_tpu_torch.distributed as dist
+    dist.init_parallel_env(device="cpu")
+    r, n = dist.get_rank(), dist.get_world_size()
+    inp = dict(np.load(os.path.join(outdir, "inputs.npz")))
+    ck1, ck2 = (os.path.join(outdir, d) for d in ("ck1", "ck2"))
+    out = {"rank": r, "world": n}
+    if n == 1:
+        out["restore"] = _zero_restore(outdir, ck2, inp, False)
+        out["save"] = _zero_save(outdir, ck1, inp, False)
+    elif os.path.isdir(ck1):
+        out["restore"] = _zero_restore(outdir, ck1, inp, True)
+    else:
+        out["save"] = _zero_save(outdir, ck2, inp, True)
+    torch.save(out, os.path.join(outdir, f"zero_ckpt.{r}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
 SCENARIOS = {"collective": collective, "dp": data_parallel,
-             "resnet_dp": resnet_dp}
+             "resnet_dp": resnet_dp, "zero": zero, "zero_ckpt": zero_ckpt}
 
 
 def run_world(scenario, nprocs, outdir, timeout=120):
