@@ -14,6 +14,10 @@
                                      # phases 1-2 and 26
     python3 chip_smoke.py --phases resnet_dp
                                      # phases 1-2 and 27
+    python3 chip_smoke.py --phases zero
+                                     # phases 1-2 and 28
+    python3 chip_smoke.py --phases pipeline
+                                     # phases 1-2 and 29
 
 Phases, each of which raises (exit code != 0, with its traceback) on a
 failure:
@@ -303,7 +307,24 @@ failure:
               batch reversed; and an fp16 BatchNorm2D(64, act="relu")
               over the two ranks (the composed route: counted in
               composed_stats, 2 "bn_sync") against one process;
-28. report  - the `kernels` JSON line, the card's name and power limit, and
+28. zero    - ZeRO through group_sharded_parallel at "os", "os_g" and
+              "p_g_os" on a world-1 NCCL group, captured and eager, bit
+              for bit with the plain steps and timed; the asynchronous
+              sharded save; two gloo ranks on the card with the sharded
+              checkpoint restored across world sizes;
+29. pipeline - the kernels at the pipeline's micro-batch shapes against
+              their plain versions; two gloo ranks on the card through the
+              launcher (--pp-worker), one pipeline stage each:
+              PipelineParallelTrainStep over pp 2 of GPT-3 1.3B at full
+              width and depth (12 blocks a stage), O2 bf16, AdamW, B 4 x
+              L 2048 in 4 micro-batches, 2 warm-up + 4 timed steps (step
+              ms, transfers a step, peak in flight, peak memory a rank,
+              exact launches a stage by pp_per_step with no plain run, the
+              same losses and wte bits on both ranks, the first loss
+              within 0.1 of ln V and falling); then GPT-2 small fp32 over
+              pp 2 (B 8 x L 1,024 in 4 micro-batches, 3 AdamW steps)
+              against one process's TrainStep (DP_LOSS_ATOL, DP_PARAM_*);
+30. report  - the `kernels` JSON line, the card's name and power limit, and
               the device JSON line last.
 
 Every TrainStep above runs captured (one CUDA graph per batch signature,
@@ -6088,6 +6109,20 @@ def remat_full_per_step(layers):
             "softmax_ce_fwd": 1, "softmax_ce_bwd": 1}
 
 
+def pp_per_step(blocks, last, micro):
+    """Launches a pipeline step of a GPT stage of ``blocks`` blocks makes
+    (phase 29), at a length that takes the one-pass backward, over
+    ``micro`` micro-batches: the stage's forward and the loss each run
+    under recompute, so each block's layer norms and attention run in the
+    forward and again in the backward's replay, and on the last stage
+    (``last`` 1) the final layer norm and the cross-entropy forward too."""
+    per = {"layer_norm": 4 * blocks + 2 * last,
+           "layer_norm_bwd": 2 * blocks + last,
+           "flash_attention": 2 * blocks, "flash_attention_bwd": blocks,
+           "softmax_ce_fwd": 2 * last, "softmax_ce_bwd": last}
+    return {k: v * micro for k, v in per.items()}
+
+
 def dp_step(cfg, dev, dp=True, amp=torch.bfloat16, gen_seed=0,
             fused_opt=None):
     """TrainStep of GPT(cfg) (inside DataParallel when ``dp``) under
@@ -7659,6 +7694,329 @@ def zero_phase(cfg, card):
     return res
 
 
+# ---------------------- phase 29: pipeline parallelism ----------------------
+
+#: GPT-3 1.3B over pp 2 (12 blocks a stage): phase 26's batch, B 4 x L 2048,
+#: in PP_M micro-batches; the parity run, GPT-2 small fp32 over pp 2 against
+#: one process's TrainStep, B 8 x L 1024 in PP_M, PP_PARITY_STEPS steps
+PP_M, PP_WARMUP, PP_STEPS, PP_PARITY_STEPS = 4, 2, 4, 3
+
+
+def pp_rows(dev, gen):
+    """The kernels at the pipeline's micro-batch shapes against their plain
+    versions: GPT-3 1.3B's (B 1 x L 2048, hidden 2048, 16 heads of D 128,
+    V 50304, bf16 under O2) and the parity run's (GPT-2 small fp32, B 2 x
+    L 1024)."""
+    R = GPT3_B // PP_M * GPT3_L
+    R2 = TRAIN_B // PP_M * TRAIN_L
+    rows = (check_layer_norm(dev, gen, (R,), 2048, dtypes=(torch.bfloat16,))
+            + check_layer_norm_bwd(dev, gen, R, 2048, torch.bfloat16)
+            + check_flash(dev, gen, (GPT3_L,), 16, 128, B=GPT3_B // PP_M,
+                          dtypes=(torch.bfloat16,))
+            + check_flash_bwd(dev, gen, (GPT3_L,), GPT3_B // PP_M, 16, 128,
+                              dtypes=(torch.bfloat16,))
+            + check_ce(dev, gen, R, 50304, dtypes=(torch.bfloat16,))
+            + check_layer_norm(dev, gen, (R2,), 768, dtypes=(torch.float32,))
+            + check_layer_norm_bwd(dev, gen, R2, 768, torch.float32)
+            + check_flash(dev, gen, (TRAIN_L,), 12, 64, B=TRAIN_B // PP_M,
+                          dtypes=(torch.float32,))
+            + check_flash_bwd(dev, gen, (TRAIN_L,), TRAIN_B // PP_M, 12, 64,
+                              dtypes=(torch.float32,))
+            + check_ce(dev, gen, R2, 50304, dtypes=(torch.float32,)))
+    for r in rows:
+        r.setdefault("tol_ratio", r["max_abs_err"] / r.get("tol", 1.0))
+        r.setdefault("design", "cuda-core")
+        lib = ("-" if r["library_ms"] is None else f"{r['library_ms']:.4f}")
+        log(f"kernel {r['kernel']:<19} {r['dtype']:<8} {r['shape']:<30} "
+            f"{r['design']:<9} err {r['max_abs_err']:.2e} (/tol "
+            f"{r['tol_ratio']:.3f})  kernel_ms {r['ms']:.4f} plain_ms "
+            f"{r['plain_ms']:.4f} library_ms {lib} bound_ms "
+            f"{r['bound_ms']:.4f} ({r['bound_by']}) [pipeline micro-batch]")
+    bad = [r for r in rows if r["tol_ratio"] > 1.0]
+    if bad:
+        raise AssertionError(f"pipeline: kernels at the micro-batch shapes "
+                             f"disagree with their plain versions: {bad}")
+    return rows
+
+
+def pp_step(model, hcg, strategy=None, lr=1e-4, fused_opt=None):
+    """PipelineParallelTrainStep of ``model`` over ``hcg`` under
+    AdamW(lr, wd 0.01), PP_M micro-batches."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed.meta_parallel import \
+        PipelineParallelTrainStep
+    from paddle_tpu_torch.nn import functional as F
+    opt = optimizer.AdamW(learning_rate=lr, parameters=model.parameters(),
+                          weight_decay=0.01)
+    return PipelineParallelTrainStep(model, F.cross_entropy, opt, hcg=hcg,
+                                     strategy=strategy, num_micro=PP_M,
+                                     fused_opt=fused_opt)
+
+
+def pp_rank_worker(outdir):
+    """One rank of phase 29 (started by the launcher; gloo, the two ranks
+    on the one card, rank r = stage r): GPT-3 1.3B at full width over pp
+    2, O2 bf16, PP_WARMUP + PP_STEPS steps of the B 4 x L 2048 batch; then
+    GPT-2 small fp32 over pp 2, PP_PARITY_STEPS steps of the B 8 x L 1024
+    batch. Writes its numbers, counters and (rank 0) the trained GPT-2
+    parameters."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import topology
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.ops import kernels
+    dist.init_parallel_env()
+    r = dist.get_rank()
+    dev = dist.parallel.rank_device()
+    hcg = topology.HybridCommunicateGroup(dims={"pp": 2})
+    topology.set_hybrid_communicate_group(hcg)
+    out = dict(rank=r, stage=hcg.get_stage_id(), backend=dist.get_backend(),
+               device=str(dev))
+    # 1. GPT-3 1.3B, O2 bf16
+    cfg = GPTConfig.gpt3_1p3b()
+    cfg.dropout = cfg.attn_dropout = 0.0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = GPT(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    strategy = DistributedStrategy()
+    strategy.amp = True  # bf16 casts of fp32 masters (O2)
+    # the per-parameter update, as phase 26's 1.3B step runs it
+    step = pp_step(model, hcg, strategy, fused_opt=False)
+    rng = np.random.default_rng(0)
+    ids, labels = (torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        GPT3_B, GPT3_L))) for _ in range(2))
+    losses = [float(step(ids, labels)) for _ in range(PP_WARMUP)]
+    build_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    kernels.reset_stats()
+    C.reset_launch_stats()
+    times, transfers, parts = [], [], []
+    for _ in range(PP_STEPS):
+        t1 = time.perf_counter()
+        loss = step(ids, labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        losses.append(float(loss))
+        transfers.append(dict(step.last_transfers))
+        parts.append(dict(step.last_times))
+    out["gpt3"] = dict(
+        losses=losses, step_ms=[t * 1e3 for t in times],
+        transfers=transfers, parts=parts, peak_in_flight=step.peak_in_flight,
+        counts=list(step.run.counts), launches=kernels.all_stats(),
+        composed=kernels.composed_stats(), collectives=C.launch_stats(),
+        max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+        masters=sum(p.numel() for part in step.params.values()
+                    for p in part.values()),
+        params=sum(p.numel() for p in model.parameters()),
+        wte=_hashes({"wte": step.params["edge"]["wte.weight"]})["wte"],
+        build_and_warmup_s=build_s)
+    del step, model
+    free_card()
+    # 2. GPT-2 small fp32 over pp 2, for the parity with one process
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = GPTConfig.gpt2_small()
+    cfg.dropout = cfg.attn_dropout = 0.0
+    net = GPT(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    step = pp_step(net, hcg, lr=DP_LR)
+    ids, labels = dp_rank_batch(cfg)
+    kernels.reset_stats()
+    C.reset_launch_stats()
+    losses = [float(step(ids, labels)) for _ in range(PP_PARITY_STEPS)]
+    out["parity"] = dict(
+        losses=losses, launches=kernels.all_stats(),
+        composed=kernels.composed_stats(), collectives=C.launch_stats(),
+        transfers=dict(step.last_transfers),
+        peak_in_flight=step.peak_in_flight,
+        wte=_hashes({"wte": step.params["edge"]["wte.weight"]})["wte"])
+    step.sync_to_layer()
+    if r == 0:
+        out["parity"]["params"] = {k: v.detach().cpu() for k, v in
+                                   net.named_parameters()}
+    torch.save(out, os.path.join(outdir, f"rank{r}.pt"))
+    topology.set_hybrid_communicate_group(None)
+    dist.destroy_process_group()
+
+
+def pp_launch_check(name, rank, stats, composed, want):
+    """Exact launches of a rank's stage against ``want``, no plain run and
+    no composition."""
+    bad = {k: st for k, st in stats.items()
+           if st["plain"] or st["kernel"] != want.get(k, 0)}
+    if bad or any(composed.values()):
+        raise AssertionError(f"pipeline: {name} rank {rank}: counters {bad} "
+                             f"(want {want}, no plain run), compositions "
+                             f"{composed}")
+
+
+def pp_phase(card):
+    """Phase 29: the kernels at the micro-batch shapes, then two gloo ranks
+    on the card (the launcher) train GPT-3 1.3B over pp 2 (timed, exact
+    launches a stage) and GPT-2 small fp32 over pp 2, held against one
+    process's TrainStep."""
+    import shutil
+    import signal
+    import tempfile
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.nn import functional as F
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    rows = pp_rows(dev, torch.Generator(device="cuda").manual_seed(0))
+    free_card()
+    out = tempfile.mkdtemp(prefix="pp_ranks_", dir=os.path.abspath(OUT_DIR))
+    env = dict(os.environ, PADDLE_DISTRI_BACKEND="gloo")
+    for k in ("PADDLE_TRAINER_ID", "PADDLE_TRAINERS_NUM",
+              "PADDLE_TRAINER_ENDPOINTS", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(k, None)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         "--nproc_per_node", "2", "--log_dir", os.path.join(out, "log"),
+         os.path.abspath(__file__), "--pp-worker", out],
+        env=env, cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, start_new_session=True)
+    try:
+        text, _ = proc.communicate(timeout=480)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        text, _ = proc.communicate()
+        raise AssertionError(f"pipeline: the two ranks did not end within "
+                             f"480 s:\n{text[-4000:]}")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(30)
+    ranks_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"pipeline: the launcher exited "
+                             f"{proc.returncode}:\n{text[-4000:]}")
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    shutil.rmtree(out, ignore_errors=True)
+    # GPT-3 1.3B: exact launches a stage, the same losses and wte bits
+    g3 = [rk["gpt3"] for rk in ranks]
+    for rk, g in zip(ranks, g3):
+        want = {k: v * PP_STEPS for k, v in pp_per_step(
+            g["counts"][rk["stage"]], int(rk["stage"] == 1), PP_M).items()}
+        g["launches_per_step"] = pp_per_step(
+            g["counts"][rk["stage"]], int(rk["stage"] == 1), PP_M)
+        pp_launch_check("GPT-3 1.3B", rk["rank"], g["launches"],
+                        g["composed"], want)
+    cfg3 = GPTConfig.gpt3_1p3b()
+    ln_v = math.log(cfg3.vocab_size)
+    l0 = g3[0]["losses"]
+    step_ms = [float(np.median(g["step_ms"])) for g in g3]
+    flops = (6 * g3[0]["params"] * GPT3_B * GPT3_L + 12 * cfg3.num_layers
+             * GPT3_B * GPT3_L * GPT3_L * cfg3.hidden_size)
+    res = dict(
+        rows=rows, config="gpt3_1p3b", pp=2, micro=PP_M, batch=GPT3_B,
+        seq=GPT3_L, warmup=PP_WARMUP, steps=PP_STEPS,
+        ranks=[dict(rank=rk["rank"], stage=rk["stage"],
+                    backend=rk["backend"], device=rk["device"],
+                    **{k: v for k, v in g.items()
+                       if k not in ("launches", "composed")})
+               for rk, g in zip(ranks, g3)],
+        step_ms=step_ms, tokens_per_s=GPT3_B * GPT3_L / (max(step_ms) / 1e3),
+        model_flops=flops, mfu=flops / (max(step_ms) / 1e3) / BF16_PEAK,
+        launches={k: {"kernel": sum(g["launches"][k]["kernel"] for g in g3),
+                      "plain": sum(g["launches"][k]["plain"] for g in g3)}
+                  for k in g3[0]["launches"]},
+        seconds=ranks_s, card=card)
+    for rk, g in zip(ranks, g3):
+        log(f"pipeline: GPT-3 1.3B over pp 2 (two gloo ranks on one card), "
+            f"O2 bf16, B {GPT3_B} x L {GPT3_L} in {PP_M} micro-batches: "
+            f"rank {rk['rank']} (stage {rk['stage']}, blocks "
+            f"{g['counts'][rk['stage']]}, {g['masters'] / 1e9:.3f} B of "
+            f"{g['params'] / 1e9:.3f} B parameters held as masters) step "
+            f"ms {json.dumps([round(t, 3) for t in g['step_ms']])}, parts "
+            f"(host s) {json.dumps(g['parts'][-1])}, transfers a step "
+            f"{json.dumps(g['transfers'][-1])}, peak in flight "
+            f"{g['peak_in_flight']}, max_memory_allocated "
+            f"{g['max_memory_allocated'] / 2 ** 30:.2f} GiB, collectives "
+            f"{json.dumps(g['collectives'])}, launches a step "
+            f"{json.dumps(g['launches_per_step'])} [{card}]")
+    log(f"pipeline: GPT-3 1.3B loss {' '.join(f'{x:.4f}' for x in l0)} (ln V "
+        f"= {ln_v:.4f}); {res['tokens_per_s']:.1f} tokens/s, MFU "
+        f"{res['mfu']:.4f}; wte bit-identical on both ranks "
+        f"{g3[0]['wte'] == g3[1]['wte']}")
+    if not (all(math.isfinite(x) for x in l0) and abs(l0[0] - ln_v) < 0.1
+            and l0[-1] < l0[0]):
+        raise AssertionError(f"pipeline: GPT-3 1.3B losses {l0}: finite, "
+                             f"the first within 0.1 of ln V, falling")
+    if g3[1]["losses"] != l0 or g3[0]["wte"] != g3[1]["wte"]:
+        raise AssertionError(f"pipeline: the ranks differ: losses "
+                             f"{[g['losses'] for g in g3]}, wte "
+                             f"{[g['wte'] for g in g3]}")
+    if [g["peak_in_flight"] for g in g3] != [2, 1] or \
+            g3[0]["counts"] != [12, 12]:
+        raise AssertionError(f"pipeline: 1F1B: peak in flight "
+                             f"{[g['peak_in_flight'] for g in g3]}, counts "
+                             f"{g3[0]['counts']}")
+    # GPT-2 small fp32 over pp 2 against one process's TrainStep
+    pr = [rk["parity"] for rk in ranks]
+    for rk, p in zip(ranks, pr):
+        want = {k: v * PP_PARITY_STEPS for k, v in pp_per_step(
+            6, int(rk["stage"] == 1), PP_M).items()}
+        pp_launch_check("GPT-2 small", rk["rank"], p["launches"],
+                        p["composed"], want)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = GPTConfig.gpt2_small()
+    cfg.dropout = cfg.attn_dropout = 0.0
+    net = GPT(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    single_step = TrainStep(net, F.cross_entropy, optimizer.AdamW(
+        learning_rate=DP_LR, parameters=net.parameters(), weight_decay=0.01))
+    ids, labels = (t.to(dev) for t in dp_rank_batch(cfg))
+    single = [float(single_step(ids, labels))
+              for _ in range(PP_PARITY_STEPS)]
+    single_step.sync_to_layer()
+    loss_diff = max(abs(a - b) for p in pr
+                    for a, b in zip(p["losses"], single))
+    worst, worst_frac = 0.0, 0.0
+    for k, prm in net.named_parameters():
+        d = (pr[0]["params"][k].to(dev) - prm.detach()).abs()
+        worst = max(worst, float(d.max()))
+        worst_frac = max(worst_frac, float((d > DP_PARAM_ATOL).float()
+                                           .mean()))
+    bound = 2 * DP_LR * PP_PARITY_STEPS
+    res["parity"] = dict(
+        config="gpt2_small", dtype="float32", batch=TRAIN_B, seq=TRAIN_L,
+        micro=PP_M, steps=PP_PARITY_STEPS,
+        ranks=[dict(rank=rk["rank"], stage=rk["stage"], losses=p["losses"],
+                    transfers=p["transfers"], collectives=p["collectives"],
+                    peak_in_flight=p["peak_in_flight"])
+               for rk, p in zip(ranks, pr)],
+        single_losses=single, max_loss_diff=loss_diff,
+        max_param_diff=worst, max_frac_beyond_atol=worst_frac,
+        tolerance=dict(loss_atol=DP_LOSS_ATOL, param_max=bound,
+                       param_atol=DP_PARAM_ATOL, param_frac=DP_PARAM_FRAC),
+        launches={k: {"kernel": sum(p["launches"][k]["kernel"] for p in pr),
+                      "plain": sum(p["launches"][k]["plain"] for p in pr)}
+                  for k in pr[0]["launches"]})
+    log(f"pipeline: GPT-2 small fp32 over pp 2 (b{TRAIN_B} s{TRAIN_L}, "
+        f"{PP_M} micro-batches, AdamW, {PP_PARITY_STEPS} steps) against one "
+        f"process's TrainStep: losses {pr[0]['losses']} vs {single}: max "
+        f"|diff| {loss_diff:.2e} (tol {DP_LOSS_ATOL}); parameters max |diff| "
+        f"{worst:.2e} (bound {bound:.1e}), at most {worst_frac:.2e} of a "
+        f"tensor's elements beyond {DP_PARAM_ATOL} (tol {DP_PARAM_FRAC}); "
+        f"wte bit-identical on both ranks {pr[0]['wte'] == pr[1]['wte']} "
+        f"[{card}]")
+    if (loss_diff > DP_LOSS_ATOL or worst > bound
+            or worst_frac > DP_PARAM_FRAC or pr[0]["losses"] != pr[1]["losses"]
+            or pr[0]["wte"] != pr[1]["wte"]):
+        raise AssertionError(f"pipeline: pp 2 against one process: "
+                             f"{res['parity']}")
+    del net, single_step
+    free_card()
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"pipeline: phase 29 took {res['phase_s']:.1f} s [{card}]")
+    return res
+
+
 def fp32_row(kname, rows, paths):
     """For the 1x1 conv's entry: its fp32 row at the main shape, with its
     launches on phase 22's fp32 path, as `fp32`."""
@@ -7765,7 +8123,7 @@ def split_masked(kname, rows, paths):
 #: the phases `--phases` may name, in the order they run
 PHASES = ("serve", "health", "health_trip", "fit_resume", "transformer",
           "resnet_fit", "serve_control", "observe", "ps", "dp", "resnet_dp",
-          "zero")
+          "zero", "pipeline")
 
 
 def only_phases(phases, cfg, smi, name):
@@ -7807,6 +8165,8 @@ def only_phases(phases, cfg, smi, name):
         res["resnet_dp"] = rn_dp_phase(smi)
     if "zero" in phases:
         res["zero"] = zero_phase(cfg, smi)
+    if "pipeline" in phases:
+        res["pipeline"] = pp_phase(smi)
     with open(os.path.join(OUT_DIR, "chip_smoke_phases.json"), "w") as f:
         json.dump(res, f, indent=1)
     print(smi)
@@ -7829,6 +8189,8 @@ def main(argv=None):
                     help="run one rank of phase 27's two-rank run")
     ap.add_argument("--zero-worker", default=None, metavar="DIR",
                     help="run one rank of phase 28's two-rank run")
+    ap.add_argument("--pp-worker", default=None, metavar="DIR",
+                    help="run one rank (one pipeline stage) of phase 29")
     args = ap.parse_args(argv)
     if args.dp_worker is not None:
         dp_rank_worker(args.dp_worker)
@@ -7838,6 +8200,9 @@ def main(argv=None):
         return 0
     if args.zero_worker is not None:
         zero_rank_worker(args.zero_worker)
+        return 0
+    if args.pp_worker is not None:
+        pp_rank_worker(args.pp_worker)
         return 0
     phases = None
     if args.phases is not None:
@@ -8070,8 +8435,13 @@ def main(argv=None):
     # and eager, bit for bit with the plain steps), the sharded checkpoint,
     # two gloo ranks on the card
     zero = zero_phase(cfg, smi)
+    # 29. pipeline parallelism: GPT-3 1.3B over pp 2 on the ported kernels
+    # (two gloo ranks on the card), GPT-2 small fp32 over pp 2 against one
+    # process
+    pipe = pp_phase(smi)
+    rows += pipe.pop("rows")
 
-    # 29. report: launches from each path's own run (counters reset just
+    # 30. report: launches from each path's own run (counters reset just
     # before it); times at the main path's shape
     result = dict(card=smi, capability=cap, launch_floor_ms=floor,
                   checks=rows, edges=edges,
@@ -8085,7 +8455,7 @@ def main(argv=None):
                   health_trip=trip, fit_resume=fit_res, transformer=tb,
                   transformer_cpu_cross_check=tb_cpu, resnet_fit=rfit,
                   serve_control=control, observe=obs, ps=ps_res, dp=dp_res,
-                  resnet_dp=rn_dp, zero=zero)
+                  resnet_dp=rn_dp, zero=zero, pipeline=pipe)
     paths = {"serve": served, "serve_control": control, "train": trained,
              "resnet": resnet, "long": long, "bert": bert,
              "health": health_res, "fit": fit_res, "transformer": tb,
@@ -8094,7 +8464,8 @@ def main(argv=None):
              "dp_ranks": dp_res["two_ranks"],
              "resnet_dp": rn_dp["world1"],
              "resnet_dp_ranks": rn_dp["two_ranks"],
-             "zero": zero["world1"], "zero_ranks": zero["two_ranks"]}
+             "zero": zero["world1"], "zero_ranks": zero["two_ranks"],
+             "pp": pipe, "pp_parity": pipe["parity"]}
     kern = []
     for kname, meta in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == kname]

@@ -18,10 +18,13 @@ rendezvous store (``store.TCPStore``), ``init_parallel_env``,
 (single host and the coordinated multi-host commit), ZeRO sharding
 (``sharding.group_sharded_parallel`` at its three levels, eager and in
 ``jit.TrainStep``), the chunked sharded checkpoint with its re-sharding
-restore (``sharded_checkpoint``), ``fleet.utils`` and the parameter
-server (``ps``). Tensor, pipeline and sequence parallelism (``fleet``'s
-collective facade, ``meta_parallel``, ``auto_parallel``) are later
-slices of ROADMAP A11; ``split`` raises naming it.
+restore (``sharded_checkpoint``), ``fleet.utils`` and
+``fleet.DistributedStrategy``, the parameter server (``ps``), and the
+pipeline (``meta_parallel``: ``PipelineLayer``, ``PipelineParallel`` and
+``PipelineParallelTrainStep``, a 1F1B over the ``pp`` group). Tensor and
+sequence parallelism (``fleet``'s collective facade, the tensor-parallel
+layers, ``auto_parallel``) are later slices of ROADMAP A11; ``split``,
+``fleet.init`` and ``fleet.distributed_model`` raise naming it.
 """
 from __future__ import annotations
 
@@ -47,3 +50,5 @@ from . import checkpoint  # noqa: F401
 from . import launch  # noqa: F401
 from . import sharded_checkpoint  # noqa: F401
 from . import sharding  # noqa: F401
+from . import fleet  # noqa: F401
+from . import meta_parallel  # noqa: F401

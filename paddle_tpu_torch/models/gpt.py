@@ -200,10 +200,21 @@ class GPT(nn.Layer):
             return torch.matmul(x, w.t())
         return self.lm_head(x)
 
-    def forward(self, input_ids):
+    # the pipeline protocol (distributed.meta_parallel.pipeline_parallel):
+    # pipeline_pre -> the homogeneous blocks -> pipeline_post
+    def pipeline_pre(self, input_ids):
+        """The embeddings of ``input_ids`` (after dropout): the blocks'
+        input."""
         L = input_ids.shape[1]
         pos = torch.arange(L, device=input_ids.device)
-        x = self.drop(self.embed(input_ids, pos))
+        return self.drop(self.embed(input_ids, pos))
+
+    def pipeline_post(self, x):
+        """The logits of the blocks' output ``x``."""
+        return self.logits(x)
+
+    def forward(self, input_ids):
+        x = self.pipeline_pre(input_ids)
         if self.cfg.remat and self.training:
             pol = (None if self.cfg.remat == "full"
                    else recompute_policies.dots)
@@ -212,7 +223,7 @@ class GPT(nn.Layer):
         else:
             for blk in self.blocks:
                 x = blk(x)
-        return self.logits(x)
+        return self.pipeline_post(x)
 
     def loss(self, input_ids, labels):
         """Mean next-token cross-entropy of ``labels`` under the logits of

@@ -716,8 +716,219 @@ def zero_ckpt(outdir):
     dist.destroy_process_group()
 
 
+PP_STEPS = 3
+
+
+def pp_gpt(inp, prefix="gpt.", cfg=None):
+    """GPT (tiny unless ``cfg``) with the reference's weights."""
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.utils.convert import load_numpy_params
+    model = GPT(cfg or GPTConfig.tiny(), device="cpu")
+    load_numpy_params(model, {k[len(prefix):]: v for k, v in inp.items()
+                              if k.startswith(prefix)})
+    return model
+
+
+def pp_g5_config():
+    """The 5-layer GPT the world of 4 splits over pp 4 ([2, 1, 1, 1])."""
+    from paddle_tpu_torch.models.gpt import GPTConfig
+    return GPTConfig(vocab_size=64, hidden_size=16, num_layers=5,
+                     num_heads=2, max_position_embeddings=32, dropout=0.0,
+                     attn_dropout=0.0)
+
+
+def _pp_topology(dims):
+    from paddle_tpu_torch.distributed import topology
+    topology.set_hybrid_communicate_group(None)
+    hcg = topology.HybridCommunicateGroup(dims=dims)
+    topology.set_hybrid_communicate_group(hcg)
+    return hcg
+
+
+def _pp_run(step, inp, prefix, steps):
+    """``steps`` calls of a pipeline step on the global batches; the
+    losses, each step's kernel counters (plain on the CPU), the
+    collectives and transfers of the last one, and the peak in flight."""
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.ops import kernels
+    losses, launches = [], []
+    for s in range(steps):
+        kernels.reset_stats()
+        C.reset_launch_stats()
+        loss = step(_t(inp[f"{prefix}ids{s}"]).long(),
+                    _t(inp[f"{prefix}labels{s}"]).long())
+        losses.append(float(loss))
+        launches.append({k: v for k, v in kernels.all_stats().items()
+                         if v["kernel"] or v["plain"]})
+    return dict(losses=losses, launches=launches,
+                collectives=C.launch_stats(),
+                transfers=dict(step.last_transfers),
+                peak=step.peak_in_flight, stage=step.stage,
+                counts=list(step.run.counts))
+
+
+def _pp_params(model):
+    return {k: _np(v) for k, v in model.named_parameters()}
+
+
+def pp_poison_layer():
+    """A PipelineLayer of four Linear + scale blocks whose scale's
+    gradient is inf on the ranks that set ``pp_poison_layer.armed``."""
+    import torch
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed.meta_parallel import PipelineLayer
+
+    class _Inf(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, w):
+            return x * w
+
+        @staticmethod
+        def backward(ctx, dy):
+            dw = torch.full((), float("inf") if pp_poison_layer.armed
+                            else 0.0, dtype=dy.dtype)
+            return dy, dw
+
+    class Block(nn.Layer):
+        def __init__(self):
+            super().__init__(device="cpu")
+            self.fc = nn.Linear(16, 16, device="cpu")
+            self.scale = torch.nn.Parameter(torch.ones(()))
+
+        def forward(self, x):
+            return _Inf.apply(self.fc(x), self.scale.to(x.dtype))
+
+    torch.manual_seed(0)
+    return PipelineLayer([Block() for _ in range(4)], num_stages=2,
+                         loss_fn=lambda out, y: ((out.float() - y) ** 2)
+                         .mean())
+
+
+pp_poison_layer.armed = False
+
+
+def pipeline(outdir):
+    """The pipeline over this gloo world. World 2 (pp 2): GPT tiny with
+    Adam(1e-2), M 2, 3 steps with the sentinel on; PipelineParallel.
+    train_batch on a PipelineLayer (Embedding + 5 Linear, "layer:Linear",
+    MSE, SGD 0.05, 5 steps); the 1F1B bound at M 16; fp16 with an inf on
+    stage 1; O2 bf16. World 4: GPT tiny over pp 2 x dp 2 as above, then
+    the 5-layer GPT over pp 4, M 4, 3 steps."""
+    import torch
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import topology
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    from paddle_tpu_torch.distributed.meta_parallel import (
+        LayerDesc, PipelineLayer, PipelineParallel,
+        PipelineParallelTrainStep)
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.utils.convert import load_numpy_params
+
+    dist.init_parallel_env(device="cpu")
+    r, n = dist.get_rank(), dist.get_world_size()
+    inp = dict(np.load(os.path.join(outdir, "inputs.npz")))
+    out = {"rank": r, "world": n}
+    os.environ["PADDLE_TPU_HEALTH_INTERVAL"] = "1"
+
+    def gpt_case(dims, health):
+        hcg = _pp_topology(dims)
+        gpt = pp_gpt(inp)
+        step = PipelineParallelTrainStep(
+            gpt, F.cross_entropy, optimizer.Adam(
+                learning_rate=1e-2, parameters=gpt.parameters()),
+            hcg=hcg, num_micro=2, donate=False, health=health)
+        rec = _pp_run(step, inp, "", PP_STEPS)
+        rec["wte_master"] = _np(step.params["edge"]["wte.weight"])
+        rec["health"] = dict(step.last_health) if health else None
+        step.sync_to_layer()
+        rec["params"] = _pp_params(gpt)
+        return rec
+
+    if n == 2:
+        out["gpt"] = gpt_case({"pp": 2}, True)
+        # PipelineParallel.train_batch on a PipelineLayer
+        hcg = _pp_topology({"pp": 2})
+        layers = [LayerDesc(nn.Embedding, 16, 8, device="cpu")]
+        layers += [LayerDesc(nn.Linear, 8, 8, device="cpu")
+                   for _ in range(5)]
+        pl = PipelineLayer(layers=layers, num_stages=2,
+                           seg_method="layer:Linear",
+                           loss_fn=lambda o, y: ((o - y) ** 2).mean())
+        load_numpy_params(pl, {k[3:]: v for k, v in inp.items()
+                               if k.startswith("pl.")})
+        model = PipelineParallel(pl, hcg=hcg)
+        opt = optimizer.SGD(learning_rate=0.05, parameters=pl.parameters())
+        losses = [float(model.train_batch(
+            [_t(inp["pl_X"]).long(), _t(inp["pl_Y"])], opt))
+            for _ in range(5)]
+        model._train_step.sync_to_layer()
+        out["layer"] = dict(losses=losses,
+                            counts=list(model._train_step.run.counts),
+                            params=_pp_params(pl))
+        # the 1F1B bound: M = 8 S
+        hcg = _pp_topology({"pp": 2})
+        gpt = pp_gpt(inp)
+        step = PipelineParallelTrainStep(
+            gpt, F.cross_entropy, optimizer.Adam(
+                learning_rate=1e-2, parameters=gpt.parameters()),
+            hcg=hcg, num_micro=16)
+        out["bound"] = _pp_run(step, inp, "m16_", 1)
+        # fp16: an inf gradient on stage 1 only
+        hcg = _pp_topology({"pp": 2})
+        strategy = DistributedStrategy()
+        strategy.amp = True
+        strategy.amp_configs = {"dtype": "float16",
+                                "init_loss_scaling": 1024.0}
+        rec = {}
+        for armed in (False, True):
+            pl = pp_poison_layer()
+            pp_poison_layer.armed = armed and hcg.get_stage_id() == 1
+            step = PipelineParallelTrainStep(
+                pl, pl._loss_fn, optimizer.SGD(
+                    learning_rate=0.1, parameters=pl.parameters()),
+                hcg=hcg, strategy=strategy)
+            before = {k: _np(v).copy() for k, v in step._masters.items()}
+            loss = float(step(_t(inp["fp16_X"]), _t(inp["fp16_Y"])))
+            after = {k: _np(v).copy() for k, v in step._masters.items()}
+            rec[armed] = dict(
+                loss=loss, scale=step.scaler_state["scale"],
+                good=step.scaler_state["good"],
+                moved=sorted(k for k in before
+                             if not np.array_equal(before[k], after[k])),
+                names=sorted(before))
+        pp_poison_layer.armed = False
+        out["fp16"] = rec
+        # O2 bf16: the boundary and its gradient in bf16 over gloo
+        hcg = _pp_topology({"pp": 2})
+        strategy = DistributedStrategy()
+        strategy.amp = True
+        gpt = pp_gpt(inp)
+        step = PipelineParallelTrainStep(
+            gpt, F.cross_entropy, optimizer.Adam(
+                learning_rate=1e-2, parameters=gpt.parameters()),
+            hcg=hcg, strategy=strategy, num_micro=2)
+        out["bf16"] = _pp_run(step, inp, "", 2)
+    else:
+        out["gpt"] = gpt_case({"pp": 2, "dp": 2}, False)
+        hcg = _pp_topology({"pp": 4})
+        g5 = pp_gpt(inp, "g5.", pp_g5_config())
+        step = PipelineParallelTrainStep(
+            g5, F.cross_entropy, optimizer.Adam(
+                learning_rate=1e-2, parameters=g5.parameters()),
+            hcg=hcg, num_micro=4)
+        out["g5"] = _pp_run(step, inp, "g5_", PP_STEPS)
+        step.sync_to_layer()
+        out["g5"]["params"] = _pp_params(g5)
+    topology.set_hybrid_communicate_group(None)
+    torch.save(out, os.path.join(outdir, f"pipeline.{r}.pt"))
+    dist.destroy_process_group()
+
+
 SCENARIOS = {"collective": collective, "dp": data_parallel,
-             "resnet_dp": resnet_dp, "zero": zero, "zero_ckpt": zero_ckpt}
+             "resnet_dp": resnet_dp, "zero": zero, "zero_ckpt": zero_ckpt,
+             "pipeline": pipeline}
 
 
 def run_world(scenario, nprocs, outdir, timeout=120):
